@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of vst_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version, drives the main path
-(ReCoNet streaming stylization) and checks what comes out.
+holds each against its plain PyTorch version, drives the two paths of the
+port (ReCoNet streaming stylization, AdaAttN arbitrary-style serving) and
+checks what comes out.
 
     python3 chip_smoke.py
 
@@ -11,20 +12,30 @@ result line):
 1. card: nvidia-smi's name and power limit;
 2. build: every kernel of ``vst_tpu_torch/kernels/csrc`` from source;
 3. kernels: K1 (without and with its prologue) at (8,128,128,192) and K2
-   at the stem and head packed shapes, bf16 and f32, against the plain
-   versions on the same inputs;
+   at the stem and head packed shapes, bf16 and f32; K3 in bf16 at the
+   three AdaAttN 512² batch-2 level shapes (and at relu3_1's with sharp
+   scores of std 10) and in f32 at a ragged shape
+   and the relu4_1 shape; each against its plain version on the same
+   inputs;
 4. model: the f32 ReCoNet forward through the kernels against the same
-   forward through the plain versions at 1×256×256, and the ReCoNet,
-   SD1 and SD2 forwards against the reference goldens
+   forward through the plain versions at 1×256×256, the f32 AdaAttN
+   forward (softmax through K3 against the plain version, cosine against
+   the materialized oracle) at 1×256², and the ReCoNet, SD1, SD2 and
+   both AdaAttN forwards against the reference goldens
    (tests/goldens/reference_numerics.npz);
-5. main path: full-width ReCoNet from the port's seeded init, 512²
+5. main paths, each with the launch counts set to 0 just before it and
+   read just after: full-width ReCoNet from the port's seeded init, 512²
    batch 8 bf16, through ``stylize_reconet`` (uint8 and I420 wires), then
-   ``StreamingStylizer`` over 96 synthetic 640×360 uint8 frames, with the
-   kernels' launch counts read around this phase only;
-6. timing: each kernel, its plain version and the cuDNN ``F.conv2d`` of
-   the same conv (a yardstick the port never calls) at the main path's
-   shapes, printed as one JSON ``kernels`` line;
-7. profile: device time by kernel over two main-path forwards
+   ``StreamingStylizer`` over 96 synthetic 640×360 uint8 frames; then
+   full-width AdaAttN (VGG19 seed 0, AdaAttN seed 1), 512² batch 2 bf16
+   softmax, through ``stylize_adaattn`` and ``adaattn_style_state`` +
+   ``stylize_adaattn_cached``, and ``AdaAttNVideoStylizer`` over 512×256
+   synthetic uint8 frames at batch 4, softmax and cosine;
+6. timing: each kernel, its plain version and a library yardstick the
+   port never calls (cuDNN ``F.conv2d`` of the same conv for K1/K2,
+   ``F.scaled_dot_product_attention`` for K3) at the main paths' shapes,
+   printed as one JSON ``kernels`` line;
+7. profile: device time by kernel over two forwards of each main path
    (torch.profiler) and the device's busy share of that window.
 
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card and
@@ -43,11 +54,16 @@ import torch
 import torch.nn.functional as F
 
 from vst_tpu_torch.device import apply_precision
-from vst_tpu_torch.infer.image import stylize_reconet
-from vst_tpu_torch.infer.video import StreamingStylizer
-from vst_tpu_torch.kernels import _build, head_conv, res_block
+from vst_tpu_torch.infer.image import (adaattn_style_state, stylize_adaattn,
+                                       stylize_adaattn_cached, stylize_reconet)
+from vst_tpu_torch.infer.video import AdaAttNVideoStylizer, StreamingStylizer
+from vst_tpu_torch.kernels import (_build, adaattn_attention, head_conv,
+                                   res_block)
+from vst_tpu_torch.models.adaattn import (init_stylizing_network,
+                                          stylizing_network_cached)
 from vst_tpu_torch.models.reconet import (init_reconet, init_reconet_sd1,
                                           init_reconet_sd2)
+from vst_tpu_torch.models.vgg import init_vgg19_adaattn
 from vst_tpu_torch.ops import conv as ops_conv
 from vst_tpu_torch.ops.yuv import rgb_to_i420
 
@@ -108,23 +124,29 @@ def bound(flops, nbytes, dtype):
 def plain_kernels():
     """Route the model through the kernels' plain versions on the card
     (the comparison of phase 4; the package itself never does this)."""
-    saved = (res_block.conv3x3_in_stats, ops_conv.conv3x3_valid)
+    k3 = adaattn_attention
+    saved = (res_block.conv3x3_in_stats, ops_conv.conv3x3_valid,
+             k3.softmax_attention_moments)
     res_block.conv3x3_in_stats = res_block.conv3x3_in_stats_plain
     ops_conv.conv3x3_valid = head_conv.conv3x3_valid_plain
+    k3.softmax_attention_moments = k3.softmax_attention_moments_plain
     try:
         yield
     finally:
-        res_block.conv3x3_in_stats, ops_conv.conv3x3_valid = saved
+        (res_block.conv3x3_in_stats, ops_conv.conv3x3_valid,
+         k3.softmax_attention_moments) = saved
 
 
 def reset_counts():
     res_block.conv3x3_in_stats.launches = 0
     head_conv.conv3x3_valid.launches = 0
+    adaattn_attention.softmax_attention_moments.launches = 0
 
 
 def counts():
     return (res_block.conv3x3_in_stats.launches,
-            head_conv.conv3x3_valid.launches)
+            head_conv.conv3x3_valid.launches,
+            adaattn_attention.softmax_attention_moments.launches)
 
 
 # ------------------------------------------------------------------ phases
@@ -202,6 +224,50 @@ def phase_kernels(g):
     return errs
 
 
+# AdaAttN attention levels at 512² (relu3_1, relu4_1, relu5_1): (n = m, d, c)
+K3_LEVELS = [(16384, 448, 256), (4096, 960, 512), (1024, 1472, 512)]
+K3_BATCH = 2
+
+
+def k3_inputs(g, b, n, m, d, c, dtype, score_std=1.0):
+    """Scores of std ``score_std``: 1 is what instance-normed features
+    through a 1×1 conv give."""
+    s = score_std ** 0.5 * d ** -0.25
+    return (rnd(g, (b, n, d), s, dtype),
+            rnd(g, (b, m, d), s, dtype), rnd(g, (b, m, c), 1.0, dtype))
+
+
+def phase_kernels_k3(g):
+    """K3 against its plain version, at unit-scale scores and, in bf16 at
+    relu3_1, at sharp scores of std 10 (base-2 running max and rescale,
+    P rounded to bf16).  Tolerances: bf16 M1, M2 2^-6·max|plain| (one
+    bf16 ulp of the output rounding plus the f32 difference of P rounded
+    to bf16 against a running max instead of the row max); f32
+    1e-4·max|plain| (sums in another order over up to 16384 keys); L
+    1e-5·max|L| (f32 in both)."""
+    errs = []
+    cases = [("bf16", torch.bfloat16, (K3_BATCH, n, n, d, c), 1.0)
+             for n, d, c in K3_LEVELS]
+    n, d, c = K3_LEVELS[0]
+    cases += [("bf16 sharp", torch.bfloat16, (K3_BATCH, n, n, d, c), 10.0),
+              ("f32", torch.float32, (2, 300, 520, 96, 64), 1.0),
+              ("f32", torch.float32, (K3_BATCH, 4096, 4096, 960, 512), 1.0)]
+    for tag, dtype, shape, score_std in cases:
+        apply_precision(dtype)
+        q, k, v = k3_inputs(g, *shape, dtype, score_std)
+        m1, m2, lse = adaattn_attention.softmax_attention_moments(q, k, v)
+        p1, p2, pl = adaattn_attention.softmax_attention_moments_plain(q, k, v)
+        tol = 2 * BF16_ULP if dtype == torch.bfloat16 else 1e-4
+        name = f"K3 {tag} {shape}"
+        e = max(check(f"{name} M1", m1, p1, tol), check(f"{name} M2", m2, p2, tol))
+        check(f"{name} L", lse, pl, 1e-5)
+        if dtype == torch.bfloat16:
+            errs.append(e)
+        del q, k, v, m1, m2, lse, p1, p2, pl
+    torch.cuda.synchronize()
+    return max(errs)
+
+
 def phase_model():
     log("[4] model: kernels against plain versions, and the goldens")
     apply_precision(torch.float32)
@@ -230,6 +296,55 @@ def phase_model():
         log(f"  golden {key}: max_abs_err {err:.3e} tol 2e-3")
         if not err <= 2e-3:
             raise AssertionError(f"{key}: {err}")
+    phase_model_adaattn(gold)
+
+
+def _ada_models(seed_vgg, seed_ada, dtype):
+    return (init_vgg19_adaattn(seed_vgg, device="cuda", dtype=dtype),
+            init_stylizing_network(seed_ada, device="cuda", dtype=dtype))
+
+
+def _rel_err(a, b):
+    return max_err(a, b) / b.float().abs().max().item()
+
+
+def phase_model_adaattn(gold):
+    """The f32 AdaAttN forward at 1×256²: softmax through K3 against the
+    plain version (tolerance 2e-3 of the output scale, the JAX package's
+    model tolerance), cosine's linear form against the materialized oracle;
+    then both goldens (seed-7 inits at 32², 5e-2 as tests/test_goldens.py)
+    with K3's launches counted."""
+    apply_precision(torch.float32)
+    vgg, net = _ada_models(0, 1, torch.float32)
+    rng = np.random.default_rng(5)
+    c, s = (torch.from_numpy((rng.random((1, 256, 256, 3)) * 255)
+                             .astype(np.float32)).cuda() for _ in range(2))
+    with torch.inference_mode():
+        fc, fs = vgg(c), vgg(s)
+        for act, ref_mode in (("softmax", None), ("cosine", "exact")):
+            ours = net(fc, fs, act)
+            if ref_mode is None:
+                with plain_kernels():
+                    ref = net(fc, fs, act)
+            else:
+                ref = net(fc, fs, act, ref_mode)
+            err = _rel_err(ours, ref)
+            log(f"  AdaAttN f32 256² {act}: max_abs_err {max_err(ours, ref):.3e}"
+                f", relative {err:.3e} tol 2e-3")
+            if not err <= 2e-3:
+                raise AssertionError(f"AdaAttN {act}: {err}")
+        xg = torch.from_numpy(gold["input_x"]).cuda()
+        sg = torch.from_numpy(gold["input_s"]).cuda()
+        vgg7, net7 = _ada_models(7, 7, torch.float32)
+        for act in ("softmax", "cosine"):
+            reset_counts()
+            out = net7(vgg7(xg), vgg7(sg), act).cpu().numpy()
+            launches = counts()[2]
+            err = float(np.abs(out - gold[f"adaattn_{act}"]).max())
+            log(f"  golden adaattn_{act}: max_abs_err {err:.3e} tol 5e-2; "
+                f"K3 launches {launches}")
+            if not err <= 5e-2 or launches != (3 if act == "softmax" else 0):
+                raise AssertionError(f"adaattn_{act}: {err}, K3 {launches}")
 
 
 def phase_main_path():
@@ -263,12 +378,12 @@ def phase_main_path():
     styled = list(stream)
     stream_s = time.perf_counter() - t0
     forwards += 96 // 8
-    k1, k2 = counts()
+    k1, k2, k3 = counts()
 
-    log(f"  launches: K1 {k1}, K2 {k2} over {forwards} forwards")
-    if (k1, k2) != (10 * forwards, 2 * forwards):
+    log(f"  launches: K1 {k1}, K2 {k2}, K3 {k3} over {forwards} forwards")
+    if (k1, k2, k3) != (10 * forwards, 2 * forwards, 0):
         raise AssertionError(f"expected K1 {10 * forwards}, K2 "
-                             f"{2 * forwards} launches")
+                             f"{2 * forwards}, K3 0 launches")
     if out.shape != (8, 512, 512, 3) or out.dtype != torch.uint8:
         raise AssertionError(f"uint8 wire: {tuple(out.shape)} {out.dtype}")
     if i420.shape != (8, 768, 512) or not torch.equal(i420, rgb_to_i420(out)):
@@ -298,6 +413,93 @@ def phase_main_path():
     log(f"  StreamingStylizer 96×640×360, batch 8, depth 3: {stream_s:.3f} s "
         f"→ {96 / stream_s:.1f} frames/s")
     return {"K1": k1, "K2": k2}
+
+
+ADA_SIZE = 512
+ADA_FRAMES = (256, 512)   # video frames, H × W
+ADA_CLIP = 24
+
+
+def phase_main_adaattn():
+    """Full-width AdaAttN, 512² batch 2 bf16 softmax (direct and cached),
+    then AdaAttNVideoStylizer over 24 synthetic 512×256 frames at batch 4,
+    softmax and cosine.  K3 must launch exactly 3 times per softmax
+    forward and never in cosine."""
+    log("[5] main path: AdaAttN (VGG19 to relu5_1 + 3 attention levels + "
+        "decoder), 512² b2 bf16")
+    dt = torch.bfloat16
+    vgg, net = _ada_models(0, 1, dt)
+    rng = np.random.default_rng(6)
+    content = rng.integers(0, 256, (K3_BATCH, ADA_SIZE, ADA_SIZE, 3)).astype(np.uint8)
+    style = rng.integers(0, 256, (1, ADA_SIZE, ADA_SIZE, 3)).astype(np.uint8)
+    styles = np.repeat(style, K3_BATCH, axis=0)
+    clip = list(rng.integers(0, 256, (ADA_CLIP, *ADA_FRAMES, 3)).astype(np.uint8))
+
+    reset_counts()
+    out = stylize_adaattn(vgg, net, content, styles)
+    state = adaattn_style_state(vgg, net, style)
+    cached = stylize_adaattn_cached(vgg, net, content, state)
+    forwards = 2   # the style state alone launches no K3
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stylize_adaattn(vgg, net, content, styles)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        forwards += 1
+    stream_fps = {}
+    for act in ("softmax", "cosine"):
+        stylizer = AdaAttNVideoStylizer(vgg, net, clip[0][None], act,
+                                        batch_size=4, pipeline_depth=3)
+        t0 = time.perf_counter()
+        styled = list(stylizer.stylize_frames(iter(clip)))
+        stream_fps[act] = ADA_CLIP / (time.perf_counter() - t0)
+        if len(styled) != ADA_CLIP or any(
+                f.shape != (*ADA_FRAMES, 3) or f.dtype != np.uint8 for f in styled):
+            raise AssertionError(f"AdaAttN {act} stream: count, shape or dtype")
+        if act == "softmax":
+            forwards += ADA_CLIP // 4
+    k1, k2, k3 = counts()
+
+    log(f"  launches: K3 {k3} over {forwards} softmax forwards (+ "
+        f"{ADA_CLIP // 4} cosine batches); K1 {k1}, K2 {k2}")
+    if (k1, k2, k3) != (0, 0, 3 * forwards):
+        raise AssertionError(f"expected K3 {3 * forwards} launches, K1 and K2 0")
+    if any(o.shape != content.shape or not torch.isfinite(o).all()
+           or o.min() < 0 or o.max() > 255 for o in (out, cached)):
+        raise AssertionError("AdaAttN styled batch not finite, in 0..255, or "
+                             "of the content's shape")
+    # The seeded decoder's output is small and partly negative, so the
+    # comparisons read the unclamped network output.
+    with torch.inference_mode():
+        cuda = {"device": "cuda"}
+        c16 = torch.from_numpy(content).to(**cuda, dtype=dt)
+        s16 = torch.from_numpy(style).to(**cuda, dtype=dt)
+        fc = vgg(c16)
+        raw = net(fc, vgg(s16.expand(K3_BATCH, -1, -1, -1)))
+        raw_cached = stylizing_network_cached(net, fc, state, "softmax")
+        err = _rel_err(raw_cached, raw)
+        log(f"  cached-style against direct, bf16: relative {err:.3e} "
+            f"(tol 1e-2)")
+        if not err <= 1e-2:
+            raise AssertionError(f"cached AdaAttN differs from direct by {err}")
+        # Against the float32 forward of the same weights on the first
+        # image: bf16 through 16 VGG convs, the attention, 10 decoder convs.
+        apply_precision(torch.float32)
+        vgg32, net32 = _ada_models(0, 1, torch.float32)
+        raw32 = net32(vgg32(c16[:1].float()), vgg32(s16.float()))
+        err32 = _rel_err(raw[:1], raw32)
+        log(f"  bf16 vs f32 forward, image 0: relative {err32:.3e} (tol 5e-2)")
+        if not err32 <= 5e-2:
+            raise AssertionError(f"bf16 AdaAttN differs from f32 by {err32}")
+    ms = float(np.median(times))
+    log(f"  512² b2 bf16 stylize_adaattn softmax: {ms:.3f} ms/batch (median "
+        f"of 5) → {2e3 / ms:.2f} frames/s; runs {[round(t, 3) for t in times]}")
+    for act, fps in stream_fps.items():
+        log(f"  AdaAttNVideoStylizer {act} {ADA_CLIP}×512×256, batch 4, depth "
+            f"3: {fps:.2f} frames/s")
+    return k3
 
 
 def phase_timing(launches, errs):
@@ -372,26 +574,69 @@ def phase_timing(launches, errs):
         by2.add(by)
     k2["bound_by"] = "operations" if "operations" in by2 else "bytes"
     torch.cuda.synchronize()
-    return [k1, k2]
+    return [k1, k2, timing_k3(launches["K3"], errs["K3"])]
 
 
-def phase_profile():
-    """Where the time of one 512² batch-8 bf16 forward goes: device time by
-    operator over two forwards (torch.profiler), and the device's busy
-    share of the window's wall time."""
-    log("[7] profile: 2 forwards, 512² b8 bf16")
+def timing_k3(launches, err):
+    """K3, its plain version and one PyTorch call of the same function,
+    ``F.scaled_dot_product_attention(q, k, [V, V∘V], scale=1)`` (M1‖M2; a
+    yardstick the port never calls), at the three AdaAttN 512² batch-2
+    levels, bf16; one launch per level per forward.  Bound: FLOPs 2·b·n·m·
+    (d + 2c) on the tensor cores; bytes q, k, v read once, M1, M2, L
+    written once."""
+    log("[6] K3 at the AdaAttN 512² b2 level shapes (bf16)")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dt = torch.bfloat16
+    apply_precision(dt)
+    k3 = {"name": "K3 softmax_attention_moments", "route": "cuda",
+          "source": "vst_tpu_torch/kernels/csrc/adaattn_fwd.cu",
+          "replaces": "vst_tpu/kernels/adaattn_attention.py:48",
+          "launches": launches, "max_abs_err": err,
+          "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+          "bound_by": "operations",
+          "per": "one AdaAttN 512x512 batch-2 bf16 softmax forward: "
+                 "(n=m, d, c) = (16384, 448, 256), (4096, 960, 512), "
+                 "(1024, 1472, 512)",
+          "ms_per_launch": [], "library": "F.scaled_dot_product_attention"}
+    for n, d, c in K3_LEVELS:
+        q, k, v = k3_inputs(g, K3_BATCH, n, n, d, c, dt)
+        vv = torch.cat([v, v * v], dim=-1)
+        tk = event_ms(lambda: adaattn_attention.softmax_attention_moments(
+            q, k, v))
+        tp = event_ms(lambda: adaattn_attention.softmax_attention_moments_plain(
+            q, k, v), reps=3, warmup=1)
+        tl = event_ms(lambda: F.scaled_dot_product_attention(
+            q, k, vv, scale=1.0), reps=3, warmup=1)
+        flops = 2 * K3_BATCH * n * n * (d + 2 * c)
+        nbytes = K3_BATCH * (2 * (2 * n * d + n * c + 2 * n * c) + 4 * n)
+        bb, by = bound(flops, nbytes, dt)
+        log(f"  K3 (n={n}, d={d}, c={c}) ms: kernel {tk:.4f} "
+            f"({flops / tk / 1e9:.1f} TFLOP/s), plain {tp:.4f}, "
+            f"{k3['library']} {tl:.4f}, bound {bb:.4f} ({by})")
+        k3["ms"] += tk
+        k3["plain_ms"] += tp
+        k3["library_ms"] += tl
+        k3["bound_ms"] += bb
+        k3["ms_per_launch"].append(tk)
+        if by == "bytes":
+            k3["bound_by"] = "bytes"
+        del q, k, v, vv
+    torch.cuda.synchronize()
+    return k3
+
+
+def _profile(label, forward):
+    """Device time by operator over two forwards (torch.profiler), and the
+    device's busy share of the window's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    model = init_reconet(0, device="cuda", dtype=torch.bfloat16)
-    x = np.random.default_rng(4).integers(0, 256, (8, 512, 512, 3)).astype(
-        np.uint8)
-    stylize_reconet(model, x, uint8_out=True)
+    forward()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
-            stylize_reconet(model, x, uint8_out=True)
+            forward()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -405,13 +650,31 @@ def phase_profile():
                    if str(e.device_type).endswith("CUDA")),
                   key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
-    log(f"  window {wall_ms:.3f} ms wall, {busy_ms:.3f} ms device time "
-        f"→ busy {100 * busy_ms / wall_ms:.1f}%")
+    per_forward = sum(e.count for e in rows) // 2
+    log(f"  {label}: window {wall_ms:.3f} ms wall, {busy_ms:.3f} ms device "
+        f"time → busy {100 * busy_ms / wall_ms:.1f}%; {per_forward} device "
+        f"kernels and copies per forward")
     for e in rows[:14]:
         if dev_us(e) <= 0:
             break
         log(f"  {dev_us(e) / 2e3:9.3f} ms/forward  x{e.count // 2:<4d} "
             f"{e.key[:90]}")
+
+
+def phase_profile():
+    """Where the time of one forward of each main path goes."""
+    log("[7] profile: 2 forwards each")
+    dt = torch.bfloat16
+    model = init_reconet(0, device="cuda", dtype=dt)
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 256, (8, 512, 512, 3)).astype(np.uint8)
+    _profile("ReCoNet 512² b8 bf16",
+             lambda: stylize_reconet(model, x, uint8_out=True))
+    vgg, net = _ada_models(0, 1, dt)
+    c, s = (rng.integers(0, 256, (K3_BATCH, ADA_SIZE, ADA_SIZE, 3))
+            .astype(np.uint8) for _ in range(2))
+    _profile("AdaAttN 512² b2 bf16 softmax",
+             lambda: stylize_adaattn(vgg, net, c, s))
 
 
 def main():
@@ -424,8 +687,10 @@ def main():
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernels(g)
+    errs["K3"] = phase_kernels_k3(g)
     phase_model()
     launches = phase_main_path()
+    launches["K3"] = phase_main_adaattn()
     kernels = phase_timing(launches, errs)
     phase_profile()
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "

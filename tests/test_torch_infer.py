@@ -102,8 +102,8 @@ class TestNoCard:
 def test_cli_rejects_unported(tmp_path):
     from vst_tpu_torch.cli import infer_video
 
-    for argv in (["--model", "adaattn"], ["--model", "reconet",
-                                          "--data-parallel", "2"]):
+    for argv in (["--model", "rtnstv"], ["--model", "reconet",
+                                         "--data-parallel", "2"]):
         with pytest.raises(SystemExit, match="not ported"):
             infer_video.main(argv + ["--weights", "w.pth", "--video", "v.avi",
                                      "--device", "cpu"])

@@ -1,12 +1,15 @@
-"""Streaming video inference CLI for the ReCoNet family on the card.
+"""Streaming video inference CLI on the card: the ReCoNet family and
+AdaAttN.
 
 Counterpart of ``vst_tpu/cli/infer_video.py`` (mirrors
-ReCoNet/inference/infer.py and ReCoNet/inference_two_model/infer.py):
-decode, stylize in batches with several in flight, and encode an output
-video, dump frames or show a live window.
+ReCoNet/inference/infer.py, ReCoNet/inference_two_model/infer.py and
+AdaAttN/infer_video.py): decode, stylize in batches with several in
+flight, and encode an output video, dump frames or show a live window.
 
     python -m vst_tpu_torch.cli.infer_video --model reconet \\
         --weights reconet.pth --video in.avi --out styled.mp4
+    python -m vst_tpu_torch.cli.infer_video --model adaattn \\
+        --weights adaattn.pth --style style.png --video in.avi --out s.mp4
 """
 
 import argparse
@@ -17,16 +20,19 @@ import time
 import numpy as np
 import torch
 
-from vst_tpu_torch.cli.common import (check_weights_match, load_weights,
+from vst_tpu_torch.cli.common import (check_weights_match, load_image_255,
+                                      load_vgg_weights, load_weights,
                                       save_image_255)
 from vst_tpu_torch.device import resolve_device
 from vst_tpu_torch.infer.image import stylize_reconet
-from vst_tpu_torch.infer.video import (StreamingStylizer,
+from vst_tpu_torch.infer.video import (AdaAttNVideoStylizer,
+                                       StreamingStylizer,
                                        StreamingVideoWriter,
                                        frames_from_source, video_fps)
+from vst_tpu_torch.models import adaattn
 from vst_tpu_torch.models.reconet import build
 
-_NOT_PORTED = ("rtnstv", "adaattn")
+_NOT_PORTED = ("rtnstv",)
 
 
 def _validated_wire(wire, size, weights2=None):
@@ -46,13 +52,18 @@ def _validated_wire(wire, size, weights2=None):
 def build_parser():
     p = argparse.ArgumentParser(prog="vst_tpu_torch.cli.infer_video")
     p.add_argument("--model", required=True,
-                   choices=["reconet", "sd1", "sd2", *_NOT_PORTED])
+                   choices=["reconet", "sd1", "sd2", "adaattn", *_NOT_PORTED])
     p.add_argument("--weights", required=True, help=".pth or JAX .npz")
     p.add_argument("--weights2",
                    help="second checkpoint: side-by-side comparison output "
                         "(ReCoNet/inference_two_model/infer.py)")
     p.add_argument("--model2", choices=["reconet", "sd1", "sd2", "rtnstv"],
                    help="model family for --weights2 (default: --model)")
+    p.add_argument("--style", help="style image (adaattn)")
+    p.add_argument("--vgg-weights",
+                   help="adaattn: VGG19 .pth/.npz (default: seeded init)")
+    p.add_argument("--activation", default="cosine",
+                   choices=["softmax", "cosine"], help="adaattn attention")
     p.add_argument("--video", required=True)
     p.add_argument("--input-frame-num", type=int, default=1)
     p.add_argument("--first-frame", type=int)
@@ -60,7 +71,8 @@ def build_parser():
     p.add_argument("--pipeline-depth", type=int, default=3,
                    help="batches kept in flight on the card")
     p.add_argument("--size", type=int, nargs=2, metavar=("W", "H"),
-                   help="frame size (default 640 360)")
+                   help="frame size (reconet default 640 360; adaattn "
+                        "512 256)")
     p.add_argument("--out", help="output video path (.mp4); omit to only "
                                  "report fps")
     p.add_argument("--frames-dir", help="also dump frames here (jpg)")
@@ -82,17 +94,28 @@ def _load_model(family, path, input_frame_num, device):
                  next(iter(state.values())).dtype)
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    for fam in (args.model, args.model2):
-        if fam in _NOT_PORTED:
-            raise SystemExit(
-                f"error: --model {fam} is not ported to vst_tpu_torch yet; "
-                "use python -m vst_tpu.cli.infer_video")
-    if args.data_parallel is not None:
-        raise SystemExit("error: --data-parallel is not ported to "
-                         "vst_tpu_torch yet")
-    device = resolve_device(args.device)
+def _adaattn_frames(args, device):
+    """AdaAttN: the style encoded once, frames area-resized (as
+    vst_tpu.cli.infer_video)."""
+    if not args.style:
+        raise SystemExit("error: --style is required for adaattn")
+    if args.weights2:
+        raise SystemExit("error: --weights2 compares ReCoNet-family models")
+    state = load_weights(args.weights)
+    check_weights_match(state, "adaattn", args.weights)
+    dtype = next(iter(state.values())).dtype
+    model = adaattn.build(state, device, dtype)
+    vgg = load_vgg_weights(args.vgg_weights, device=device, dtype=dtype)
+    size = tuple(args.size or (512, 256))
+    wire = _validated_wire(args.wire, size)
+    stylizer = AdaAttNVideoStylizer(
+        vgg, model, load_image_255(args.style, size)[None], args.activation,
+        args.batch_size, pipeline_depth=args.pipeline_depth, wire=wire)
+    return stylizer.stylize_frames(
+        frames_from_source(args.video, size, "area", dtype="uint8"))
+
+
+def _reconet_frames(args, device):
     model = _load_model(args.model, args.weights, args.input_frame_num,
                         device)
     size = tuple(args.size or (640, 360))
@@ -111,10 +134,27 @@ def main(argv=None):
             return torch.cat([base_fn(batch), b], dim=2)
 
     frames = frames_from_source(args.video, size, "linear", dtype="uint8")
-    out_iter = iter(StreamingStylizer(
+    return iter(StreamingStylizer(
         model_fn, frames, args.input_frame_num, args.batch_size,
         args.first_frame, pipeline_depth=args.pipeline_depth, wire=wire,
         device=device))
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    for fam in (args.model, args.model2):
+        if fam in _NOT_PORTED:
+            raise SystemExit(
+                f"error: --model {fam} is not ported to vst_tpu_torch yet; "
+                "use python -m vst_tpu.cli.infer_video")
+    if args.data_parallel is not None:
+        raise SystemExit("error: --data-parallel is not ported to "
+                         "vst_tpu_torch yet")
+    device = resolve_device(args.device)
+    if args.model == "adaattn":
+        out_iter = _adaattn_frames(args, device)
+    else:
+        out_iter = _reconet_frames(args, device)
 
     show = args.show
     if show:

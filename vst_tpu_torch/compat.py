@@ -4,8 +4,9 @@ state_dicts.
 Counterpart of ``vst_tpu/compat/torch_params.py`` and
 ``vst_tpu/train/checkpoint.py::load_params``.  Both packages key their
 parameters by the reference's torch ``state_dict`` names; only the conv
-weight layout differs (JAX HWIO, torch OIHW).  The ReCoNet family has no
-transposed convolutions, so every 4-D array is a Conv2d weight.
+weight layout differs (JAX HWIO, torch OIHW).  Neither the ReCoNet family
+nor AdaAttN and its VGG19 has a transposed convolution, so every 4-D array
+(1×1 convs included) is a Conv2d weight.
 """
 
 import numpy as np

@@ -1,1 +1,1 @@
-"""Inference entry points of the port (slice 1: ReCoNet family)."""
+"""Inference entry points of the port (the ReCoNet family and AdaAttN)."""

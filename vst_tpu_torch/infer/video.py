@@ -187,6 +187,50 @@ class StreamingStylizer:
         return frame
 
 
+class AdaAttNVideoStylizer:
+    """Arbitrary-style streaming stylizer (AdaAttN/infer_video.py:40-64):
+    the style is encoded once into its attention state
+    (``adaattn_style_state``), then every content batch is encoded and
+    stylized against it.
+
+    Frames (HWC RGB, uint8 or float 0–255) go through ``StreamingStylizer``:
+    pinned host buffers, up to ``pipeline_depth`` batches in flight, the
+    tail padded to ``batch_size``, and uint8 RGB or packed I420
+    (``wire="i420"``) on the way back.  The card is the models' device.
+    ``mesh`` (data-parallel serving) comes with the scale-out slice."""
+
+    def __init__(self, vgg, model, style_255, activation="cosine",
+                 batch_size: int = 2, pipeline_depth: int = 3,
+                 wire: str = "rgb", mesh=None):
+        from vst_tpu_torch.infer.image import (adaattn_style_state,
+                                               stylize_adaattn_cached)
+        from vst_tpu_torch.ops.yuv import rgb_to_i420
+
+        if mesh is not None:
+            raise NotImplementedError("data-parallel AdaAttN serving (mesh=) "
+                                      "is not ported yet")
+        if wire not in ("rgb", "i420"):
+            raise ValueError(f"wire must be 'rgb' or 'i420', got {wire!r}")
+        self.batch_size = batch_size
+        self.pipeline_depth = max(1, pipeline_depth)
+        self.wire = wire
+        self.device = next(model.parameters()).device
+        state = adaattn_style_state(vgg, model, style_255, activation)
+
+        def run(content):
+            cs = stylize_adaattn_cached(vgg, model, content, state, activation)
+            return rgb_to_i420(cs) if wire == "i420" else cs.to(torch.uint8)
+
+        self._run = run
+
+    def stylize_frames(self, frames):
+        """frames: iterator of HWC RGB uint8/float 0–255 → RGB uint8."""
+        return iter(StreamingStylizer(
+            self._run, frames, 1, self.batch_size,
+            pipeline_depth=self.pipeline_depth, wire=self.wire,
+            device=self.device))
+
+
 def write_video(path, frames, fps: float = 30.0):
     """Encode RGB uint8 frames to a video file (imageio when an ffmpeg
     backend is present, else cv2), holding one frame at a time."""

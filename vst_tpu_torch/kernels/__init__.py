@@ -5,6 +5,9 @@
   instance-norm statistics (replaces ``vst_tpu/kernels/res_block.py``).
 - K2 ``head_conv.conv3x3_valid``: the packed 3×3 conv of the 9×9 stem and
   head (replaces ``vst_tpu/kernels/head_conv.py``).
+- K3 ``adaattn_attention.softmax_attention_moments``: AdaAttN's softmax
+  attention moments M1, M2 and the row logsumexp (replaces the forward of
+  ``vst_tpu/kernels/adaattn_attention.py``).
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """

@@ -22,7 +22,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "vst_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("res_block", "head_conv")
+KERNELS = ("res_block", "head_conv", "adaattn_fwd")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}   # nvcc's output (ptxas register/spill report)

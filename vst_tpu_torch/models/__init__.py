@@ -1,1 +1,1 @@
-"""Model families of the port (slice 1: ReCoNet, SD1, SD2)."""
+"""Model families of the port (ReCoNet, SD1, SD2; AdaAttN with its VGG19 encoder)."""

@@ -1,5 +1,5 @@
-"""Convolutions of the ReCoNet serving path (NHWC activations, OIHW
-weights as the reference's ``state_dict`` stores them).
+"""Convolutions and pooling (NHWC activations, OIHW weights as the
+reference's ``state_dict`` stores them).
 
 Counterpart of ``vst_tpu/ops/conv.py``.  The JAX forms there
 (``conv2d_reflect1_k3s1``, ``conv2d_reflect1_k3s2``,
@@ -25,11 +25,23 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+           stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """torch Conv2d semantics (symmetric zero ``padding``) on NHWC input
+    with OIHW weights → NHWC: the VGG convs and AdaAttN's 1×1 convs."""
+    return _nhwc(F.conv2d(_nchw(x), w, b, stride=stride, padding=padding))
+
+
+def max_pool2d(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
+    """``torch.nn.MaxPool2d(window, stride)`` (VALID) on NHWC."""
+    return _nhwc(F.max_pool2d(_nchw(x), window, stride))
+
+
 def conv2d_reflect(x: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor | None = None,
                    stride: int = 1) -> torch.Tensor:
-    """ReCoNet's ConvLayer: reflect-pad k//2, then a k×k conv.  x NHWC,
-    w OIHW → NHWC."""
+    """Reflect-pad k//2, then a k×k conv: ReCoNet's ConvLayer and AdaAttN's
+    ``Conv`` (AdaAttN/network.py:11-21).  x NHWC, w OIHW → NHWC."""
     xp = reflection_pad2d(x, w.shape[-1] // 2)
     return _nhwc(F.conv2d(_nchw(xp), w, b, stride=stride))
 
