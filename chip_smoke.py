@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of vst_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version, drives the two paths of the
-port (ReCoNet streaming stylization, AdaAttN arbitrary-style serving) and
-checks what comes out.
+holds each against its plain PyTorch version, drives the three paths of
+the port (ReCoNet streaming stylization, AdaAttN arbitrary-style serving,
+AdaAttN training) and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -14,15 +14,19 @@ result line):
 3. kernels: K1 (without and with its prologue) at (8,128,128,192) and K2
    at the stem and head packed shapes, bf16 and f32; K3 in bf16 at the
    three AdaAttN 512² batch-2 level shapes (and at relu3_1's with sharp
-   scores of std 10) and in f32 at a ragged shape
-   and the relu4_1 shape; each against its plain version on the same
+   scores of std 10) and in f32 at a ragged shape and the relu4_1 shape;
+   K4 and K5 in bf16 at the three AdaAttN training level shapes (256²,
+   batch 8; relu3_1's also with sharp scores) and in f32 at a ragged
+   shape and the same three; each against its plain version on the same
    inputs;
 4. model: the f32 ReCoNet forward through the kernels against the same
    forward through the plain versions at 1×256×256, the f32 AdaAttN
    forward (softmax through K3 against the plain version, cosine against
-   the materialized oracle) at 1×256², and the ReCoNet, SD1, SD2 and
-   both AdaAttN forwards against the reference goldens
-   (tests/goldens/reference_numerics.npz);
+   the materialized oracle) at 1×256², the ReCoNet, SD1, SD2 and both
+   AdaAttN forwards against the reference goldens
+   (tests/goldens/reference_numerics.npz), and one f32 AdaAttN image
+   train step at 1×64² through K3-K5 against their plain versions
+   (metrics and every parameter gradient);
 5. main paths, each with the launch counts set to 0 just before it and
    read just after: full-width ReCoNet from the port's seeded init, 512²
    batch 8 bf16, through ``stylize_reconet`` (uint8 and I420 wires), then
@@ -30,19 +34,22 @@ result line):
    full-width AdaAttN (VGG19 seed 0, AdaAttN seed 1), 512² batch 2 bf16
    softmax, through ``stylize_adaattn`` and ``adaattn_style_state`` +
    ``stylize_adaattn_cached``, and ``AdaAttNVideoStylizer`` over 512×256
-   synthetic uint8 frames at batch 4, softmax and cosine;
+   synthetic uint8 frames at batch 4, softmax and cosine; then AdaAttN
+   training, ``make_adaattn_image_step`` at 256² batch 8 softmax in f32
+   and bf16 and ``make_adaattn_video_step`` at 256×512 batch 4 cosine;
 6. timing: each kernel, its plain version and a library yardstick the
    port never calls (cuDNN ``F.conv2d`` of the same conv for K1/K2,
-   ``F.scaled_dot_product_attention`` for K3) at the main paths' shapes,
-   printed as one JSON ``kernels`` line;
-7. profile: device time by kernel over two forwards of each main path
-   (torch.profiler) and the device's busy share of that window.
+   ``F.scaled_dot_product_attention`` for K3 and its backward for K4/K5)
+   at the main paths' shapes, printed as one JSON ``kernels`` line;
+7. profile: device time by kernel over two forwards (train steps) of each
+   main path (torch.profiler) and the device's busy share of that window.
 
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card and
 the CUDA toolkit (nvcc); no network, no cv2, no PIL.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -66,6 +73,10 @@ from vst_tpu_torch.models.reconet import (init_reconet, init_reconet_sd1,
 from vst_tpu_torch.models.vgg import init_vgg19_adaattn
 from vst_tpu_torch.ops import conv as ops_conv
 from vst_tpu_torch.ops.yuv import rgb_to_i420
+from vst_tpu_torch.train.config import AdaAttNImageConfig, AdaAttNVideoConfig
+from vst_tpu_torch.train.state import create
+from vst_tpu_torch.train.steps import (make_adaattn_image_step,
+                                       make_adaattn_video_step)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM data sheet, dense: bf16 tensor-core peak and HBM3 bandwidth.
@@ -123,30 +134,40 @@ def bound(flops, nbytes, dtype):
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model through the kernels' plain versions on the card
-    (the comparison of phase 4; the package itself never does this)."""
-    k3 = adaattn_attention
+    (the comparison of phase 4; the package itself never does this).
+    ``SoftmaxAttentionMoments`` looks up K3, K4 and K5 at call time, so the
+    port's own autograd Function runs on the plain side too."""
+    att = adaattn_attention
     saved = (res_block.conv3x3_in_stats, ops_conv.conv3x3_valid,
-             k3.softmax_attention_moments)
+             att._moments_fwd, att.softmax_attention_dq,
+             att.softmax_attention_dkv)
     res_block.conv3x3_in_stats = res_block.conv3x3_in_stats_plain
     ops_conv.conv3x3_valid = head_conv.conv3x3_valid_plain
-    k3.softmax_attention_moments = k3.softmax_attention_moments_plain
+    att._moments_fwd = att.softmax_attention_moments_plain
+    att.softmax_attention_dq = att.softmax_attention_dq_plain
+    att.softmax_attention_dkv = att.softmax_attention_dkv_plain
     try:
         yield
     finally:
         (res_block.conv3x3_in_stats, ops_conv.conv3x3_valid,
-         k3.softmax_attention_moments) = saved
+         att._moments_fwd, att.softmax_attention_dq,
+         att.softmax_attention_dkv) = saved
+
+
+WRAPPERS = (res_block.conv3x3_in_stats, head_conv.conv3x3_valid,
+            adaattn_attention.softmax_attention_moments,
+            adaattn_attention.softmax_attention_dq,
+            adaattn_attention.softmax_attention_dkv)
 
 
 def reset_counts():
-    res_block.conv3x3_in_stats.launches = 0
-    head_conv.conv3x3_valid.launches = 0
-    adaattn_attention.softmax_attention_moments.launches = 0
+    for w in WRAPPERS:
+        w.launches = 0
 
 
 def counts():
-    return (res_block.conv3x3_in_stats.launches,
-            head_conv.conv3x3_valid.launches,
-            adaattn_attention.softmax_attention_moments.launches)
+    """Launches of K1 … K5 since the last ``reset_counts``."""
+    return tuple(w.launches for w in WRAPPERS)
 
 
 # ------------------------------------------------------------------ phases
@@ -166,7 +187,8 @@ def phase_build():
     log(f"[2] build: {len(_build.KERNELS)} kernels in {secs:.2f} s")
     for name, out in _build.build_log.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(s in line for s in ("entry function", "registers",
+                                       "spill")):
                 log(f"  {name}: {line.strip()}")
     for name in _build.KERNELS:
         _build.load(name)
@@ -268,6 +290,105 @@ def phase_kernels_k3(g):
     return max(errs)
 
 
+# AdaAttN training at 256² (relu3_1, relu4_1, relu5_1): (n = m, d, c)
+TRAIN_LEVELS = [(4096, 448, 256), (1024, 960, 512), (256, 1472, 512)]
+TRAIN_BATCH = 8
+
+
+def k45_inputs(g, b, n, m, d, c, dtype, score_std=1.0):
+    """K3's inputs, the plain forward's M1, M2, L on them, unit-scale
+    cotangents in the inputs' type and the row term D."""
+    q, k, v = k3_inputs(g, b, n, m, d, c, dtype, score_std)
+    m1, m2, lse = adaattn_attention.softmax_attention_moments_plain(q, k, v)
+    dm1, dm2 = rnd(g, (b, n, c), 1.0, dtype), rnd(g, (b, n, c), 1.0, dtype)
+    dd = adaattn_attention.row_term(m1, m2, dm1, dm2)
+    return q, k, v, lse, dd, dm1, dm2
+
+
+def phase_kernels_k45(g):
+    """K4 (dQ) and K5 (dK, dV) against their plain versions on the same
+    inputs and cotangents: bf16 at the three AdaAttN training level shapes
+    (256², batch 8) and at relu3_1's with sharp scores of std 10; f32 at a
+    ragged shape and at the three level shapes (the f32 image step, the
+    config default, launches both at all three).  Tolerances, of each
+    output's scale: bf16 2^-6 (one bf16 ulp of the output rounding plus A
+    and dS rounded to bf16 from f32 values summed in another order); f32
+    1e-4 (sums in another order over up to 4096 terms)."""
+    errs = {"K4": 0.0, "K5": 0.0}
+    levels = [(TRAIN_BATCH, n, n, d, c) for n, d, c in TRAIN_LEVELS]
+    cases = [("bf16", torch.bfloat16, shape, 1.0) for shape in levels]
+    cases += [("bf16 sharp", torch.bfloat16, levels[0], 10.0),
+              ("f32", torch.float32, (2, 300, 520, 96, 64), 1.0)]
+    cases += [("f32", torch.float32, shape, 1.0) for shape in levels]
+    for tag, dtype, shape, score_std in cases:
+        apply_precision(dtype)
+        args = k45_inputs(g, *shape, dtype, score_std)
+        dq = adaattn_attention.softmax_attention_dq(*args)
+        dk, dv = adaattn_attention.softmax_attention_dkv(*args)
+        pq = adaattn_attention.softmax_attention_dq_plain(*args)
+        pk, pv = adaattn_attention.softmax_attention_dkv_plain(*args)
+        tol = 2 * BF16_ULP if dtype == torch.bfloat16 else 1e-4
+        name = f"{tag} {shape}"
+        e4 = check(f"K4 {name} dQ", dq, pq, tol)
+        e5 = max(check(f"K5 {name} dK", dk, pk, tol),
+                 check(f"K5 {name} dV", dv, pv, tol))
+        if dtype == torch.bfloat16:
+            errs["K4"] = max(errs["K4"], e4)
+            errs["K5"] = max(errs["K5"], e5)
+        del args, dq, dk, dv, pq, pk, pv
+    torch.cuda.synchronize()
+    return errs
+
+
+def _image_batch(rng, b, size):
+    return [torch.from_numpy(rng.integers(0, 256, (b, *size, 3))
+                             .astype(np.float32)).cuda() for _ in range(2)]
+
+
+def phase_model_train():
+    """One f32 AdaAttN image step at 1×64² (VGG19 seed 0, AdaAttN seed 1)
+    through K3-K5 and through their plain versions: the metrics to 1e-5
+    relative, every parameter gradient to 5e-2 of its scale but the g
+    (key) conv biases'.  The seeded model's gradients are small
+    differences of large float32 terms: JAX's own float32 gradients lie up
+    to 4% of their scale from its float64 ones in the decoder's early
+    layers, and more in the attention convs, where A·V² − (A·V)² sits at
+    the 1e-6 clamp of the variance (tests/test_torch_adaattn_train.py).
+    Softmax is invariant to the g bias (it adds one constant to a query's
+    scores), so its true gradient is 0 and what either side computes is
+    float32 noise: printed, not held."""
+    apply_precision(torch.float32)
+    cfg = AdaAttNImageConfig(batch_size=1)
+    batch = _image_batch(np.random.default_rng(7), 1, (64, 64))
+    runs = []
+    for plain in (False, True):
+        state = create(init_stylizing_network(1, device="cuda"), cfg.lr)
+        step = make_adaattn_image_step(
+            cfg, init_vgg19_adaattn(0, device="cuda"))
+        with plain_kernels() if plain else contextlib.nullcontext():
+            _, metrics = step(state, batch)
+        runs.append(({k: float(v) for k, v in metrics.items()},
+                     {k: p.grad for k, p in state.model.named_parameters()}))
+    (mk, gk), (mp, gp) = runs
+    for key in mk:
+        err = abs(mk[key] - mp[key]) / abs(mp[key])
+        log(f"  AdaAttN f32 64² train step {key}: kernels {mk[key]:.8e} "
+            f"plain {mp[key]:.8e}, relative {err:.3e} tol 1e-5")
+        if not err <= 1e-5:
+            raise AssertionError(f"train step {key}: {err}")
+    rel = {k: _rel_err(gk[k], gp[k]) for k in gp if gp[k].abs().max() > 0}
+    held = {k: v for k, v in rel.items() if not k.endswith(".g.bias")}
+    worst = max((v, k) for k, v in held.items())
+    att = ", ".join(f"{k} {v:.1e}" for k, v in rel.items()
+                    if k.startswith("adaattn."))
+    log(f"  gradients of {len(held)} of {len(rel)} parameters held: worst "
+        f"relative {worst[0]:.3e} ({worst[1]}) tol 5e-2; attention convs "
+        f"(g biases not held): {att}")
+    if not worst[0] <= 5e-2 or not all(torch.isfinite(g).all()
+                                       for g in gk.values()):
+        raise AssertionError(f"gradient {worst[1]}: {worst[0]}")
+
+
 def phase_model():
     log("[4] model: kernels against plain versions, and the goldens")
     apply_precision(torch.float32)
@@ -297,6 +418,7 @@ def phase_model():
         if not err <= 2e-3:
             raise AssertionError(f"{key}: {err}")
     phase_model_adaattn(gold)
+    phase_model_train()
 
 
 def _ada_models(seed_vgg, seed_ada, dtype):
@@ -378,12 +500,13 @@ def phase_main_path():
     styled = list(stream)
     stream_s = time.perf_counter() - t0
     forwards += 96 // 8
-    k1, k2, k3 = counts()
+    k1, k2, k3, k4, k5 = counts()
 
-    log(f"  launches: K1 {k1}, K2 {k2}, K3 {k3} over {forwards} forwards")
-    if (k1, k2, k3) != (10 * forwards, 2 * forwards, 0):
+    log(f"  launches: K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4}, K5 {k5} over "
+        f"{forwards} forwards")
+    if (k1, k2, k3, k4, k5) != (10 * forwards, 2 * forwards, 0, 0, 0):
         raise AssertionError(f"expected K1 {10 * forwards}, K2 "
-                             f"{2 * forwards}, K3 0 launches")
+                             f"{2 * forwards}, K3-K5 0 launches")
     if out.shape != (8, 512, 512, 3) or out.dtype != torch.uint8:
         raise AssertionError(f"uint8 wire: {tuple(out.shape)} {out.dtype}")
     if i420.shape != (8, 768, 512) or not torch.equal(i420, rgb_to_i420(out)):
@@ -460,12 +583,13 @@ def phase_main_adaattn():
             raise AssertionError(f"AdaAttN {act} stream: count, shape or dtype")
         if act == "softmax":
             forwards += ADA_CLIP // 4
-    k1, k2, k3 = counts()
+    k1, k2, k3, k4, k5 = counts()
 
     log(f"  launches: K3 {k3} over {forwards} softmax forwards (+ "
-        f"{ADA_CLIP // 4} cosine batches); K1 {k1}, K2 {k2}")
-    if (k1, k2, k3) != (0, 0, 3 * forwards):
-        raise AssertionError(f"expected K3 {3 * forwards} launches, K1 and K2 0")
+        f"{ADA_CLIP // 4} cosine batches); K1 {k1}, K2 {k2}, K4 {k4}, K5 {k5}")
+    if (k1, k2, k3, k4, k5) != (0, 0, 3 * forwards, 0, 0):
+        raise AssertionError(f"expected K3 {3 * forwards} launches, K1, K2, "
+                             f"K4 and K5 0")
     if any(o.shape != content.shape or not torch.isfinite(o).all()
            or o.min() < 0 or o.max() > 255 for o in (out, cached)):
         raise AssertionError("AdaAttN styled batch not finite, in 0..255, or "
@@ -500,6 +624,81 @@ def phase_main_adaattn():
         log(f"  AdaAttNVideoStylizer {act} {ADA_CLIP}×512×256, batch 4, depth "
             f"3: {fps:.2f} frames/s")
     return k3
+
+
+def _train_run(label, cfg, build, batch, steps, warmup, per_step):
+    """``warmup`` + ``steps`` steps of ``build(cfg, vgg)`` on one batch,
+    from fresh seeded weights (VGG19 seed 0, AdaAttN seed 1), with the
+    launch counts set to 0 just before and read just after.  Asserts
+    finite metrics at every step, parameters that moved, and exactly
+    ``per_step`` (K3, K4, K5) launches per step; returns the counts.
+    "Moved" counts parameter tensors: with seeded weights half the
+    decoder's ReLUs are dead, so many single weights get no gradient, and
+    the g conv biases (softmax is invariant to them) get one below what
+    Adam's step can show in float32."""
+    state = create(init_stylizing_network(1, device="cuda"), cfg.lr)
+    step = build(cfg, init_vgg19_adaattn(0, device="cuda"))
+    before = [p.detach().clone() for p in state.model.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, metrics = [], []
+    for i in range(warmup + steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    total = warmup + steps
+    expect = (0, 0) + tuple(n * total for n in per_step)
+    bad = [i for i, m in enumerate(metrics)
+           if not all(torch.isfinite(v).item() for v in m.values())]
+    moved = sum(not torch.equal(a, p)
+                for a, p in zip(before, state.model.parameters()))
+    last = {k: round(float(v), 6) for k, v in metrics[-1].items()}
+    b = batch[0].shape[0]
+    log(f"  {label}: launches K1-K5 {launches} over {total} steps; metrics "
+        f"finite at every step, last {last}; {moved} of {len(before)} "
+        f"parameter tensors moved; peak {peak:.2f} GiB")
+    if times:
+        ms = float(np.median(times))
+        log(f"  {label}: {ms:.3f} ms/step median of {steps} (min "
+            f"{min(times):.3f}, max {max(times):.3f}) -> {b * 1e3 / ms:.2f} "
+            f"samples/s (min {b * 1e3 / max(times):.2f}, max "
+            f"{b * 1e3 / min(times):.2f})")
+    if bad or launches != expect or moved < len(before) - 3:
+        raise AssertionError(f"{label}: non-finite steps {bad}, launches "
+                             f"{launches} (expected {expect}), moved {moved}")
+    return launches
+
+
+def phase_main_train():
+    """AdaAttN training at the configs' own settings from synthetic seeded
+    0-255 batches: the image trainer (256² crop, batch 8, softmax, lr 1e-4)
+    in f32 (the default) and bf16, 2 warmup and 6 timed steps each, K3 6,
+    K4 3 and K5 3 launches per step; the video trainer (256×512, batch 4,
+    cosine, f32), 3 steps, no K3-K5 launch."""
+    log("[5] main path: AdaAttN training (image 256² b8 softmax, video "
+        "256×512 b4 cosine)")
+    rng = np.random.default_rng(8)
+    cfg = AdaAttNImageConfig()
+    batch = _image_batch(rng, cfg.batch_size, cfg.crop_size)
+    total = [0, 0, 0]
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        launches = _train_run(f"image {dtype}", c, make_adaattn_image_step,
+                              batch, 6, 2, (6, 3, 3))
+        total = [a + b for a, b in zip(total, launches[2:])]
+    vcfg = AdaAttNVideoConfig()
+    vbatch = [torch.from_numpy(rng.integers(0, 256, (vcfg.batch_size,
+                                                     *vcfg.frame_size, 3))
+                               .astype(np.float32)).cuda() for _ in range(3)]
+    _train_run("video float32 cosine", vcfg, make_adaattn_video_step, vbatch,
+               3, 0, (0, 0, 0))
+    return dict(zip(("K3", "K4", "K5"), total))
 
 
 def phase_timing(launches, errs):
@@ -625,6 +824,94 @@ def timing_k3(launches, err):
     return k3
 
 
+def _sdpa_backend(fn):
+    """The family of the device kernel that takes most of ``fn``'s time
+    (flash, efficient, cudnn, or math for plain matmuls): which backend
+    ``F.scaled_dot_product_attention`` chose."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.key.lower() for e in prof.key_averages()
+                     if str(e.device_type).endswith("CUDA"))
+    for family in ("flash", "efficient", "cudnn"):
+        if family in names:
+            return family
+    return "math"
+
+
+def timing_k45(launches, errs):
+    """K4, K5 and their plain versions at the three AdaAttN training level
+    shapes (256², batch 8), bf16, one launch each per level per step.
+    Library yardstick (never called by the port): the backward of
+    ``F.scaled_dot_product_attention(q, k, [V, V∘V], scale=1)`` by
+    ``torch.autograd.grad``, which returns dQ, dK and dV together; it is
+    put beside both kernels.  Bounds: FLOPs 4nm(d + c) (K4) and
+    4nmd + 8nmc (K5) per image on the tensor cores; bytes q, k, v, dM1,
+    dM2 (bf16) and L, D (f32) read once, the outputs written once."""
+    log("[6] K4, K5 at the AdaAttN training level shapes (256² b8, bf16)")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dt = torch.bfloat16
+    apply_precision(dt)
+    rows = {}
+    for kid, name, fn, plain, line, per_image in (
+            ("K4", "softmax_attention_dq", adaattn_attention.softmax_attention_dq,
+             adaattn_attention.softmax_attention_dq_plain, 151,
+             lambda n, d, c: 4 * n * n * (d + c)),
+            ("K5", "softmax_attention_dkv", adaattn_attention.softmax_attention_dkv,
+             adaattn_attention.softmax_attention_dkv_plain, 182,
+             lambda n, d, c: 4 * n * n * d + 8 * n * n * c)):
+        rows[kid] = dict(fn=fn, plain=plain, flops=per_image, row={
+            "name": f"{kid} {name}", "route": "cuda",
+            "source": "vst_tpu_torch/kernels/csrc/adaattn_bwd.cu",
+            "replaces": f"vst_tpu/kernels/adaattn_attention.py:{line}",
+            "launches": launches[kid], "max_abs_err": errs[kid],
+            "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+            "bound_by": "operations",
+            "per": "one AdaAttN 256x256 batch-8 bf16 image train step: "
+                   "(n=m, d, c) = (4096, 448, 256), (1024, 960, 512), "
+                   "(256, 1472, 512)",
+            "ms_per_launch": [], "library": None})
+    for n, d, c in TRAIN_LEVELS:
+        args = k45_inputs(g, TRAIN_BATCH, n, n, d, c, dt)
+        q, k, v, lse, dd, dm1, dm2 = args
+        vv = torch.cat([v, v * v], dim=-1)
+        leaves = [x.detach().requires_grad_() for x in (q, k, vv)]
+        out = F.scaled_dot_product_attention(*leaves, scale=1.0)
+        go = torch.cat([dm1, dm2], dim=-1)
+
+        def lib():
+            return torch.autograd.grad(out, leaves, go, retain_graph=True)
+
+        tl = event_ms(lib, reps=3, warmup=1)
+        backend = _sdpa_backend(lib)
+        for kid, r in rows.items():
+            row = r["row"]
+            tk = event_ms(lambda: r["fn"](*args))
+            tp = event_ms(lambda: r["plain"](*args), reps=3, warmup=1)
+            out_elems = n * d if kid == "K4" else n * (d + c)
+            nbytes = TRAIN_BATCH * (2 * (2 * n * d + n * c + 2 * n * c)
+                                    + 8 * n + 2 * out_elems)
+            bb, by = bound(TRAIN_BATCH * r["flops"](n, d, c), nbytes, dt)
+            log(f"  {kid} (n={n}, d={d}, c={c}) ms: kernel {tk:.4f} "
+                f"({TRAIN_BATCH * r['flops'](n, d, c) / tk / 1e9:.1f} TFLOP/s), "
+                f"plain {tp:.4f}, SDPA backward ({backend}) {tl:.4f}, bound "
+                f"{bb:.4f} ({by})")
+            row["ms"] += tk
+            row["plain_ms"] += tp
+            row["library_ms"] += tl
+            row["bound_ms"] += bb
+            row["ms_per_launch"].append(tk)
+            row["library"] = (f"backward of F.scaled_dot_product_attention "
+                              f"({backend}), dQ, dK, dV together")
+            if bb >= r.get("top", 0.0):   # what bounds the largest level
+                r["top"], row["bound_by"] = bb, by
+        del args, q, k, v, vv, leaves, out, go
+    torch.cuda.synchronize()
+    return [r["row"] for r in rows.values()]
+
+
 def _profile(label, forward):
     """Device time by operator over two forwards (torch.profiler), and the
     device's busy share of the window's wall time."""
@@ -662,8 +949,8 @@ def _profile(label, forward):
 
 
 def phase_profile():
-    """Where the time of one forward of each main path goes."""
-    log("[7] profile: 2 forwards each")
+    """Where the time of one forward (one step) of each main path goes."""
+    log("[7] profile: 2 forwards (steps) each")
     dt = torch.bfloat16
     model = init_reconet(0, device="cuda", dtype=dt)
     rng = np.random.default_rng(4)
@@ -675,6 +962,12 @@ def phase_profile():
             .astype(np.uint8) for _ in range(2))
     _profile("AdaAttN 512² b2 bf16 softmax",
              lambda: stylize_adaattn(vgg, net, c, s))
+    cfg = dataclasses.replace(AdaAttNImageConfig(), dtype="bfloat16")
+    state = create(init_stylizing_network(1, device="cuda"), cfg.lr)
+    step = make_adaattn_image_step(cfg, init_vgg19_adaattn(0, device="cuda"))
+    batch = _image_batch(rng, cfg.batch_size, cfg.crop_size)
+    _profile("AdaAttN train 256² b8 bf16 image step",
+             lambda: step(state, batch))
 
 
 def main():
@@ -688,10 +981,16 @@ def main():
     g = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernels(g)
     errs["K3"] = phase_kernels_k3(g)
+    errs.update(phase_kernels_k45(g))
     phase_model()
     launches = phase_main_path()
     launches["K3"] = phase_main_adaattn()
-    kernels = phase_timing(launches, errs)
+    train = phase_main_train()
+    by_path = {"serving": launches["K3"], "training": train["K3"]}
+    launches["K3"] += train["K3"]
+    launches.update(K4=train["K4"], K5=train["K5"])
+    kernels = phase_timing(launches, errs) + timing_k45(launches, errs)
+    kernels[2]["launches_by_path"] = by_path
     phase_profile()
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB; wall {time.perf_counter() - t0:.1f} s")

@@ -74,12 +74,21 @@ class TestK3Plain:
             assert err <= 2.0 ** -6 * ref.abs().max()
 
     def test_cpu_never_counts_launches_and_grad_raises(self, rng):
+        """CPU tensors count no launch of K3, K4 or K5, with or without a
+        gradient; a gradient flows (L carries none) and equals autograd
+        of the exact form."""
         q, k, v = (t(a) for a in _qkv(rng, 1, 8, 8, 8, 8))
-        before = k3.softmax_attention_moments.launches
-        k3.softmax_attention_moments(q, k, v)
-        assert k3.softmax_attention_moments.launches == before == 0
-        with pytest.raises(NotImplementedError, match="no backward"):
-            k3.softmax_attention_moments(q.requires_grad_(), k, v)
+        wrappers = (k3.softmax_attention_moments, k3.softmax_attention_dq,
+                    k3.softmax_attention_dkv)
+        before = [w.launches for w in wrappers]
+        m1, m2, lse = k3.softmax_attention_moments(q.requires_grad_(), k, v)
+        assert not lse.requires_grad
+        (m1.sum() + m2.sum()).backward()
+        assert [w.launches for w in wrappers] == before == [0, 0, 0]
+        qe = q.detach().clone().requires_grad_()
+        e1, e2 = pa._attention_moments_softmax_exact(qe, k, v)
+        (e1.sum() + e2.sum()).backward()
+        torch.testing.assert_close(q.grad, qe.grad, rtol=1e-4, atol=1e-5)
         with torch.no_grad():
             k3.softmax_attention_moments(q, k, v)
 
@@ -106,15 +115,19 @@ class TestAttentionMoments:
                                        atol=1e-5)
 
     def test_train_and_gradients_raise_exact_differentiates(self, rng):
+        """Mode "train" and a gradient through "auto" go through the
+        Function and match "exact" in value and in gradient."""
         q, k, v = (t(a) for a in _qkv(rng, 1, 16, 16, 8, 8))
-        with pytest.raises(NotImplementedError, match="K4/K5"):
-            pa.attention_moments(q, k, v, "softmax", "train")
-        q.requires_grad_()
-        with pytest.raises(NotImplementedError, match="K4/K5"):
-            pa.attention_moments(q, k, v, "softmax", "auto")
-        m1, m2 = pa.attention_moments(q, k, v, "softmax", "exact")
-        (m1.sum() + m2.sum()).backward()
-        assert q.grad is not None and torch.isfinite(q.grad).all()
+        out = {}
+        for mode in ("train", "auto", "exact"):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            m1, m2 = pa.attention_moments(*leaves, "softmax", mode)
+            (m1.sum() + 2 * m2.sum()).backward()
+            out[mode] = [m1.detach(), m2.detach()] + [x.grad for x in leaves]
+        for mode in ("train", "auto"):
+            for ours, ref in zip(out[mode], out["exact"]):
+                assert torch.isfinite(ours).all()
+                torch.testing.assert_close(ours, ref, rtol=1e-4, atol=1e-5)
 
     def test_mesh_and_unknown_raise(self, rng):
         q, k, v = (t(a) for a in _qkv(rng, 1, 4, 4, 8, 8))

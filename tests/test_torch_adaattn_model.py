@@ -120,7 +120,8 @@ def test_style_state_matches_jax(port):
 
 def test_no_conv_module_and_guards(port):
     """adaattn_no_conv (the local-loss target) against JAX; a style state
-    refuses a batch of styles; mesh and remat raise."""
+    refuses a batch of styles; mesh raises; remat gives the forward and the
+    gradients of no remat."""
     rng = np.random.default_rng(6)
     cx, sx = (rng.standard_normal((1, 6, 8, 16)).astype(np.float32)
               for _ in range(2))
@@ -138,5 +139,14 @@ def test_no_conv_module_and_guards(port):
             pa.style_state(net, fc)
         with pytest.raises(NotImplementedError, match="scale-out"):
             pa.stylizing_network(net, fc, fc, mesh=object())
-        with pytest.raises(NotImplementedError, match="training"):
-            pa.stylizing_network(net, fc, fc, remat=True)
+    grads = []
+    for remat in (False, True):
+        net.zero_grad()
+        out = pa.stylizing_network(net, fc, fc, "softmax", "train",
+                                   remat=remat)
+        out.square().mean().backward()
+        grads.append((out.detach(), {k: p.grad.clone()
+                                     for k, p in net.named_parameters()}))
+    torch.testing.assert_close(grads[1][0], grads[0][0], rtol=0, atol=0)
+    for key, g in grads[0][1].items():
+        torch.testing.assert_close(grads[1][1][key], g, rtol=1e-5, atol=1e-12)

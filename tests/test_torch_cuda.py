@@ -154,13 +154,19 @@ def test_k3_extreme_logits(cuda, dtype):
 
 
 def test_k3_rejects_what_it_does_not_take(cuda):
+    """And K4/K5 reject cotangents and row vectors of another type or
+    shape."""
     q, k, v = _k3_inputs(cuda, 1, 16, 16, 32, 16, torch.float32)
     with pytest.raises(ValueError, match="one CUDA device"):
         adaattn_attention.softmax_attention_moments(q, k.cpu(), v)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        adaattn_attention.softmax_attention_moments(
-            q.requires_grad_(), k, v)
-    q = q.detach()
+    lse = torch.zeros(1, 16, 1, device=cuda)
+    dm = torch.zeros(1, 16, 16, device=cuda)
+    with pytest.raises(ValueError, match="dm1 must be a contiguous"):
+        adaattn_attention.softmax_attention_dq(q, k, v, lse, lse, dm.bfloat16(),
+                                               dm)
+    with pytest.raises(ValueError, match="lse must be a contiguous"):
+        adaattn_attention.softmax_attention_dkv(q, k, v, lse[:, :8], lse, dm,
+                                                dm)
     with pytest.raises(ValueError, match="multiples of 8"):
         adaattn_attention.softmax_attention_moments(
             q[..., :30].contiguous().bfloat16(), k[..., :30].contiguous()
@@ -173,8 +179,15 @@ def test_k3_rejects_what_it_does_not_take(cuda):
 def test_adaattn_routes_through_k3(cuda):
     """A small f32 AdaAttN forward launches K3 once per attention level in
     softmax (direct and cached) and never in cosine, matches the CPU
-    forward of the same weights, and refuses a forward that needs a
-    gradient."""
+    forward of the same weights, and a forward that needs a gradient
+    trains through K4 and K5: once each per level, with the CPU's decoder
+    gradients within 5e-2 of their scale and finite attention-conv
+    gradients.  (The seeded model's gradients are small differences of
+    large float32 terms: JAX's float32 decoder gradients lie up to 4% of
+    their scale from its float64 ones.  The attention convs' are not held
+    at all: the moments' variance sits at its 1e-6 clamp as a difference
+    of near-equal float32 values, so they move by orders of magnitude with
+    the summation order.)"""
     from vst_tpu_torch.infer.image import (adaattn_style_state,
                                            stylize_adaattn,
                                            stylize_adaattn_cached)
@@ -199,8 +212,137 @@ def test_adaattn_routes_through_k3(cuda):
         assert count.launches - before == 2 * per
         _close(ours.cpu(), ref, 2e-3)
         _close(cached.cpu(), ref, 2e-3)
+    grads = []
+    for vgg, net in (cpu, card):
+        dev = next(net.parameters()).device
+        with torch.no_grad():
+            fc, fs = vgg(c.to(dev)), vgg(s.expand(2, -1, -1, -1).to(dev))
+        net.zero_grad()
+        net(fc, fs).square().mean().backward()
+        grads.append({k: p.grad.clone() for k, p in net.named_parameters()})
+    before = (adaattn_attention.softmax_attention_dq.launches,
+              adaattn_attention.softmax_attention_dkv.launches)
     vgg, net = card
     with torch.no_grad():
-        feats = vgg(c.to(cuda))
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        net(feats, {k: v.requires_grad_() for k, v in feats.items()})
+        fc = vgg(c.to(cuda))
+    net(fc, {k: v.requires_grad_() for k, v in fc.items()}).sum().backward()
+    torch.cuda.synchronize()
+    assert (adaattn_attention.softmax_attention_dq.launches - before[0],
+            adaattn_attention.softmax_attention_dkv.launches - before[1]) == (3, 3)
+    for key, ref in grads[0].items():
+        assert torch.isfinite(grads[1][key]).all(), key
+        if key.startswith("decoder."):
+            _close(grads[1][key].cpu(), ref, 5e-2)
+
+
+# AdaAttN training at 256² (relu3_1, relu4_1, relu5_1): (n = m, d, c)
+TRAIN_LEVELS = [(4096, 448, 256), (1024, 960, 512), (256, 1472, 512)]
+
+
+def _bwd_inputs(cuda, b, n, m, d, c, dtype, scale=1.0):
+    q, k, v = _k3_inputs(cuda, b, n, m, d, c, dtype)
+    q, k = (q.float() * scale).to(dtype), (k.float() * scale).to(dtype)
+    m1, m2, lse = adaattn_attention.softmax_attention_moments_plain(q, k, v)
+    g = torch.Generator(device=cuda).manual_seed(n * m)
+    dm1 = torch.randn(b, n, c, device=cuda, generator=g).to(dtype)
+    dm2 = (torch.randn(b, n, c, device=cuda, generator=g) * 0.1).to(dtype)
+    return q, k, v, m1, m2, lse, dm1, dm2
+
+
+@pytest.mark.parametrize("n,m,d,c,scale", [(4096, 4096, 448, 256, 1.0),
+                                           (1024, 1024, 960, 512, 1.0),
+                                           (256, 256, 1472, 512, 1.0),
+                                           (300, 520, 96, 64, 1.0),
+                                           (200, 330, 448, 256, 10.0)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2.0 ** -6)])
+def test_k4_k5(cuda, n, m, d, c, scale, dtype, tol):
+    """dQ, dK, dV against the plain backward on the same inputs and
+    cotangents: the three trainer level shapes, a ragged one, and scores
+    sharpened by q, k × 10.  bf16 within 2^-6 of each output's scale (one
+    bf16 ulp of the output rounding plus dS and A rounded to bf16 from f32
+    values summed in another order); f32 within 1e-4 of the scale."""
+    q, k, v, m1, m2, lse, dm1, dm2 = _bwd_inputs(cuda, 2, n, m, d, c, dtype,
+                                                 scale)
+    dd = adaattn_attention.row_term(m1, m2, dm1, dm2)
+    before = (adaattn_attention.softmax_attention_dq.launches,
+              adaattn_attention.softmax_attention_dkv.launches)
+    dq = adaattn_attention.softmax_attention_dq(q, k, v, lse, dd, dm1, dm2)
+    dk, dv = adaattn_attention.softmax_attention_dkv(q, k, v, lse, dd, dm1,
+                                                     dm2)
+    ref = adaattn_attention.softmax_attention_moments_bwd_plain(
+        q, k, v, m1, m2, lse, dm1, dm2)
+    torch.cuda.synchronize()
+    assert (adaattn_attention.softmax_attention_dq.launches - before[0],
+            adaattn_attention.softmax_attention_dkv.launches - before[1]) == (1, 1)
+    for ours, r in zip((dq, dk, dv), ref):
+        assert ours.dtype == dtype and ours.shape == r.shape
+        assert torch.isfinite(ours).all()
+        _close(ours, r, tol)
+
+
+@pytest.mark.parametrize("need", ["qkv", "kv", "q"])
+def test_function_grad_matches_exact(cuda, need):
+    """``attention_moments(..., "softmax", "train")`` on the card against
+    autograd of the exact form, f32, at the tolerance of the JAX package's
+    VJP test (2e-3); K4 runs only when q needs a gradient and K5 only when
+    k or v does.  K and V broadcast over the batch (stride 0) get the sum
+    of the per-image gradients through ``expand``."""
+    from vst_tpu_torch.models.adaattn import attention_moments
+
+    q, k, v = _k3_inputs(cuda, 3, 200, 330, 96, 64, torch.float32)
+    k, v = k[:1].clone(), v[:1].clone()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    w1, w2 = (torch.randn(3, 200, 64, device=cuda, generator=g)
+              for _ in range(2))
+    grads = []
+    for mode in ("train", "exact"):
+        leaves = [t.clone().requires_grad_(name in need)
+                  for name, t in zip("qkv", (q, k, v))]
+        qq, kk, vv = leaves
+        before = (adaattn_attention.softmax_attention_dq.launches,
+                  adaattn_attention.softmax_attention_dkv.launches)
+        m1, m2 = attention_moments(qq, kk.expand(3, -1, -1),
+                                   vv.expand(3, -1, -1), "softmax", mode)
+        ((m1 * w1).sum() + (m2 * w2).sum()).backward()
+        torch.cuda.synchronize()
+        if mode == "train":
+            assert (adaattn_attention.softmax_attention_dq.launches - before[0],
+                    adaattn_attention.softmax_attention_dkv.launches - before[1]
+                    ) == (int("q" in need), int("k" in need or "v" in need))
+        grads.append([t.grad for t in leaves])
+    for name, ours, ref in zip("qkv", *grads):
+        if name in need:
+            torch.testing.assert_close(ours, ref, rtol=2e-3, atol=2e-3)
+        else:
+            assert ours is None
+
+
+@pytest.mark.parametrize("remat,k3_per_step", [(False, 6), (True, 9)])
+def test_image_step_launch_counts(cuda, remat, k3_per_step):
+    """One f32 AdaAttN image step at 1×64² softmax launches K3 six times
+    (three stylizer levels, three conv-free targets; remat recomputes the
+    stylizer's three), K4 and K5 three times each, and moves the masters."""
+    from vst_tpu_torch.models.adaattn import init_stylizing_network
+    from vst_tpu_torch.models.vgg import init_vgg19_adaattn
+    from vst_tpu_torch.train.config import AdaAttNImageConfig
+    from vst_tpu_torch.train.state import create
+    from vst_tpu_torch.train.steps import make_adaattn_image_step
+
+    cfg = AdaAttNImageConfig(batch_size=1, remat=remat)
+    state = create(init_stylizing_network(1, device=cuda), cfg.lr)
+    step = make_adaattn_image_step(cfg, init_vgg19_adaattn(0, device=cuda))
+    gen = torch.Generator().manual_seed(0)
+    batch = [torch.rand(1, 64, 64, 3, generator=gen) * 255 for _ in range(2)]
+    before = [p.detach().clone() for p in state.model.parameters()]
+    wrappers = (adaattn_attention.softmax_attention_moments,
+                adaattn_attention.softmax_attention_dq,
+                adaattn_attention.softmax_attention_dkv)
+    counts = [w.launches for w in wrappers]
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert [w.launches - c for w, c in zip(wrappers, counts)] == [
+        k3_per_step, 3, 3]
+    assert all(torch.isfinite(m) for m in metrics.values())
+    assert any(not torch.equal(a, p) for a, p in
+               zip(before, state.model.parameters()))

@@ -1,5 +1,5 @@
-"""Weights carried across: JAX ``.npz`` parameters, reference ``.pth``
-state_dicts.
+"""Weights carried across: JAX ``.npz`` parameters (both ways), reference
+``.pth`` state_dicts.
 
 Counterpart of ``vst_tpu/compat/torch_params.py`` and
 ``vst_tpu/train/checkpoint.py::load_params``.  Both packages key their
@@ -22,6 +22,18 @@ def params_from_jax(params: dict) -> dict:
         if arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def params_to_jax(state_dict: dict) -> dict:
+    """The inverse of ``params_from_jax``: a torch ``state_dict`` →
+    JAX-layout numpy arrays (conv weights HWIO), in the state's dtype."""
+    out = {}
+    for key, val in state_dict.items():
+        arr = val.detach().cpu().numpy()
+        if arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)
+        out[key] = np.ascontiguousarray(arr)
     return out
 
 

@@ -7,7 +7,11 @@
   head (replaces ``vst_tpu/kernels/head_conv.py``).
 - K3 ``adaattn_attention.softmax_attention_moments``: AdaAttN's softmax
   attention moments M1, M2 and the row logsumexp (replaces the forward of
-  ``vst_tpu/kernels/adaattn_attention.py``).
+  ``vst_tpu/kernels/adaattn_attention.py``), as the forward of the
+  autograd Function ``SoftmaxAttentionMoments``.
+- K4 ``adaattn_attention.softmax_attention_dq`` and K5
+  ``adaattn_attention.softmax_attention_dkv``: that Function's backward
+  (replace ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` there).
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """

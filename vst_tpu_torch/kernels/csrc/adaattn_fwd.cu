@@ -48,11 +48,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "conv3x3_tile.cuh"   // ldmatrix / mma.sync helpers
+#include "attn_common.cuh"   // cp.async, bf16 packing, LOG2E / LN2 / NEG
 
 namespace k3 {
 
-using bf16 = __nv_bfloat16;
+using namespace attn;
 
 struct AttnArgs {
   const void* q;      // (b, n, d) rows contiguous, batch stride q_bs
@@ -64,10 +64,6 @@ struct AttnArgs {
   int n, m, d, c;
   long long q_bs, k_bs, v_bs;   // in elements
 };
-
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-constexpr float NEG = -1e30f;   // masked score, as the TPU kernel's NEG_INF
 
 // ----------------------------------------------------------------- bf16
 
@@ -84,32 +80,6 @@ __host__ __device__ constexpr int qld(int dpad) { return dpad + 8; }
 
 __host__ __device__ constexpr int smem_bytes(int dpad) {
   return (BM * qld(dpad) + 2 * BN * KLD + BN * VLD) * 2;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  // src-size 0 fills the 16 bytes with zeros and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(vst::smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&h);
-}
-
-__device__ __forceinline__ unsigned square_bf16x2(unsigned u) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
-  return pack_bf16(f.x * f.x, f.y * f.y);
 }
 
 __global__ void __launch_bounds__(NTH) attn_fwd_bf16(AttnArgs a, int dpad) {

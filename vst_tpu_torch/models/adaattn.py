@@ -11,17 +11,18 @@ multi-scale content pyramid, K from the style pyramid and V from style
 features, A = act(QKᵀ), M = A·V, S = sqrt(A·V² − M²), out = S·IN(c) + M.
 
 Routing of ``attention_moments``:
-- softmax, modes ``"auto"``, ``"pallas"``, ``"chunked"``:
+- softmax, modes ``"auto"``, ``"pallas"``, ``"chunked"``, ``"train"``:
   ``kernels/adaattn_attention.py::softmax_attention_moments`` at every
-  level and every size: kernel K3 on the card, its query-chunked plain
-  version on CPU tensors.
-- softmax ``"exact"``: the materialized oracle, on any device.
-- softmax ``"train"``, or any other softmax mode whose inputs need a
-  gradient: raises, until K3's backward kernels (the TPU's K4/K5) exist.
+  level and every size, with or without a gradient: on the card kernel K3
+  forward and, where the inputs need a gradient, K4 (dQ) and K5 (dK, dV)
+  backward; on CPU tensors their query-chunked plain versions.
+- softmax ``"exact"``: the materialized oracle (autograd through it), on
+  any device.
 - cosine: the closed linear form (``"exact"``: the materialized oracle),
   plain torch matmuls, no kernel.
-The ``mesh`` (sequence-parallel) branches come with the scale-out slice
-and raise here.
+``stylizing_network(remat=True)`` checkpoints each attention module and
+the decoder (``torch.utils.checkpoint``).  The ``mesh`` (sequence-parallel)
+branches come with the scale-out slice and raise here.
 """
 
 import torch
@@ -31,6 +32,7 @@ from vst_tpu_torch.compat import params_from_jax
 from vst_tpu_torch.device import apply_precision, resolve_device
 from vst_tpu_torch.kernels import adaattn_attention
 from vst_tpu_torch.models.init import as_rng, conv_init
+from vst_tpu_torch.models.remat import segment
 from vst_tpu_torch.ops.conv import conv2d, conv2d_reflect
 from vst_tpu_torch.ops.features import feature_down_sample
 from vst_tpu_torch.ops.norm import instance_norm
@@ -183,11 +185,6 @@ def attention_moments(q, k, v, activation: str, mode: str = "auto",
         return _attention_moments_softmax_exact(q, k, v)
     if mode not in ("auto", "pallas", "chunked", "train"):
         raise ValueError(f"Unknown attention mode: {mode}")
-    if mode == "train" or (torch.is_grad_enabled()
-                           and any(t.requires_grad for t in (q, k, v))):
-        raise NotImplementedError(
-            "softmax attention with a gradient needs K3's backward kernels "
-            "(the TPU's K4/K5), which are not ported yet; use mode='exact'")
     m1, m2, _ = adaattn_attention.softmax_attention_moments(q, k, v)
     return m1, m2
 
@@ -319,22 +316,29 @@ def stylizing_network(params, fc: dict, fs: dict, activation="softmax",
                       mode="auto", mesh=None, mesh_axis="data",
                       remat=False):
     """Full AdaAttN stylizer (network.py:223-251) on ordered VGG19 tap
-    dicts (``models/vgg.py::vgg19_adaattn_features``)."""
+    dicts (``models/vgg.py::vgg19_adaattn_features``).
+
+    ``remat=True`` checkpoints each attention module and the decoder
+    separately (the JAX package's segments): backward holds one segment's
+    internals at a time and recomputes them, K3 included."""
     _no_mesh(mesh)
-    if remat:
-        raise NotImplementedError("remat is a training option; AdaAttN "
-                                  "training is not ported yet")
     apply_precision(next(iter(fc.values())).dtype)
     fcl = list(fc.values())
     fsl = list(fs.values())
+
+    run_module = segment(
+        lambda i, c_x, s_x, c_1x, s_1x: adaattn_module(
+            params, f"adaattn.{i}", c_x, s_x, c_1x, s_1x, activation, mode),
+        remat)
+    run_decoder = segment(
+        lambda x5, x4, x3: decoder(params, x5, x4, x3), remat)
     outs = []
     for i in range(3):
         idx = i + 2
-        outs.append(adaattn_module(
-            params, f"adaattn.{i}", fcl[idx], fsl[idx],
-            feature_down_sample(fcl, idx), feature_down_sample(fsl, idx),
-            activation, mode))
-    return decoder(params, outs[2], outs[1], outs[0])
+        outs.append(run_module(i, fcl[idx], fsl[idx],
+                               feature_down_sample(fcl, idx),
+                               feature_down_sample(fsl, idx)))
+    return run_decoder(outs[2], outs[1], outs[0])
 
 
 # ---------------------------------------------------------------- init

@@ -16,6 +16,7 @@ import torch.nn as nn
 from vst_tpu_torch.compat import params_from_jax
 from vst_tpu_torch.device import apply_precision, resolve_device
 from vst_tpu_torch.models.init import as_rng, conv_init
+from vst_tpu_torch.models.remat import segment
 from vst_tpu_torch.ops.conv import conv2d, max_pool2d
 from vst_tpu_torch.ops.image import vgg_normalize
 
@@ -79,26 +80,35 @@ class VGG19AdaAttN(nn.Module):
                 layers.append(nn.MaxPool2d(2, 2))
         self.features = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor) -> dict:
+    def forward(self, x: torch.Tensor, remat: bool = False) -> dict:
+        """``remat=True`` checkpoints each inter-tap segment, as the JAX
+        package's ``_run`` does: only the taps survive the forward, and
+        backward recomputes one segment's internals at a time."""
         apply_precision(x.dtype)
-        inv = {v: k for k, v in self.TAPS.items()}
         x = vgg_normalize(x)
         out = {}
-        for idx, layer in enumerate(self.features):
+        start = 0
+        for name, idx in self.TAPS.items():
+            x = segment(self._layers, remat)(x, start, idx + 1)
+            out[name] = x
+            start = idx + 1
+        return out
+
+    def _layers(self, x, start, stop):
+        for layer in self.features[start:stop]:
             if isinstance(layer, nn.Conv2d):
                 x = conv2d(x, layer.weight, layer.bias, padding=1)
             elif isinstance(layer, nn.ReLU):
                 x = torch.relu(x)
             else:
                 x = max_pool2d(x)
-            if idx in inv:
-                out[inv[idx]] = x
-        return out
+        return x
 
 
-def vgg19_adaattn_features(vgg: VGG19AdaAttN, x: torch.Tensor) -> dict:
+def vgg19_adaattn_features(vgg: VGG19AdaAttN, x: torch.Tensor,
+                           remat: bool = False) -> dict:
     """AdaAttN tap set of a 0–255 NHWC RGB batch (normalized here)."""
-    return vgg(x)
+    return vgg(x, remat=remat)
 
 
 def build_vgg19_adaattn(state: dict, device="cuda",
