@@ -10,9 +10,16 @@ Phases, each failing loudly (an exception exits non-zero and prints no
 result line):
 
 1. card: nvidia-smi's name and power limit;
-2. build: every kernel of ``vst_tpu_torch/kernels/csrc`` from source;
+2. build: every kernel of ``vst_tpu_torch/kernels/csrc`` from source, with
+   each kernel's registers and spills (ptxas) and, for the bf16 K1/K2
+   (``conv3x3_wgmma``), the output-channel tile, dynamic shared memory and
+   resident blocks per SM at every shape phase 3 runs;
 3. kernels: K1 (without and with its prologue) at (8,128,128,192) and K2
-   at the stem and head packed shapes, bf16 and f32; K3 in bf16 at the
+   at the stem and head packed shapes, bf16 and f32; in bf16 also K1 at
+   the SD1/SD2 width (8,128,128,64) and the 640×360 stream's
+   (8,90,160,192), K2 at the SD1/SD2 packed stems and heads and the
+   stream's packed (8,92,162,·), and two launches of each giving the same
+   bits; K3 in bf16 at the
    three AdaAttN 512² batch-2 level shapes (and at relu3_1's with sharp
    scores of std 10) and in f32 at a ragged shape and the relu4_1 shape;
    K4 and K5 in bf16 at the three AdaAttN training level shapes (256²,
@@ -40,7 +47,8 @@ result line):
 6. timing: each kernel, its plain version and a library yardstick the
    port never calls (cuDNN ``F.conv2d`` of the same conv for K1/K2,
    ``F.scaled_dot_product_attention`` for K3 and its backward for K4/K5)
-   at the main paths' shapes, printed as one JSON ``kernels`` line;
+   at the main paths' shapes, printed as one JSON ``kernels`` line (K1/K2
+   rows also carry ms, TFLOP/s and the bound's share per launch);
 7. profile: device time by kernel over two forwards (train steps) of each
    main path (torch.profiler) and the device's busy share of that window.
 
@@ -49,6 +57,7 @@ the CUDA toolkit (nvcc); no network, no cv2, no PIL.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -182,25 +191,75 @@ def phase_card():
     return smi
 
 
+def ptxas_report(out):
+    """(entry function, registers, spill stores, spill loads, static smem
+    bytes) for each kernel in nvcc's ``-Xptxas -v`` output."""
+    rows, entry, spills = [], None, (0, 0)
+    for line in out.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line:
+            nums = [int(t) for t in line.replace(",", " ").split() if t.isdigit()]
+            spills = (nums[1], nums[2])
+        elif "Used" in line and "registers" in line and entry:
+            words = line.replace(",", " ").split()
+            regs = int(words[words.index("Used") + 1])
+            smem = int(words[words.index("smem") - 2]) if "smem" in words else 0
+            rows.append((entry, regs, *spills, smem))
+            entry = None
+    return rows
+
+
+def _wgmma_config(lib_fn, *args):
+    out = (ctypes.c_int * 3)()
+    rc = lib_fn(*args, out)
+    if rc != 0:
+        raise RuntimeError(f"launch config {args}: CUDA error {rc}")
+    return tuple(out)
+
+
 def phase_build():
     secs = _build.build_all()
     log(f"[2] build: {len(_build.KERNELS)} kernels in {secs:.2f} s")
     for name, out in _build.build_log.items():
-        for line in out.splitlines():
-            if any(s in line for s in ("entry function", "registers",
-                                       "spill")):
-                log(f"  {name}: {line.strip()}")
+        for entry, regs, st, ld, smem in ptxas_report(out):
+            log(f"  {name}: {entry}: {regs} registers, spill stores {st}, "
+                f"loads {ld}, static smem {smem} B")
     for name in _build.KERNELS:
         _build.load(name)
+    k1 = _build.load("res_block").vst_k1_launch_config
+    k1.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    k2 = _build.load("head_conv").vst_k2_launch_config
+    k2.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    for c in sorted({s[3] for s in K1_BF16.values()}):
+        for pro in (0, 1):
+            n, smem, occ = _wgmma_config(k1, c, c, pro)
+            log(f"  K1 conv3x3_wgmma {c}->{c}{' prologue' if pro else ''}: "
+                f"tile N={n}, dynamic smem {smem} B, {occ} block(s)/SM")
+    for c, co in sorted({s[3:] for s in K2_BF16.values()}):
+        n, smem, occ = _wgmma_config(k2, c, co)
+        log(f"  K2 conv3x3_wgmma {c}->{co}: tile N={n} x {-(-co // n)}, "
+            f"dynamic smem {smem} B, {occ} block(s)/SM")
 
 
 K1_SHAPE = (8, 128, 128, 192)
 K2_SHAPES = {"stem": (48, 768), "head": (768, 48)}   # packed (C, Co)
+# bf16 shapes of phase 3: (N, H, W, C) with Co = C for K1; (N, Hp, Wp, C,
+# Co) packed for K2.  The 640×360 stream runs the residual stack at 90×160
+# and the 9×9 layers on a 92×162 packed input.
+K1_BF16 = {"ReCoNet": K1_SHAPE, "SD1/SD2": (8, 128, 128, 64),
+           "stream": (8, 90, 160, 192)}
+K2_BF16 = {"ReCoNet stem": (8, 130, 130, 48, 768),
+           "ReCoNet head": (8, 130, 130, 768, 48),
+           "SD1 stem": (8, 130, 130, 48, 512), "SD1 head": (8, 130, 130, 512, 48),
+           "SD2 stem": (8, 130, 130, 48, 256), "SD2 head": (8, 130, 130, 256, 48),
+           "stream stem": (8, 92, 162, 48, 768),
+           "stream head": (8, 92, 162, 768, 48)}
 
 
-def k1_inputs(g, dtype):
-    n, h, w, c = K1_SHAPE
-    x = rnd(g, K1_SHAPE, 3.0, dtype)
+def k1_inputs(g, dtype, shape=K1_SHAPE):
+    c = shape[3]
+    x = rnd(g, shape, 3.0, dtype)
     wt = rnd(g, (3, 3, c, c), 0.02, dtype)
     b = rnd(g, (c,), 0.02, dtype)
     gamma = rnd(g, (c,), 0.3, shift=1.0)
@@ -208,41 +267,62 @@ def k1_inputs(g, dtype):
     return x, wt, b, gamma, beta
 
 
-def k2_inputs(g, part, dtype):
-    c, co = K2_SHAPES[part]
-    return rnd(g, (8, 130, 130, c), 1.0, dtype), rnd(g, (3, 3, c, co), 0.05, dtype)
+def k2_inputs(g, shape, dtype):
+    n, hp, wp, c, co = shape
+    return rnd(g, (n, hp, wp, c), 1.0, dtype), rnd(g, (3, 3, c, co), 0.05, dtype)
+
+
+def _k1_check(g, dtype, label, shape, tol):
+    """K1 without and with its prologue against the plain version at
+    ``shape``; in bf16 also a second launch of each, which must give the
+    same bits.  Returns the worst y error."""
+    x, wt, b, gamma, beta = k1_inputs(g, dtype, shape)
+    y, s = res_block.conv3x3_in_stats(x, wt, b)
+    yp, sp = res_block.conv3x3_in_stats_plain(x, wt, b)
+    e1 = check(f"K1 {label} {shape} y", y, yp, tol)
+    check(f"K1 {label} stats", s, sp, 1e-4)
+    y2, s2 = res_block.conv3x3_in_stats(y, wt, b, s, gamma, beta)
+    y2p, s2p = res_block.conv3x3_in_stats_plain(y, wt, b, s, gamma, beta)
+    e2 = check(f"K1 {label} prologue y", y2, y2p, tol)
+    check(f"K1 {label} prologue stats", s2, s2p, 1e-4)
+    if dtype == torch.bfloat16:
+        again = (*res_block.conv3x3_in_stats(x, wt, b),
+                 *res_block.conv3x3_in_stats(y, wt, b, s, gamma, beta))
+        if not all(torch.equal(a, r) for a, r in zip(again, (y, s, y2, s2))):
+            raise AssertionError(f"K1 {label}: two launches differ")
+    return max(e1, e2)
+
+
+def _k2_check(g, dtype, label, shape, tol):
+    xk, wk = k2_inputs(g, shape, dtype)
+    yk = head_conv.conv3x3_valid(xk, wk)
+    err = check(f"K2 {label} {shape}", yk,
+                head_conv.conv3x3_valid_plain(xk, wk), tol)
+    if dtype == torch.bfloat16 and not torch.equal(
+            yk, head_conv.conv3x3_valid(xk, wk)):
+        raise AssertionError(f"K2 {label}: two launches differ")
+    return err
 
 
 def phase_kernels(g):
-    """Each kernel against its plain version on the same inputs.
-    Tolerances: f32 1e-4·max|plain| (sums in another order over up to
-    6912 terms); bf16 one bf16 ulp at the output's scale, 2^-7·max|plain|
-    (the f32 sums may round to neighbouring bf16 values); the f32 stats
-    1e-4·max|plain|."""
+    """K1 and K2 against their plain versions on the same inputs: f32 at
+    the ReCoNet 512² shapes, bf16 at every shape of K1_BF16 and K2_BF16,
+    where a second launch must also give the same bits.  Tolerances: f32
+    1e-4·max|plain| (sums in another order over up to 6912 terms); bf16
+    one bf16 ulp at the output's scale, 2^-7·max|plain| (the f32 sums may
+    round to neighbouring bf16 values); the f32 stats 1e-4·max|plain|."""
     log("[3] kernels against their plain versions")
-    errs = {"K1": 0.0, "K2": 0.0}
-    for dtype in (torch.bfloat16, torch.float32):
-        apply_precision(dtype)
-        tol = BF16_ULP if dtype == torch.bfloat16 else 1e-4
-        tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        x, wt, b, gamma, beta = k1_inputs(g, dtype)
-        y, s = res_block.conv3x3_in_stats(x, wt, b)
-        yp, sp = res_block.conv3x3_in_stats_plain(x, wt, b)
-        e1 = check(f"K1 {tag} y", y, yp, tol)
-        check(f"K1 {tag} stats", s, sp, 1e-4)
-        y2, s2 = res_block.conv3x3_in_stats(y, wt, b, s, gamma, beta)
-        y2p, s2p = res_block.conv3x3_in_stats_plain(y, wt, b, s, gamma, beta)
-        e2 = check(f"K1 {tag} prologue y", y2, y2p, tol)
-        check(f"K1 {tag} prologue stats", s2, s2p, 1e-4)
-        for part in K2_SHAPES:
-            xk, wk = k2_inputs(g, part, dtype)
-            e3 = check(f"K2 {tag} {part}", head_conv.conv3x3_valid(xk, wk),
-                       head_conv.conv3x3_valid_plain(xk, wk), tol)
-            if dtype == torch.bfloat16:
-                errs["K2"] = max(errs["K2"], e3)
-        if dtype == torch.bfloat16:
-            errs["K1"] = max(e1, e2)
-        torch.cuda.synchronize()
+    apply_precision(torch.float32)
+    _k1_check(g, torch.float32, "f32", K1_SHAPE, 1e-4)
+    for part, (c, co) in K2_SHAPES.items():
+        _k2_check(g, torch.float32, f"f32 {part}", (8, 130, 130, c, co), 1e-4)
+    apply_precision(torch.bfloat16)
+    errs = {"K1": max(_k1_check(g, torch.bfloat16, f"bf16 {label}", shape,
+                                BF16_ULP) for label, shape in K1_BF16.items()),
+            "K2": max(_k2_check(g, torch.bfloat16, f"bf16 {label}", shape,
+                                BF16_ULP) for label, shape in K2_BF16.items())}
+    log("  bf16 K1 and K2: a second launch gives the same bits at every shape")
+    torch.cuda.synchronize()
     return errs
 
 
@@ -741,7 +821,15 @@ def phase_timing(launches, errs):
           "library_ms": 10 * t["lib"],
           "per": "one 512x512 batch-8 bf16 forward: 5 launches without and "
                  "5 with the prologue at (8,128,128,192)->192",
-          "ms_per_launch": [t["k"], t["k_pro"]]}
+          "ms_per_launch": [t["k"], t["k_pro"]],
+          "tflops_per_launch": [flops / t["k"] / 1e9,
+                                flops / t["k_pro"] / 1e9],
+          "bound_share_per_launch": [b1 / t["k"], b1_pro / t["k_pro"]],
+          "library_ms_per_launch": t["lib"]}
+    log(f"  K1 per launch: {flops / t['k'] / 1e9:.1f} / "
+        f"{flops / t['k_pro'] / 1e9:.1f} TFLOP/s (without / with prologue), "
+        f"bound {b1:.4f} / {b1_pro:.4f} ms ({by1}) = "
+        f"{b1 / t['k']:.3f} / {b1_pro / t['k_pro']:.3f} of the kernel's time")
 
     k2 = {"name": "K2 conv3x3_valid", "route": "cuda",
           "source": "vst_tpu_torch/kernels/csrc/head_conv.cu",
@@ -751,20 +839,25 @@ def phase_timing(launches, errs):
           "library_ms": 0.0,
           "per": "one 512x512 batch-8 bf16 forward: the packed stem "
                  "(8,130,130,48)->768 and head (8,130,130,768)->48",
-          "ms_per_launch": []}
+          "ms_per_launch": [], "tflops_per_launch": [],
+          "bound_share_per_launch": [], "library_ms_per_launch": []}
     by2 = set()
     for part, (c2, co) in K2_SHAPES.items():
-        xk, wk = k2_inputs(g, part, dt)
+        xk, wk = k2_inputs(g, (8, 130, 130, c2, co), dt)
         tk = event_ms(lambda: head_conv.conv3x3_valid(xk, wk))
         tp = event_ms(lambda: head_conv.conv3x3_valid_plain(xk, wk))
         xl = xk.permute(0, 3, 1, 2)
         wl = wk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         tl = event_ms(lambda: F.conv2d(xl, wl))
-        bb, by = bound(2 * 9 * c2 * co * 8 * 128 * 128,
-                       (8 * 130 * 130 * c2 + 9 * c2 * co
-                        + 8 * 128 * 128 * co) * 2, dt)
-        log(f"  K2 {part} ms: kernel {tk:.4f}, plain {tp:.4f}, cuDNN conv "
+        flops2 = 2 * 9 * c2 * co * 8 * 128 * 128
+        bb, by = bound(flops2, (8 * 130 * 130 * c2 + 9 * c2 * co
+                                + 8 * 128 * 128 * co) * 2, dt)
+        log(f"  K2 {part} ms: kernel {tk:.4f} ({flops2 / tk / 1e9:.1f} "
+            f"TFLOP/s, bound share {bb / tk:.3f}), plain {tp:.4f}, cuDNN conv "
             f"{tl:.4f}, bound {bb:.4f} ({by})")
+        k2["tflops_per_launch"].append(flops2 / tk / 1e9)
+        k2["bound_share_per_launch"].append(bb / tk)
+        k2["library_ms_per_launch"].append(tl)
         k2["ms"] += tk
         k2["plain_ms"] += tp
         k2["library_ms"] += tl

@@ -65,6 +65,92 @@ def test_k2(cuda, c, co, dtype, tol):
     assert head_conv.conv3x3_valid.launches == before + 1
 
 
+def _k1_bf16_inputs(cuda, n, h, wd, c, co, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    bf = torch.bfloat16
+    x = (torch.randn(n, h, wd, c, device=cuda, generator=g) * 3).to(bf)
+    w = (torch.randn(3, 3, c, co, device=cuda, generator=g) * 0.05).to(bf)
+    b = (torch.randn(co, device=cuda, generator=g) * 0.05).to(bf)
+    stats = torch.stack([torch.randn(n, c, device=cuda, generator=g),
+                         torch.rand(n, c, device=cuda, generator=g) * 9 + 1], 1)
+    gm = torch.rand(c, device=cuda, generator=g) + 0.5
+    bt = torch.randn(c, device=cuda, generator=g)
+    return x, w, b, (stats, gm, bt)
+
+
+@pytest.mark.parametrize("n,h,wd,c,co", [
+    (2, 128, 128, 192, 192),   # ReCoNet's residual stack (one 192-wide tile)
+    (2, 128, 128, 64, 64),     # SD1/SD2's residual stack
+    (1, 90, 160, 192, 192),    # the 640x360 stream
+    (1, 2, 37, 64, 64),        # the least height, a ragged width
+    (2, 9, 5, 192, 192),       # a width below one tile
+])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_k1_bf16_shapes(cuda, n, h, wd, c, co, prologue):
+    """The wgmma K1 at the model's widths, the stream's ragged size and
+    tiles that overhang the image: y to one bf16 ulp of its scale, the
+    float32 stats to 1e-3."""
+    x, w, b, pro = _k1_bf16_inputs(cuda, n, h, wd, c, co)
+    kw = dict(zip(("stats_in", "gamma", "beta"), pro)) if prologue else {}
+    y, s = res_block.conv3x3_in_stats(x, w, b, **kw)
+    yp, sp = res_block.conv3x3_in_stats_plain(x, w, b, **kw)
+    _close(y, yp, 2.0 ** -7)
+    torch.testing.assert_close(s, sp, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("c,co", [(48, 768), (48, 512), (48, 256),
+                                  (768, 48), (512, 48), (256, 48)])
+def test_k2_bf16_packed_stream_shapes(cuda, c, co):
+    """The packed stems and heads of ReCoNet, SD1 and SD2 at the 640x360
+    stream's packed size (1, 92, 162, C)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(1, 92, 162, c, device=cuda, generator=g).bfloat16()
+    w = (torch.randn(3, 3, c, co, device=cuda, generator=g) * 0.05).bfloat16()
+    _close(head_conv.conv3x3_valid(x, w), head_conv.conv3x3_valid_plain(x, w),
+           2.0 ** -7)
+
+
+@pytest.mark.parametrize("hp,wp", [(3, 40), (20, 7)])
+def test_k2_bf16_one_row_and_narrow(cuda, hp, wp):
+    """One output row, and an output width below one tile."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, hp, wp, 48, device=cuda, generator=g).bfloat16()
+    w = (torch.randn(3, 3, 48, 256, device=cuda, generator=g) * 0.05).bfloat16()
+    _close(head_conv.conv3x3_valid(x, w), head_conv.conv3x3_valid_plain(x, w),
+           2.0 ** -7)
+
+
+def test_k1_k2_bf16_deterministic(cuda):
+    """Two launches on the same inputs give the same bits: y and stats of
+    K1 with and without the prologue, and K2."""
+    x, w, b, (st, gm, bt) = _k1_bf16_inputs(cuda, 2, 40, 56, 192, 192)
+    for kw in ({}, dict(stats_in=st, gamma=gm, beta=bt)):
+        (y1, s1), (y2, s2) = (res_block.conv3x3_in_stats(x, w, b, **kw)
+                              for _ in range(2))
+        assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    xk = x[:, :, :, :48].contiguous()
+    wk = w[:, :, :48, :].contiguous()
+    assert torch.equal(head_conv.conv3x3_valid(xk, wk),
+                       head_conv.conv3x3_valid(xk, wk))
+
+
+def test_k1_partial_blocks_follow_the_library(cuda):
+    """The scratch for K1's partial sums is sized by the library's own
+    count, which differs between the f32 (64-pixel) and the bf16 (8 x 16)
+    tiles: at 9 x 17 bf16 needs 4 blocks where f32 needs 3."""
+    assert res_block.partial_blocks(9, 17, True) == 4
+    assert res_block.partial_blocks(9, 17, False) == 3
+    assert res_block.partial_blocks(128, 128, True) == 128
+    assert res_block.partial_blocks(128, 128, False) == 256
+    for dtype, tol in ((torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-4)):
+        x, w, b, _ = _k1_bf16_inputs(cuda, 3, 9, 17, 64, 64)
+        x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+        y, s = res_block.conv3x3_in_stats(x, w, b)
+        yp, sp = res_block.conv3x3_in_stats_plain(x, w, b)
+        _close(y, yp, tol)
+        torch.testing.assert_close(s, sp, rtol=1e-3, atol=1e-3)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(1, 6, 6, 8, device=cuda)
     w = torch.zeros(3, 3, 8, 4, device=cuda)
@@ -76,6 +162,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         res_block.conv3x3_in_stats(x, w, torch.zeros(5, device=cuda))
     with pytest.raises(ValueError, match="multiples of 8"):
         head_conv.conv3x3_valid(x.bfloat16(), w.bfloat16())
+    off = torch.zeros(6 * 6 * 8 + 1, device=cuda, dtype=torch.bfloat16)
+    w8 = torch.zeros(3, 3, 8, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        head_conv.conv3x3_valid(off[1:].view(1, 6, 6, 8), w8)
 
 
 def test_model_routes_through_the_kernels(cuda):

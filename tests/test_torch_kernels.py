@@ -63,6 +63,33 @@ class TestResBlockPlain:
         np.testing.assert_allclose(st[:, 1].numpy(), np.asarray(sj[:, 1]),
                                    rtol=1e-3, atol=1e-5)
 
+    @pytest.mark.parametrize("prologue", [False, True])
+    def test_conv3x3_in_stats_sd_width(self, rng, prologue):
+        """C = Co = 64, SD1/SD2's residual width (one 64-wide tile of the
+        card's kernel), on a size that is not a multiple of its 8 x 16
+        tile."""
+        x = (rng.standard_normal((2, 10, 20, 64)) * 3).astype(np.float32)
+        w = (rng.standard_normal((3, 3, 64, 64)) * 0.05).astype(np.float32)
+        b = (rng.standard_normal(64) * 0.05).astype(np.float32)
+        kw = {}
+        if prologue:
+            stats = np.stack([rng.standard_normal((2, 64)),
+                              rng.random((2, 64)) + 0.5], 1).astype(np.float32)
+            kw = dict(stats_in=stats,
+                      gamma=(rng.random(64) + 0.5).astype(np.float32),
+                      beta=(rng.standard_normal(64) * 0.1).astype(np.float32))
+        yj, sj = jrb.conv3x3_in_stats(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+            **{k: jnp.asarray(v) for k, v in kw.items()}, interpret=True)
+        yt, st = res_block.conv3x3_in_stats(
+            t(x), t(w), t(b), **{k: t(v) for k, v in kw.items()})
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(st[:, 0].numpy(), np.asarray(sj[:, 0]),
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(st[:, 1].numpy(), np.asarray(sj[:, 1]),
+                                   rtol=1e-3, atol=1e-5)
+
     def test_residual_block_f32(self, rng, params):
         x = (rng.standard_normal((2, 16, 24, 192)) * 3).astype(np.float32)
         ref = jrb.residual_block_fused(params, "res1", jnp.asarray(x),
@@ -93,6 +120,8 @@ class TestHeadConvPlain:
         (2, 16, 32, 24, 12, 8),
         (1, 32, 32, 48, 48, 8),
         (2, 8, 16, 16, 4, 8),
+        (1, 8, 12, 48, 256, 8),    # a packed stem (SD2's width)
+        (1, 8, 12, 256, 48, 8),    # a packed head (SD2's width)
     ])
     def test_matches_pallas(self, rng, n, ho, wo, c, co, bh):
         x = rng.standard_normal((n, ho + 2, wo + 2, c)).astype(np.float32)

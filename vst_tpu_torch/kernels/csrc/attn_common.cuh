@@ -5,7 +5,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "conv3x3_tile.cuh"   // smem_u32, ldmatrix / mma.sync helpers
+#include "mma_sync.cuh"   // smem_u32, ldmatrix / mma.sync helpers
 
 namespace attn {
 

@@ -7,22 +7,30 @@
 //
 // Design against the TPU kernel:
 // - The TPU form reads three row-shifted input slabs that XLA slices out
-//   beforehand; here each block reads its halo rows straight from the
-//   packed input.
-// - The two main-path shapes differ: the stem is C=48 -> Co=768, the head
-//   C=768 -> Co=48.  One tile (128 pixels x 64 channels on the tensor
-//   cores, C in stages of 32) serves both; ragged channel edges are masked
-//   to zero, so the head's 48 channels use 3/4 of the tile.
+//   beforehand; here each block stages its tile's halo straight from the
+//   packed input, once per 64-channel chunk, for all nine taps.
+// - bf16 runs on conv3x3_wgmma (conv3x3_wgmma.cuh).  The two main-path
+//   shapes differ: the stem is C=48 -> Co=768 (one 48-deep chunk, three
+//   output-channel tiles of 256, so each input tile is read three times,
+//   by blocks that run together), the head C=768 -> Co=48
+//   (a 48-wide tile, no zero columns, of 16 x 16 pixels, so each stage
+//   does twice the work of a 128-pixel tile).
 // - The packed head carries 1.78x the arithmetic of the 9x9 conv as
 //   structural zeros.  That is the JAX package's choice, kept here.
 //
 // Bound on the H100 at 512^2 batch 8 bf16: 87.0 GFLOP per launch, stem and
 // head alike, against about 214 MB for the stem (mostly its output) and
 // 221 MB for the head (mostly its 208 MB packed input), so operations
-// bound it (0.088 ms at 989 TFLOP/s against 0.066 ms for the bytes).  bf16
-// runs on the tensor cores with mma.sync (conv3x3_mma), float32 on the CUDA
-// cores (conv3x3_f32).
-#include "conv3x3_tile.cuh"
+// bound it (0.088 ms at 989 TFLOP/s against 0.066 ms for the bytes).
+// float32 runs on the CUDA cores (conv3x3_f32).
+#include "conv3x3_wgmma.cuh"
+
+// bf16 launch configuration for (C, Co): out = {output-channel tile,
+// dynamic shared memory bytes, resident blocks per SM}.  Returns a CUDA
+// error code (0 on success).
+extern "C" int vst_k2_launch_config(int c, int co, int* out) {
+  return static_cast<int>(vst::wg::config<false, false, false>(c, co, out));
+}
 
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int vst_k2_conv3x3_valid(const void* x, const void* w, void* y,
@@ -33,12 +41,9 @@ extern "C" int vst_k2_conv3x3_valid(const void* x, const void* w, void* y,
   ConvArgs a{x, w, nullptr, nullptr, nullptr, nullptr,
              y, nullptr, hp, wp, ho, wo, c, co};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {   // tensor cores; C and Co multiples of 8
-    const dim3 grid((ho * wo + MM - 1) / MM, (co + MN - 1) / MN, n);
-    conv3x3_mma<false, false, false><<<grid, NT, 0, s>>>(a);
-  } else {      // float32 on the CUDA cores
-    const dim3 grid((ho * wo + TM - 1) / TM, (co + TN - 1) / TN, n);
-    conv3x3_f32<false, false, false><<<grid, NT, 0, s>>>(a);
-  }
+  if (bf16)   // tensor cores; C and Co multiples of 8
+    return static_cast<int>(wg::launch<false, false, false>(a, n, s));
+  const dim3 grid((ho * wo + TM - 1) / TM, (co + TN - 1) / TN, n);
+  conv3x3_f32<false, false, false><<<grid, NT, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

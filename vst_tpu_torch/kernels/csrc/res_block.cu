@@ -12,23 +12,28 @@
 // - The TPU carried the sum / sum-of-squares accumulator across its
 //   sequential grid.  Hopper blocks run in no order, so each block writes
 //   its partial sums to a (N, blocks, 2, Co) scratch and finalize_stats
-//   sums them in a fixed order: deterministic, no atomics.
+//   sums them in a fixed order: deterministic, no atomics.  The block
+//   count comes from vst_k1_partial_blocks, which the wrapper calls to
+//   size the scratch.
 // - Rounding points follow JAX: the prologue output is rounded to the
 //   storage type before the conv; the statistics come from the float32
 //   accumulator before y is rounded.
 // - var = sum(y^2)/hw - mean^2, as the JAX kernel computes it (for parity).
 //   This form can cancel when |mean| is large against the spread.
-// - A 192->192 3x3 weight tensor is 648 KB in bf16: it never sits in
-//   shared memory whole; the tile walks Co in blocks of 64 and C in stages
-//   of 32 (29.7 KB of static shared memory on the tensor-core path,
-//   double-buffered; 16.5 KB on the float32 path).
+// - bf16 runs on conv3x3_wgmma (conv3x3_wgmma.cuh): one tile holds all
+//   192 output channels of 128 pixels, so the input is read and the
+//   prologue applied once per pixel per 64-channel chunk; a 192->192 3x3
+//   weight tensor (648 KB) streams through a TMA ring of 64 x 192 stages.
+//   float32 runs on the CUDA cores (conv3x3_f32).
+// - The prologue's mean, scale = gamma * rsqrt(var + eps) and beta come
+//   from one small launch (prologue_params) on the previous conv's stats.
 //
 // Bound on the H100 at the main path's shape ((8,128,128,192) -> 192,
 // bf16): 87.0 GFLOP against about 101 MB, so the work is bound by
-// operations (0.088 ms at 989 TFLOP/s).  bf16 runs on the tensor cores
-// with mma.sync (conv3x3_mma); without TMA, wgmma or a deeper pipeline it
-// stays well above that bound.  float32 runs on the CUDA cores.
-#include "conv3x3_tile.cuh"
+// operations (0.088 ms at 989 TFLOP/s).  The kernel reaches about half of
+// that rate: its consumers keep wgmma busy, and what is left is the
+// tensor cores' rate on this tile shape plus the epilogue (PERF.md).
+#include "conv3x3_wgmma.cuh"
 
 namespace vst {
 
@@ -49,46 +54,86 @@ __global__ void finalize_stats(const float* __restrict__ partial,
   stats[(size_t)n * 2 * co + co + o] = __fsub_rn(s2 / hw, __fmul_rn(mean, mean));
 }
 
-// Launches the conv and returns its grid's block count along the pixels
-// (the number of partial sums per image): bf16 on the tensor cores,
-// float32 on the CUDA cores.
+// The prologue's per-image mean and scale = gamma * rsqrt(var + eps) and
+// beta, as float32 arrays, from the previous conv's (N, 2, C) statistics
+// and gamma, beta (float32, or bf16 when gb_bf16): the arithmetic of the
+// plain version's _prologue, in one launch.
+__global__ void prologue_params(const float* __restrict__ stats_in,
+                                const void* gamma, const void* beta,
+                                int gb_bf16, float* __restrict__ mean,
+                                float* __restrict__ scale,
+                                float* __restrict__ beta_out, int n, int c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n * c) return;
+  const int img = i / c, ch = i - (i / c) * c;
+  const float g = gb_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(gamma)[ch])
+                          : static_cast<const float*>(gamma)[ch];
+  mean[i] = stats_in[(size_t)img * 2 * c + ch];
+  scale[i] = __fmul_rn(g, rsqrtf(__fadd_rn(stats_in[(size_t)img * 2 * c + c + ch], 1e-5f)));
+  if (img == 0)
+    beta_out[ch] = gb_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(beta)[ch])
+                           : static_cast<const float*>(beta)[ch];
+}
+
+// Blocks along one image's pixels: the partial sums per image.
+int partial_blocks(int h, int wd, bool bf16) {
+  return bf16 ? wg::tiles(h, wd) : (h * wd + TM - 1) / TM;
+}
+
 template <bool PRO>
-int launch(const ConvArgs& a, int n, bool bf16, cudaStream_t s) {
-  const int hw = a.h_out * a.w_out;
-  if (bf16) {
-    const dim3 grid((hw + MM - 1) / MM, (a.co + MN - 1) / MN, n);
-    conv3x3_mma<true, PRO, true><<<grid, NT, 0, s>>>(a);
-    return grid.x;
-  }
-  const dim3 grid((hw + TM - 1) / TM, (a.co + TN - 1) / TN, n);
+cudaError_t launch(const ConvArgs& a, int n, bool bf16, cudaStream_t s) {
+  if (bf16) return wg::launch<true, PRO, true>(a, n, s);
+  const dim3 grid(partial_blocks(a.h_out, a.w_out, false), (a.co + TN - 1) / TN, n);
   conv3x3_f32<true, PRO, true><<<grid, NT, 0, s>>>(a);
-  return grid.x;
+  return cudaGetLastError();
 }
 
 }  // namespace vst
 
-// Returns cudaGetLastError() after the two launches (0 on success).
-// pro_mean == nullptr means no prologue.  bf16 != 0 selects __nv_bfloat16
-// storage (C and Co multiples of 8), else float32.  partial: (n, ceil(h*wd/64), 2, co) float32, room
-// for either path's partial sums.
+// The number of partial-sum blocks per image that vst_k1_conv3x3_in_stats
+// writes for an (h, wd) image: the scratch is (n, this, 2, co) float32.
+extern "C" int vst_k1_partial_blocks(int h, int wd, int bf16) {
+  return vst::partial_blocks(h, wd, bf16 != 0);
+}
+
+// bf16 launch configuration for (C, Co): out = {output-channel tile,
+// dynamic shared memory bytes, resident blocks per SM}.  Returns a CUDA
+// error code (0 on success).
+extern "C" int vst_k1_launch_config(int c, int co, int prologue, int* out) {
+  return static_cast<int>(prologue ? vst::wg::config<true, true, true>(c, co, out)
+                                   : vst::wg::config<true, false, true>(c, co, out));
+}
+
+// Returns cudaGetLastError() after the launches (0 on success).
+// stats_in == nullptr means no prologue; else stats_in (n, 2, c) float32,
+// gamma and beta (c,) float32 or, with gb_bf16, bf16, and pro a float32
+// scratch of 2 * n * c + c.  bf16 != 0 selects __nv_bfloat16 storage (C
+// and Co multiples of 8), else float32.  partial: (n,
+// vst_k1_partial_blocks(h, wd, bf16), 2, co) float32.
 extern "C" int vst_k1_conv3x3_in_stats(
-    const void* x, const void* w, const void* b, const void* pro_mean,
-    const void* pro_scale, const void* pro_beta, void* y, void* partial,
-    void* stats, int n, int h, int wd, int c, int co, int bf16,
-    void* stream) {
+    const void* x, const void* w, const void* b, const void* stats_in,
+    const void* gamma, const void* beta, int gb_bf16, void* pro, void* y,
+    void* partial, void* stats, int n, int h, int wd, int c, int co,
+    int bf16, void* stream) {
   using namespace vst;
-  ConvArgs a{x, w, b,
-             static_cast<const float*>(pro_mean),
-             static_cast<const float*>(pro_scale),
-             static_cast<const float*>(pro_beta),
+  float* mean = stats_in != nullptr ? static_cast<float*>(pro) : nullptr;
+  float* scale = mean != nullptr ? mean + (size_t)n * c : nullptr;
+  float* beta_f = mean != nullptr ? scale + (size_t)n * c : nullptr;
+  ConvArgs a{x, w, b, mean, scale, beta_f,
              y, static_cast<float*>(partial), h, wd, h, wd, c, co};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nblk = pro_mean != nullptr ? launch<true>(a, n, bf16 != 0, s)
-                                       : launch<false>(a, n, bf16 != 0, s);
-  cudaError_t err = cudaGetLastError();
+  if (stats_in != nullptr) {
+    prologue_params<<<(n * c + 255) / 256, 256, 0, s>>>(
+        static_cast<const float*>(stats_in), gamma, beta, gb_bf16, mean,
+        scale, beta_f, n, c);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const cudaError_t err = stats_in != nullptr ? launch<true>(a, n, bf16 != 0, s)
+                                              : launch<false>(a, n, bf16 != 0, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   finalize_stats<<<dim3((co + 127) / 128, n), 128, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(stats), nblk,
-      co, static_cast<float>(h * wd));
+      static_cast<const float*>(partial), static_cast<float*>(stats),
+      partial_blocks(h, wd, bf16 != 0), co, static_cast<float>(h * wd));
   return static_cast<int>(cudaGetLastError());
 }

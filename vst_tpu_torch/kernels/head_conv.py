@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from vst_tpu_torch.kernels import _build
 
+
 @functools.cache
 def _kernel():
     fn = _build.load("head_conv").vst_k2_conv3x3_valid
@@ -57,6 +58,9 @@ def conv3x3_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bfloat16 and (c % 8 or co % 8):
         raise ValueError(f"conv3x3_valid: bf16 needs C and Co multiples of "
                          f"8, got {c}, {co}")
+    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("conv3x3_valid: bf16 x and w must start on 16 bytes "
+                         "(the kernel reads them as 16-byte vectors)")
     y = torch.empty((n, hp - 2, wp - 2, co), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -21,15 +21,30 @@ from vst_tpu_torch.kernels import _build
 from vst_tpu_torch.ops.pad import reflection_pad2d
 
 EPS = 1e-5   # torch InstanceNorm2d default
-_TM = 64     # output pixels per block (csrc/conv3x3_tile.cuh)
 
 
 @functools.cache
 def _kernel():
     fn = _build.load("res_block").vst_k1_conv3x3_in_stats
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def partial_blocks(h: int, wd: int, bf16: bool) -> int:
+    """Blocks per image whose partial statistics K1 writes for an (h, wd)
+    image, from the kernel library itself (the tile lives in csrc/)."""
+    fn = _build.load("res_block").vst_k1_partial_blocks
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(h, wd, int(bf16))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _prologue(stats_in, gamma, beta):
@@ -81,11 +96,19 @@ def _check(x, w, b, stats_in, gamma, beta):
             or tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,)):
         raise ValueError("conv3x3_in_stats: stats_in must be (N, 2, C) and "
                          "gamma, beta (C,)")
+    if stats_in is not None and (
+            gamma.dtype not in (torch.float32, torch.bfloat16)
+            or beta.dtype != gamma.dtype):
+        raise TypeError(f"conv3x3_in_stats: gamma {gamma.dtype} and beta "
+                        f"{beta.dtype} must both be float32 or bfloat16")
     if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
         raise ValueError("conv3x3_in_stats: x, w and b must be contiguous")
     if x.dtype == torch.bfloat16 and (c % 8 or co % 8):
         raise ValueError(f"conv3x3_in_stats: bf16 needs C and Co multiples "
                          f"of 8, got {c}, {co}")
+    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("conv3x3_in_stats: bf16 x and w must start on 16 "
+                         "bytes (the kernel reads them as 16-byte vectors)")
 
 
 def conv3x3_in_stats(x, w, b, stats_in=None, gamma=None, beta=None):
@@ -94,28 +117,32 @@ def conv3x3_in_stats(x, w, b, stats_in=None, gamma=None, beta=None):
 
     3×3 conv of the reflect-padded input with HWIO weights w (3, 3, C, Co)
     and bias b (Co,), all float32 (CUDA cores) or all bfloat16 (tensor
-    cores; C and Co multiples of 8).  With ``stats_in``/``gamma``/``beta`` the input is
-    first normalized with those per-image statistics and relu'd (the res
-    block's middle normalize+relu, fused into the second conv)."""
+    cores; C and Co multiples of 8).  With ``stats_in`` (B, 2, C) and
+    ``gamma``, ``beta`` (C,) (float32 or bfloat16) the input is first
+    normalized with those per-image statistics and relu'd (the res block's
+    middle normalize+relu, fused into the second conv); the library
+    derives the scale = γ·rsqrt(var + eps) itself, in one launch."""
     if x.device.type == "cpu":
         return conv3x3_in_stats_plain(x, w, b, stats_in, gamma, beta)
     _check(x, w, b, stats_in, gamma, beta)
     n, h, wd, c = x.shape
     co = w.shape[3]
-    nblk = -(-(h * wd) // _TM)
+    nblk = partial_blocks(h, wd, x.dtype == torch.bfloat16)
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
     partial = torch.empty((n, nblk, 2, co), **f32)
     stats = torch.empty((n, 2, co), **f32)
-    pro = (None, None, None)
+    pro = [None] * 4   # stats_in, gamma, beta and the prologue's scratch
     if stats_in is not None:
-        pro = _prologue(stats_in, gamma, beta)
+        pro = [stats_in.float().contiguous(), gamma.contiguous(),
+               beta.contiguous(), torch.empty(2 * n * c + c, **f32)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel()(
             x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in pro),
-            y.data_ptr(), partial.data_ptr(), stats.data_ptr(),
+            *(_ptr(t) for t in pro[:3]),
+            int(stats_in is not None and gamma.dtype == torch.bfloat16),
+            _ptr(pro[3]), y.data_ptr(), partial.data_ptr(), stats.data_ptr(),
             n, h, wd, c, co, int(x.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"K1 conv3x3_in_stats launch failed: CUDA error {rc}")
