@@ -13,7 +13,8 @@ result line):
 2. build: every kernel of ``vst_tpu_torch/kernels/csrc`` from source, with
    each kernel's registers and spills (ptxas) and, for the bf16 K1/K2
    (``conv3x3_wgmma``), the output-channel tile, dynamic shared memory and
-   resident blocks per SM at every shape phase 3 runs;
+   resident blocks per SM at every shape phase 3 runs, and the same for
+   the bf16 K4/K5;
 3. kernels: K1 (without and with its prologue) at (8,128,128,192) and K2
    at the stem and head packed shapes, bf16 and f32; in bf16 also K1 at
    the SD1/SD2 width (8,128,128,64) and the 640×360 stream's
@@ -23,9 +24,12 @@ result line):
    three AdaAttN 512² batch-2 level shapes (and at relu3_1's with sharp
    scores of std 10) and in f32 at a ragged shape and the relu4_1 shape;
    K4 and K5 in bf16 at the three AdaAttN training level shapes (256²,
-   batch 8; relu3_1's also with sharp scores) and in f32 at a ragged
-   shape and the same three; each against its plain version on the same
-   inputs;
+   batch 8; relu3_1's also with sharp scores), at the edges of their
+   output slices (d = 520: two dQ/dK slices, the last ragged; c = 264:
+   two dV slices, the last ragged; n ≠ m, both off the 64-row tile) and
+   with a broadcast (stride-0) K/V and a broadcast Q at d = 448, each
+   launched twice for the same bits, and in f32 at a ragged shape and
+   the same three; each against its plain version on the same inputs;
 4. model: the f32 ReCoNet forward through the kernels against the same
    forward through the plain versions at 1×256×256, the f32 AdaAttN
    forward (softmax through K3 against the plain version, cosine against
@@ -48,12 +52,24 @@ result line):
    port never calls (cuDNN ``F.conv2d`` of the same conv for K1/K2,
    ``F.scaled_dot_product_attention`` for K3 and its backward for K4/K5)
    at the main paths' shapes, printed as one JSON ``kernels`` line (K1/K2
-   rows also carry ms, TFLOP/s and the bound's share per launch);
+   rows also carry ms, TFLOP/s and the bound's share per launch; K4/K5
+   rows the same per level, and the f32 K3/K4/K5 times at the three
+   training levels as ``ms_f32``); K4/K5's executed-work factor per level
+   is logged, from the slice widths the built library reports;
 7. profile: device time by kernel over two forwards (train steps) of each
    main path (torch.profiler) and the device's busy share of that window.
 
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card and
 the CUDA toolkit (nvcc); no network, no cv2, no PIL.
+
+    python3 chip_smoke.py --f32-step
+
+breaks down the f32 AdaAttN image step alone (the config default): the
+f32 K3, K4 and K5 at the three training levels, the step's time and its
+device time by kernel.  It calls only the K3-K5 wrappers and the image
+step builder, whose interfaces date from the port's training slice, so a
+copy of this script placed beside an older checkout's ``vst_tpu_torch``
+measures that checkout the same way.
 """
 
 import contextlib
@@ -210,8 +226,8 @@ def ptxas_report(out):
     return rows
 
 
-def _wgmma_config(lib_fn, *args):
-    out = (ctypes.c_int * 3)()
+def _wgmma_config(lib_fn, *args, size=3):
+    out = (ctypes.c_int * size)()
     rc = lib_fn(*args, out)
     if rc != 0:
         raise RuntimeError(f"launch config {args}: CUDA error {rc}")
@@ -240,6 +256,13 @@ def phase_build():
         n, smem, occ = _wgmma_config(k2, c, co)
         log(f"  K2 conv3x3_wgmma {c}->{co}: tile N={n} x {-(-co // n)}, "
             f"dynamic smem {smem} B, {occ} block(s)/SM")
+    k45 = _build.load("adaattn_bwd").vst_k45_launch_config
+    k45.argtypes = [ctypes.c_void_p]
+    smem, occ4, occ5, slice_dq, slice_dv = _wgmma_config(k45, size=5)
+    log(f"  K4/K5 bf16 (wgmma): dynamic smem {smem} B, {occ4} / {occ5} "
+        f"block(s)/SM, output slices of {slice_dq} dQ/dK and {slice_dv} dV "
+        f"columns")
+    return slice_dq, slice_dv
 
 
 K1_SHAPE = (8, 128, 128, 192)
@@ -375,10 +398,16 @@ TRAIN_LEVELS = [(4096, 448, 256), (1024, 960, 512), (256, 1472, 512)]
 TRAIN_BATCH = 8
 
 
-def k45_inputs(g, b, n, m, d, c, dtype, score_std=1.0):
+def k45_inputs(g, b, n, m, d, c, dtype, score_std=1.0, broadcast=""):
     """K3's inputs, the plain forward's M1, M2, L on them, unit-scale
-    cotangents in the inputs' type and the row term D."""
+    cotangents in the inputs' type and the row term D.  ``broadcast``:
+    "kv" for one K and V for the batch, "q" for one Q, read through a
+    batch stride of 0."""
     q, k, v = k3_inputs(g, b, n, m, d, c, dtype, score_std)
+    if "q" in broadcast:
+        q = q[:1].expand(b, -1, -1)
+    if "kv" in broadcast:
+        k, v = k[:1].expand(b, -1, -1), v[:1].expand(b, -1, -1)
     m1, m2, lse = adaattn_attention.softmax_attention_moments_plain(q, k, v)
     dm1, dm2 = rnd(g, (b, n, c), 1.0, dtype), rnd(g, (b, n, c), 1.0, dtype)
     dd = adaattn_attention.row_term(m1, m2, dm1, dm2)
@@ -388,23 +417,37 @@ def k45_inputs(g, b, n, m, d, c, dtype, score_std=1.0):
 def phase_kernels_k45(g):
     """K4 (dQ) and K5 (dK, dV) against their plain versions on the same
     inputs and cotangents: bf16 at the three AdaAttN training level shapes
-    (256², batch 8) and at relu3_1's with sharp scores of std 10; f32 at a
-    ragged shape and at the three level shapes (the f32 image step, the
-    config default, launches both at all three).  Tolerances, of each
-    output's scale: bf16 2^-6 (one bf16 ulp of the output rounding plus A
-    and dS rounded to bf16 from f32 values summed in another order); f32
-    1e-4 (sums in another order over up to 4096 terms)."""
+    (256², batch 8), at relu3_1's with sharp scores of std 10, at the
+    edges of the output slices (d = 520, c = 264, n = 300 ≠ m = 200) and
+    with a stride-0 K/V and a stride-0 Q at d = 448, where a second launch
+    must give the same bits; f32 at a ragged shape and at the three level
+    shapes (the f32 image step, the config default, launches both at all
+    three).  Tolerances, of each output's scale: bf16 2^-6 (one bf16 ulp
+    of the output rounding plus A and dS rounded to bf16 from f32 values
+    summed in another order); f32 1e-4 (sums in another order over up to
+    4096 terms)."""
     errs = {"K4": 0.0, "K5": 0.0}
     levels = [(TRAIN_BATCH, n, n, d, c) for n, d, c in TRAIN_LEVELS]
-    cases = [("bf16", torch.bfloat16, shape, 1.0) for shape in levels]
-    cases += [("bf16 sharp", torch.bfloat16, levels[0], 10.0),
-              ("f32", torch.float32, (2, 300, 520, 96, 64), 1.0)]
-    cases += [("f32", torch.float32, shape, 1.0) for shape in levels]
-    for tag, dtype, shape, score_std in cases:
+    cases = [("bf16", torch.bfloat16, shape, 1.0, "") for shape in levels]
+    cases += [("bf16 sharp", torch.bfloat16, levels[0], 10.0, ""),
+              ("bf16 slice edges", torch.bfloat16, (2, 300, 200, 520, 264),
+               1.0, ""),
+              ("bf16 stride-0 K/V", torch.bfloat16, (4, 200, 330, 448, 256),
+               1.0, "kv"),
+              ("bf16 stride-0 Q", torch.bfloat16, (4, 200, 330, 448, 256),
+               1.0, "q"),
+              ("f32", torch.float32, (2, 300, 520, 96, 64), 1.0, "")]
+    cases += [("f32", torch.float32, shape, 1.0, "") for shape in levels]
+    for tag, dtype, shape, score_std, bcast in cases:
         apply_precision(dtype)
-        args = k45_inputs(g, *shape, dtype, score_std)
+        args = k45_inputs(g, *shape, dtype, score_std, bcast)
         dq = adaattn_attention.softmax_attention_dq(*args)
         dk, dv = adaattn_attention.softmax_attention_dkv(*args)
+        if dtype == torch.bfloat16 and not (
+                torch.equal(dq, adaattn_attention.softmax_attention_dq(*args))
+                and all(torch.equal(a, b) for a, b in zip(
+                    (dk, dv), adaattn_attention.softmax_attention_dkv(*args)))):
+            raise AssertionError(f"K4/K5 {tag} {shape}: two launches differ")
         pq = adaattn_attention.softmax_attention_dq_plain(*args)
         pk, pv = adaattn_attention.softmax_attention_dkv_plain(*args)
         tol = 2 * BF16_ULP if dtype == torch.bfloat16 else 1e-4
@@ -416,6 +459,7 @@ def phase_kernels_k45(g):
             errs["K4"] = max(errs["K4"], e4)
             errs["K5"] = max(errs["K5"], e5)
         del args, dq, dk, dv, pq, pk, pv
+    log("  bf16 K4 and K5: a second launch gives the same bits at every shape")
     torch.cuda.synchronize()
     return errs
 
@@ -934,15 +978,31 @@ def _sdpa_backend(fn):
     return "math"
 
 
-def timing_k45(launches, errs):
+def executed_work(kid, d, c, slice_dq, slice_dv):
+    """The multiply-adds bf16 K4 or K5 runs as a multiple of the least
+    (4nm(d + c), 4nmd + 8nmc): each of the s dQ/dK output slices computes
+    S (2nmd) and dA (4nmc), each of the r dV slices S; the slice widths
+    are the built library's (``vst_k45_launch_config``)."""
+    s, r = -(-d // slice_dq), -(-c // slice_dv)
+    if kid == "K4":
+        return (s * (2 * d + 4 * c) + 2 * d) / (4 * d + 4 * c)
+    return (s * (2 * d + 4 * c) + 2 * d + r * 2 * d + 4 * c) / (4 * d + 8 * c)
+
+
+def timing_k45(launches, errs, slices):
     """K4, K5 and their plain versions at the three AdaAttN training level
-    shapes (256², batch 8), bf16, one launch each per level per step.
-    Library yardstick (never called by the port): the backward of
-    ``F.scaled_dot_product_attention(q, k, [V, V∘V], scale=1)`` by
-    ``torch.autograd.grad``, which returns dQ, dK and dV together; it is
-    put beside both kernels.  Bounds: FLOPs 4nm(d + c) (K4) and
-    4nmd + 8nmc (K5) per image on the tensor cores; bytes q, k, v, dM1,
-    dM2 (bf16) and L, D (f32) read once, the outputs written once."""
+    shapes (256², batch 8), bf16, one launch each per level per step, with
+    the executed-work factor of each level (logged; ``slices`` are the
+    library's output slice widths), TFLOP/s on the least work and the
+    bound's share of the kernel's time.  Library yardstick (never
+    called by the port): the backward of ``F.scaled_dot_product_attention(
+    q, k, [V, V∘V], scale=1)`` by ``torch.autograd.grad``, which returns
+    dQ, dK and dV together; it is put beside both kernels.  Bounds: FLOPs
+    4nm(d + c) (K4) and 4nmd + 8nmc (K5) per image on the tensor cores;
+    bytes q, k, v, dM1, dM2 (bf16) and L, D (f32) read once, the outputs
+    written once.  Also one f32 launch each of K3, K4 and K5 per level
+    (the f32 image step, the config default, runs them there): returned
+    as the K3 time and put in the K4/K5 rows as ``ms_f32``."""
     log("[6] K4, K5 at the AdaAttN training level shapes (256² b8, bf16)")
     g = torch.Generator(device="cuda").manual_seed(5)
     dt = torch.bfloat16
@@ -965,7 +1025,10 @@ def timing_k45(launches, errs):
             "per": "one AdaAttN 256x256 batch-8 bf16 image train step: "
                    "(n=m, d, c) = (4096, 448, 256), (1024, 960, 512), "
                    "(256, 1472, 512)",
-            "ms_per_launch": [], "library": None})
+            "ms_per_launch": [], "tflops_per_launch": [],
+            "bound_share_per_launch": [], "ms_f32": 0.0,
+            "ms_f32_per_launch": [], "library": None})
+    k3_f32 = []
     for n, d, c in TRAIN_LEVELS:
         args = k45_inputs(g, TRAIN_BATCH, n, n, d, c, dt)
         q, k, v, lse, dd, dm1, dm2 = args
@@ -986,28 +1049,50 @@ def timing_k45(launches, errs):
             out_elems = n * d if kid == "K4" else n * (d + c)
             nbytes = TRAIN_BATCH * (2 * (2 * n * d + n * c + 2 * n * c)
                                     + 8 * n + 2 * out_elems)
-            bb, by = bound(TRAIN_BATCH * r["flops"](n, d, c), nbytes, dt)
+            flops = TRAIN_BATCH * r["flops"](n, d, c)
+            bb, by = bound(flops, nbytes, dt)
+            work = executed_work(kid, d, c, *slices)
             log(f"  {kid} (n={n}, d={d}, c={c}) ms: kernel {tk:.4f} "
-                f"({TRAIN_BATCH * r['flops'](n, d, c) / tk / 1e9:.1f} TFLOP/s), "
-                f"plain {tp:.4f}, SDPA backward ({backend}) {tl:.4f}, bound "
+                f"({flops / tk / 1e9:.1f} TFLOP/s on the least work, "
+                f"executed {work:.3f}x it, bound share {bb / tk:.3f}), plain "
+                f"{tp:.4f}, SDPA backward ({backend}) {tl:.4f}, bound "
                 f"{bb:.4f} ({by})")
             row["ms"] += tk
             row["plain_ms"] += tp
             row["library_ms"] += tl
             row["bound_ms"] += bb
             row["ms_per_launch"].append(tk)
+            row["tflops_per_launch"].append(flops / tk / 1e9)
+            row["bound_share_per_launch"].append(bb / tk)
             row["library"] = (f"backward of F.scaled_dot_product_attention "
                               f"({backend}), dQ, dK, dV together")
             if bb >= r.get("top", 0.0):   # what bounds the largest level
                 r["top"], row["bound_by"] = bb, by
-        del args, q, k, v, vv, leaves, out, go
+        del vv, leaves, out, go
+        # f32: one timed launch each, on the same values
+        apply_precision(torch.float32)
+        a32 = [x.float() for x in args]
+        k3_f32.append(event_ms(lambda: adaattn_attention.softmax_attention_moments(
+            *a32[:3]), reps=1, warmup=1))
+        for kid, r in rows.items():
+            t32 = event_ms(lambda: r["fn"](*a32), reps=1, warmup=1)
+            r["row"]["ms_f32"] += t32
+            r["row"]["ms_f32_per_launch"].append(t32)
+        log(f"  f32 (n={n}, d={d}, c={c}) ms: K3 {k3_f32[-1]:.3f}, K4 "
+            f"{rows['K4']['row']['ms_f32_per_launch'][-1]:.3f}, K5 "
+            f"{rows['K5']['row']['ms_f32_per_launch'][-1]:.3f}")
+        apply_precision(dt)
+        del args, a32, q, k, v, lse, dd, dm1, dm2
+    k4, k5 = rows["K4"]["row"], rows["K5"]["row"]
+    log(f"  K4 + K5 per bf16 step: {k4['ms'] + k5['ms']:.4f} ms against the "
+        f"SDPA backward's {k4['library_ms']:.4f} ms")
     torch.cuda.synchronize()
-    return [r["row"] for r in rows.values()]
+    return [k4, k5], k3_f32
 
 
-def _profile(label, forward):
+def _profile(label, forward, top=14):
     """Device time by operator over two forwards (torch.profiler), and the
-    device's busy share of the window's wall time."""
+    device's busy share of the window's wall time; the ``top`` rows."""
     from torch.profiler import ProfilerActivity, profile
 
     forward()
@@ -1034,7 +1119,7 @@ def _profile(label, forward):
     log(f"  {label}: window {wall_ms:.3f} ms wall, {busy_ms:.3f} ms device "
         f"time → busy {100 * busy_ms / wall_ms:.1f}%; {per_forward} device "
         f"kernels and copies per forward")
-    for e in rows[:14]:
+    for e in rows[:top]:
         if dev_us(e) <= 0:
             break
         log(f"  {dev_us(e) / 2e3:9.3f} ms/forward  x{e.count // 2:<4d} "
@@ -1063,14 +1148,52 @@ def phase_profile():
              lambda: step(state, batch))
 
 
-def main():
+def phase_f32_step():
+    """``--f32-step``: f32 K3, K4 and K5 per launch at the three training
+    levels (256² b8; event time over 5 launches after 1), then the f32
+    image step at the config's settings (2 warmup and 8 timed steps, the
+    checks of [5]) and its device time by kernel over two steps."""
+    log("[f32] AdaAttN image step 256² b8 float32, broken down")
+    log(f"  build: {_build.build_all():.2f} s")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    apply_precision(torch.float32)
+    att = adaattn_attention
+    for n, d, c in TRAIN_LEVELS:
+        args = k45_inputs(g, TRAIN_BATCH, n, n, d, c, torch.float32)
+        ms = [event_ms(lambda: fn(*a), reps=5, warmup=1) for fn, a in (
+            (att.softmax_attention_moments, args[:3]),
+            (att.softmax_attention_dq, args), (att.softmax_attention_dkv, args))]
+        log(f"  f32 (n={n}, d={d}, c={c}) ms per launch: K3 {ms[0]:.4f}, K4 "
+            f"{ms[1]:.4f}, K5 {ms[2]:.4f}")
+        del args
+    rng = np.random.default_rng(8)
+    cfg = AdaAttNImageConfig()
+    batch = _image_batch(rng, cfg.batch_size, cfg.crop_size)
+    _train_run("image float32", cfg, make_adaattn_image_step, batch, 8, 2,
+               (6, 3, 3))
+    state = create(init_stylizing_network(1, device="cuda"), cfg.lr)
+    step = make_adaattn_image_step(cfg, init_vgg19_adaattn(0, device="cuda"))
+    _profile("AdaAttN train 256² b8 f32 image step",
+             lambda: step(state, batch), top=24)
+
+
+def main(argv):
     if not torch.cuda.is_available():
         print("error: no CUDA device; chip_smoke.py runs only on a GPU",
               file=sys.stderr)
         return 1
+    if argv not in ([], ["--f32-step"]):
+        print(f"usage: chip_smoke.py [--f32-step]; got {argv}",
+              file=sys.stderr)
+        return 2
     t0 = time.perf_counter()
     smi = phase_card()
-    phase_build()
+    if argv:
+        phase_f32_step()
+        log(f"wall {time.perf_counter() - t0:.1f} s")
+        log(smi)
+        return 0
+    slices = phase_build()
     g = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernels(g)
     errs["K3"] = phase_kernels_k3(g)
@@ -1082,8 +1205,13 @@ def main():
     by_path = {"serving": launches["K3"], "training": train["K3"]}
     launches["K3"] += train["K3"]
     launches.update(K4=train["K4"], K5=train["K5"])
-    kernels = phase_timing(launches, errs) + timing_k45(launches, errs)
+    k45_rows, k3_f32 = timing_k45(launches, errs, slices)
+    kernels = phase_timing(launches, errs) + k45_rows
     kernels[2]["launches_by_path"] = by_path
+    kernels[2]["ms_f32"] = sum(k3_f32)
+    kernels[2]["ms_f32_per_launch"] = k3_f32
+    kernels[2]["ms_f32_per"] = ("one f32 launch at each AdaAttN training "
+                                "level (256x256 batch 8)")
     phase_profile()
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB; wall {time.perf_counter() - t0:.1f} s")
@@ -1096,4 +1224,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

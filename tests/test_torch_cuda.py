@@ -329,9 +329,15 @@ def test_adaattn_routes_through_k3(cuda):
 TRAIN_LEVELS = [(4096, 448, 256), (1024, 960, 512), (256, 1472, 512)]
 
 
-def _bwd_inputs(cuda, b, n, m, d, c, dtype, scale=1.0):
-    q, k, v = _k3_inputs(cuda, b, n, m, d, c, dtype)
+def _bwd_inputs(cuda, b, n, m, d, c, dtype, scale=1.0, broadcast=""):
+    """``broadcast``: "kv" for one K and V for the batch, "q" for one Q,
+    each read through a batch stride of 0."""
+    q, k, v = _k3_inputs(cuda, b, n, m, d, c, dtype, "kv" in broadcast)
     q, k = (q.float() * scale).to(dtype), (k.float() * scale).to(dtype)
+    if "kv" in broadcast:   # the scaled K is a new tensor: broadcast it again
+        k = k[:1].expand(b, -1, -1)
+    if "q" in broadcast:
+        q = q[:1].expand(b, -1, -1)
     m1, m2, lse = adaattn_attention.softmax_attention_moments_plain(q, k, v)
     g = torch.Generator(device=cuda).manual_seed(n * m)
     dm1 = torch.randn(b, n, c, device=cuda, generator=g).to(dtype)
@@ -343,15 +349,19 @@ def _bwd_inputs(cuda, b, n, m, d, c, dtype, scale=1.0):
                                            (1024, 1024, 960, 512, 1.0),
                                            (256, 256, 1472, 512, 1.0),
                                            (300, 520, 96, 64, 1.0),
-                                           (200, 330, 448, 256, 10.0)])
+                                           (200, 330, 448, 256, 10.0),
+                                           (300, 200, 520, 264, 1.0)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2.0 ** -6)])
 def test_k4_k5(cuda, n, m, d, c, scale, dtype, tol):
     """dQ, dK, dV against the plain backward on the same inputs and
-    cotangents: the three trainer level shapes, a ragged one, and scores
-    sharpened by q, k × 10.  bf16 within 2^-6 of each output's scale (one
-    bf16 ulp of the output rounding plus dS and A rounded to bf16 from f32
-    values summed in another order); f32 within 1e-4 of the scale."""
+    cotangents: the three trainer level shapes, a ragged one, scores
+    sharpened by q, k × 10, and the edges of bf16's output slices (d = 520:
+    two dQ/dK slices of 512, the last of 8 columns; c = 264: two dV slices
+    of 256, the last of 8; n ≠ m, both off the 64-row tile).  bf16 within
+    2^-6 of each output's scale (one bf16 ulp of the output rounding plus
+    dS and A rounded to bf16 from f32 values summed in another order); f32
+    within 1e-4 of the scale."""
     q, k, v, m1, m2, lse, dm1, dm2 = _bwd_inputs(cuda, 2, n, m, d, c, dtype,
                                                  scale)
     dd = adaattn_attention.row_term(m1, m2, dm1, dm2)
@@ -369,6 +379,44 @@ def test_k4_k5(cuda, n, m, d, c, scale, dtype, tol):
         assert ours.dtype == dtype and ours.shape == r.shape
         assert torch.isfinite(ours).all()
         _close(ours, r, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2.0 ** -6)])
+@pytest.mark.parametrize("which", ["kv", "q"])
+def test_k4_k5_broadcast(cuda, which, dtype, tol):
+    """One K and V (``which`` "kv") or one Q ("q") for the batch, read in
+    place through a batch stride of 0, at relu3_1's d = 448 and c = 256:
+    the same outputs as the plain backward on the expanded tensors."""
+    q, k, v, m1, m2, lse, dm1, dm2 = _bwd_inputs(cuda, 3, 200, 330, 448, 256,
+                                                 dtype, broadcast=which)
+    assert [t.stride(0) == 0 for t in (q, k, v)] == [
+        which == "q", which == "kv", which == "kv"]
+    dd = adaattn_attention.row_term(m1, m2, dm1, dm2)
+    dq = adaattn_attention.softmax_attention_dq(q, k, v, lse, dd, dm1, dm2)
+    dk, dv = adaattn_attention.softmax_attention_dkv(q, k, v, lse, dd, dm1,
+                                                     dm2)
+    ref = adaattn_attention.softmax_attention_moments_bwd_plain(
+        q, k, v, m1, m2, lse, dm1, dm2)
+    for ours, r in zip((dq, dk, dv), ref):
+        assert ours.shape == r.shape and torch.isfinite(ours).all()
+        _close(ours, r, tol)
+
+
+@pytest.mark.parametrize("n,m,d,c", [(4096, 4096, 448, 256),
+                                     (300, 200, 520, 264)])
+def test_k4_k5_bf16_deterministic(cuda, n, m, d, c):
+    """Two launches of bf16 K4 and of K5 on the same inputs give the same
+    bits (no atomics; every sum in a fixed order)."""
+    q, k, v, m1, m2, lse, dm1, dm2 = _bwd_inputs(cuda, 2, n, m, d, c,
+                                                 torch.bfloat16)
+    args = (q, k, v, lse, adaattn_attention.row_term(m1, m2, dm1, dm2), dm1,
+            dm2)
+    assert torch.equal(adaattn_attention.softmax_attention_dq(*args),
+                       adaattn_attention.softmax_attention_dq(*args))
+    for a, b in zip(adaattn_attention.softmax_attention_dkv(*args),
+                    adaattn_attention.softmax_attention_dkv(*args)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("need", ["qkv", "kv", "q"])
@@ -408,18 +456,21 @@ def test_function_grad_matches_exact(cuda, need):
             assert ours is None
 
 
-@pytest.mark.parametrize("remat,k3_per_step", [(False, 6), (True, 9)])
-def test_image_step_launch_counts(cuda, remat, k3_per_step):
-    """One f32 AdaAttN image step at 1×64² softmax launches K3 six times
+@pytest.mark.parametrize("dtype,remat,k3_per_step", [("float32", False, 6),
+                                                     ("float32", True, 9),
+                                                     ("bfloat16", False, 6)])
+def test_image_step_launch_counts(cuda, dtype, remat, k3_per_step):
+    """One AdaAttN image step at 1×64² softmax launches K3 six times
     (three stylizer levels, three conv-free targets; remat recomputes the
-    stylizer's three), K4 and K5 three times each, and moves the masters."""
+    stylizer's three), K4 and K5 three times each, and moves the masters;
+    in bf16 through the wgmma K4 and K5."""
     from vst_tpu_torch.models.adaattn import init_stylizing_network
     from vst_tpu_torch.models.vgg import init_vgg19_adaattn
     from vst_tpu_torch.train.config import AdaAttNImageConfig
     from vst_tpu_torch.train.state import create
     from vst_tpu_torch.train.steps import make_adaattn_image_step
 
-    cfg = AdaAttNImageConfig(batch_size=1, remat=remat)
+    cfg = AdaAttNImageConfig(batch_size=1, remat=remat, dtype=dtype)
     state = create(init_stylizing_network(1, device=cuda), cfg.lr)
     step = make_adaattn_image_step(cfg, init_vgg19_adaattn(0, device=cuda))
     gen = torch.Generator().manual_seed(0)

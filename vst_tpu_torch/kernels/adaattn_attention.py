@@ -8,7 +8,8 @@ softmax_attention_moments_pallas`` and its custom VJP:
   the (n×m) attention map;
 - K4 (``_bwd_dq_kernel``, ``csrc/adaattn_bwd.cu``): dQ = dS·K;
 - K5 (``_bwd_dkv_kernel``, ``csrc/adaattn_bwd.cu``): dK = dSᵀ·Q and
-  dV = Aᵀ·dM1 + 2V∘(Aᵀ·dM2);
+  dV = Aᵀ·dM1 + 2V∘(Aᵀ·dM2); in bf16 both on ``wgmma`` with S and dA
+  computed once per tile and output slice;
 with A = exp(S − L), dA = dM1·Vᵀ + dM2·(V∘V)ᵀ, dS = A∘(dA − D) and the row
 term D = Σ_c(dM1∘M1 + dM2∘M2), taken in float32 outside the kernels as
 JAX does.  The backward never materializes the map either.
@@ -208,6 +209,9 @@ def _check_bwd(q, k, v, lse, dd, dm1, dm2, what):
                              f"{dtype} tensor of shape {shape} on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
+    if q.dtype == torch.bfloat16 and (dm1.data_ptr() % 16
+                                      or dm2.data_ptr() % 16):
+        raise ValueError(f"{what}: bf16 dm1, dm2 must be 16-byte aligned")
 
 
 def softmax_attention_dq(q, k, v, lse, dd, dm1, dm2):

@@ -6,43 +6,82 @@
 //   K4:  dQ = dS K
 //   K5:  dK = dS^T Q,   dV = A^T dM1 + 2 V o (A^T dM2)
 // q (b, n, d), k (b, m, d), v (b, m, c) in bfloat16 or float32, with batch
-// strides as arguments (a K or V broadcast with stride 0 is read in place);
-// dM1, dM2 (b, n, c) contiguous in the inputs' type; L, D (b, n) float32,
-// L in the natural log.  dQ (b, n, d), dK (b, m, d), dV (b, m, c) come out
-// contiguous in the inputs' type.
+// strides as arguments (a Q, K or V broadcast with stride 0 is read in
+// place); dM1, dM2 (b, n, c) contiguous in the inputs' type; L, D (b, n)
+// float32, L in the natural log.  dQ (b, n, d), dK (b, m, d), dV (b, m, c)
+// come out contiguous in the inputs' type.
 //
 // Replaces the Pallas TPU kernels vst_tpu/kernels/adaattn_attention.py
-// _bwd_dq_kernel (K4) and _bwd_dkv_kernel (K5), driven by _backward.  As
-// there, K4 owns query rows and walks over the keys, K5 owns keys and walks
-// over the queries, each recomputing S and dA tile by tile: nothing of the
-// (n x m) map reaches device memory, no atomics, the result does not depend
-// on the order blocks run in.  Ragged n, m, d and c are masked in the
-// kernel (zero-filled loads, A = 0 outside [0, n) x [0, m)): there are no
-// padded copies.
+// _bwd_dq_kernel (:151, K4) and _bwd_dkv_kernel (:182, K5), driven by
+// _backward.  As there, K4 owns query rows and walks over the keys, K5
+// owns keys and walks over the queries: nothing of the (n x m) map reaches
+// device memory, no atomics, the result does not depend on the order
+// blocks run in (two launches give the same bits).  Ragged n, m, d and c
+// are masked in the kernel (zero-filled loads, A = 0 outside [0, n) x
+// [0, m)): there are no padded copies.
 //
-// The TPU keeps a whole (block x d) float32 accumulator in VMEM.  At
-// relu5_1 (d = 1472) a 64-row dQ accumulator is 376 KB: it fits neither a
-// block's registers nor its 227 KB of shared memory.  So the output
-// columns are split across blocks and every slice recomputes S (and dA
-// where it needs it) in full:
-// - K4: one block = (image, 64 query rows, 128 columns of dQ); ceil(d/128)
-//   slices, each recomputing S and dA.
-// - K5: one block = (image, 64 keys, a role).  Roles 0 .. ceil(d/128)-1 own
-//   128 columns of dK and recompute S and dA; the next ceil(c/64) roles
-//   own 64 columns of dV (both accumulators, A^T dM1 and A^T dM2) and
-//   recompute S only: dV needs A, not dS.
+// bf16 (training at the serving type), on Hopper's wgmma.  The TPU keeps a
+// whole (block x d) float32 accumulator in VMEM; a 64 x 1472 one (376 KB)
+// fits neither a block's registers nor its shared memory, so a block owns
+// an output slice of at most 512 columns (dQ, dK) or 256 (dV) and
+// computes S and dA once per (tile, slice):
+// - K4 block = (image, 64 query rows, <= 512 dQ columns), walking the key
+//   tiles of 64.  K5 block = (image, 64 keys, a role): a dK role owns <= 512
+//   dK columns and computes S^T and dA^T; a dV role owns <= 256 dV columns
+//   and computes S^T only (dV needs A, not dS).
+// - Three warpgroups.  Consumer 0 computes S over d (K4, K5 dK) while
+//   consumer 1 computes dA over c; in a dV role they split d in halves and
+//   consumer 0 adds the two.  One of them then forms dS = A o (dA - D)
+//   (or A^T), rounds it to bf16 and writes it to shared memory once; both
+//   accumulate their half of the slice from it: dQ[:, half] += dS K[:, half]
+//   (4 chunks of 64 columns each, 128 float32 registers a thread), dK
+//   likewise from Q, and in a dV role each consumer keeps A^T dM1 and
+//   A^T dM2 for its 128 columns, so dV = A^T dM1 + 2 V o (A^T dM2) is formed
+//   in float32 in the epilogue without an exchange.
+// - Every product is wgmma m64n64k16 (bf16 in, float32 accumulate) with
+//   both operands in shared memory.  Operand chunks are 64 x 64 bf16 boxes
+//   loaded by TMA (3-D tensor maps over (columns, rows, image): rows
+//   outside [0, n) or [0, m) of an image and columns past d or c arrive as
+//   zeros) with the 128-byte swizzle.  S = Q K^T and dA = dM V^T read K and
+//   V as K-major B; dQ = dS K and dK = dS^T Q read the same boxes N-major;
+//   dS and A^T are written by the threads in the same swizzled K-major
+//   layout.
+// - The producer warpgroup (setmaxnreg 40) runs three rings, one thread
+//   each, behind full/empty mbarriers: consumer 0's chunks of d (Q and K, 3
+//   stages of 16 KB), consumer 1's chunks of c (dM1, dM2 and V, 2 stages of
+//   32 KB; W = V o V is squared in float32 into the slot's fourth quarter
+//   and rounded to bf16 by consumer 1), and the slice's output-product
+//   chunks (8 slots of 8 KB, reloaded per tile).  Consumers
+//   (setmaxnreg 232) keep one wgmma group in flight (wait_group 1) and
+//   release a stage once its multiply is done.  The two consumers meet at
+//   two named barriers per tile, around the dS exchange (16 KB float32 of
+//   A, S or partial S, and 8 KB of bf16 dS).
+// - K5's L log2 e and D of each query tile are staged in shared memory,
+//   double-buffered, by the producer's fourth warp (read from global
+//   memory by the consumers, their latency sat on every tile's path).
+// - Shared memory per block: 48 + 64 + 64 + 8 + 16 + 1 KB, 30 mbarriers
+//   and 1 KB of alignment, 207,088 bytes: one block of 384 threads per SM.
+//   Registers (ptxas): 168 a thread at launch, no spills; the consumers
+//   hold 128 accumulator registers (4 chunks of 64 columns) plus the
+//   32 of S or dA.
+//   Q and dM are streamed beside K and V, not kept resident: a 64 x 1472 Q
+//   tile alone would be 188 KB.
 //
-// What bounds them on the H100: the tensor cores (bf16).  The least work
-// is 4nmd + 4nmc FLOPs per image for K4 and 4nmd + 8nmc for K5; the
-// recompute of the column split multiplies it (PERF.md states the factor
-// at each AdaAttN level).  This first cut stages every operand through
-// shared memory with cp.async and waits for each stage before its
-// products (no pipelining): simple and right first.
+// Executed work against the least (4nm(d + c) for K4, 4nmd + 8nmc for K5
+// per image): K4 runs s (2nmd + 4nmc) + 2nmd with s = ceil(d / 512) slices,
+// K5 s (2nmd + 4nmc) + 2nmd + r 2nmd + 4nmc with r = ceil(c / 256) dV
+// roles: at AdaAttN's relu3_1 / relu4_1 / relu5_1 (d = 448 / 960 / 1472,
+// c = 256 / 512 / 512) K4 1.00 / 1.67 / 2.26x and K5 1.23 / 1.98 / 2.59x.
+// What bounds them on the H100: the least work is tensor-core (bf16)
+// bound, but these blocks reread their streamed chunks from L2 every tile
+// (Q and dM per key tile in K4, K and V per query tile in K5: 264 KB per
+// K4 tile at relu3_1 for 11.5 MFLOP), which asks about 6 TB/s of L2 at the
+// measured 256 TFLOP/s, and the phases of a tile (S and dA, the exchange,
+// the output product) run one after the other in the one block an SM holds
+// (PERF.md).
 //
-// bf16 (training at the serving type): mma.sync.m16n8k16, float32
-// accumulation, 4 warps x 16 rows.  Rounding points, as the plain version:
-// W = V o V squared in float32 from the bf16 V fragments and rounded to
-// bf16; A and dS rounded to bf16 before their products; dA, the
+// Rounding points, as the plain version: W = V o V squared in float32 and
+// rounded to bf16; A and dS rounded to bf16 before their products; dA, the
 // accumulators and dV's epilogue in float32.  Scores are scaled by log2 e
 // for exp2f; L arrives in the natural log and is scaled the same way.
 //
@@ -53,14 +92,16 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "attn_common.cuh"   // cp.async, bf16 packing, LOG2E / NEG
+#include "attn_common.cuh"   // bf16 packing, LOG2E / NEG
+#include "wgmma.cuh"         // mbarriers, TMA, wgmma, encode_tiled
 
 namespace k45 {
 
 using namespace attn;
+namespace wg = vst::wg;
 
 struct BwdArgs {
-  const void* q;      // (b, n, d), batch stride q_bs
+  const void* q;      // (b, n, d), batch stride q_bs (may be 0)
   const void* k;      // (b, m, d), batch stride k_bs (may be 0)
   const void* v;      // (b, m, c), batch stride v_bs (may be 0)
   const void* dm1;    // (b, n, c) contiguous
@@ -78,343 +119,531 @@ constexpr float BIG = 1e30f;   // L of a row outside [0, n): A = 0 there
 
 // ----------------------------------------------------------------- bf16
 
-constexpr int BR = 64;     // rows per block (K4 queries, K5 keys), 16 a warp
-constexpr int BT = 64;     // the other side's tile (K4 keys, K5 queries)
-constexpr int BK = 64;     // d or c per staged chunk
-constexpr int BO = 128;    // output columns per block (dQ, dK; dV: 2 x 64)
-constexpr int NTH = 128;   // 4 warps
-constexpr int LD = BK + 8;     // bf16 per chunk row (ldmatrix conflict-free)
-constexpr int OLD = BO + 8;    // bf16 per output-slice row
-constexpr int DV_COLS = BO / 2;
+constexpr int T = 64;                  // rows of a block, tile of the other side, chunk width
+constexpr int CB = T * T * 2;          // one 64 x 64 bf16 chunk: 8 KB
+constexpr int SLICE_DQ = 512;          // dQ or dK columns per block: 8 chunks
+constexpr int SLICE_DV = 256;          // dV columns per block: 4 chunks
+constexpr int R0 = 3;                  // consumer 0's ring: stages of 2 chunks
+constexpr int R1 = 2;                  // consumer 1's ring: stages of 4 chunks
+constexpr int NO = 8;                  // output-product chunk slots
+constexpr int SLOT0 = 2 * CB;          // ring 0 slot: [A | B]
+constexpr int SLOT1 = 4 * CB;          // ring 1 slot: [dM1 | dM2 | V | W] or [K | Q]
+constexpr int NTH = 384;               // two consumer warpgroups, one producer
+constexpr int OFF_R1 = R0 * SLOT0;
+constexpr int OFF_O = OFF_R1 + R1 * SLOT1;
+constexpr int OFF_P = OFF_O + NO * CB;          // dS or A^T, bf16
+constexpr int OFF_X = OFF_P + CB;               // the exchange, float32
+constexpr int OFF_ROW = OFF_X + T * T * 4;      // K5: L log2 e and D, [2][2][T] float32
+constexpr int OFF_BAR = OFF_ROW + 2 * 2 * T * 4;
+constexpr int NBAR = 2 * (R0 + R1 + NO + 2);
+constexpr int SMEM_BF16 = 1024 + OFF_BAR + NBAR * 8;
 
-constexpr int CHUNK = BR * LD;     // one staged 64 x 64 chunk, in bf16
-constexpr int SMEM_BF16 = (5 * CHUNK + BT * OLD) * 2 + 2 * BT * 4;
+// The operands' tensor maps (bf16, 64 x 64 boxes, 128-byte swizzle).
+struct Maps {
+  CUtensorMap q, k, v, dm1, dm2;
+};
 
-// ROWS x COLS bf16 tile at (row0, col0) of a row-major (nrow, ncol) matrix
-// into shared memory (row pitch ld); what lies outside is zero.  ncol is a
-// multiple of 8, so each 16-byte vector is wholly inside or outside.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
-                                          int row0, int nrow, int col0,
-                                          int ncol, int tid) {
-  constexpr int VPR = COLS / 8;
-#pragma unroll
-  for (int r = 0; r < ROWS * VPR / NTH; ++r) {
-    const int e = tid + NTH * r;
-    const int row = e / VPR, col = (e - row * VPR) * 8;
-    const bool ok = row0 + row < nrow && col0 + col < ncol;
-    cp_async16(dst + row * ld + col,
-               ok ? src + (size_t)(row0 + row) * ncol + col0 + col : src, ok);
-  }
+// Phase-1 stage kinds: S (or S^T) over one chunk of d from [A | B]; dA
+// over one chunk of c from [dM1 | dM2 | V | W], as dM V^T (K4) or V dM^T
+// (K5).
+enum Kind { QK, DA_K4, DA_K5 };
+
+// Descriptors of a 64 x 64 chunk (rows 128 bytes apart, 8-row groups 1024
+// apart, 128-byte swizzle) at k16 step ks: read K-major (the step moves 32
+// bytes along the row) or N-major (the chunk's rows are K: 16 rows a step).
+__device__ __forceinline__ uint64_t kmajor(unsigned base, int ks) {
+  return wg::desc(base + ks * 32, 16, 1024, 1);
+}
+__device__ __forceinline__ uint64_t nmajor(unsigned base, int ks) {
+  return wg::desc(base + ks * 16 * 128, CB, 1024, 1);
 }
 
-// acc[2nn], acc[2nn+1] += A (this warp's 16 rows of As, chunk columns
-// ks..ks+15) . B^T, B = 64 rows of Bs: the S = Q K^T pattern of K3.
-// With SQUARE_B the B fragments are squared first (dM2 W^T in K4).
-template <bool SQUARE_B>
-__device__ __forceinline__ void mma_abt(float (&acc)[BT / 8][4],
-                                        const unsigned (&af)[4],
-                                        const bf16* Bs, int ks, int lane) {
+// acc (64 x 64) += X Y^T over one chunk: X and Y both 64 rows, K-major.
+__device__ __forceinline__ void mma_xyt(float (&acc)[32], unsigned x,
+                                        unsigned y) {
 #pragma unroll
-  for (int nn = 0; nn < BT / 16; ++nn) {
-    unsigned bb[4];
-    vst::ldmatrix_x4(bb, Bs + (nn * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD
-                             + ks + ((lane >> 3) & 1) * 8);
-    if (SQUARE_B) {
+  for (int ks = 0; ks < T / 16; ++ks)
+    wg::wgmma_bf16<64, wg::B_KMAJOR>(acc, kmajor(x, ks), kmajor(y, ks));
+}
+
+// acc (64 x 64) += P O over the tile: P (64 x 64, K-major) and one chunk O
+// whose 64 rows are the K dimension (N-major).
+__device__ __forceinline__ void mma_po(float (&acc)[32], unsigned p,
+                                       unsigned o) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) bb[r] = square_bf16x2(bb[r]);
+  for (int ks = 0; ks < T / 16; ++ks)
+    wg::wgmma_bf16<64, wg::B_NMAJOR>(acc, kmajor(p, ks), nmajor(o, ks));
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// One consumer warpgroup's first phase on one tile: `count` stages of its
+// ring (D slots of SLOT bytes, stage counter g carried across tiles) into
+// acc, which starts at zero.  A slot is released (one arrive per warp)
+// once the multiply that reads it is done.
+template <int D, int SLOT, Kind K>
+__device__ __forceinline__ void phase1(float (&acc)[32], unsigned char* ring,
+                                       unsigned full, unsigned empty, int& g,
+                                       int count, int tw) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int t = 0; t < count; ++t, ++g) {
+    const int slot = g % D;
+    unsigned char* s = ring + slot * SLOT;
+    wg::mbar_wait(full + 8 * slot, (g / D) & 1);
+    if (K != QK) {   // W = V o V into the fourth chunk (same swizzle)
+      const uint4* y = reinterpret_cast<const uint4*>(s + 2 * CB);
+      uint4* w = reinterpret_cast<uint4*>(s + 3 * CB);
+#pragma unroll
+      for (int r = 0; r < CB / 16 / 128; ++r) {
+        uint4 x = y[tw + 128 * r];
+        x.x = square_bf16x2(x.x);
+        x.y = square_bf16x2(x.y);
+        x.z = square_bf16x2(x.z);
+        x.w = square_bf16x2(x.w);
+        w[tw + 128 * r] = x;
+      }
+      wg::fence_async_shared();
+      bar_sync(2, 128);   // only consumer 1 squares
     }
-    vst::mma_bf16(acc[2 * nn], af, bb[0], bb[1]);
-    vst::mma_bf16(acc[2 * nn + 1], af, bb[2], bb[3]);
+    const unsigned b = wg::smem_u32(s);
+    wg::fence_acc(acc);
+    wg::wgmma_fence();
+    if (K == QK) {
+      mma_xyt(acc, b, b + CB);
+    } else if (K == DA_K4) {   // dM1 V^T + dM2 W^T
+      mma_xyt(acc, b, b + 2 * CB);
+      mma_xyt(acc, b + CB, b + 3 * CB);
+    } else {                   // V dM1^T + W dM2^T
+      mma_xyt(acc, b + 2 * CB, b);
+      mma_xyt(acc, b + 3 * CB, b + CB);
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait<1>();   // the stage before is done
+    wg::fence_acc(acc);
+    if (t > 0 && (tw & 31) == 0) wg::mbar_arrive(empty + 8 * ((g - 1) % D));
   }
+  wg::wgmma_wait<0>();
+  wg::fence_acc(acc);
+  if (count > 0 && (tw & 31) == 0) wg::mbar_arrive(empty + 8 * ((g - 1) % D));
 }
 
-__device__ __forceinline__ void load_a(unsigned (&af)[4], const bf16* As,
-                                       int warp, int ks, int lane) {
-  vst::ldmatrix_x4(af, As + (warp * 16 + (lane & 15)) * LD + ks
-                           + (lane >> 4) * 8);
-}
-
-// acc[0 .. BO/8) += P (16 x BT, bf16 A fragments) . Os (BT x BO, row-major
-// in shared memory): the P.V pattern of K3.
-__device__ __forceinline__ void mma_pv(float (&acc)[BO / 8][4],
-                                       const unsigned (&pa)[BT / 16][4],
-                                       const bf16* Os, int lane) {
+// Second phase: acc[h] += P O_h for the chunks slots first + h (h < 4)
+// whose bit is set in `mask`, from the output ring (parity = tile & 1).
+// One wgmma group per chunk, the one before kept in flight: each slot is
+// released as soon as its multiply is done, so the producer refills it
+// for the next tile while the rest of this product runs.
+__device__ __forceinline__ void phase2(float (&acc)[4][32], unsigned p,
+                                       unsigned och, unsigned full,
+                                       unsigned empty, int tile, int first,
+                                       int mask, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) {
+  for (int h = 0; h < 4; ++h) wg::fence_acc(acc[h]);
+  wg::wgmma_fence();
+  int prev = -1;   // the chunk whose group is still in flight
 #pragma unroll
-    for (int cc = 0; cc < BO / 16; ++cc) {
-      unsigned bo[4];
-      vst::ldmatrix_x4_trans(bo, Os + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * OLD
-                                     + cc * 16 + (lane >> 4) * 8);
-      vst::mma_bf16(acc[2 * cc], pa[kk], bo[0], bo[1]);
-      vst::mma_bf16(acc[2 * cc + 1], pa[kk], bo[2], bo[3]);
+  for (int h = 0; h < 4; ++h) {
+    if (mask >> h & 1) {
+      wg::mbar_wait(full + 8 * (first + h), tile & 1);
+      mma_po(acc[h], p, och + (first + h) * CB);
+      wg::wgmma_commit();
+      wg::wgmma_wait<1>();
+      if (prev >= 0 && lane == 0) wg::mbar_arrive(empty + 8 * (first + prev));
+      prev = h;
     }
   }
+  wg::wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 4; ++h) wg::fence_acc(acc[h]);
+  if (prev >= 0 && lane == 0) wg::mbar_arrive(empty + 8 * (first + prev));
 }
 
-__device__ __forceinline__ void zero(float (&x)[BT / 8][4]) {
-#pragma unroll
-  for (int i = 0; i < BT / 8; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) x[i][r] = 0.f;
+// Writes the pair (x0, x1) of this thread's accumulator positions (row
+// 16 wl + g8 + 8 h, columns 8 jj + 2 tq + {0, 1}) into the 64 x 64 bf16
+// chunk P in the swizzled K-major layout.
+__device__ __forceinline__ void store_p(unsigned char* P, int wl, int g8,
+                                        int tq, int jj, int h, float x0,
+                                        float x1) {
+  const int r = 16 * wl + g8 + 8 * h;
+  *reinterpret_cast<unsigned*>(P + r * 128 + (((jj ^ g8) << 4) | (tq * 4))) =
+      pack_bf16(x0, x1);
 }
 
-// K4, bf16.  Block (query tile, dQ column slice, image).
-__global__ void __launch_bounds__(NTH) attn_dq_bf16(BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qc = reinterpret_cast<bf16*>(smem);   // [BR][LD]  q, d chunk
-  bf16* Kc = Qc + CHUNK;                      // [BT][LD]  k, d chunk
-  bf16* D1c = Kc + CHUNK;                     // [BR][LD]  dM1, c chunk
-  bf16* D2c = D1c + CHUNK;                    // [BR][LD]  dM2, c chunk
-  bf16* Vc = D2c + CHUNK;                     // [BT][LD]  v, c chunk
-  bf16* Ko = Vc + CHUNK;                      // [BT][OLD] k, dQ's columns
+// The output-ring slot sl of a block: tensor (0 = k for K4, q for K5 dK;
+// 1 = dM1, 2 = dM2 for a dV role) and column; false if it lies past the
+// output.  dQ / dK: slot sl is columns o0 + 64 sl (consumer sl / 4).  dV:
+// consumer g = sl / 4 owns columns o0 + 128 g .. + 128; its slots hold dM1
+// and then dM2 at those columns.
+__device__ __forceinline__ bool out_chunk(int sl, bool dv_role, int o0,
+                                          int width, int* which, int* col) {
+  if (!dv_role) {
+    *which = 0;
+    *col = o0 + T * sl;
+  } else {
+    const int q = sl & 3;
+    *which = 1 + (q >> 1);
+    *col = o0 + 128 * (sl >> 2) + T * (q & 1);
+  }
+  return *col < width;
+}
 
-  const int bi = blockIdx.z, q0 = blockIdx.x * BR, o0 = blockIdx.y * BO;
+// Consumer g's chunk mask of the output ring (bit h: slot 4 g + h).
+__device__ __forceinline__ int out_mask(int g, bool dv_role, int o0,
+                                        int width) {
+  int mask = 0, which, col;
+#pragma unroll
+  for (int h = 0; h < 4; ++h)
+    if (out_chunk(4 * g + h, dv_role, o0, width, &which, &col)) mask |= 1 << h;
+  return mask;
+}
+
+// Shared-memory layout and barrier addresses of both kernels.
+struct Smem {
+  unsigned char *ring0, *ring1, *och, *p;
+  float *xs, *rowv;
+  unsigned f0, e0, f1, e1, fo, eo, fr, er;
+  __device__ explicit Smem(unsigned char* raw) {
+    unsigned char* sm = raw + ((1024 - (wg::smem_u32(raw) & 1023)) & 1023);
+    ring0 = sm;
+    ring1 = sm + OFF_R1;
+    och = sm + OFF_O;
+    p = sm + OFF_P;
+    xs = reinterpret_cast<float*>(sm + OFF_X);
+    rowv = reinterpret_cast<float*>(sm + OFF_ROW);
+    f0 = wg::smem_u32(sm + OFF_BAR);
+    e0 = f0 + 8 * R0;
+    f1 = e0 + 8 * R0;
+    e1 = f1 + 8 * R1;
+    fo = e1 + 8 * R1;
+    eo = fo + 8 * NO;
+    fr = eo + 8 * NO;
+    er = fr + 8 * 2;
+  }
+  // Full barriers: one arrive (the producer's expect_tx, or the row
+  // loader's lane 0).  Empty: one arrive per consumer warp that reads the
+  // slot (4; the row vectors 8).
+  __device__ void init() const {
+    const unsigned bars[8][3] = {{f0, R0, 1}, {e0, R0, 4}, {f1, R1, 1},
+                                 {e1, R1, 4}, {fo, NO, 1}, {eo, NO, 4},
+                                 {fr, 2, 1},  {er, 2, 8}};
+    for (const auto& b : bars)
+      for (unsigned i = 0; i < b[1]; ++i) wg::mbar_init(b[0] + 8 * i, b[2]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// The producer's side of one ring: waits for slot g % D to be empty, then
+// asks for `bytes` on its full barrier.  Returns the slot.
+template <int D>
+__device__ __forceinline__ int claim(unsigned full, unsigned empty, int g,
+                                     unsigned bytes) {
+  const int slot = g % D;
+  wg::mbar_wait(empty + 8 * slot, ((g / D) & 1) ^ 1);
+  wg::mbar_expect_tx(full + 8 * slot, bytes);
+  return slot;
+}
+
+// K4, bf16.  Block (query tile, dQ slice of 512 columns, image).
+__global__ void __launch_bounds__(NTH, 1)
+    attn_dq_bf16(BwdArgs a, const __grid_constant__ Maps mp) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm(smem_raw);
+  const int bi = blockIdx.z, q0 = blockIdx.x * T, o0 = blockIdx.y * SLICE_DQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const bf16* q = static_cast<const bf16*>(a.q) + bi * a.q_bs;
-  const bf16* k = static_cast<const bf16*>(a.k) + bi * a.k_bs;
-  const bf16* v = static_cast<const bf16*>(a.v) + bi * a.v_bs;
-  const bf16* dm1 = static_cast<const bf16*>(a.dm1) + (size_t)bi * a.n * a.c;
-  const bf16* dm2 = static_cast<const bf16*>(a.dm2) + (size_t)bi * a.n * a.c;
+  const int nkt = (a.m + T - 1) / T, nd = (a.d + T - 1) / T;
+  const int nc = (a.c + T - 1) / T;
+  const int qb = a.q_bs ? bi : 0, kb = a.k_bs ? bi : 0, vb = a.v_bs ? bi : 0;
 
-  float lrow[2], drow[2];   // rows g and g + 8 of this warp
+  if (tid == 0) sm.init();
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (lane != 0) return;
+    if (warp == 8) {          // Q and K over d
+      for (int j = 0, g = 0; j < nkt; ++j)
+        for (int t = 0; t < nd; ++t, ++g) {
+          const int s = claim<R0>(sm.f0, sm.e0, g, 2 * CB);
+          const unsigned dst = wg::smem_u32(sm.ring0 + s * SLOT0);
+          wg::tma_load_3d(dst, &mp.q, T * t, q0, qb, sm.f0 + 8 * s);
+          wg::tma_load_3d(dst + CB, &mp.k, T * t, T * j, kb, sm.f0 + 8 * s);
+        }
+    } else if (warp == 9) {   // dM1, dM2 and V over c
+      for (int j = 0, g = 0; j < nkt; ++j)
+        for (int u = 0; u < nc; ++u, ++g) {
+          const int s = claim<R1>(sm.f1, sm.e1, g, 3 * CB);
+          const unsigned dst = wg::smem_u32(sm.ring1 + s * SLOT1);
+          wg::tma_load_3d(dst, &mp.dm1, T * u, q0, bi, sm.f1 + 8 * s);
+          wg::tma_load_3d(dst + CB, &mp.dm2, T * u, q0, bi, sm.f1 + 8 * s);
+          wg::tma_load_3d(dst + 2 * CB, &mp.v, T * u, T * j, vb, sm.f1 + 8 * s);
+        }
+    } else if (warp == 10) {  // this key tile's rows of K at the slice
+      for (int j = 0; j < nkt; ++j)
+        for (int sl = 0; sl < NO; ++sl) {
+          int which, col;
+          if (!out_chunk(sl, false, o0, a.d, &which, &col)) break;
+          wg::mbar_wait(sm.eo + 8 * sl, (j & 1) ^ 1);
+          wg::mbar_expect_tx(sm.fo + 8 * sl, CB);
+          wg::tma_load_3d(wg::smem_u32(sm.och + sl * CB), &mp.k, col, T * j,
+                          kb, sm.fo + 8 * sl);
+        }
+    }
+    return;
+  }
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wgi = warp >> 2, wl = warp & 3, tw = tid & 127;
+  const int g8 = lane >> 2, tq = lane & 3;
+  float rowv[2];   // consumer 0: L log2 e of its two rows; consumer 1: D
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = q0 + warp * 16 + g + h * 8;
+    const int row = q0 + 16 * wl + g8 + 8 * h;
     const bool ok = row < a.n;
-    lrow[h] = ok ? a.lse[(size_t)bi * a.n + row] * LOG2E : BIG;
-    drow[h] = ok ? a.dd[(size_t)bi * a.n + row] : 0.f;
+    const size_t at = (size_t)bi * a.n + (ok ? row : 0);
+    rowv[h] = wgi == 0 ? (ok ? a.lse[at] * LOG2E : BIG) : (ok ? a.dd[at] : 0.f);
   }
-  float acc[BO / 8][4];
+  const int mask = out_mask(wgi, false, o0, a.d);
+  const unsigned p = wg::smem_u32(sm.p), och = wg::smem_u32(sm.och);
+  float acc[4][32];
 #pragma unroll
-  for (int i = 0; i < BO / 8; ++i)
+  for (int h = 0; h < 4; ++h)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) acc[i][r] = 0.f;
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
 
-  const int nkt = (a.m + BT - 1) / BT;
+  int g = 0;
   for (int j = 0; j < nkt; ++j) {
-    const int k0 = j * BT;
-    float s[BT / 8][4], da[BT / 8][4];
-    zero(s);
-    zero(da);
-    for (int t = 0; t < a.d; t += BK) {          // S = Q K^T over d
-      load_tile<BR, BK>(Qc, LD, q, q0, a.n, t, a.d, tid);
-      load_tile<BT, BK>(Kc, LD, k, k0, a.m, t, a.d, tid);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
+    float s[32];   // consumer 0: S; consumer 1: dA
+    if (wgi == 0)
+      phase1<R0, SLOT0, QK>(s, sm.ring0, sm.f0, sm.e0, g, nd, tw);
+    else
+      phase1<R1, SLOT1, DA_K4>(s, sm.ring1, sm.f1, sm.e1, g, nc, tw);
+    // s[4 jj + 2 h + t]: row 16 wl + g8 + 8 h, key T j + 8 jj + 2 tq + t
+    if (wgi == 0) {
 #pragma unroll
-      for (int ks = 0; ks < BK; ks += 16) {
-        unsigned af[4];
-        load_a(af, Qc, warp, ks, lane);
-        mma_abt<false>(s, af, Kc, ks, lane);
+      for (int i = 0; i < 32; ++i) {
+        const int key = T * j + 8 * (i >> 2) + 2 * tq + (i & 1);
+        const float x = key < a.m ? s[i] * LOG2E : NEG;
+        sm.xs[i * 128 + tw] = exp2f(x - rowv[(i >> 1) & 1]);
       }
-      __syncthreads();
     }
-    for (int u = 0; u < a.c; u += BK) {          // dA = dM1 V^T + dM2 W^T
-      load_tile<BR, BK>(D1c, LD, dm1, q0, a.n, u, a.c, tid);
-      load_tile<BR, BK>(D2c, LD, dm2, q0, a.n, u, a.c, tid);
-      load_tile<BT, BK>(Vc, LD, v, k0, a.m, u, a.c, tid);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
+    bar_sync(1, 256);
+    if (wgi == 1) {   // dS = A o (dA - D), rounded to bf16
 #pragma unroll
-      for (int ks = 0; ks < BK; ks += 16) {
-        unsigned a1[4], a2[4];
-        load_a(a1, D1c, warp, ks, lane);
-        load_a(a2, D2c, warp, ks, lane);
-        mma_abt<false>(da, a1, Vc, ks, lane);
-        mma_abt<true>(da, a2, Vc, ks, lane);
+      for (int i = 0; i < 32; i += 2) {
+        const int h = (i >> 1) & 1;
+        store_p(sm.p, wl, g8, tq, i >> 2, h,
+                sm.xs[i * 128 + tw] * (s[i] - rowv[h]),
+                sm.xs[(i + 1) * 128 + tw] * (s[i + 1] - rowv[h]));
       }
-      __syncthreads();
+      wg::fence_async_shared();
     }
-    // this key tile's rows of K, at dQ's columns, while dS is formed
-    load_tile<BT, BO>(Ko, OLD, k, k0, a.m, o0, a.d, tid);
-    cp_async_commit();
-
-    // dS = A o (dA - D), rounded to bf16 as the A operand of dS . K.
-    // s[nt][0..1] are row g, s[nt][2..3] row g + 8, keys
-    // k0 + nt*8 + 2*tq + {0, 1}.
-    unsigned pa[BT / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt) {
-      const int key = k0 + nt * 8 + 2 * tq;
-      float ds[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int h = r >> 1;
-        const float x = key + (r & 1) < a.m ? s[nt][r] * LOG2E : NEG;
-        ds[r] = exp2f(x - lrow[h]) * (da[nt][r] - drow[h]);
-      }
-      pa[nt >> 1][(nt & 1) * 2] = pack_bf16(ds[0], ds[1]);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    mma_pv(acc, pa, Ko, lane);
-    __syncthreads();
+    bar_sync(1, 256);
+    phase2(acc, p, och, sm.fo, sm.eo, j, 4 * wgi, mask, lane);
   }
 
   bf16* dq = static_cast<bf16*>(a.dq) + (size_t)bi * a.n * a.d;
 #pragma unroll
-  for (int ct = 0; ct < BO / 8; ++ct) {
-    const int col = o0 + ct * 8 + 2 * tq;
-    if (col >= a.d) continue;   // d % 8 == 0, so col + 1 < d as well
+  for (int h = 0; h < 4; ++h) {
+    if (!(mask >> h & 1)) continue;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = q0 + warp * 16 + g + h * 8;
-      if (row < a.n)
-        *reinterpret_cast<__nv_bfloat162*>(dq + (size_t)row * a.d + col) =
-            __floats2bfloat162_rn(acc[ct][2 * h], acc[ct][2 * h + 1]);
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = o0 + T * (4 * wgi + h) + 8 * jj + 2 * tq;
+      if (col >= a.d) continue;   // d % 8 == 0, so col + 1 < d as well
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = q0 + 16 * wl + g8 + 8 * hh;
+        if (row < a.n)
+          *reinterpret_cast<__nv_bfloat162*>(dq + (size_t)row * a.d + col) =
+              __floats2bfloat162_rn(acc[h][4 * jj + 2 * hh],
+                                    acc[h][4 * jj + 2 * hh + 1]);
+      }
     }
   }
 }
 
 // K5, bf16.  Block (key tile, role, image); roles < n_dk_roles own dK's
-// columns [128 role, +128), the rest dV's columns [64 (role - n_dk_roles),
-// +64).
-__global__ void __launch_bounds__(NTH) attn_dkv_bf16(BwdArgs a, int n_dk_roles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Kc = reinterpret_cast<bf16*>(smem);   // [BR][LD]  k, d chunk
-  bf16* Qc = Kc + CHUNK;                      // [BT][LD]  q, d chunk
-  bf16* Vc = Qc + CHUNK;                      // [BR][LD]  v, c chunk
-  bf16* D1c = Vc + CHUNK;                     // [BT][LD]  dM1, c chunk
-  bf16* D2c = D1c + CHUNK;                    // [BT][LD]  dM2, c chunk
-  bf16* Os = D2c + CHUNK;                     // [BT][OLD] q (dK) or dM1 | dM2 (dV)
-  float* Ls = reinterpret_cast<float*>(Os + BT * OLD);   // [BT] L * log2 e
-  float* Ds = Ls + BT;                                   // [BT] D
-
-  const int bi = blockIdx.z, k0 = blockIdx.x * BR;
-  const bool dk_role = blockIdx.y < n_dk_roles;
-  const int o0 = dk_role ? blockIdx.y * BO : (blockIdx.y - n_dk_roles) * DV_COLS;
+// columns [512 role, +512), the rest dV's columns [256 (role -
+// n_dk_roles), +256).
+__global__ void __launch_bounds__(NTH, 1)
+    attn_dkv_bf16(BwdArgs a, const __grid_constant__ Maps mp, int n_dk_roles) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm(smem_raw);
+  const int bi = blockIdx.z, k0 = blockIdx.x * T;
+  const bool dv_role = static_cast<int>(blockIdx.y) >= n_dk_roles;
+  const int o0 = dv_role ? (blockIdx.y - n_dk_roles) * SLICE_DV
+                         : blockIdx.y * SLICE_DQ;
+  const int width = dv_role ? a.c : a.d;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const bf16* q = static_cast<const bf16*>(a.q) + bi * a.q_bs;
-  const bf16* k = static_cast<const bf16*>(a.k) + bi * a.k_bs;
-  const bf16* v = static_cast<const bf16*>(a.v) + bi * a.v_bs;
-  const bf16* dm1 = static_cast<const bf16*>(a.dm1) + (size_t)bi * a.n * a.c;
-  const bf16* dm2 = static_cast<const bf16*>(a.dm2) + (size_t)bi * a.n * a.c;
+  const int nqt = (a.n + T - 1) / T, nd = (a.d + T - 1) / T;
+  const int nc = (a.c + T - 1) / T;
+  // S^T over d: consumer 0 takes chunks [0, split), consumer 1 the rest in
+  // a dV role; in a dK role consumer 0 takes all of d, consumer 1 dA over c
+  const int split = dv_role ? (nd + 1) / 2 : nd;
+  const int qb = a.q_bs ? bi : 0, kb = a.k_bs ? bi : 0, vb = a.v_bs ? bi : 0;
 
-  // dK role: 16 keys x 128 columns; dV role: acc[0..7] = A^T dM1 and
-  // acc[8..15] = A^T dM2, 64 columns each
-  float acc[BO / 8][4];
-#pragma unroll
-  for (int i = 0; i < BO / 8; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[i][r] = 0.f;
+  if (tid == 0) sm.init();
+  __syncthreads();
 
-  const int nqt = (a.n + BT - 1) / BT;
-  for (int i = 0; i < nqt; ++i) {
-    const int i0 = i * BT;
-    if (tid < BT) {
-      const int qq = i0 + tid;
-      const bool ok = qq < a.n;
-      Ls[tid] = ok ? a.lse[(size_t)bi * a.n + qq] * LOG2E : BIG;
-      Ds[tid] = ok ? a.dd[(size_t)bi * a.n + qq] : 0.f;
-    }
-    float s[BT / 8][4];   // S^T: rows = this warp's keys, columns = queries
-    zero(s);
-    for (int t = 0; t < a.d; t += BK) {
-      load_tile<BR, BK>(Kc, LD, k, k0, a.m, t, a.d, tid);
-      load_tile<BT, BK>(Qc, LD, q, i0, a.n, t, a.d, tid);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < BK; ks += 16) {
-        unsigned af[4];
-        load_a(af, Kc, warp, ks, lane);
-        mma_abt<false>(s, af, Qc, ks, lane);
-      }
-      __syncthreads();
-    }
-    if (dk_role) {
-      load_tile<BT, BO>(Os, OLD, q, i0, a.n, o0, a.d, tid);
-    } else {
-      load_tile<BT, DV_COLS>(Os, OLD, dm1, i0, a.n, o0, a.c, tid);
-      load_tile<BT, DV_COLS>(Os + DV_COLS, OLD, dm2, i0, a.n, o0, a.c, tid);
-    }
-    cp_async_commit();
-
-    float at[BT / 8][4];   // A^T = exp(S^T - L), query columns
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        at[nt][r] = exp2f(s[nt][r] * LOG2E - Ls[nt * 8 + 2 * tq + (r & 1)]);
-
-    unsigned pa[BT / 16][4];   // dS^T (dK role) or A^T (dV role), bf16
-    if (dk_role) {
-      float da[BT / 8][4];     // dA^T = V dM1^T + W dM2^T
-      zero(da);
-      for (int u = 0; u < a.c; u += BK) {
-        load_tile<BR, BK>(Vc, LD, v, k0, a.m, u, a.c, tid);
-        load_tile<BT, BK>(D1c, LD, dm1, i0, a.n, u, a.c, tid);
-        load_tile<BT, BK>(D2c, LD, dm2, i0, a.n, u, a.c, tid);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-#pragma unroll
-        for (int ks = 0; ks < BK; ks += 16) {
-          unsigned av[4], aw[4];
-          load_a(av, Vc, warp, ks, lane);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) aw[r] = square_bf16x2(av[r]);
-          mma_abt<false>(da, av, D1c, ks, lane);
-          mma_abt<false>(da, aw, D2c, ks, lane);
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 11) {         // L log2 e and D of each query tile, double-buffered
+      for (int i = 0; i < nqt; ++i) {
+        float* rv = sm.rowv + (i & 1) * 2 * T;
+        wg::mbar_wait(sm.er + 8 * (i & 1), ((i >> 1) & 1) ^ 1);
+        for (int r = lane; r < T; r += 32) {
+          const int qq = T * i + r;
+          const bool ok = qq < a.n;
+          const size_t at = (size_t)bi * a.n + (ok ? qq : 0);
+          rv[r] = ok ? a.lse[at] * LOG2E : BIG;
+          rv[T + r] = ok ? a.dd[at] : 0.f;
         }
-        __syncthreads();
+        __syncwarp();
+        if (lane == 0) wg::mbar_arrive(sm.fr + 8 * (i & 1));
       }
-#pragma unroll
-      for (int nt = 0; nt < BT / 8; ++nt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          at[nt][r] *= da[nt][r] - Ds[nt * 8 + 2 * tq + (r & 1)];
+      return;
     }
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt) {
-      pa[nt >> 1][(nt & 1) * 2] = pack_bf16(at[nt][0], at[nt][1]);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(at[nt][2], at[nt][3]);
+    if (lane != 0) return;
+    if (warp == 8) {          // K and Q over d, chunks [0, split)
+      for (int i = 0, g = 0; i < nqt; ++i)
+        for (int t = 0; t < split; ++t, ++g) {
+          const int s = claim<R0>(sm.f0, sm.e0, g, 2 * CB);
+          const unsigned dst = wg::smem_u32(sm.ring0 + s * SLOT0);
+          wg::tma_load_3d(dst, &mp.k, T * t, k0, kb, sm.f0 + 8 * s);
+          wg::tma_load_3d(dst + CB, &mp.q, T * t, T * i, qb, sm.f0 + 8 * s);
+        }
+    } else if (warp == 9) {   // dK: dM1, dM2, V over c; dV: K, Q over the rest of d
+      for (int i = 0, g = 0; i < nqt; ++i) {
+        const int stages = dv_role ? nd - split : nc;
+        for (int u = 0; u < stages; ++u, ++g) {
+          const int s = claim<R1>(sm.f1, sm.e1, g, (dv_role ? 2 : 3) * CB);
+          const unsigned dst = wg::smem_u32(sm.ring1 + s * SLOT1);
+          const unsigned bar = sm.f1 + 8 * s;
+          if (dv_role) {
+            wg::tma_load_3d(dst, &mp.k, T * (split + u), k0, kb, bar);
+            wg::tma_load_3d(dst + CB, &mp.q, T * (split + u), T * i, qb, bar);
+          } else {
+            wg::tma_load_3d(dst, &mp.dm1, T * u, T * i, bi, bar);
+            wg::tma_load_3d(dst + CB, &mp.dm2, T * u, T * i, bi, bar);
+            wg::tma_load_3d(dst + 2 * CB, &mp.v, T * u, k0, vb, bar);
+          }
+        }
+      }
+    } else if (warp == 10) {  // this query tile's rows of Q, or dM1 and dM2, at the slice
+      for (int i = 0; i < nqt; ++i)
+        for (int sl = 0; sl < NO; ++sl) {
+          int which, col;
+          if (!out_chunk(sl, dv_role, o0, width, &which, &col)) continue;
+          wg::mbar_wait(sm.eo + 8 * sl, (i & 1) ^ 1);
+          wg::mbar_expect_tx(sm.fo + 8 * sl, CB);
+          wg::tma_load_3d(wg::smem_u32(sm.och + sl * CB),
+                          which == 0 ? &mp.q : which == 1 ? &mp.dm1 : &mp.dm2,
+                          col, T * i, which == 0 ? qb : bi, sm.fo + 8 * sl);
+        }
     }
-    cp_async_wait<0>();
-    __syncthreads();
-    mma_pv(acc, pa, Os, lane);
-    __syncthreads();   // before the next tile overwrites Ls, Ds and Os
+    return;
+  }
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wgi = warp >> 2, wl = warp & 3, tw = tid & 127;
+  const int g8 = lane >> 2, tq = lane & 3;
+  const int mask = out_mask(wgi, dv_role, o0, width);
+  const unsigned p = wg::smem_u32(sm.p), och = wg::smem_u32(sm.och);
+  // dK role: acc[h] = columns o0 + 64 (4 wgi + h).  dV role: acc[h] =
+  // A^T dM1 and acc[2 + h] = A^T dM2 at columns o0 + 128 wgi + 64 h (h < 2).
+  float acc[4][32];
+#pragma unroll
+  for (int h = 0; h < 4; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+
+  int g = 0;
+  for (int i = 0; i < nqt; ++i) {
+    float s[32];
+    if (wgi == 0)
+      phase1<R0, SLOT0, QK>(s, sm.ring0, sm.f0, sm.e0, g, split, tw);
+    else if (dv_role)
+      phase1<R1, SLOT1, QK>(s, sm.ring1, sm.f1, sm.e1, g, nd - split, tw);
+    else
+      phase1<R1, SLOT1, DA_K5>(s, sm.ring1, sm.f1, sm.e1, g, nc, tw);
+
+    // The exchange: dK role, consumer 0 sends A^T and consumer 1 forms
+    // dS^T; dV role, consumer 1 sends its part of S^T and consumer 0 forms
+    // A^T.  s[4 jj + 2 h + t]: key 16 wl + g8 + 8 h, query T i + 8 jj +
+    // 2 tq + t, whose L log2 e is lt[8 jj + 2 tq + t] and D lt[T + ...].
+    const float* lt = sm.rowv + (i & 1) * 2 * T + 2 * tq;
+    wg::mbar_wait(sm.fr + 8 * (i & 1), (i >> 1) & 1);
+    if (wgi == (dv_role ? 1 : 0)) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        sm.xs[e * 128 + tw] = dv_role
+            ? s[e] : exp2f(s[e] * LOG2E - lt[8 * (e >> 2) + (e & 1)]);
+    }
+    bar_sync(1, 256);
+    if (wgi == (dv_role ? 0 : 1)) {
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const float* lc = lt + 8 * (e >> 2);
+        float x0, x1;
+        if (dv_role) {
+          x0 = exp2f((s[e] + sm.xs[e * 128 + tw]) * LOG2E - lc[0]);
+          x1 = exp2f((s[e + 1] + sm.xs[(e + 1) * 128 + tw]) * LOG2E - lc[1]);
+        } else {
+          x0 = sm.xs[e * 128 + tw] * (s[e] - lc[T]);
+          x1 = sm.xs[(e + 1) * 128 + tw] * (s[e + 1] - lc[T + 1]);
+        }
+        store_p(sm.p, wl, g8, tq, e >> 2, (e >> 1) & 1, x0, x1);
+      }
+      wg::fence_async_shared();
+    }
+    bar_sync(1, 256);
+    if (lane == 0) wg::mbar_arrive(sm.er + 8 * (i & 1));
+    phase2(acc, p, och, sm.fo, sm.eo, i, 4 * wgi, mask, lane);
   }
 
-  if (dk_role) {
+  if (!dv_role) {
     bf16* dk = static_cast<bf16*>(a.dk) + (size_t)bi * a.m * a.d;
 #pragma unroll
-    for (int ct = 0; ct < BO / 8; ++ct) {
-      const int col = o0 + ct * 8 + 2 * tq;
-      if (col >= a.d) continue;
+    for (int h = 0; h < 4; ++h) {
+      if (!(mask >> h & 1)) continue;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int key = k0 + warp * 16 + g + h * 8;
-        if (key < a.m)
-          *reinterpret_cast<__nv_bfloat162*>(dk + (size_t)key * a.d + col) =
-              __floats2bfloat162_rn(acc[ct][2 * h], acc[ct][2 * h + 1]);
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = o0 + T * (4 * wgi + h) + 8 * jj + 2 * tq;
+        if (col >= a.d) continue;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int key = k0 + 16 * wl + g8 + 8 * hh;
+          if (key < a.m)
+            *reinterpret_cast<__nv_bfloat162*>(dk + (size_t)key * a.d + col) =
+                __floats2bfloat162_rn(acc[h][4 * jj + 2 * hh],
+                                      acc[h][4 * jj + 2 * hh + 1]);
+        }
       }
     }
   } else {
+    const bf16* v = static_cast<const bf16*>(a.v) + bi * a.v_bs;
     bf16* dv = static_cast<bf16*>(a.dv) + (size_t)bi * a.m * a.c;
 #pragma unroll
-    for (int ct = 0; ct < DV_COLS / 8; ++ct) {
-      const int col = o0 + ct * 8 + 2 * tq;
-      if (col >= a.c) continue;
+    for (int h = 0; h < 2; ++h) {
+      if (!(mask >> h & 1)) continue;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int key = k0 + warp * 16 + g + h * 8;
-        if (key >= a.m) continue;
-        const float2 vv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(v + (size_t)key * a.c + col));
-        const float x0 = acc[ct][2 * h] + 2.f * vv.x * acc[ct + DV_COLS / 8][2 * h];
-        const float x1 = acc[ct][2 * h + 1]
-                         + 2.f * vv.y * acc[ct + DV_COLS / 8][2 * h + 1];
-        *reinterpret_cast<__nv_bfloat162*>(dv + (size_t)key * a.c + col) =
-            __floats2bfloat162_rn(x0, x1);
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = o0 + 128 * wgi + T * h + 8 * jj + 2 * tq;
+        if (col >= a.c) continue;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int key = k0 + 16 * wl + g8 + 8 * hh;
+          if (key >= a.m) continue;
+          const float2 vv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(v + (size_t)key * a.c + col));
+          const int e = 4 * jj + 2 * hh;
+          *reinterpret_cast<__nv_bfloat162*>(dv + (size_t)key * a.c + col) =
+              __floats2bfloat162_rn(acc[h][e] + 2.f * vv.x * acc[h + 2][e],
+                                    acc[h][e + 1] + 2.f * vv.y * acc[h + 2][e + 1]);
+        }
       }
     }
   }
@@ -701,11 +930,47 @@ __global__ void __launch_bounds__(FTH) attn_dkv_f32(BwdArgs a, int n_dk_roles) {
   }
 }
 
+// A 3-D tensor map over a bf16 (planes, rows, cols) tensor with a plane
+// stride in elements (0: one plane, broadcast), read in 64 x 64 boxes with
+// the 128-byte swizzle; whatever lies outside arrives as zeros.
+static cudaError_t chunk_map(CUtensorMap* map, const void* base, int cols,
+                             int rows, int planes, long long plane_stride) {
+  wg::EncodeTiled enc = wg::encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const bool one = plane_stride == 0;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(one ? 1 : planes)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(cols) * 2,
+      static_cast<cuuint64_t>(one ? static_cast<long long>(rows) * cols
+                                  : plane_stride) * 2};
+  const cuuint32_t box[3] = {T, T, 1};
+  const cuuint32_t estride[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(base), dims, strides, box, estride,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+static cudaError_t make_maps(Maps* mp, const BwdArgs& a, int b) {
+  cudaError_t e = chunk_map(&mp->q, a.q, a.d, a.n, b, a.q_bs);
+  if (e == cudaSuccess) e = chunk_map(&mp->k, a.k, a.d, a.m, b, a.k_bs);
+  if (e == cudaSuccess) e = chunk_map(&mp->v, a.v, a.c, a.m, b, a.v_bs);
+  const long long nc = static_cast<long long>(a.n) * a.c;
+  if (e == cudaSuccess) e = chunk_map(&mp->dm1, a.dm1, a.c, a.n, b, nc);
+  if (e == cudaSuccess) e = chunk_map(&mp->dm2, a.dm2, a.c, a.n, b, nc);
+  return e;
+}
+
 }  // namespace k45
 
-// Each returns 0 on success, else the CUDA error of the attribute call or
-// the launch.  bf16 needs d and c multiples of 8 and 16-byte aligned rows;
-// the wrapper checks.
+// Each returns 0 on success, else the CUDA error of the tensor maps, the
+// attribute call or the launch.  bf16 needs d and c multiples of 8 and
+// 16-byte aligned rows and batch strides; the wrapper checks.
 extern "C" int vst_k4_attention_dq(
     const void* q, const void* k, const void* v, const void* dm1,
     const void* dm2, const float* lse, const float* dd, void* dq, int b,
@@ -716,11 +981,15 @@ extern "C" int vst_k4_attention_dq(
             n, m, d, c, q_bs, k_bs, v_bs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attn_dq_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BF16);
+    Maps mp;
+    cudaError_t e = make_maps(&mp, a, b);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(attn_dq_bf16,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BF16);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid((n + BR - 1) / BR, (d + BO - 1) / BO, b);
-    attn_dq_bf16<<<grid, NTH, SMEM_BF16, s>>>(a);
+    const dim3 grid((n + T - 1) / T, (d + SLICE_DQ - 1) / SLICE_DQ, b);
+    attn_dq_bf16<<<grid, NTH, SMEM_BF16, s>>>(a, mp);
   } else {
     const dim3 grid((n + FR - 1) / FR, (d + FO - 1) / FO, b);
     attn_dq_f32<<<grid, FTH, 0, s>>>(a);
@@ -738,16 +1007,43 @@ extern "C" int vst_k5_attention_dkv(
             n, m, d, c, q_bs, k_bs, v_bs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attn_dkv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BF16);
+    Maps mp;
+    cudaError_t e = make_maps(&mp, a, b);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(attn_dkv_bf16,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BF16);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int roles = (d + BO - 1) / BO;
-    const dim3 grid((m + BR - 1) / BR, roles + (c + DV_COLS - 1) / DV_COLS, b);
-    attn_dkv_bf16<<<grid, NTH, SMEM_BF16, s>>>(a, roles);
+    const int roles = (d + SLICE_DQ - 1) / SLICE_DQ;
+    const dim3 grid((m + T - 1) / T, roles + (c + SLICE_DV - 1) / SLICE_DV, b);
+    attn_dkv_bf16<<<grid, NTH, SMEM_BF16, s>>>(a, mp, roles);
   } else {
     const int roles = (d + FO - 1) / FO;
     const dim3 grid((m + FR - 1) / FR, roles + (c + FDV - 1) / FDV, b);
     attn_dkv_f32<<<grid, FTH, 0, s>>>(a, roles);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 launch configuration: out = {dynamic shared memory bytes per
+// block, resident blocks per SM of K4, of K5, dQ/dK columns per block, dV
+// columns per block}.  Returns a CUDA error code.
+extern "C" int vst_k45_launch_config(int* out) {
+  using namespace k45;
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_dq_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BF16);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_dkv_bf16,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BF16);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], attn_dq_bf16,
+                                                      NTH, SMEM_BF16);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], attn_dkv_bf16,
+                                                      NTH, SMEM_BF16);
+  out[0] = SMEM_BF16;
+  out[3] = SLICE_DQ;
+  out[4] = SLICE_DV;
+  return static_cast<int>(e);
 }

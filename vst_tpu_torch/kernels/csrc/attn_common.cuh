@@ -1,5 +1,5 @@
 // Shared by K3 (adaattn_fwd.cu) and K4/K5 (adaattn_bwd.cu): cp.async
-// copies into shared memory, bf16 packing, and the softmax constants.
+// copies into shared memory (K3), bf16 packing, and the softmax constants.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,4 +1,4 @@
-// Warp-level tensor-core helpers of K3-K5 (adaattn_fwd.cu, adaattn_bwd.cu):
+// Warp-level tensor-core helpers of K3 (adaattn_fwd.cu):
 // ldmatrix fragment loads and mma.sync.m16n8k16 (bf16 in, float32
 // accumulate).
 #pragma once
