@@ -14,7 +14,7 @@ result line):
    each kernel's registers and spills (ptxas) and, for the bf16 K1/K2
    (``conv3x3_wgmma``), the output-channel tile, dynamic shared memory and
    resident blocks per SM at every shape phase 3 runs, and the same for
-   the bf16 K4/K5;
+   the bf16 K3 and K4/K5;
 3. kernels: K1 (without and with its prologue) at (8,128,128,192) and K2
    at the stem and head packed shapes, bf16 and f32; in bf16 also K1 at
    the SD1/SD2 width (8,128,128,64) and the 640×360 stream's
@@ -22,7 +22,9 @@ result line):
    stream's packed (8,92,162,·), and two launches of each giving the same
    bits; K3 in bf16 at the
    three AdaAttN 512² batch-2 level shapes (and at relu3_1's with sharp
-   scores of std 10) and in f32 at a ragged shape and the relu4_1 shape;
+   scores of std 10 and with a stride-0 K/V), at the edge of its value
+   slices (c = 264), each launched twice for the same bits, and in f32 at
+   a ragged shape and the relu4_1 shape;
    K4 and K5 in bf16 at the three AdaAttN training level shapes (256²,
    batch 8; relu3_1's also with sharp scores), at the edges of their
    output slices (d = 520: two dQ/dK slices, the last ragged; c = 264:
@@ -31,7 +33,8 @@ result line):
    launched twice for the same bits, and in f32 at a ragged shape and
    the same three; each against its plain version on the same inputs;
 4. model: the f32 ReCoNet forward through the kernels against the same
-   forward through the plain versions at 1×256×256, the f32 AdaAttN
+   forward through the plain versions at 1×256×256 (and, with grad mode
+   on, raising: K1/K2 have no backward yet), the f32 AdaAttN
    forward (softmax through K3 against the plain version, cosine against
    the materialized oracle) at 1×256², the ReCoNet, SD1, SD2 and both
    AdaAttN forwards against the reference goldens
@@ -52,10 +55,10 @@ result line):
    port never calls (cuDNN ``F.conv2d`` of the same conv for K1/K2,
    ``F.scaled_dot_product_attention`` for K3 and its backward for K4/K5)
    at the main paths' shapes, printed as one JSON ``kernels`` line (K1/K2
-   rows also carry ms, TFLOP/s and the bound's share per launch; K4/K5
+   rows also carry ms, TFLOP/s and the bound's share per launch; K3-K5
    rows the same per level, and the f32 K3/K4/K5 times at the three
-   training levels as ``ms_f32``); K4/K5's executed-work factor per level
-   is logged, from the slice widths the built library reports;
+   training levels as ``ms_f32``); K3's and K4/K5's executed-work factor
+   per level is logged, from the slice widths the built library reports;
 7. profile: device time by kernel over two forwards (train steps) of each
    main path (torch.profiler) and the device's busy share of that window.
 
@@ -256,13 +259,18 @@ def phase_build():
         n, smem, occ = _wgmma_config(k2, c, co)
         log(f"  K2 conv3x3_wgmma {c}->{co}: tile N={n} x {-(-co // n)}, "
             f"dynamic smem {smem} B, {occ} block(s)/SM")
+    k3 = _build.load("adaattn_fwd").vst_k3_launch_config
+    k3.argtypes = [ctypes.c_void_p]
+    smem, occ, slice_v = _wgmma_config(k3)
+    log(f"  K3 bf16 (wgmma): dynamic smem {smem} B, {occ} block(s)/SM, value "
+        f"slices of {slice_v} columns")
     k45 = _build.load("adaattn_bwd").vst_k45_launch_config
     k45.argtypes = [ctypes.c_void_p]
     smem, occ4, occ5, slice_dq, slice_dv = _wgmma_config(k45, size=5)
     log(f"  K4/K5 bf16 (wgmma): dynamic smem {smem} B, {occ4} / {occ5} "
         f"block(s)/SM, output slices of {slice_dq} dQ/dK and {slice_dv} dV "
         f"columns")
-    return slice_dq, slice_dv
+    return {"K3": slice_v, "K45": (slice_dq, slice_dv)}
 
 
 K1_SHAPE = (8, 128, 128, 192)
@@ -365,21 +373,32 @@ def k3_inputs(g, b, n, m, d, c, dtype, score_std=1.0):
 def phase_kernels_k3(g):
     """K3 against its plain version, at unit-scale scores and, in bf16 at
     relu3_1, at sharp scores of std 10 (base-2 running max and rescale,
-    P rounded to bf16).  Tolerances: bf16 M1, M2 2^-6·max|plain| (one
-    bf16 ulp of the output rounding plus the f32 difference of P rounded
-    to bf16 against a running max instead of the row max); f32
+    P rounded to bf16) and with a stride-0 K/V (the cached style), and at
+    the edge of the value slices (c = 264: a second slice of 8 columns;
+    d = 520, n ≠ m, both off the 64-row tile); every bf16 case launched
+    twice for the same bits.  Tolerances: bf16 M1, M2 2^-6·max|plain|
+    (one bf16 ulp of the output rounding plus the f32 difference of P
+    rounded to bf16 against a running max instead of the row max); f32
     1e-4·max|plain| (sums in another order over up to 16384 keys); L
     1e-5·max|L| (f32 in both)."""
     errs = []
-    cases = [("bf16", torch.bfloat16, (K3_BATCH, n, n, d, c), 1.0)
+    cases = [("bf16", torch.bfloat16, (K3_BATCH, n, n, d, c), 1.0, False)
              for n, d, c in K3_LEVELS]
     n, d, c = K3_LEVELS[0]
-    cases += [("bf16 sharp", torch.bfloat16, (K3_BATCH, n, n, d, c), 10.0),
-              ("f32", torch.float32, (2, 300, 520, 96, 64), 1.0),
-              ("f32", torch.float32, (K3_BATCH, 4096, 4096, 960, 512), 1.0)]
-    for tag, dtype, shape, score_std in cases:
+    cases += [("bf16 sharp", torch.bfloat16, (K3_BATCH, n, n, d, c), 10.0,
+               False),
+              ("bf16 stride-0 K/V", torch.bfloat16, (K3_BATCH, n, n, d, c),
+               1.0, True),
+              ("bf16 slice edge", torch.bfloat16, (2, 200, 330, 520, 264), 1.0,
+               False),
+              ("f32", torch.float32, (2, 300, 520, 96, 64), 1.0, False),
+              ("f32", torch.float32, (K3_BATCH, 4096, 4096, 960, 512), 1.0,
+               False)]
+    for tag, dtype, shape, score_std, bcast in cases:
         apply_precision(dtype)
         q, k, v = k3_inputs(g, *shape, dtype, score_std)
+        if bcast:
+            k, v = k[:1].expand_as(k), v[:1].expand_as(v)
         m1, m2, lse = adaattn_attention.softmax_attention_moments(q, k, v)
         p1, p2, pl = adaattn_attention.softmax_attention_moments_plain(q, k, v)
         tol = 2 * BF16_ULP if dtype == torch.bfloat16 else 1e-4
@@ -388,7 +407,12 @@ def phase_kernels_k3(g):
         check(f"{name} L", lse, pl, 1e-5)
         if dtype == torch.bfloat16:
             errs.append(e)
+            again = adaattn_attention.softmax_attention_moments(q, k, v)
+            if not all(torch.equal(a, b) for a, b in zip((m1, m2, lse), again)):
+                raise AssertionError(f"{name}: two launches differ")
+            del again
         del q, k, v, m1, m2, lse, p1, p2, pl
+    log("  bf16 K3: a second launch gives the same bits at every shape")
     torch.cuda.synchronize()
     return max(errs)
 
@@ -523,6 +547,14 @@ def phase_model():
         ours = model(x)
         with plain_kernels():
             ref = model(x)
+    try:   # K1/K2 have no backward: a forward that needs a gradient raises
+        model(x)
+    except RuntimeError as e:
+        if "has no backward" not in str(e):
+            raise
+        log(f"  ReCoNet f32 forward with grad mode on raises: {e}")
+    else:
+        raise AssertionError("ReCoNet forward with grad mode on did not raise")
     for i, (o, r) in enumerate(zip(ours, ref)):
         err = max_err(o, r)
         log(f"  ReCoNet f32 256² tap {i}: max_abs_err {err:.3e} tol 2e-3")
@@ -825,7 +857,7 @@ def phase_main_train():
     return dict(zip(("K3", "K4", "K5"), total))
 
 
-def phase_timing(launches, errs):
+def phase_timing(launches, errs, slice_v):
     """Kernel, plain-version and cuDNN times at the main path's shapes, per
     forward: K1 five launches without and five with its prologue; K2 the
     stem and the head."""
@@ -910,16 +942,19 @@ def phase_timing(launches, errs):
         by2.add(by)
     k2["bound_by"] = "operations" if "operations" in by2 else "bytes"
     torch.cuda.synchronize()
-    return [k1, k2, timing_k3(launches["K3"], errs["K3"])]
+    return [k1, k2, timing_k3(launches["K3"], errs["K3"], slice_v)]
 
 
-def timing_k3(launches, err):
+def timing_k3(launches, err, slice_v):
     """K3, its plain version and one PyTorch call of the same function,
     ``F.scaled_dot_product_attention(q, k, [V, V∘V], scale=1)`` (M1‖M2; a
     yardstick the port never calls), at the three AdaAttN 512² batch-2
-    levels, bf16; one launch per level per forward.  Bound: FLOPs 2·b·n·m·
-    (d + 2c) on the tensor cores; bytes q, k, v read once, M1, M2, L
-    written once."""
+    levels, bf16; one launch per level per forward, with the executed-work
+    factor of each level (logged; ``slice_v`` is the library's value slice
+    width: S is computed once per slice), TFLOP/s on the least work and
+    the bound's share of the kernel's time.  Bound: FLOPs 2·b·n·m·(d + 2c)
+    on the tensor cores; bytes q, k, v read once, M1, M2, L written
+    once."""
     log("[6] K3 at the AdaAttN 512² b2 level shapes (bf16)")
     g = torch.Generator(device="cuda").manual_seed(4)
     dt = torch.bfloat16
@@ -933,7 +968,9 @@ def timing_k3(launches, err):
           "per": "one AdaAttN 512x512 batch-2 bf16 softmax forward: "
                  "(n=m, d, c) = (16384, 448, 256), (4096, 960, 512), "
                  "(1024, 1472, 512)",
-          "ms_per_launch": [], "library": "F.scaled_dot_product_attention"}
+          "ms_per_launch": [], "tflops_per_launch": [],
+          "bound_share_per_launch": [], "library_ms_per_launch": [],
+          "library": "F.scaled_dot_product_attention"}
     for n, d, c in K3_LEVELS:
         q, k, v = k3_inputs(g, K3_BATCH, n, n, d, c, dt)
         vv = torch.cat([v, v * v], dim=-1)
@@ -946,17 +983,24 @@ def timing_k3(launches, err):
         flops = 2 * K3_BATCH * n * n * (d + 2 * c)
         nbytes = K3_BATCH * (2 * (2 * n * d + n * c + 2 * n * c) + 4 * n)
         bb, by = bound(flops, nbytes, dt)
+        work = (-(-c // slice_v) * d + 2 * c) / (d + 2 * c)
         log(f"  K3 (n={n}, d={d}, c={c}) ms: kernel {tk:.4f} "
-            f"({flops / tk / 1e9:.1f} TFLOP/s), plain {tp:.4f}, "
+            f"({flops / tk / 1e9:.1f} TFLOP/s on the least work, executed "
+            f"{work:.3f}x it, bound share {bb / tk:.3f}), plain {tp:.4f}, "
             f"{k3['library']} {tl:.4f}, bound {bb:.4f} ({by})")
         k3["ms"] += tk
         k3["plain_ms"] += tp
         k3["library_ms"] += tl
         k3["bound_ms"] += bb
         k3["ms_per_launch"].append(tk)
+        k3["tflops_per_launch"].append(flops / tk / 1e9)
+        k3["bound_share_per_launch"].append(bb / tk)
+        k3["library_ms_per_launch"].append(tl)
         if by == "bytes":
             k3["bound_by"] = "bytes"
         del q, k, v, vv
+    log(f"  K3 per bf16 forward: {k3['ms']:.4f} ms against SDPA's "
+        f"{k3['library_ms']:.4f} ms")
     torch.cuda.synchronize()
     return k3
 
@@ -1205,8 +1249,8 @@ def main(argv):
     by_path = {"serving": launches["K3"], "training": train["K3"]}
     launches["K3"] += train["K3"]
     launches.update(K4=train["K4"], K5=train["K5"])
-    k45_rows, k3_f32 = timing_k45(launches, errs, slices)
-    kernels = phase_timing(launches, errs) + k45_rows
+    k45_rows, k3_f32 = timing_k45(launches, errs, slices["K45"])
+    kernels = phase_timing(launches, errs, slices["K3"]) + k45_rows
     kernels[2]["launches_by_path"] = by_path
     kernels[2]["ms_f32"] = sum(k3_f32)
     kernels[2]["ms_f32_per_launch"] = k3_f32

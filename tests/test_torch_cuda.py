@@ -186,10 +186,37 @@ def test_model_routes_through_the_kernels(cuda):
         torch.testing.assert_close(o.cpu(), r.detach(), rtol=2e-3, atol=2e-3)
 
 
-K3_SHAPES = [(256, 256, 64, 32),    # tile multiples
-             (300, 520, 96, 64),    # ragged n and m
-             (128, 700, 48, 24),    # ragged m, d and c under one tile
-             (200, 330, 448, 256)]  # relu3_1's d and c, two channel slices
+def test_k1_k2_refuse_a_gradient(cuda):
+    """K1 and K2 have no backward yet: a ReCoNet forward on the card with
+    grad mode on raises instead of returning outputs whose kernel-side
+    parameters get no gradient.  The same forward under inference_mode
+    still launches K1 ten times and K2 twice, and the CPU forward (plain
+    versions) still gives every parameter a gradient."""
+    from vst_tpu_torch.models.reconet import init_reconet
+
+    x = torch.rand(1, 36, 44, 3, generator=torch.Generator().manual_seed(0)) * 255
+    model = init_reconet(0, device=cuda)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        model(x.to(cuda))
+    before = (res_block.conv3x3_in_stats.launches,
+              head_conv.conv3x3_valid.launches)
+    with torch.inference_mode():
+        model(x.to(cuda))
+    assert (res_block.conv3x3_in_stats.launches - before[0],
+            head_conv.conv3x3_valid.launches - before[1]) == (10, 2)
+    cpu = init_reconet(0, device="cpu")
+    sum(o.float().square().mean() for o in cpu(x)).backward()
+    missing = [k for k, p in cpu.named_parameters()
+               if p.grad is None or not torch.isfinite(p.grad).all()]
+    assert not missing, missing
+
+
+K3_SHAPES = [(256, 256, 64, 32),     # tile multiples
+             (300, 520, 96, 64),     # ragged n and m
+             (128, 700, 48, 24),     # ragged m, d and c under one tile
+             (200, 330, 448, 256),   # relu3_1's d and c, one value slice
+             (130, 200, 1480, 512),  # relu5_1's c, two slices; d past 1472, ragged
+             (200, 330, 520, 264)]   # a second value slice of 8 columns
 
 
 def _k3_inputs(cuda, b, n, m, d, c, dtype, broadcast=False):
@@ -223,6 +250,19 @@ def test_k3(cuda, n, m, d, c, dtype, tol, broadcast):
     _close(m1, p1, tol)
     _close(m2, p2, tol)
     _close(lse, pl, 1e-5)
+
+
+@pytest.mark.parametrize("n,m,d,c", [(4096, 4096, 448, 256),
+                                     (130, 200, 1480, 512)])
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_k3_bf16_deterministic(cuda, n, m, d, c, broadcast):
+    """Two launches of bf16 K3 on the same inputs give the same bits (no
+    atomics; every sum in a fixed order)."""
+    q, k, v = _k3_inputs(cuda, 2, n, m, d, c, torch.bfloat16, broadcast)
+    first = adaattn_attention.softmax_attention_moments(q, k, v)
+    second = adaattn_attention.softmax_attention_moments(q, k, v)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

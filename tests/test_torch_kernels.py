@@ -7,6 +7,8 @@ run only on the card: tests/test_torch_cuda.py holds them against the
 plain versions there.
 """
 
+import contextlib
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -18,6 +20,7 @@ from vst_tpu.kernels import res_block as jrb
 from vst_tpu.models import reconet as jreconet
 from vst_tpu_torch.kernels import _build
 from vst_tpu_torch.kernels import res_block, head_conv
+from vst_tpu_torch.kernels._grad import refuse_grad
 
 
 def t(a, dtype=torch.float32):
@@ -143,6 +146,24 @@ class TestWrappersOnCPU:
         head_conv.conv3x3_valid(x, t(rng.standard_normal((3, 3, 8, 4))))
         assert (res_block.conv3x3_in_stats.launches,
                 head_conv.conv3x3_valid.launches) == before == (0, 0)
+
+    @pytest.mark.parametrize("mode", ["grad", "no_grad", "inference_mode",
+                                      "no_requires_grad"])
+    def test_refuse_grad(self, mode):
+        """The guard of K1/K2's CUDA branch raises only where autograd
+        would need a gradient through the kernel: grad mode on and a
+        tensor argument that requires one."""
+        w = torch.zeros(3, requires_grad=mode != "no_requires_grad")
+        ctx = {"no_grad": torch.no_grad,
+               "inference_mode": torch.inference_mode}.get(
+                   mode, contextlib.nullcontext)
+        with ctx():
+            if mode == "grad":
+                with pytest.raises(RuntimeError,
+                                   match="K1 conv3x3_in_stats has no backward"):
+                    refuse_grad("K1 conv3x3_in_stats", torch.zeros(3), w, None)
+            else:
+                refuse_grad("K1 conv3x3_in_stats", torch.zeros(3), w, None)
 
     def test_meta_tensors_raise(self):
         x = torch.empty((1, 6, 6, 8), device="meta")

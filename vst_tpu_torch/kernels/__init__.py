@@ -13,5 +13,7 @@
   ``adaattn_attention.softmax_attention_dkv``: that Function's backward
   (replace ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` there).
 
-Each wrapper counts its launches in ``<wrapper>.launches``.
+Each wrapper counts its launches in ``<wrapper>.launches``.  K1 and K2
+have no backward yet: on the card a forward that needs a gradient raises
+(``_grad.refuse_grad``).
 """

@@ -5,7 +5,8 @@ Counterpart of ``vst_tpu/kernels/adaattn_attention.py::
 softmax_attention_moments_pallas`` and its custom VJP:
 - K3 (``_fwd_kernel``, source ``csrc/adaattn_fwd.cu``): M1 = softmax(QKᵀ)·V,
   M2 = softmax(QKᵀ)·(V∘V) and the row logsumexp L, without materializing
-  the (n×m) attention map;
+  the (n×m) attention map; in bf16 on ``wgmma`` with S computed once per
+  key tile and value slice of ≤ 256 columns;
 - K4 (``_bwd_dq_kernel``, ``csrc/adaattn_bwd.cu``): dQ = dS·K;
 - K5 (``_bwd_dkv_kernel``, ``csrc/adaattn_bwd.cu``): dK = dSᵀ·Q and
   dV = Aᵀ·dM1 + 2V∘(Aᵀ·dM2); in bf16 both on ``wgmma`` with S and dA
@@ -28,8 +29,6 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from vst_tpu_torch.kernels import _build
-
-MAX_D_BF16 = 1472   # K3's whole (64 × d) bf16 Q tile stays in shared memory
 
 
 @functools.cache
@@ -160,9 +159,9 @@ def _check(q, k, v, what="softmax_attention_moments"):
                          "batch stride of 0 is fine)")
     if q.dtype == torch.bfloat16:
         d, c = q.shape[2], v.shape[2]
-        if d % 8 or c % 8 or d > MAX_D_BF16:
-            raise ValueError(f"{what}: bf16 needs d and c multiples of 8 and "
-                             f"d <= {MAX_D_BF16}, got d={d}, c={c}")
+        if d % 8 or c % 8:
+            raise ValueError(f"{what}: bf16 needs d and c multiples of 8, "
+                             f"got d={d}, c={c}")
         if any(t.data_ptr() % 16 or t.stride(0) % 8 for t in (q, k, v)):
             raise ValueError(f"{what}: bf16 rows must be 16-byte aligned")
 
@@ -294,7 +293,7 @@ def softmax_attention_moments(q, k, v):
     and L (b, n, 1) float32 (natural log); differentiable in q, k and v.
 
     All float32 (CUDA cores, true float32) or all bfloat16 (tensor cores;
-    d, c multiples of 8, d ≤ 1472).  Rows must be contiguous; K and V may
+    d, c multiples of 8).  Rows must be contiguous; K and V may
     be broadcast over the batch with ``expand`` (batch stride 0), which the
     kernels read in place."""
     return SoftmaxAttentionMoments.apply(q, k, v)

@@ -92,13 +92,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "attn_common.cuh"   // bf16 packing, LOG2E / NEG
-#include "wgmma.cuh"         // mbarriers, TMA, wgmma, encode_tiled
+#include "attn_common.cuh"   // bf16 packing, LOG2E / NEG, chunks, TMA maps
 
 namespace k45 {
 
 using namespace attn;
-namespace wg = vst::wg;
 
 struct BwdArgs {
   const void* q;      // (b, n, d), batch stride q_bs (may be 0)
@@ -119,8 +117,6 @@ constexpr float BIG = 1e30f;   // L of a row outside [0, n): A = 0 there
 
 // ----------------------------------------------------------------- bf16
 
-constexpr int T = 64;                  // rows of a block, tile of the other side, chunk width
-constexpr int CB = T * T * 2;          // one 64 x 64 bf16 chunk: 8 KB
 constexpr int SLICE_DQ = 512;          // dQ or dK columns per block: 8 chunks
 constexpr int SLICE_DV = 256;          // dV columns per block: 4 chunks
 constexpr int R0 = 3;                  // consumer 0's ring: stages of 2 chunks
@@ -148,24 +144,6 @@ struct Maps {
 // (K5).
 enum Kind { QK, DA_K4, DA_K5 };
 
-// Descriptors of a 64 x 64 chunk (rows 128 bytes apart, 8-row groups 1024
-// apart, 128-byte swizzle) at k16 step ks: read K-major (the step moves 32
-// bytes along the row) or N-major (the chunk's rows are K: 16 rows a step).
-__device__ __forceinline__ uint64_t kmajor(unsigned base, int ks) {
-  return wg::desc(base + ks * 32, 16, 1024, 1);
-}
-__device__ __forceinline__ uint64_t nmajor(unsigned base, int ks) {
-  return wg::desc(base + ks * 16 * 128, CB, 1024, 1);
-}
-
-// acc (64 x 64) += X Y^T over one chunk: X and Y both 64 rows, K-major.
-__device__ __forceinline__ void mma_xyt(float (&acc)[32], unsigned x,
-                                        unsigned y) {
-#pragma unroll
-  for (int ks = 0; ks < T / 16; ++ks)
-    wg::wgmma_bf16<64, wg::B_KMAJOR>(acc, kmajor(x, ks), kmajor(y, ks));
-}
-
 // acc (64 x 64) += P O over the tile: P (64 x 64, K-major) and one chunk O
 // whose 64 rows are the K dimension (N-major).
 __device__ __forceinline__ void mma_po(float (&acc)[32], unsigned p,
@@ -173,10 +151,6 @@ __device__ __forceinline__ void mma_po(float (&acc)[32], unsigned p,
 #pragma unroll
   for (int ks = 0; ks < T / 16; ++ks)
     wg::wgmma_bf16<64, wg::B_NMAJOR>(acc, kmajor(p, ks), nmajor(o, ks));
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // One consumer warpgroup's first phase on one tile: `count` stages of its
@@ -260,17 +234,6 @@ __device__ __forceinline__ void phase2(float (&acc)[4][32], unsigned p,
   if (prev >= 0 && lane == 0) wg::mbar_arrive(empty + 8 * (first + prev));
 }
 
-// Writes the pair (x0, x1) of this thread's accumulator positions (row
-// 16 wl + g8 + 8 h, columns 8 jj + 2 tq + {0, 1}) into the 64 x 64 bf16
-// chunk P in the swizzled K-major layout.
-__device__ __forceinline__ void store_p(unsigned char* P, int wl, int g8,
-                                        int tq, int jj, int h, float x0,
-                                        float x1) {
-  const int r = 16 * wl + g8 + 8 * h;
-  *reinterpret_cast<unsigned*>(P + r * 128 + (((jj ^ g8) << 4) | (tq * 4))) =
-      pack_bf16(x0, x1);
-}
-
 // The output-ring slot sl of a block: tensor (0 = k for K4, q for K5 dK;
 // 1 = dM1, 2 = dM2 for a dV role) and column; false if it lies past the
 // output.  dQ / dK: slot sl is columns o0 + 64 sl (consumer sl / 4).  dV:
@@ -333,17 +296,6 @@ struct Smem {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 };
-
-// The producer's side of one ring: waits for slot g % D to be empty, then
-// asks for `bytes` on its full barrier.  Returns the slot.
-template <int D>
-__device__ __forceinline__ int claim(unsigned full, unsigned empty, int g,
-                                     unsigned bytes) {
-  const int slot = g % D;
-  wg::mbar_wait(empty + 8 * slot, ((g / D) & 1) ^ 1);
-  wg::mbar_expect_tx(full + 8 * slot, bytes);
-  return slot;
-}
 
 // K4, bf16.  Block (query tile, dQ slice of 512 columns, image).
 __global__ void __launch_bounds__(NTH, 1)
@@ -928,32 +880,6 @@ __global__ void __launch_bounds__(FTH) attn_dkv_f32(BwdArgs a, int n_dk_roles) {
       }
     }
   }
-}
-
-// A 3-D tensor map over a bf16 (planes, rows, cols) tensor with a plane
-// stride in elements (0: one plane, broadcast), read in 64 x 64 boxes with
-// the 128-byte swizzle; whatever lies outside arrives as zeros.
-static cudaError_t chunk_map(CUtensorMap* map, const void* base, int cols,
-                             int rows, int planes, long long plane_stride) {
-  wg::EncodeTiled enc = wg::encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const bool one = plane_stride == 0;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(one ? 1 : planes)};
-  const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(cols) * 2,
-      static_cast<cuuint64_t>(one ? static_cast<long long>(rows) * cols
-                                  : plane_stride) * 2};
-  const cuuint32_t box[3] = {T, T, 1};
-  const cuuint32_t estride[3] = {1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                         const_cast<void*>(base), dims, strides, box, estride,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 static cudaError_t make_maps(Maps* mp, const BwdArgs& a, int b) {

@@ -4,8 +4,8 @@
 //
 // q (b, n, d), k (b, m, d), v (b, m, c) in bfloat16 or float32 -> M1, M2
 // (b, n, c) in the input type and L (b, n) float32, natural log.  Rows of a
-// batch entry are contiguous; the batch strides are arguments, so a K or V
-// broadcast over the batch (stride 0, the cached-style path) is read in
+// batch entry are contiguous; the batch strides are arguments, so a Q, K or
+// V broadcast over the batch (stride 0, the cached-style path) is read in
 // place, with no copy.
 //
 // Replaces the Pallas TPU kernel vst_tpu/kernels/adaattn_attention.py
@@ -17,29 +17,63 @@
 // map reaches device memory.  Keys >= m and query rows >= n are masked in
 // the kernel: there are no padded copies.
 //
-// What bounds it on the H100: the tensor cores.  At the AdaAttN 512^2 serving
-// shape, relu3_1 (n = m = 16384, d = 448, c = 256) is 2nm(d + 2c) = 0.52
-// TFLOP per image, 0.52 ms at 989 TFLOP/s, against about 55 MB of inputs and
-// outputs (0.02 ms at 3.35 TB/s) and 2.7e8 exponentials on the MUFU.
+// What bounds it on the H100: the least work is tensor-core bound.  At the
+// AdaAttN 512^2 serving shape, relu3_1 (n = m = 16384, d = 448, c = 256) is
+// 2nm(d + 2c) = 0.52 TFLOP per image, 0.52 ms at 989 TFLOP/s, against about
+// 55 MB of inputs and outputs (0.02 ms at 3.35 TB/s) and 2.7e8 exponentials.
+// What holds this design (experiments/k3_variants.py, PERF.md): not the
+// tensor cores and not the L2 bytes.  A block streams Q beside K, so each
+// key tile reads 144 KB from L2 at relu3_1, but loading Q once per block
+// saves about 1%; with all three products removed the kernel still takes
+// two thirds of its time, and the products add on top of the rest rather
+// than hiding under it, since consumer 0 runs S, the softmax and P V one
+// after another.
 //
-// bf16 (serving), attn_fwd_bf16: mma.sync.m16n8k16 with float32 accumulation.
-// - Block: 4 warps, 64 query rows (16 per warp, so a row's softmax stays in
-//   one warp's quad of lanes), BC = 128 value channels.  Per thread: the
-//   16 x 64 score tile (32 floats) and the two 16 x 128 accumulators
-//   (128 floats).  Two accumulators of width 512 do not fit a block's
-//   registers, so c is split across blocks and each slice recomputes
-//   Q K^T: c / 128 slices, 2 at relu3_1 and 4 at relu4_1/relu5_1, which
-//   costs 1.47x, 2.45x and 2.77x the least arithmetic at the three levels.
-// - The whole Q tile (64 x d) stays in shared memory for the block's life;
-//   K is staged in 64-key x 64-d chunks through a double-buffered cp.async
-//   ring, so Q K^T is accumulated over d in steps and any d <= 1472 fits
-//   (64 x 1472 bf16 Q = 188 KB + 18 KB of K stages + 17 KB of V = 220 KB).
-// - Scores are scaled by log2(e) in float32 and exponentiated with exp2f;
-//   L comes out as max * ln 2 + log(sum), in the natural domain.
-// - P is rounded to bf16 before the two P.V products (the TPU kernel's
-//   DEFAULT-precision dot does the same); the row sum uses the unrounded P.
-// - V o V is formed in float32 from the bf16 V fragments in registers and
-//   rounded to bf16 there: no V^2 tile, in shared or device memory.
+// bf16 (serving), attn_fwd_bf16, on Hopper's wgmma:
+// - Block = (image, 64 query rows, a value slice of <= 256 columns), walking
+//   the key tiles of 64: S = Q K^T is computed once per (tile, slice), one
+//   slice at relu3_1 (c = 256) and two at c = 512, so the executed work is
+//   (s d + 2c) / (d + 2c) of the least with s = ceil(c / 256) slices: 1.00 /
+//   1.48 / 1.59x at relu3_1 / relu4_1 / relu5_1.
+// - Three warpgroups.  Consumer 0 computes S over d (wgmma m64n64k16 on 64 x
+//   64 chunks of Q and K, both K-major), runs the online softmax on it in
+//   its registers (base 2, running max, row sum of the unrounded P), writes
+//   P rounded to bf16 once to shared memory, swizzled K-major as wgmma
+//   reads A, with the 64 rows' rescale factors, and accumulates M1 = P V.
+//   Consumer 1 squares each V tile into W = V o V (float32, rounded to
+//   bf16) in a buffer of its own and accumulates M2 = P W.  P V and P W are
+//   one m64n256k16 per k16 step with B N-major: the tile's four V chunks lie
+//   one after another, the descriptor's leading offset stepping from one to
+//   the next.  Each accumulator is 64 x 256 float32, 128 registers a thread.
+// - Departure from splitting S over the two consumers: consumer 0 owns S
+//   whole, so the softmax needs no float32 exchange, and consumer 1's P W of
+//   tile j overlaps consumer 0's S of tile j + 1 (S split over d through a
+//   16 KB exchange measured slower at the serving levels, PERF.md).  P and
+//   the rescale factors are double-buffered, so one named barrier per tile
+//   (both consumers, 256 threads) hands P over and frees the buffer of tile
+//   j - 1.  A warp whose rows' rescale factors are all 1 (the running max
+//   did not move) skips rescaling its accumulators: the same bits, sooner.
+// - The producer warpgroup (setmaxnreg 40) runs two rings, one thread each,
+//   behind full/empty mbarriers: (Q chunk, K chunk) stages of 16 KB, 6 deep,
+//   over every (key tile, chunk of d); and V tiles of 32 KB, 2 deep.
+//   Consumers (setmaxnreg 232; 168 registers a thread at launch, no
+//   spills) release a stage once its multiply is done.  Q is streamed, not
+//   resident: one code path for every d.
+// - Operands come by TMA through 3-D tensor maps over (columns, rows,
+//   image) in 64 x 64 boxes with the 128-byte swizzle: rows past n or m of
+//   an image and columns past d or c arrive as zeros; a stride-0 operand is
+//   one plane.  Zero-filled keys would score 0, so keys >= m get S = -inf
+//   before the max.  Rows >= n and columns >= c are not stored; V chunks
+//   wholly past c are not loaded (their columns are never stored).
+// - Shared memory: 96 + 64 + 32 + 16 KB of rings, W and P, 768 B of row
+//   factors, 16 mbarriers and 1 KB of alignment, 214,912 bytes: one block
+//   of 384 threads per SM.
+//
+// Rounding points, as the plain version: scores scaled by log2 e for
+// exp2f; L = max ln 2 + log(sum); P rounded to bf16 before both products,
+// the row sum of the unrounded P; W = V o V in float32 rounded to bf16;
+// accumulators in float32.  Deterministic: no atomics, every sum in a fixed
+// order.
 //
 // float32 (parity), attn_fwd_f32: true float32 on the CUDA cores (JAX's
 // HIGHEST), 64 query rows x 64 keys x 64 value channels per block of 256
@@ -48,14 +82,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "attn_common.cuh"   // cp.async, bf16 packing, LOG2E / LN2 / NEG
+#include "attn_common.cuh"   // bf16 packing, LOG2E / LN2 / NEG, chunks, TMA maps
 
 namespace k3 {
 
 using namespace attn;
 
 struct AttnArgs {
-  const void* q;      // (b, n, d) rows contiguous, batch stride q_bs
+  const void* q;      // (b, n, d) rows contiguous, batch stride q_bs (may be 0)
   const void* k;      // (b, m, d) rows contiguous, batch stride k_bs (may be 0)
   const void* v;      // (b, m, c) rows contiguous, batch stride v_bs (may be 0)
   void* m1;           // (b, n, c) contiguous, input type
@@ -67,227 +101,254 @@ struct AttnArgs {
 
 // ----------------------------------------------------------------- bf16
 
-constexpr int BM = 64;    // query rows per block
-constexpr int BN = 64;    // keys per tile
-constexpr int BC = 128;   // value channels per block
-constexpr int BD = 64;    // d per K stage
-constexpr int NTH = 128;  // 4 warps
-constexpr int KLD = BD + 8;   // bf16 per K-stage row (ldmatrix conflict-free)
-constexpr int VLD = BC + 8;   // bf16 per V row
-constexpr int SMEM_MAX = 232448;
+constexpr int SLICE = 256;             // value columns per block
+constexpr int NV = SLICE / T;          // V chunks per key tile
+constexpr int RQ = 6;                  // (Q chunk, K chunk) stages
+constexpr int RV = 2;                  // V tile stages
+constexpr int SLOT_QK = 2 * CB;
+constexpr int SLOT_V = NV * CB;
+constexpr int NTH = 384;               // two consumer warpgroups, one producer
+constexpr int OFF_V = RQ * SLOT_QK;
+constexpr int OFF_W = OFF_V + RV * SLOT_V;      // W = V o V, consumer 1's
+constexpr int OFF_P = OFF_W + SLOT_V;           // P, bf16, two buffers
+constexpr int OFF_ROW = OFF_P + 2 * CB;         // rescale factors [2][T], 1/l [T]
+constexpr int OFF_BAR = OFF_ROW + 3 * T * 4;
+constexpr int NBAR = 2 * (RQ + RV);
+constexpr int SMEM_BF16 = 1024 + OFF_BAR + NBAR * 8;
 
-__host__ __device__ constexpr int qld(int dpad) { return dpad + 8; }
+// The operands' tensor maps (bf16, 64 x 64 boxes, 128-byte swizzle).
+struct Maps {
+  CUtensorMap q, k, v;
+};
 
-__host__ __device__ constexpr int smem_bytes(int dpad) {
-  return (BM * qld(dpad) + 2 * BN * KLD + BN * VLD) * 2;
+// acc (64 x 256) += P O over the tile: P (64 x 64, K-major) and the four
+// chunks of O (64 keys x 256 columns) from o on, read N-major.
+__device__ __forceinline__ void mma_p_slice(float (&acc)[NV * 32], unsigned p,
+                                            unsigned o) {
+#pragma unroll
+  for (int ks = 0; ks < T / 16; ++ks)
+    wg::wgmma_bf16<SLICE, wg::B_NMAJOR>(acc, kmajor(p, ks), nmajor(o, ks));
 }
 
-__global__ void __launch_bounds__(NTH) attn_fwd_bf16(AttnArgs a, int dpad) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ql = qld(dpad);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);   // [BM][ql]
-  bf16* Ks = Qs + BM * ql;                    // [2][BN][KLD]
-  bf16* Vs = Ks + 2 * BN * KLD;               // [BN][VLD]
-
-  const int bi = blockIdx.z, q0 = blockIdx.x * BM, c0 = blockIdx.y * BC;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const bf16* q = static_cast<const bf16*>(a.q) + bi * a.q_bs;
-  const bf16* k = static_cast<const bf16*>(a.k) + bi * a.k_bs;
-  const bf16* v = static_cast<const bf16*>(a.v) + bi * a.v_bs;
-  const int nd = dpad / BD;
-  const int nkt = (a.m + BN - 1) / BN;
-  const int total = nkt * nd;
-
-  // Q tile, once: rows >= n and columns >= d are zero.
-  {
-    const int vrow = dpad / 8;
-    for (int e = tid; e < BM * vrow; e += NTH) {
-      const int r = e / vrow, col = (e - r * vrow) * 8;
-      const bool ok = q0 + r < a.n && col < a.d;
-      cp_async16(Qs + r * ql + col, ok ? q + (size_t)(q0 + r) * a.d + col : q,
-                 ok);
-    }
-    cp_async_commit();
-  }
-  // K stage s = (key tile j, d chunk t) into ring buffer s & 1.
-  auto load_k = [&](int s) {
-    const int j = s / nd, t = s - j * nd;
-    bf16* dst = Ks + (s & 1) * BN * KLD;
+// Writes acc / l (acc[4 jj + 2 h + t]: row q0 + 16 wl + g8 + 8 h, column
+// c0 + 8 jj + 2 tq + t) as bf16 into out (b, n, c), inside [0, n) x [0, c).
+__device__ __forceinline__ void store_slice(void* out, const float (&acc)[NV * 32],
+                                            const float (&inv)[2],
+                                            const AttnArgs& a, int bi, int q0,
+                                            int c0, int wl, int g8, int tq) {
+  bf16* o = static_cast<bf16*>(out) + (size_t)bi * a.n * a.c;
 #pragma unroll
-    for (int r = 0; r < (BN * BD / 8) / NTH; ++r) {
-      const int e = tid + NTH * r;
-      const int row = e >> 3, col = (e & 7) * 8;
-      const int key = j * BN + row, dd = t * BD + col;
-      const bool ok = key < a.m && dd < a.d;
-      cp_async16(dst + row * KLD + col, ok ? k + (size_t)key * a.d + dd : k,
-                 ok);
-    }
-  };
-  // V tile of key tile j: BN keys x BC channels of this block's slice.
-  auto load_v = [&](int j) {
-#pragma unroll
-    for (int r = 0; r < (BN * BC / 8) / NTH; ++r) {
-      const int e = tid + NTH * r;
-      const int row = e >> 4, col = (e & 15) * 8;
-      const int key = j * BN + row, cc = c0 + col;
-      const bool ok = key < a.m && cc < a.c;
-      cp_async16(Vs + row * VLD + col, ok ? v + (size_t)key * a.c + cc : v,
-                 ok);
-    }
-  };
-
-  // Commit groups, in order: Q, K(0), V(0), then one K stage per step and
-  // one V tile after each key tile's P.V (possibly empty groups, so that
-  // the counts below hold everywhere).
-  load_k(0);
-  cp_async_commit();
-  load_v(0);
-  cp_async_commit();
-
-  float acc1[BC / 8][4], acc2[BC / 8][4];
-#pragma unroll
-  for (int i = 0; i < BC / 8; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc1[i][r] = acc2[i][r] = 0.f;
-  float mrow[2] = {NEG, NEG};   // running max of rows g and g + 8, base 2
-  float lrow[2] = {0.f, 0.f};   // this thread's share of the running sums
-  const bf16* qw = Qs + (warp * 16) * ql;
-
-  for (int j = 0; j < nkt; ++j) {
-    float s[BN / 8][4];
-#pragma unroll
-    for (int i = 0; i < BN / 8; ++i)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) s[i][r] = 0.f;
-
-    for (int t = 0; t < nd; ++t) {
-      const int st = j * nd + t;
-      if (st + 1 < total) load_k(st + 1);
-      cp_async_commit();
-      // newer than K(st): V(j) and K(st + 1) at t == 0, K(st + 1) after
-      if (t == 0) cp_async_wait<2>(); else cp_async_wait<1>();
-      __syncthreads();
-      const bf16* kb = Ks + (st & 1) * BN * KLD;
-#pragma unroll
-      for (int ks = 0; ks < BD; ks += 16) {
-        unsigned af[4];
-        vst::ldmatrix_x4(af, qw + (lane & 15) * ql + t * BD + ks + (lane >> 4) * 8);
-#pragma unroll
-        for (int nn = 0; nn < BN / 16; ++nn) {
-          unsigned bk[4];
-          vst::ldmatrix_x4(bk, kb + (nn * 16 + (lane & 7) + ((lane >> 4) << 3)) * KLD
-                                   + ks + ((lane >> 3) & 1) * 8);
-          vst::mma_bf16(s[2 * nn], af, bk[0], bk[1]);
-          vst::mma_bf16(s[2 * nn + 1], af, bk[2], bk[3]);
-        }
-      }
-      __syncthreads();
-    }
-
-    // Online softmax over this key tile, base 2.  s[nt][0..1] are row g,
-    // s[nt][2..3] row g + 8, keys j*BN + nt*8 + 2*tq + {0, 1}.
-    float tmax[2] = {NEG, NEG};
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      const int key = j * BN + nt * 8 + 2 * tq;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        s[nt][r] = key + (r & 1) < a.m ? s[nt][r] * LOG2E : NEG;
-        tmax[r >> 1] = fmaxf(tmax[r >> 1], s[nt][r]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
-      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
-      const float mnew = fmaxf(mrow[h], tmax[h]);
-      alpha[h] = exp2f(mrow[h] - mnew);
-      mrow[h] = mnew;
-    }
-    // P as bf16 A fragments of the P.V products: 16 keys per k-step.
-    unsigned pa[BN / 16][4];
-    float ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      const float p0 = exp2f(s[nt][0] - mrow[0]);
-      const float p1 = exp2f(s[nt][1] - mrow[0]);
-      const float p2 = exp2f(s[nt][2] - mrow[1]);
-      const float p3 = exp2f(s[nt][3] - mrow[1]);
-      ls[0] += p0 + p1;
-      ls[1] += p2 + p3;
-      pa[nt >> 1][(nt & 1) * 2] = pack_bf16(p0, p1);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) lrow[h] = lrow[h] * alpha[h] + ls[h];
-#pragma unroll
-    for (int ct = 0; ct < BC / 8; ++ct)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        acc1[ct][r] *= alpha[r >> 1];
-        acc2[ct][r] *= alpha[r >> 1];
-      }
-
-    // newer than V(j): the K stages of this tile after the first, and the
-    // prefetch of the next tile's first one
-    cp_async_wait<1>();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-#pragma unroll
-      for (int cc = 0; cc < BC / 16; ++cc) {
-        unsigned bv[4], bw[4];
-        vst::ldmatrix_x4_trans(bv, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * VLD
-                                       + cc * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) bw[r] = square_bf16x2(bv[r]);
-        vst::mma_bf16(acc1[2 * cc], pa[kk], bv[0], bv[1]);
-        vst::mma_bf16(acc1[2 * cc + 1], pa[kk], bv[2], bv[3]);
-        vst::mma_bf16(acc2[2 * cc], pa[kk], bw[0], bw[1]);
-        vst::mma_bf16(acc2[2 * cc + 1], pa[kk], bw[2], bw[3]);
-      }
-    }
-    __syncthreads();
-    if (j + 1 < nkt) load_v(j + 1);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-  float lsum[2], inv[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float l = lrow[h];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    lsum[h] = l;
-    inv[h] = 1.f / l;
-  }
-  bf16* o1 = static_cast<bf16*>(a.m1) + (size_t)bi * a.n * a.c;
-  bf16* o2 = static_cast<bf16*>(a.m2) + (size_t)bi * a.n * a.c;
-#pragma unroll
-  for (int ct = 0; ct < BC / 8; ++ct) {
-    const int col = c0 + ct * 8 + 2 * tq;
+  for (int jj = 0; jj < NV * 8; ++jj) {
+    const int col = c0 + 8 * jj + 2 * tq;
     if (col >= a.c) continue;   // c % 8 == 0, so col + 1 < c as well
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = q0 + warp * 16 + g + h * 8;
-      if (row >= a.n) continue;
-      const size_t o = (size_t)row * a.c + col;
-      *reinterpret_cast<__nv_bfloat162*>(o1 + o) = __floats2bfloat162_rn(
-          acc1[ct][2 * h] * inv[h], acc1[ct][2 * h + 1] * inv[h]);
-      *reinterpret_cast<__nv_bfloat162*>(o2 + o) = __floats2bfloat162_rn(
-          acc2[ct][2 * h] * inv[h], acc2[ct][2 * h + 1] * inv[h]);
+      const int row = q0 + 16 * wl + g8 + 8 * h;
+      if (row < a.n)
+        *reinterpret_cast<__nv_bfloat162*>(o + (size_t)row * a.c + col) =
+            __floats2bfloat162_rn(acc[4 * jj + 2 * h] * inv[h],
+                                  acc[4 * jj + 2 * h + 1] * inv[h]);
     }
   }
-  if (blockIdx.y == 0 && tq == 0) {
+}
+
+// Block (query tile, value slice, image).
+__global__ void __launch_bounds__(NTH, 1)
+    attn_fwd_bf16(AttnArgs a, const __grid_constant__ Maps mp) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring_qk = sm;
+  unsigned char* ring_v = sm + OFF_V;
+  float* alpha_s = reinterpret_cast<float*>(sm + OFF_ROW);   // [2][T]
+  float* linv_s = alpha_s + 2 * T;                             // [T]
+  const unsigned fq = wg::smem_u32(sm + OFF_BAR), eq = fq + 8 * RQ;
+  const unsigned fv = eq + 8 * RQ, ev = fv + 8 * RV;
+  const unsigned pb = wg::smem_u32(sm + OFF_P), wb = wg::smem_u32(sm + OFF_W);
+
+  const int bi = blockIdx.z, q0 = blockIdx.x * T, c0 = blockIdx.y * SLICE;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nkt = (a.m + T - 1) / T, nd = (a.d + T - 1) / T;
+  const int nv = min(NV, (a.c - c0 + T - 1) / T);   // V chunks inside c
+  const int qb = a.q_bs ? bi : 0, kb = a.k_bs ? bi : 0, vb = a.v_bs ? bi : 0;
+
+  // Full barriers: one arrive (the producer's expect_tx).  Empty: one
+  // arrive per consumer warp that reads the slot (Q/K: consumer 0's 4;
+  // V: both consumers' 8).
+  if (tid == 0) {
+    for (int i = 0; i < RQ; ++i) {
+      wg::mbar_init(fq + 8 * i, 1);
+      wg::mbar_init(eq + 8 * i, 4);
+    }
+    for (int i = 0; i < RV; ++i) {
+      wg::mbar_init(fv + 8 * i, 1);
+      wg::mbar_init(ev + 8 * i, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (lane != 0) return;
+    if (warp == 8) {          // Q and K over d, for every key tile
+      for (int j = 0, g = 0; j < nkt; ++j)
+        for (int t = 0; t < nd; ++t, ++g) {
+          const int s = claim<RQ>(fq, eq, g, 2 * CB);
+          const unsigned dst = wg::smem_u32(ring_qk + s * SLOT_QK);
+          wg::tma_load_3d(dst, &mp.q, T * t, q0, qb, fq + 8 * s);
+          wg::tma_load_3d(dst + CB, &mp.k, T * t, T * j, kb, fq + 8 * s);
+        }
+    } else if (warp == 9) {   // the key tile's V at the slice
+      for (int j = 0; j < nkt; ++j) {
+        const int s = claim<RV>(fv, ev, j, nv * CB);
+        const unsigned dst = wg::smem_u32(ring_v + s * SLOT_V);
+        for (int h = 0; h < nv; ++h)
+          wg::tma_load_3d(dst + h * CB, &mp.v, c0 + T * h, T * j, vb,
+                          fv + 8 * s);
+      }
+    }
+    return;
+  }
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wgi = warp >> 2, wl = warp & 3, tw = tid & 127;
+  const int g8 = lane >> 2, tq = lane & 3;
+  float acc[NV * 32];   // consumer 0: M1, consumer 1: M2 (unnormalized)
+#pragma unroll
+  for (int i = 0; i < NV * 32; ++i) acc[i] = 0.f;
+  float inv[2];
+
+  if (wgi == 0) {
+    float mrow[2] = {NEG, NEG};   // running max of this thread's two rows, base 2
+    float lrow[2] = {0.f, 0.f};   // this thread's share of their running sums
+    int g = 0;
+    for (int j = 0; j < nkt; ++j) {
+      // S over d: one wgmma group per stage, the one before kept in flight
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      for (int t = 0; t < nd; ++t, ++g) {
+        const int slot = g % RQ;
+        wg::mbar_wait(fq + 8 * slot, (g / RQ) & 1);
+        const unsigned b = wg::smem_u32(ring_qk + slot * SLOT_QK);
+        wg::fence_acc(s);
+        wg::wgmma_fence();
+        mma_xyt(s, b, b + CB);
+        wg::wgmma_commit();
+        wg::wgmma_wait<1>();   // the stage before is done
+        wg::fence_acc(s);
+        if (t > 0 && lane == 0) wg::mbar_arrive(eq + 8 * ((g - 1) % RQ));
+      }
+      wg::wgmma_wait<0>();
+      wg::fence_acc(s);
+      if (lane == 0) wg::mbar_arrive(eq + 8 * ((g - 1) % RQ));
+
+      // Online softmax, base 2.  s[4 jj + 2 h + t]: row 16 wl + g8 + 8 h,
+      // key T j + 8 jj + 2 tq + t.
+      float tmax[2] = {NEG, NEG};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = T * j + 8 * (i >> 2) + 2 * tq + (i & 1);
+        s[i] = key < a.m ? s[i] * LOG2E : NEG;
+        tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s[i]);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
+        tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
+        const float mnew = fmaxf(mrow[h], tmax[h]);
+        alpha[h] = exp2f(mrow[h] - mnew);
+        mrow[h] = mnew;
+      }
+      unsigned char* P = sm + OFF_P + (j & 1) * CB;
+      float ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int h = (i >> 1) & 1;
+        const float p0 = exp2f(s[i] - mrow[h]);
+        const float p1 = exp2f(s[i + 1] - mrow[h]);
+        ls[h] += p0 + p1;
+        store_p(P, wl, g8, tq, i >> 2, h, p0, p1);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        lrow[h] = lrow[h] * alpha[h] + ls[h];
+        if (tq == 0) alpha_s[(j & 1) * T + 16 * wl + g8 + 8 * h] = alpha[h];
+      }
+      wg::fence_async_shared();
+      bar_sync(1, 256);   // P(j) and its factors are out; P(j - 1) is free
+
+      // M1 = M1 alpha + P V (a warp whose factors are all 1 skips the rescale)
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int i = 0; i < NV * 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      }
+      const int sv = j % RV;
+      wg::mbar_wait(fv + 8 * sv, (j / RV) & 1);
+      wg::fence_acc(acc);
+      wg::wgmma_fence();
+      mma_p_slice(acc, pb + (j & 1) * CB, wg::smem_u32(ring_v + sv * SLOT_V));
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_acc(acc);
+      if (lane == 0) wg::mbar_arrive(ev + 8 * sv);
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = q0 + warp * 16 + g + h * 8;
-      if (row < a.n)
-        a.lse[(size_t)bi * a.n + row] = mrow[h] * LN2 + logf(lsum[h]);
+      float l = lrow[h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[h] = 1.f / l;
+      const int r = 16 * wl + g8 + 8 * h;
+      if (tq == 0) {
+        linv_s[r] = inv[h];
+        if (blockIdx.y == 0 && q0 + r < a.n)
+          a.lse[(size_t)bi * a.n + q0 + r] = mrow[h] * LN2 + logf(l);
+      }
     }
+    bar_sync(1, 256);
+    store_slice(a.m1, acc, inv, a, bi, q0, c0, wl, g8, tq);
+  } else {
+    for (int j = 0; j < nkt; ++j) {
+      // W = V o V into consumer 1's buffer (same swizzle), then V is free
+      const int sv = j % RV;
+      wg::mbar_wait(fv + 8 * sv, (j / RV) & 1);
+      const uint4* y = reinterpret_cast<const uint4*>(ring_v + sv * SLOT_V);
+      uint4* w = reinterpret_cast<uint4*>(sm + OFF_W);
+      for (int r = 0; r < nv * (CB / 16 / 128); ++r) {
+        uint4 x = y[tw + 128 * r];
+        x.x = square_bf16x2(x.x);
+        x.y = square_bf16x2(x.y);
+        x.z = square_bf16x2(x.z);
+        x.w = square_bf16x2(x.w);
+        w[tw + 128 * r] = x;
+      }
+      __syncwarp();
+      if (lane == 0) wg::mbar_arrive(ev + 8 * sv);
+      wg::fence_async_shared();
+      bar_sync(1, 256);   // P(j) is in; every W write of this warpgroup is done
+
+      // M2 = M2 alpha + P W
+      const float* al = alpha_s + (j & 1) * T + 16 * wl + g8;
+      const float alpha[2] = {al[0], al[8]};
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int i = 0; i < NV * 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      }
+      wg::fence_acc(acc);
+      wg::wgmma_fence();
+      mma_p_slice(acc, pb + (j & 1) * CB, wb);
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_acc(acc);
+    }
+    bar_sync(1, 256);
+    inv[0] = linv_s[16 * wl + g8];
+    inv[1] = linv_s[16 * wl + g8 + 8];
+    store_slice(a.m2, acc, inv, a, bi, q0, c0, wl, g8, tq);
   }
 }
 
@@ -434,9 +495,9 @@ __global__ void __launch_bounds__(FTH) attn_fwd_f32(AttnArgs a) {
 
 }  // namespace k3
 
-// Returns 0 on success, else the CUDA error of the attribute call or the
-// launch.  bf16 needs d and c multiples of 8, 16-byte aligned rows, and
-// d <= 1472 (the Q tile stays in shared memory); the wrapper checks.
+// Returns 0 on success, else the CUDA error of the tensor maps, the
+// attribute call or the launch.  bf16 needs d and c multiples of 8 and
+// 16-byte aligned rows and batch strides (TMA); the wrapper checks.
 extern "C" int vst_k3_attention_moments(
     const void* q, const void* k, const void* v, void* m1, void* m2,
     float* lse, int b, int n, int m, int d, int c, long long q_bs,
@@ -445,17 +506,35 @@ extern "C" int vst_k3_attention_moments(
   AttnArgs a{q, k, v, m1, m2, lse, n, m, d, c, q_bs, k_bs, v_bs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    const int dpad = (d + BD - 1) / BD * BD;
-    const int smem = smem_bytes(dpad);
-    if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t e = cudaFuncSetAttribute(
-        attn_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    Maps mp;
+    cudaError_t e = chunk_map(&mp.q, q, d, n, b, q_bs);
+    if (e == cudaSuccess) e = chunk_map(&mp.k, k, d, m, b, k_bs);
+    if (e == cudaSuccess) e = chunk_map(&mp.v, v, c, m, b, v_bs);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(attn_fwd_bf16,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BF16);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid((n + BM - 1) / BM, (c + BC - 1) / BC, b);
-    attn_fwd_bf16<<<grid, NTH, smem, s>>>(a, dpad);
+    const dim3 grid((n + T - 1) / T, (c + SLICE - 1) / SLICE, b);
+    attn_fwd_bf16<<<grid, NTH, SMEM_BF16, s>>>(a, mp);
   } else {
     const dim3 grid((n + FM - 1) / FM, (c + FC - 1) / FC, b);
     attn_fwd_f32<<<grid, FTH, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 launch configuration: out = {dynamic shared memory bytes per
+// block, resident blocks per SM, value columns per block}.  Returns a CUDA
+// error code.
+extern "C" int vst_k3_launch_config(int* out) {
+  using namespace k3;
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BF16);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], attn_fwd_bf16,
+                                                      NTH, SMEM_BF16);
+  out[0] = SMEM_BF16;
+  out[2] = SLICE;
+  return static_cast<int>(e);
 }

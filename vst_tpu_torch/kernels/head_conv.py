@@ -8,7 +8,8 @@ ReCoNet forward after f=4 polyphase packing
 ``csrc/head_conv.cu``.
 
 ``conv3x3_valid`` launches the kernel for CUDA tensors (or raises) and
-takes the plain version only for CPU tensors.
+takes the plain version only for CPU tensors.  The kernel has no backward
+yet: on the card a forward that needs a gradient raises (``_grad.py``).
 """
 
 import ctypes
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from vst_tpu_torch.kernels import _build
+from vst_tpu_torch.kernels._grad import refuse_grad
 
 
 @functools.cache
@@ -61,6 +63,7 @@ def conv3x3_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("conv3x3_valid: bf16 x and w must start on 16 bytes "
                          "(the kernel reads them as 16-byte vectors)")
+    refuse_grad("K2 conv3x3_valid", x, w)
     y = torch.empty((n, hp - 2, wp - 2, co), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

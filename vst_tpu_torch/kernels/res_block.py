@@ -8,7 +8,8 @@ plus an elementwise tail in torch; the port's models run every residual
 block this way.  The kernel source is ``csrc/res_block.cu``.
 
 ``conv3x3_in_stats`` launches the kernel for CUDA tensors (or raises) and
-takes the plain version only for CPU tensors.
+takes the plain version only for CPU tensors.  The kernel has no backward
+yet: on the card a forward that needs a gradient raises (``_grad.py``).
 """
 
 import ctypes
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from vst_tpu_torch.kernels import _build
+from vst_tpu_torch.kernels._grad import refuse_grad
 from vst_tpu_torch.ops.pad import reflection_pad2d
 
 EPS = 1e-5   # torch InstanceNorm2d default
@@ -125,6 +127,7 @@ def conv3x3_in_stats(x, w, b, stats_in=None, gamma=None, beta=None):
     if x.device.type == "cpu":
         return conv3x3_in_stats_plain(x, w, b, stats_in, gamma, beta)
     _check(x, w, b, stats_in, gamma, beta)
+    refuse_grad("K1 conv3x3_in_stats", x, w, b, stats_in, gamma, beta)
     n, h, wd, c = x.shape
     co = w.shape[3]
     nblk = partial_blocks(h, wd, x.dtype == torch.bfloat16)
