@@ -14,7 +14,7 @@ result line):
    each kernel's registers and spills (ptxas) and, for the bf16 K1/K2
    (``conv3x3_wgmma``), the output-channel tile, dynamic shared memory and
    resident blocks per SM at every shape phase 3 runs, and the same for
-   the bf16 K3 and K4/K5;
+   the bf16 K3 and K4/K5 and the f32 (3xTF32) K5;
 3. kernels: K1 (without and with its prologue) at (8,128,128,192) and K2
    at the stem and head packed shapes, bf16 and f32; in bf16 also K1 at
    the SD1/SD2 width (8,128,128,64) and the 640×360 stream's
@@ -31,7 +31,9 @@ result line):
    two dV slices, the last ragged; n ≠ m, both off the 64-row tile) and
    with a broadcast (stride-0) K/V and a broadcast Q at d = 448, each
    launched twice for the same bits, and in f32 at a ragged shape and
-   the same three; each against its plain version on the same inputs;
+   the same three, the f32 K5 also at relu3_1's with sharp scores, at its
+   slice edges and with a stride-0 K/V and Q, launched twice for the same
+   bits; each against its plain version on the same inputs;
 4. model: the f32 ReCoNet forward through the kernels against the same
    forward through the plain versions at 1×256×256 (and, with grad mode
    on, raising: K1/K2 have no backward yet), the f32 AdaAttN
@@ -57,8 +59,10 @@ result line):
    at the main paths' shapes, printed as one JSON ``kernels`` line (K1/K2
    rows also carry ms, TFLOP/s and the bound's share per launch; K3-K5
    rows the same per level, and the f32 K3/K4/K5 times at the three
-   training levels as ``ms_f32``); K3's and K4/K5's executed-work factor
-   per level is logged, from the slice widths the built library reports;
+   training levels as ``ms_f32`` beside ``bound_ms_f32`` (3xTF32 peak)
+   and ``library_ms_f32`` (SDPA in f32, TF32 off)); K3's and K4/K5's
+   executed-work factor per level is logged, from the slice widths the
+   built library reports;
 7. profile: device time by kernel over two forwards (train steps) of each
    main path (torch.profiler) and the device's busy share of that window.
 
@@ -107,8 +111,11 @@ from vst_tpu_torch.train.steps import (make_adaattn_image_step,
                                        make_adaattn_video_step)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# H100 SXM data sheet, dense: bf16 tensor-core peak and HBM3 bandwidth.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM data sheet, dense: bf16 tensor-core peak, float32 outside the
+# tensor cores, 3xTF32 (three tf32 products, 495 TFLOP/s, per product of
+# the least work) and HBM3 bandwidth.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 BF16_ULP = 2.0 ** -7      # relative spacing of bf16 at the top of a binade
 
@@ -266,11 +273,16 @@ def phase_build():
         f"slices of {slice_v} columns")
     k45 = _build.load("adaattn_bwd").vst_k45_launch_config
     k45.argtypes = [ctypes.c_void_p]
-    smem, occ4, occ5, slice_dq, slice_dv = _wgmma_config(k45, size=5)
+    (smem, occ4, occ5, slice_dq, slice_dv, smem_f32, occ_f32, slice_dk_f32,
+     slice_dv_f32) = _wgmma_config(k45, size=9)
     log(f"  K4/K5 bf16 (wgmma): dynamic smem {smem} B, {occ4} / {occ5} "
         f"block(s)/SM, output slices of {slice_dq} dQ/dK and {slice_dv} dV "
         f"columns")
-    return {"K3": slice_v, "K45": (slice_dq, slice_dv)}
+    log(f"  K5 f32 (3xTF32 on wgmma, attn_dkv_tf32): dynamic smem {smem_f32} "
+        f"B, {occ_f32} block(s)/SM, output slices of {slice_dk_f32} dK and "
+        f"{slice_dv_f32} dV columns")
+    return {"K3": slice_v, "K45": (slice_dq, slice_dv),
+            "K5_f32": (slice_dk_f32, slice_dv_f32)}
 
 
 K1_SHAPE = (8, 128, 128, 192)
@@ -443,14 +455,17 @@ def phase_kernels_k45(g):
     inputs and cotangents: bf16 at the three AdaAttN training level shapes
     (256², batch 8), at relu3_1's with sharp scores of std 10, at the
     edges of the output slices (d = 520, c = 264, n = 300 ≠ m = 200) and
-    with a stride-0 K/V and a stride-0 Q at d = 448, where a second launch
-    must give the same bits; f32 at a ragged shape and at the three level
-    shapes (the f32 image step, the config default, launches both at all
-    three).  Tolerances, of each output's scale: bf16 2^-6 (one bf16 ulp
-    of the output rounding plus A and dS rounded to bf16 from f32 values
-    summed in another order); f32 1e-4 (sums in another order over up to
-    4096 terms)."""
-    errs = {"K4": 0.0, "K5": 0.0}
+    with a stride-0 K/V and a stride-0 Q at d = 448; f32 at a ragged
+    shape, the three level shapes (the f32 image step, the config default,
+    launches both at all three) and, for the 3xTF32 K5, at relu3_1's with
+    sharp scores, at its slice edges (d = 520 and c = 264; d = 1030 and c =
+    515, off its 16-byte rows) and with a stride-0 Q and a stride-0 K/V.
+    A second launch of bf16 K4/K5 and of f32 K5 must give the same bits.
+    Tolerances, of each output's scale: bf16 2^-6 (one bf16 ulp of the
+    output rounding plus A and dS rounded to bf16 from f32 values summed in
+    another order); f32 1e-4 (sums in another order over up to 4096 terms;
+    3xTF32 products within about 2^-21 of float32's)."""
+    errs = {"K4": 0.0, "K5": 0.0, "K5 f32": 0.0}
     levels = [(TRAIN_BATCH, n, n, d, c) for n, d, c in TRAIN_LEVELS]
     cases = [("bf16", torch.bfloat16, shape, 1.0, "") for shape in levels]
     cases += [("bf16 sharp", torch.bfloat16, levels[0], 10.0, ""),
@@ -462,15 +477,24 @@ def phase_kernels_k45(g):
                1.0, "q"),
               ("f32", torch.float32, (2, 300, 520, 96, 64), 1.0, "")]
     cases += [("f32", torch.float32, shape, 1.0, "") for shape in levels]
+    cases += [("f32 sharp", torch.float32, levels[0], 10.0, ""),
+              ("f32 slice edges", torch.float32, (2, 300, 200, 520, 264),
+               1.0, ""),
+              ("f32 slice edges", torch.float32, (2, 130, 200, 1030, 515),
+               1.0, ""),
+              ("f32 stride-0 K/V", torch.float32, (4, 200, 330, 448, 256),
+               1.0, "kv"),
+              ("f32 stride-0 Q", torch.float32, (4, 200, 330, 448, 256),
+               1.0, "q")]
     for tag, dtype, shape, score_std, bcast in cases:
         apply_precision(dtype)
         args = k45_inputs(g, *shape, dtype, score_std, bcast)
         dq = adaattn_attention.softmax_attention_dq(*args)
         dk, dv = adaattn_attention.softmax_attention_dkv(*args)
-        if dtype == torch.bfloat16 and not (
-                torch.equal(dq, adaattn_attention.softmax_attention_dq(*args))
-                and all(torch.equal(a, b) for a, b in zip(
-                    (dk, dv), adaattn_attention.softmax_attention_dkv(*args)))):
+        same_q = (dtype == torch.float32
+                  or torch.equal(dq, adaattn_attention.softmax_attention_dq(*args)))
+        if not (same_q and all(torch.equal(a, b) for a, b in zip(
+                (dk, dv), adaattn_attention.softmax_attention_dkv(*args)))):
             raise AssertionError(f"K4/K5 {tag} {shape}: two launches differ")
         pq = adaattn_attention.softmax_attention_dq_plain(*args)
         pk, pv = adaattn_attention.softmax_attention_dkv_plain(*args)
@@ -482,8 +506,11 @@ def phase_kernels_k45(g):
         if dtype == torch.bfloat16:
             errs["K4"] = max(errs["K4"], e4)
             errs["K5"] = max(errs["K5"], e5)
+        else:
+            errs["K5 f32"] = max(errs["K5 f32"], e5)
         del args, dq, dk, dv, pq, pk, pv
-    log("  bf16 K4 and K5: a second launch gives the same bits at every shape")
+    log("  bf16 K4 and K5, f32 K5: a second launch gives the same bits at "
+        "every shape")
     torch.cuda.synchronize()
     return errs
 
@@ -1026,14 +1053,16 @@ def executed_work(kid, d, c, slice_dq, slice_dv):
     """The multiply-adds bf16 K4 or K5 runs as a multiple of the least
     (4nm(d + c), 4nmd + 8nmc): each of the s dQ/dK output slices computes
     S (2nmd) and dA (4nmc), each of the r dV slices S; the slice widths
-    are the built library's (``vst_k45_launch_config``)."""
+    are the built library's (``vst_k45_launch_config``).  The f32 K5 runs
+    the same tiling with its own slice widths, each product as three tf32
+    ones."""
     s, r = -(-d // slice_dq), -(-c // slice_dv)
     if kid == "K4":
         return (s * (2 * d + 4 * c) + 2 * d) / (4 * d + 4 * c)
     return (s * (2 * d + 4 * c) + 2 * d + r * 2 * d + 4 * c) / (4 * d + 8 * c)
 
 
-def timing_k45(launches, errs, slices):
+def timing_k45(launches, errs, slices, slices_f32):
     """K4, K5 and their plain versions at the three AdaAttN training level
     shapes (256², batch 8), bf16, one launch each per level per step, with
     the executed-work factor of each level (logged; ``slices`` are the
@@ -1044,9 +1073,15 @@ def timing_k45(launches, errs, slices):
     dQ, dK and dV together; it is put beside both kernels.  Bounds: FLOPs
     4nm(d + c) (K4) and 4nmd + 8nmc (K5) per image on the tensor cores;
     bytes q, k, v, dM1, dM2 (bf16) and L, D (f32) read once, the outputs
-    written once.  Also one f32 launch each of K3, K4 and K5 per level
-    (the f32 image step, the config default, runs them there): returned
-    as the K3 time and put in the K4/K5 rows as ``ms_f32``."""
+    written once.  Also f32 K3, K4 and K5 per level (the f32 image step,
+    the config default, runs them there; event time over 5 launches after
+    1), beside ``F.scaled_dot_product_attention`` in f32 with TF32 off:
+    its forward beside K3, its backward beside K4 + K5, each with the
+    backend it chose.  f32 bounds: FLOPs over 3xTF32's 495 / 3 TFLOP/s
+    (K5's route; K3 and K4 still run on the CUDA cores, whose 67 TFLOP/s
+    would give 2.5x these), bytes in float32.  The f32 K3 numbers are
+    returned; K4/K5's go in their rows as ``ms_f32``, ``bound_ms_f32``,
+    ``library_ms_f32``."""
     log("[6] K4, K5 at the AdaAttN training level shapes (256² b8, bf16)")
     g = torch.Generator(device="cuda").manual_seed(5)
     dt = torch.bfloat16
@@ -1071,8 +1106,10 @@ def timing_k45(launches, errs, slices):
                    "(256, 1472, 512)",
             "ms_per_launch": [], "tflops_per_launch": [],
             "bound_share_per_launch": [], "ms_f32": 0.0,
-            "ms_f32_per_launch": [], "library": None})
-    k3_f32 = []
+            "ms_f32_per_launch": [], "bound_ms_f32": 0.0,
+            "library_ms_f32": 0.0, "library_f32": None, "library": None})
+    rows["K5"]["row"]["max_abs_err_f32"] = errs["K5 f32"]
+    k3_f32 = {"ms": [], "bound_ms": 0.0, "library_ms": 0.0, "library": None}
     for n, d, c in TRAIN_LEVELS:
         args = k45_inputs(g, TRAIN_BATCH, n, n, d, c, dt)
         q, k, v, lse, dd, dm1, dm2 = args
@@ -1113,23 +1150,64 @@ def timing_k45(launches, errs, slices):
             if bb >= r.get("top", 0.0):   # what bounds the largest level
                 r["top"], row["bound_by"] = bb, by
         del vv, leaves, out, go
-        # f32: one timed launch each, on the same values
+        # f32 on the same values: K3, K4, K5 and SDPA in f32, TF32 off
         apply_precision(torch.float32)
         a32 = [x.float() for x in args]
-        k3_f32.append(event_ms(lambda: adaattn_attention.softmax_attention_moments(
-            *a32[:3]), reps=1, warmup=1))
+        k3_f32["ms"].append(event_ms(
+            lambda: adaattn_attention.softmax_attention_moments(*a32[:3]),
+            reps=5, warmup=1))
+        q, k, v, lse, dd, dm1, dm2 = a32
+        vv = torch.cat([v, v * v], dim=-1)
+        fwd = lambda: F.scaled_dot_product_attention(q, k, vv, scale=1.0)
+        t_fwd = event_ms(fwd, reps=3, warmup=1)
+        leaves = [x.detach().requires_grad_() for x in (q, k, vv)]
+        out = F.scaled_dot_product_attention(*leaves, scale=1.0)
+        go = torch.cat([dm1, dm2], dim=-1)
+
+        def lib32():
+            return torch.autograd.grad(out, leaves, go, retain_graph=True)
+
+        t_bwd = event_ms(lib32, reps=3, warmup=1)
+        be_fwd, be_bwd = _sdpa_backend(fwd), _sdpa_backend(lib32)
+        nb = lambda out_elems: TRAIN_BATCH * (4 * (2 * n * d + n * c + 2 * n * c)
+                                              + 8 * n + 4 * out_elems)
+        b3, _ = bound(2 * TRAIN_BATCH * n * n * (d + 2 * c),
+                      TRAIN_BATCH * 4 * (2 * n * d + 3 * n * c + n), "tf32x3")
+        k3_f32["bound_ms"] += b3
+        k3_f32["library_ms"] += t_fwd
+        k3_f32["library"] = f"F.scaled_dot_product_attention f32 ({be_fwd})"
         for kid, r in rows.items():
-            t32 = event_ms(lambda: r["fn"](*a32), reps=1, warmup=1)
-            r["row"]["ms_f32"] += t32
-            r["row"]["ms_f32_per_launch"].append(t32)
-        log(f"  f32 (n={n}, d={d}, c={c}) ms: K3 {k3_f32[-1]:.3f}, K4 "
-            f"{rows['K4']['row']['ms_f32_per_launch'][-1]:.3f}, K5 "
-            f"{rows['K5']['row']['ms_f32_per_launch'][-1]:.3f}")
+            row = r["row"]
+            t32 = event_ms(lambda: r["fn"](*a32), reps=5, warmup=1)
+            b32, _ = bound(TRAIN_BATCH * r["flops"](n, d, c),
+                           nb(n * d if kid == "K4" else n * (d + c)), "tf32x3")
+            row["ms_f32"] += t32
+            row["ms_f32_per_launch"].append(t32)
+            row["bound_ms_f32"] += b32
+            row["library_ms_f32"] += t_bwd
+            row["library_f32"] = (f"backward of F.scaled_dot_product_attention"
+                                  f" f32 ({be_bwd}), dQ, dK, dV together")
+        work = executed_work("K5", d, c, *slices_f32)
+        k5r = rows["K5"]["row"]
+        log(f"  f32 (n={n}, d={d}, c={c}) ms per launch: K3 "
+            f"{k3_f32['ms'][-1]:.4f} (bound {b3:.4f}), K4 "
+            f"{rows['K4']['row']['ms_f32_per_launch'][-1]:.4f}, K5 "
+            f"{k5r['ms_f32_per_launch'][-1]:.4f} (3xTF32 {3 * work:.3f}x the "
+            f"least work in tf32 products, "
+            f"{TRAIN_BATCH * rows['K5']['flops'](n, d, c) / k5r['ms_f32_per_launch'][-1] / 1e9:.1f}"
+            f" TFLOP/s on the least); SDPA f32 forward ({be_fwd}) "
+            f"{t_fwd:.4f}, backward ({be_bwd}) {t_bwd:.4f}")
         apply_precision(dt)
-        del args, a32, q, k, v, lse, dd, dm1, dm2
+        del args, a32, q, k, v, lse, dd, dm1, dm2, vv, leaves, out, go
     k4, k5 = rows["K4"]["row"], rows["K5"]["row"]
     log(f"  K4 + K5 per bf16 step: {k4['ms'] + k5['ms']:.4f} ms against the "
         f"SDPA backward's {k4['library_ms']:.4f} ms")
+    log(f"  per f32 step: K3 {sum(k3_f32['ms']):.4f} ms (6 launches: "
+        f"{2 * sum(k3_f32['ms']):.4f}) against the f32 SDPA forward's "
+        f"{k3_f32['library_ms']:.4f} (bound {k3_f32['bound_ms']:.4f}); K4 + K5 "
+        f"{k4['ms_f32'] + k5['ms_f32']:.4f} ms (K5 {k5['ms_f32']:.4f}, bound "
+        f"{k5['bound_ms_f32']:.4f}) against the f32 SDPA backward's "
+        f"{k4['library_ms_f32']:.4f}")
     torch.cuda.synchronize()
     return [k4, k5], k3_f32
 
@@ -1249,11 +1327,15 @@ def main(argv):
     by_path = {"serving": launches["K3"], "training": train["K3"]}
     launches["K3"] += train["K3"]
     launches.update(K4=train["K4"], K5=train["K5"])
-    k45_rows, k3_f32 = timing_k45(launches, errs, slices["K45"])
+    k45_rows, k3_f32 = timing_k45(launches, errs, slices["K45"],
+                                  slices["K5_f32"])
     kernels = phase_timing(launches, errs, slices["K3"]) + k45_rows
     kernels[2]["launches_by_path"] = by_path
-    kernels[2]["ms_f32"] = sum(k3_f32)
-    kernels[2]["ms_f32_per_launch"] = k3_f32
+    kernels[2]["ms_f32"] = sum(k3_f32["ms"])
+    kernels[2]["ms_f32_per_launch"] = k3_f32["ms"]
+    kernels[2]["bound_ms_f32"] = k3_f32["bound_ms"]
+    kernels[2]["library_ms_f32"] = k3_f32["library_ms"]
+    kernels[2]["library_f32"] = k3_f32["library"]
     kernels[2]["ms_f32_per"] = ("one f32 launch at each AdaAttN training "
                                 "level (256x256 batch 8)")
     phase_profile()

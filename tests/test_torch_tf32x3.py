@@ -1,0 +1,141 @@
+"""The 3xTF32 split of the port's float32 K5 (``csrc/adaattn_bwd.cu``,
+``attn_dkv_tf32``), emulated in torch on the CPU: the kernel's arithmetic
+without the card.  Each operand x of a product is split as the kernel
+splits it, big = tf32(x) and small = tf32(x − big), both rounded to
+nearest with ties away from zero (``cvt.rna.tf32.f32``); a product is
+a_small·b_big + a_big·b_small + a_big·b_big with small·small dropped, the
+two small terms of a stage first, each stage (32 columns of d or c; one
+64-query tile in the output products) summed into a fresh partial that
+is added to the running sum in float32, in the kernel's order.  The
+emulation lives here, not in the package.
+
+dK and dV are held within 1e-4 of each output's scale against ``jax.vjp``
+of the Pallas kernel in interpret mode (float32), as
+``test_torch_adaattn_bwd.py`` holds the plain version, at scores of std 1
+and 10, where JAX and the port's plain float32 agree well within that
+tolerance.  At std 100 (the card test's q, k × 10) float32 itself is off
+the exact value by nearly the tolerance, and the emulation lies on the
+other side of it, so there the emulation is held against the same
+formulas evaluated in float64 (``softmax_attention_dkv_plain`` on float64
+inputs), as the card test holds the kernel.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vst_tpu.kernels import softmax_attention_moments_pallas
+from vst_tpu_torch.kernels import adaattn_attention as att
+
+SHAPES = [(2, 300, 520, 96, 64),    # ragged n and m, d and c under a slice
+          (2, 64, 64, 448, 256)]    # relu3_1's d and c
+FW = 32    # columns of a stage: one 128-byte row of float32
+T = 64     # queries of a tile
+
+
+def tf32(x):
+    """cvt.rna.tf32.f32: to nearest, ties away from zero, low 13 bits 0."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split(x):
+    big = tf32(x)
+    return big, tf32(x - big)
+
+
+def mm3(a, b, stage):
+    """a @ b (float32, batched) as the kernel's 3xTF32 products, the
+    reduction in stages of ``stage`` columns, each into a fresh partial."""
+    (ab, as_), (bb, bs) = split(a), split(b)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], stage):
+        k = slice(k0, k0 + stage)
+        part = as_[..., k] @ bb[..., k, :] + ab[..., k] @ bs[..., k, :]
+        acc = acc + (part + ab[..., k] @ bb[..., k, :])
+    return acc
+
+
+def dkv_tf32x3(q, k, v, lse, dd, dm1, dm2):
+    """The f32 K5's dK, dV.  dK role: S^T over all of d, dA^T in stages
+    of (V, dM1) and (W, dM2) per 32 columns of c; dV role: S^T over the
+    two halves of d's stages, added; then the output products over each
+    64-query tile."""
+    d = q.shape[-1]
+    st = mm3(k, q.transpose(1, 2), FW)
+    w = v * v
+    da = torch.zeros_like(st)
+    for c0 in range(0, v.shape[-1], FW):
+        c = slice(c0, c0 + FW)
+        da = da + mm3(v[..., c], dm1[..., c].transpose(1, 2), FW)
+        da = da + mm3(w[..., c], dm2[..., c].transpose(1, 2), FW)
+    half = (-(-d // FW) + 1) // 2 * FW
+    st_v = (mm3(k[..., :half], q[..., :half].transpose(1, 2), FW)
+            + mm3(k[..., half:], q[..., half:].transpose(1, 2), FW))
+    lt, dt = lse.transpose(1, 2), dd.transpose(1, 2)
+    a_k = torch.exp(st - lt)
+    ds = a_k * (da - dt)
+    a_v = torch.exp(st_v - lt)
+    dk = mm3(ds, q, T)
+    dv = mm3(a_v, dm1, T) + 2.0 * v * mm3(a_v, dm2, T)
+    return dk, dv
+
+
+def _inputs(rng, b, n, m, d, c, std):
+    s = std ** 0.5 / d ** 0.25
+    q = rng.standard_normal((b, n, d)) * s
+    k = rng.standard_normal((b, m, d)) * s
+    v = rng.standard_normal((b, m, c))
+    w1 = rng.standard_normal((b, n, c))
+    w2 = rng.standard_normal((b, n, c))
+    return [torch.from_numpy(a.astype(np.float32)) for a in (q, k, v, w1, w2)]
+
+
+def _jax_vjp(q, k, v, w1, w2):
+    _, vjp = jax.vjp(lambda q, k, v: softmax_attention_moments_pallas(
+        q, k, v, bq=128, bk=128, interpret=True),
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    return [torch.from_numpy(np.asarray(g))
+            for g in vjp((jnp.asarray(w1.numpy()), jnp.asarray(w2.numpy())))]
+
+
+def _rel(a, b):
+    return ((a.double() - b.double()).abs().max()
+            / b.double().abs().max()).item()
+
+
+def test_tf32_rounding():
+    """The emulated cvt.rna.tf32.f32 keeps 10 mantissa bits, rounds to
+    nearest with ties away from zero, and the split reconstructs x within
+    2^-22 of |x|."""
+    one = 1.0 + 2.0 ** -10
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 - 2.0 ** -23, one], dtype=torch.float32)
+    assert tf32(x).tolist() == [one, -one, 1.0, one]
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(10000)
+                         .astype(np.float32))
+    big, small = split(y)
+    assert ((big.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((small.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((big.double() + small.double() - y.double()).abs()
+            <= 2.0 ** -22 * y.double().abs()).all()
+
+
+@pytest.mark.parametrize("b,n,m,d,c", SHAPES)
+@pytest.mark.parametrize("std", [1.0, 10.0, 100.0])
+def test_split_meets_the_card_tolerance(rng, b, n, m, d, c, std):
+    q, k, v, w1, w2 = _inputs(rng, b, n, m, d, c, std)
+    m1, m2, lse = att.softmax_attention_moments_plain(q, k, v)
+    dd = att.row_term(m1, m2, w1, w2)
+    dk, dv = dkv_tf32x3(q, k, v, lse, dd, w1, w2)
+    assert dk.shape == (b, m, d) and dv.shape == (b, m, c)
+    if std < 100.0:
+        ref = _jax_vjp(q, k, v, w1, w2)[1:]
+    else:
+        ref = att.softmax_attention_dkv_plain(
+            q.double(), k.double(), v.double(), lse, dd, w1.double(),
+            w2.double())
+    for name, ours, r in (("dK", dk, ref[0]), ("dV", dv, ref[1])):
+        assert _rel(ours, r) <= 1e-4, (name, _rel(ours, r))

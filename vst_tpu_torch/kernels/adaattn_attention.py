@@ -9,8 +9,9 @@ softmax_attention_moments_pallas`` and its custom VJP:
   key tile and value slice of ≤ 256 columns;
 - K4 (``_bwd_dq_kernel``, ``csrc/adaattn_bwd.cu``): dQ = dS·K;
 - K5 (``_bwd_dkv_kernel``, ``csrc/adaattn_bwd.cu``): dK = dSᵀ·Q and
-  dV = Aᵀ·dM1 + 2V∘(Aᵀ·dM2); in bf16 both on ``wgmma`` with S and dA
-  computed once per tile and output slice;
+  dV = Aᵀ·dM1 + 2V∘(Aᵀ·dM2); on ``wgmma`` with S and dA computed once per
+  tile and output slice, in bf16 and, in float32, as 3xTF32 (each product
+  split into a big and a small tf32 part, three products summed);
 with A = exp(S − L), dA = dM1·Vᵀ + dM2·(V∘V)ᵀ, dS = A∘(dA − D) and the row
 term D = Σ_c(dM1∘M1 + dM2∘M2), taken in float32 outside the kernels as
 JAX does.  The backward never materializes the map either.
@@ -43,10 +44,18 @@ def _kernel():
 @functools.cache
 def _bwd_kernel(name):
     fn = getattr(_build.load("adaattn_bwd"), name)
-    n_ptr = 8 if name == "vst_k4_attention_dq" else 9
+    n_ptr = 8 if name == "vst_k4_attention_dq" else 10
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _k5_scratch_floats():
+    fn = _build.load("adaattn_bwd").vst_k5_scratch_floats
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
+    fn.restype = ctypes.c_longlong
     return fn
 
 
@@ -88,23 +97,26 @@ def _bwd_plain(q, k, v, lse, dd, dm1, dm2, want_q=True, want_kv=True,
     """The JAX ``_backward`` formulas, ``chunk`` query rows at a time, in
     float32 with the kernels' rounding points: V∘V formed in float32 and
     rounded to v's type, A and dS rounded to q's type before their
-    products.  dm1, dm2 are in q's type.  Returns (dQ or None, dK or None,
-    dV or None)."""
+    products.  dm1, dm2 are in q's type.  float64 inputs are evaluated in
+    float64 (the exact form the tests hold the 3xTF32 K5 against where
+    true float32 is itself off by more than their tolerance).  Returns
+    (dQ or None, dK or None, dV or None)."""
     n = q.shape[1]
-    kf, vf = k.float(), v.float()
-    wf = (vf * vf).to(v.dtype).float()
+    wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+    kf, vf = k.to(wide), v.to(wide)
+    wf = (vf * vf).to(v.dtype).to(wide)
     kt, vt, wt = kf.transpose(1, 2), vf.transpose(1, 2), wf.transpose(1, 2)
     dq, dk, dv1, dv2 = [], 0.0, 0.0, 0.0
     for i in range(0, n, chunk):
-        qi = q[:, i:i + chunk].float()
-        d1, d2 = dm1[:, i:i + chunk].float(), dm2[:, i:i + chunk].float()
+        qi = q[:, i:i + chunk].to(wide)
+        d1, d2 = dm1[:, i:i + chunk].to(wide), dm2[:, i:i + chunk].to(wide)
         a = torch.exp(torch.matmul(qi, kt) - lse[:, i:i + chunk])
         da = torch.matmul(d1, vt) + torch.matmul(d2, wt)
-        ds = (a * (da - dd[:, i:i + chunk])).to(q.dtype).float()
+        ds = (a * (da - dd[:, i:i + chunk])).to(q.dtype).to(wide)
         if want_q:
             dq.append(torch.matmul(ds, kf))
         if want_kv:
-            ar = a.to(q.dtype).float().transpose(1, 2)
+            ar = a.to(q.dtype).to(wide).transpose(1, 2)
             dk = dk + torch.matmul(ds.transpose(1, 2), qi)
             dv1 = dv1 + torch.matmul(ar, d1)
             dv2 = dv2 + torch.matmul(ar, d2)
@@ -240,20 +252,28 @@ def softmax_attention_dkv(q, k, v, lse, dd, dm1, dm2):
     """K5: dK (b, m, d) in q's dtype and dV (b, m, c) in v's, same inputs
     as ``softmax_attention_dq``.  A K or V broadcast over the batch
     (stride 0) gets a full-batch gradient; autograd sums it through the
-    ``expand``."""
+    ``expand``.  float32 runs 3xTF32 on the tensor cores: its pre-pass
+    writes every operand as two tf32 parts into scratch allocated here
+    (about twice the inputs' bytes, Q and dM twice over), for any shape."""
     if q.device.type == "cpu":
         return softmax_attention_dkv_plain(q, k, v, lse, dd, dm1, dm2)
     _check_bwd(q, k, v, lse, dd, dm1, dm2, "softmax_attention_dkv")
     b, n, d = q.shape
     m, c = k.shape[1], v.shape[2]
+    strides = (q.stride(0), k.stride(0), v.stride(0))
     dk = torch.empty((b, m, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, m, c), dtype=v.dtype, device=q.device)
+    scratch = None
+    if q.dtype == torch.float32:
+        floats = _k5_scratch_floats()(b, n, m, d, c, *strides)
+        scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = _bwd_kernel("vst_k5_attention_dkv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dm1.data_ptr(),
             dm2.data_ptr(), lse.data_ptr(), dd.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, n, m, d, c, q.stride(0), k.stride(0),
-            v.stride(0), int(q.dtype == torch.bfloat16), _stream(q.device))
+            dv.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            b, n, m, d, c, *strides, int(q.dtype == torch.bfloat16),
+            _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"K5 softmax_attention_dkv launch failed: CUDA "
                            f"error {rc}")
@@ -292,8 +312,9 @@ def softmax_attention_moments(q, k, v):
     """q (b, n, d), k (b, m, d), v (b, m, c) → M1, M2 (b, n, c) in q.dtype
     and L (b, n, 1) float32 (natural log); differentiable in q, k and v.
 
-    All float32 (CUDA cores, true float32) or all bfloat16 (tensor cores;
-    d, c multiples of 8).  Rows must be contiguous; K and V may
+    All float32 (parity with true float32: K3 and K4 on the CUDA cores,
+    K5 3xTF32 on the tensor cores) or all bfloat16 (tensor cores; d, c
+    multiples of 8).  Rows must be contiguous; K and V may
     be broadcast over the batch with ``expand`` (batch stride 0), which the
     kernels read in place."""
     return SoftmaxAttentionMoments.apply(q, k, v)

@@ -9,7 +9,8 @@
 // strides as arguments (a Q, K or V broadcast with stride 0 is read in
 // place); dM1, dM2 (b, n, c) contiguous in the inputs' type; L, D (b, n)
 // float32, L in the natural log.  dQ (b, n, d), dK (b, m, d), dV (b, m, c)
-// come out contiguous in the inputs' type.
+// come out contiguous in the inputs' type.  The float32 K5 also takes
+// scratch for its split operands (vst_k5_scratch_floats).
 //
 // Replaces the Pallas TPU kernels vst_tpu/kernels/adaattn_attention.py
 // _bwd_dq_kernel (:151, K4) and _bwd_dkv_kernel (:182, K5), driven by
@@ -18,7 +19,7 @@
 // device memory, no atomics, the result does not depend on the order
 // blocks run in (two launches give the same bits).  Ragged n, m, d and c
 // are masked in the kernel (zero-filled loads, A = 0 outside [0, n) x
-// [0, m)): there are no padded copies.
+// [0, m)): no padded copies, but for the float32 K5's split operands.
 //
 // bf16 (training at the serving type), on Hopper's wgmma.  The TPU keeps a
 // whole (block x d) float32 accumulator in VMEM; a 64 x 1472 one (376 KB)
@@ -85,9 +86,31 @@
 // accumulators and dV's epilogue in float32.  Scores are scaled by log2 e
 // for exp2f; L arrives in the natural log and is scaled the same way.
 //
-// float32 (parity): true float32 on the CUDA cores (JAX's HIGHEST), 256
-// threads, 64 x 64 score tiles as 4 x 4 register tiles, 64 x 128 output
-// tiles as 4 x 8, expf.
+// float32 (parity, 1e-4 of each output's scale against true float32).
+// K4: true float32 on the CUDA cores (JAX's HIGHEST), 256 threads, 64 x 64
+// score tiles as 4 x 4 register tiles, 64 x 128 output tiles as 4 x 8,
+// expf.  K5: 3xTF32 on wgmma m64n64k8 with the bf16 body's tiling, roles
+// and rings: x = big + small with big = tf32(x) and small = tf32(x - big)
+// (both rounded to nearest by cvt.rna, so nothing depends on whether the
+// tensor core truncates or rounds a raw float32's low 13 bits), and a b =
+// a_small b_big + a_big b_small + a_big b_big, the small terms first,
+// small x small dropped (relative error about 2^-21 a product).  A pre-pass
+// kernel writes both parts of every operand the rings read into scratch
+// the wrapper allocates (Q^T and dM^T too: tf32 takes no N-major B), and
+// the threads split dS^T and A^T.  The tensor core's float32 accumulation
+// does not round to nearest: S and dA as one chain of wgmma per tile left
+// dK 1.3e-4 of its scale from float64 at relu3_1 with scores of std 10,
+// the output products as one chain over 64 query tiles 3e-5 at unit
+// scores, so every stage (32 columns of d or c) and every output chunk of
+// a tile is summed in a fresh partial that the consumer adds in float32:
+// 8e-7 / 6e-6 / 4e-5 at scores of std 1 / 10 / 100, for 1% of the time
+// (experiments/k5_f32_variants.py).  Shared memory: rings of 2 x 32 KB
+// and 2 x 32 KB, two output rings of 2 x 16 KB (one per consumer), 32 KB
+// of dS^T / A^T parts (the exchange goes through it in place), 1 KB of L
+// and D: 231,584 bytes, one block per SM; 168 registers at launch, no
+// spills.  Executed tf32 work 3 x the bf16 factors, 3.7 / 6.0 / 7.8x the
+// least at relu3_1 / relu4_1 / relu5_1; bound by the tensor cores' 495
+// TFLOP/s tf32 peak (165 for 3xTF32 on the least work).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -609,7 +632,6 @@ constexpr int FD = 16;    // d or c per staged chunk
 constexpr int FO = 128;   // output columns per block (dV: 2 x 64)
 constexpr int FS = 8;     // tile rows per staged output-product chunk
 constexpr int FTH = 256;  // 16 x 16 threads
-constexpr int FDV = FO / 2;
 
 // K4, float32.  Thread (ty, tx): query rows ty + 16 i, keys tx + 16 jj,
 // dQ columns tx + 16 jj (jj < 8).
@@ -734,153 +756,479 @@ __global__ void __launch_bounds__(FTH) attn_dq_f32(BwdArgs a) {
   }
 }
 
-// K5, float32.  Thread (ty, tx): keys ty + 16 i, queries tx + 16 jj, output
-// columns tx + 16 jj (jj < 8; dV role: jj < 4 A^T dM1, jj >= 4 A^T dM2).
-__global__ void __launch_bounds__(FTH) attn_dkv_f32(BwdArgs a, int n_dk_roles) {
-  __shared__ float Ks[FD][FR + 1];   // k or v chunk, [col][key]
-  __shared__ float Q1[FD][FT + 1];   // q or dM1 chunk, [col][query]
-  __shared__ float Q2[FD][FT + 1];   // dM2 chunk
-  __shared__ float Ps[FT][FR + 1];   // dS or A, [query][key]
-  __shared__ float Os[FS][FO];       // q (dK) or dM1 | dM2 (dV), [query][col]
-  __shared__ float Ls[FT], Ds[FT];
+// K5, float32: 3xTF32 on wgmma.  The pre-pass (split_tf32) writes every
+// operand the rings read as two tf32 parts, big = tf32(x) and small =
+// tf32(x - big), into wrapper-allocated scratch: Q, K, V, W = V o V, dM1
+// and dM2 as they lie (K-major over d or c) and Q^T, dM1^T, dM2^T (K-major
+// over the queries, which tf32's wgmma needs for the output products'
+// B), rows padded to a multiple of 4 floats (16 bytes, TMA's row stride)
+// with zeros.  dS^T and A^T are split by the threads that form them.
 
-  const int bi = blockIdx.z, k0 = blockIdx.x * FR;
-  const bool dk_role = blockIdx.y < n_dk_roles;
-  const int o0 = dk_role ? blockIdx.y * FO : (blockIdx.y - n_dk_roles) * FDV;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* q = static_cast<const float*>(a.q) + bi * a.q_bs;
-  const float* k = static_cast<const float*>(a.k) + bi * a.k_bs;
-  const float* v = static_cast<const float*>(a.v) + bi * a.v_bs;
-  const float* dm1 = static_cast<const float*>(a.dm1) + (size_t)bi * a.n * a.c;
-  const float* dm2 = static_cast<const float*>(a.dm2) + (size_t)bi * a.n * a.c;
+constexpr int FW = 32;                  // floats per box row (128 bytes)
+constexpr int FB = T * FW * 4;          // one 64 x 32 float32 box: 8 KB
+constexpr int FSTAGE = 4 * FB;          // [A big | A small | B big | B small]
+constexpr int FR0 = 2;                  // consumer 0's ring (S^T over d)
+constexpr int FR1 = 2;                  // consumer 1's ring (dA^T over c, or S^T)
+constexpr int FNO = 4;                  // output-product rings: 2 slots a consumer
+constexpr int FOFF_R1 = FR0 * FSTAGE;
+constexpr int FOFF_O = FOFF_R1 + FR1 * FSTAGE;
+constexpr int FOFF_P = FOFF_O + FNO * 2 * FB;   // dS^T or A^T: [half][big | small]
+constexpr int FOFF_ROW = FOFF_P + 4 * FB;       // L and D, [2][2][T] float32
+constexpr int FOFF_BAR = FOFF_ROW + 2 * 2 * T * 4;
+constexpr int FNBAR = 2 * (FR0 + FR1 + FNO + 2);
+constexpr int SMEM_F32 = 1024 + FOFF_BAR + FNBAR * 8;
+static_assert(SMEM_F32 <= 232448, "f32 K5 exceeds a block's shared memory");
 
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
+// The operands of the f32 K5 as the pre-pass writes them: tensor maps over
+// (2 P, rows, cols) float32, big parts in planes [0, P), small in [P, 2P);
+// P = 1 for an input broadcast over the batch (stride 0), else b.
+struct SplitMaps {
+  CUtensorMap q, k, v, w, dm1, dm2;   // as they lie
+  CUtensorMap qt, dm1t, dm2t;         // transposed (queries contiguous)
+  int pq, pk, pv;                     // planes of Q, K and V (dM: b)
+};
 
-  const int nqt = (a.n + FT - 1) / FT;
-  for (int it = 0; it < nqt; ++it) {
-    const int i0 = it * FT;
-    if (tid < FT) {
-      const bool ok = i0 + tid < a.n;
-      Ls[tid] = ok ? a.lse[(size_t)bi * a.n + i0 + tid] : BIG;
-      Ds[tid] = ok ? a.dd[(size_t)bi * a.n + i0 + tid] : 0.f;
-    }
-    float s[4][4], da[4][4];
+// Plane of part `small` (0 big, 1 small) of image bi in an operand of P planes.
+__device__ __forceinline__ int plane(int small, int p, int bi) {
+  return small * p + (p > 1 ? bi : 0);
+}
+
+// Loads one phase-1 stage: the big and small 64 x 32 boxes of A at (col,
+// a_row) and of B at (col, b_row).
+__device__ __forceinline__ void load_stage(unsigned dst, unsigned bar,
+                                           const CUtensorMap* ma, int pa,
+                                           int a_row, const CUtensorMap* mb,
+                                           int pb, int b_row, int col,
+                                           int bi) {
+  wg::tma_load_3d(dst, ma, col, a_row, plane(0, pa, bi), bar);
+  wg::tma_load_3d(dst + FB, ma, col, a_row, plane(1, pa, bi), bar);
+  wg::tma_load_3d(dst + 2 * FB, mb, col, b_row, plane(0, pb, bi), bar);
+  wg::tma_load_3d(dst + 3 * FB, mb, col, b_row, plane(1, pb, bi), bar);
+}
+
+// part = A B^T over one stage at b, 3xTF32: the eight small-part products
+// first (the first overwrites part), then the four big ones, so that only
+// these four are added at the partial sum's full magnitude.
+__device__ __forceinline__ void stage_tf32(float (&part)[32], unsigned b) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int ks = 0; ks < FW / 8; ++ks) {
+    wg::wgmma_tf32(part, kmajor(b + FB, ks), kmajor(b + 2 * FB, ks), ks > 0);
+    wg::wgmma_tf32(part, kmajor(b, ks), kmajor(b + 3 * FB, ks));
+  }
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = da[i][jj] = 0.f;
-    for (int t = 0; t < a.d; t += FD) {
+  for (int ks = 0; ks < FW / 8; ++ks)
+    wg::wgmma_tf32(part, kmajor(b, ks), kmajor(b + 2 * FB, ks));
+}
+
+// acc = sum over `count` stages of A B^T (stage counter g carried across
+// tiles, as phase1).  Each stage's 12 products go into a fresh partial
+// sum that is added to acc in float32 once they are done: the tensor
+// core's float32 accumulation does not round to nearest, and the error of
+// a long chain of wgmma into one accumulator grows with its length
+// (PERF.md).  A second partial sum in flight would not fit the registers
+// beside the output accumulators.
+template <int D>
+__device__ __forceinline__ void phase1_tf32(float (&acc)[32],
+                                            unsigned char* ring, unsigned full,
+                                            unsigned empty, int& g, int count,
+                                            int lane) {
 #pragma unroll
-      for (int r = 0; r < (FR * FD) / FTH; ++r) {
-        const int e = tid + FTH * r;
-        const int row = e / FD, kk = e % FD;
-        const bool ok = t + kk < a.d;
-        Ks[kk][row] = ok && k0 + row < a.m ? k[(size_t)(k0 + row) * a.d + t + kk] : 0.f;
-        Q1[kk][row] = ok && i0 + row < a.n ? q[(size_t)(i0 + row) * a.d + t + kk] : 0.f;
-      }
-      __syncthreads();
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int t = 0; t < count; ++t, ++g) {
+    const int slot = g % D;
+    float part[32];
+    wg::mbar_wait(full + 8 * slot, (g / D) & 1);
+    wg::fence_acc(part);
+    wg::wgmma_fence();
+    stage_tf32(part, wg::smem_u32(ring + slot * FSTAGE));
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    wg::fence_acc(part);
 #pragma unroll
-      for (int kk = 0; kk < FD; ++kk)
+    for (int i = 0; i < 32; ++i) acc[i] += part[i];
+    if (lane == 0) wg::mbar_arrive(empty + 8 * slot);
+  }
+}
+
+// Byte offset in P of the pair of this thread's accumulator positions
+// (row 16 wl + g8 + 8 h, columns 8 jj + 2 tq + {0, 1}): P holds per
+// 32-column half jj / 4 a big and then a small box of 64 x 32 floats in
+// the swizzled K-major layout of TMA's boxes.
+__device__ __forceinline__ int p_offset(int wl, int g8, int tq, int jj,
+                                        int h) {
+  const int r = 16 * wl + g8 + 8 * h;
+  return (jj >> 2) * 2 * FB + r * 128 +
+         ((((2 * (jj & 3) + (tq >> 1)) ^ g8) << 4) | ((tq & 1) * 8));
+}
+
+// Writes (x0, x1) at offset `off` of P as tf32 parts, big and small.
+__device__ __forceinline__ void store_p_tf32(unsigned char* P, int off,
+                                             float x0, float x1) {
+  uint2 big, small;
+  wg::tf32_split(x0, &big.x, &small.x);
+  wg::tf32_split(x1, &big.y, &small.y);
+  *reinterpret_cast<uint2*>(P + off) = big;
+  *reinterpret_cast<uint2*>(P + off + FB) = small;
+}
+
+// Second phase: acc[h] += P O_h^T over the tile for the chunks whose bit
+// is set in mask: P (dS^T or A^T, 64 keys x 64 queries, tf32 parts) and
+// O_h's two 32-query halves from this consumer's output ring (slots 2 g
+// and 2 g + 1; the consumer's use j, counted across tiles, in slot 2 g +
+// j % 2), both K-major over the queries.  Each chunk's 24 products go
+// into a fresh partial sum, the small-part ones first, added to acc[h] in
+// float32 once they are done (as in phase1_tf32).  A ring of its own per
+// consumer: with one shared ring a consumer could wait on a slot whose
+// previous use, the other consumer's, had not landed yet, and the
+// barrier's parity would pass it a phase early.
+__device__ __forceinline__ void phase2_tf32(float (&acc)[4][32], unsigned p,
+                                            unsigned och, unsigned full,
+                                            unsigned empty, int& j, int g,
+                                            int mask, int lane) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+  for (int h = 0; h < 4; ++h) {
+    if (mask >> h & 1) {
+      float part[32];
+      wg::fence_acc(part);
+      wg::wgmma_fence();
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-            s[i][jj] = fmaf(Ks[kk][ty + 16 * i], Q1[kk][tx + 16 * jj], s[i][jj]);
-      __syncthreads();
-    }
-    if (dk_role) {
-      for (int u = 0; u < a.c; u += FD) {
+      for (int kh = 0; kh < 2; ++kh) {   // the small-part products first
+        const int slot = 2 * g + kh;
+        wg::mbar_wait(full + 8 * slot, (j >> 1) & 1);
+        const unsigned b = och + slot * 2 * FB, a = p + kh * 2 * FB;
 #pragma unroll
-        for (int r = 0; r < (FR * FD) / FTH; ++r) {
-          const int e = tid + FTH * r;
-          const int row = e / FD, kk = e % FD;
-          const bool ok = u + kk < a.c;
-          const bool qok = ok && i0 + row < a.n;
-          Ks[kk][row] = ok && k0 + row < a.m ? v[(size_t)(k0 + row) * a.c + u + kk] : 0.f;
-          Q1[kk][row] = qok ? dm1[(size_t)(i0 + row) * a.c + u + kk] : 0.f;
-          Q2[kk][row] = qok ? dm2[(size_t)(i0 + row) * a.c + u + kk] : 0.f;
+        for (int ks = 0; ks < FW / 8; ++ks) {
+          wg::wgmma_tf32(part, kmajor(a + FB, ks), kmajor(b, ks), kh + ks > 0);
+          wg::wgmma_tf32(part, kmajor(a, ks), kmajor(b + FB, ks));
         }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < FD; ++kk)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float vv = Ks[kk][ty + 16 * i], w = vv * vv;
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj)
-              da[i][jj] = fmaf(w, Q2[kk][tx + 16 * jj],
-                               fmaf(vv, Q1[kk][tx + 16 * jj], da[i][jj]));
-          }
-        __syncthreads();
       }
-    }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int kh = 0; kh < 2; ++kh) {
+        const unsigned b = och + (2 * g + kh) * 2 * FB, a = p + kh * 2 * FB;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int qc = tx + 16 * jj;
-        const float p = expf(s[i][jj] - Ls[qc]);
-        Ps[qc][ty + 16 * i] = dk_role ? p * (da[i][jj] - Ds[qc]) : p;
+        for (int ks = 0; ks < FW / 8; ++ks)
+          wg::wgmma_tf32(part, kmajor(a, ks), kmajor(b, ks));
       }
-    __syncthreads();
-    for (int qb = 0; qb < FT; qb += FS) {
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_acc(part);
 #pragma unroll
-      for (int r = 0; r < (FS * FO) / FTH; ++r) {
-        const int e = tid + FTH * r;
-        const int kk = e / FO, col = e % FO;
-        const int qq = i0 + qb + kk;
-        float x = 0.f;
-        if (qq < a.n) {
-          if (dk_role) {
-            if (o0 + col < a.d) x = q[(size_t)qq * a.d + o0 + col];
-          } else {
-            const int cc = o0 + (col % FDV);
-            if (cc < a.c) x = (col < FDV ? dm1 : dm2)[(size_t)qq * a.c + cc];
-          }
-        }
-        Os[kk][col] = x;
+      for (int i = 0; i < 32; ++i) acc[h][i] += part[i];
+      if (lane == 0) {
+        wg::mbar_arrive(empty + 8 * (2 * g));
+        wg::mbar_arrive(empty + 8 * (2 * g + 1));
       }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < FS; ++kk)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = Ps[qb + kk][ty + 16 * i];
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj)
-            acc[i][jj] = fmaf(p, Os[kk][tx + 16 * jj], acc[i][jj]);
-        }
-      __syncthreads();
+      j += 2;
     }
   }
+}
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 16 * i;
-    if (key >= a.m) continue;
-    if (dk_role) {
-      float* dk = static_cast<float*>(a.dk) + (size_t)bi * a.m * a.d;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int col = o0 + tx + 16 * jj;
-        if (col < a.d) dk[(size_t)key * a.d + col] = acc[i][jj];
+// Shared-memory layout and barrier addresses of the f32 K5.
+struct SmemF32 {
+  unsigned char *ring0, *ring1, *och, *p;
+  float* rowv;
+  unsigned f0, e0, f1, e1, fo, eo, fr, er;
+  __device__ explicit SmemF32(unsigned char* raw) {
+    unsigned char* sm = raw + ((1024 - (wg::smem_u32(raw) & 1023)) & 1023);
+    ring0 = sm;
+    ring1 = sm + FOFF_R1;
+    och = sm + FOFF_O;
+    p = sm + FOFF_P;
+    rowv = reinterpret_cast<float*>(sm + FOFF_ROW);
+    f0 = wg::smem_u32(sm + FOFF_BAR);
+    e0 = f0 + 8 * FR0;
+    f1 = e0 + 8 * FR0;
+    e1 = f1 + 8 * FR1;
+    fo = e1 + 8 * FR1;
+    eo = fo + 8 * FNO;
+    fr = eo + 8 * FNO;
+    er = fr + 8 * 2;
+  }
+  // Full barriers: one arrive (the producer's expect_tx, or the row
+  // loader's lane 0).  Empty: one arrive per consumer warp that reads the
+  // slot (4; the row vectors 8).
+  __device__ void init() const {
+    const unsigned bars[8][3] = {{f0, FR0, 1}, {e0, FR0, 4}, {f1, FR1, 1},
+                                 {e1, FR1, 4}, {fo, FNO, 1}, {eo, FNO, 4},
+                                 {fr, 2, 1},   {er, 2, 8}};
+    for (const auto& b : bars)
+      for (unsigned i = 0; i < b[1]; ++i) wg::mbar_init(b[0] + 8 * i, b[2]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// K5, float32.  Block (key tile, role, image) as attn_dkv_bf16: roles <
+// n_dk_roles own dK's columns [512 role, +512), the rest dV's columns
+// [256 (role - n_dk_roles), +256).
+__global__ void __launch_bounds__(NTH, 1)
+    attn_dkv_tf32(BwdArgs a, const __grid_constant__ SplitMaps mp,
+                  int n_dk_roles) {
+  extern __shared__ unsigned char smem_raw[];
+  const SmemF32 sm(smem_raw);
+  const int bi = blockIdx.z, k0 = blockIdx.x * T;
+  const bool dv_role = static_cast<int>(blockIdx.y) >= n_dk_roles;
+  const int o0 = dv_role ? (blockIdx.y - n_dk_roles) * SLICE_DV
+                         : blockIdx.y * SLICE_DQ;
+  const int width = dv_role ? a.c : a.d;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nqt = (a.n + T - 1) / T, nd = (a.d + FW - 1) / FW;
+  const int nc = (a.c + FW - 1) / FW;
+  // S^T over d: consumer 0 takes chunks [0, split), consumer 1 the rest in
+  // a dV role; in a dK role consumer 0 takes all of d, consumer 1 dA over
+  // c in stages of (V, dM1) and (W, dM2)
+  const int split = dv_role ? (nd + 1) / 2 : nd;
+
+  if (tid == 0) sm.init();
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 11) {         // L and D of each query tile, double-buffered
+      for (int i = 0; i < nqt; ++i) {
+        float* rv = sm.rowv + (i & 1) * 2 * T;
+        wg::mbar_wait(sm.er + 8 * (i & 1), ((i >> 1) & 1) ^ 1);
+        for (int r = lane; r < T; r += 32) {
+          const int qq = T * i + r;
+          const bool ok = qq < a.n;
+          const size_t at = (size_t)bi * a.n + (ok ? qq : 0);
+          rv[r] = ok ? a.lse[at] : BIG;
+          rv[T + r] = ok ? a.dd[at] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) wg::mbar_arrive(sm.fr + 8 * (i & 1));
       }
-    } else {
-      float* dv = static_cast<float*>(a.dv) + (size_t)bi * a.m * a.c;
+      return;
+    }
+    if (lane != 0) return;
+    if (warp == 8) {          // K and Q over d, chunks [0, split)
+      for (int i = 0, g = 0; i < nqt; ++i)
+        for (int t = 0; t < split; ++t, ++g) {
+          const int s = claim<FR0>(sm.f0, sm.e0, g, FSTAGE);
+          load_stage(wg::smem_u32(sm.ring0 + s * FSTAGE), sm.f0 + 8 * s,
+                     &mp.k, mp.pk, k0, &mp.q, mp.pq, T * i, FW * t, bi);
+        }
+    } else if (warp == 9) {   // dK: (V, dM1), (W, dM2) over c; dV: K, Q over the rest of d
+      for (int i = 0, g = 0; i < nqt; ++i) {
+        const int stages = dv_role ? nd - split : 2 * nc;
+        for (int u = 0; u < stages; ++u, ++g) {
+          const int s = claim<FR1>(sm.f1, sm.e1, g, FSTAGE);
+          const unsigned dst = wg::smem_u32(sm.ring1 + s * FSTAGE);
+          const unsigned bar = sm.f1 + 8 * s;
+          if (dv_role)
+            load_stage(dst, bar, &mp.k, mp.pk, k0, &mp.q, mp.pq, T * i,
+                       FW * (split + u), bi);
+          else
+            load_stage(dst, bar, u & 1 ? &mp.w : &mp.v, mp.pv, k0,
+                       u & 1 ? &mp.dm2 : &mp.dm1, gridDim.z, T * i,
+                       FW * (u >> 1), bi);
+        }
+      }
+    } else if (warp == 10) {  // Q^T (dK) or dM1^T, dM2^T (dV) at the slice, per query half
+      int used[2] = {0, 0};   // uses of each consumer's output ring
+      for (int i = 0; i < nqt; ++i)
+        for (int h = 0; h < 4; ++h)
+          for (int kh = 0; kh < 2; ++kh)
+            for (int g = 0; g < 2; ++g) {
+              int which, col;
+              if (!out_chunk(4 * g + h, dv_role, o0, width, &which, &col))
+                continue;
+              const int j = used[g]++, s = 2 * g + (j & 1);
+              wg::mbar_wait(sm.eo + 8 * s, ((j >> 1) & 1) ^ 1);
+              wg::mbar_expect_tx(sm.fo + 8 * s, 2 * FB);
+              const unsigned dst = wg::smem_u32(sm.och + s * 2 * FB);
+              const CUtensorMap* map =
+                  which == 0 ? &mp.qt : which == 1 ? &mp.dm1t : &mp.dm2t;
+              const int p = which == 0 ? mp.pq : gridDim.z;
+              const int qc = T * i + FW * kh;
+              wg::tma_load_3d(dst, map, qc, col, plane(0, p, bi), sm.fo + 8 * s);
+              wg::tma_load_3d(dst + FB, map, qc, col, plane(1, p, bi),
+                              sm.fo + 8 * s);
+            }
+    }
+    return;
+  }
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wgi = warp >> 2, wl = warp & 3;
+  const int g8 = lane >> 2, tq = lane & 3;
+  const unsigned och = wg::smem_u32(sm.och), p = wg::smem_u32(sm.p);
+  const int mask = out_mask(wgi, dv_role, o0, width);
+  // dK role: acc[h] = columns o0 + 256 wgi + 64 h.  dV role: acc[h] =
+  // A^T dM1 and acc[2 + h] = A^T dM2 at columns o0 + 128 wgi + 64 h (h < 2).
+  float acc[4][32];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int col = o0 + tx + 16 * jj;
-        if (col < a.c)
-          dv[(size_t)key * a.c + col] =
-              acc[i][jj] + 2.f * v[(size_t)key * a.c + col] * acc[i][jj + 4];
+  for (int h = 0; h < 4; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+
+  int g = 0, j = 0;   // stages of this consumer's ring, uses of its output ring
+  for (int i = 0; i < nqt; ++i) {
+    float s[32];
+    if (wgi == 0)
+      phase1_tf32<FR0>(s, sm.ring0, sm.f0, sm.e0, g, split, lane);
+    else
+      phase1_tf32<FR1>(s, sm.ring1, sm.f1, sm.e1, g,
+                       dv_role ? nd - split : 2 * nc, lane);
+
+    // The exchange, through P in place (each thread reads and writes only
+    // its own positions): dK role, consumer 0 writes A^T = exp(S^T - L) and
+    // consumer 1 replaces it with dS^T = A^T o (dA^T - D); dV role,
+    // consumer 1 writes its part of S^T and consumer 0 replaces it with
+    // A^T.  The first writes raw float32 into the big boxes, the second
+    // writes both tf32 parts.  s[4 jj + 2 h + t]: key 16 wl + g8 + 8 h,
+    // query T i + 8 jj + 2 tq + t, whose L is lt[8 jj + 2 tq + t] and D
+    // lt[T + ...].  S - L is formed before the exponential, so two large
+    // scores do not cancel after rounding.  The first barrier keeps P
+    // until both consumers' output products of the tile before are done.
+    const float* lt = sm.rowv + (i & 1) * 2 * T + 2 * tq;
+    wg::mbar_wait(sm.fr + 8 * (i & 1), (i >> 1) & 1);
+    bar_sync(1, 256);
+    if (wgi == (dv_role ? 1 : 0)) {
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const float* lc = lt + 8 * (e >> 2);
+        *reinterpret_cast<float2*>(
+            sm.p + p_offset(wl, g8, tq, e >> 2, (e >> 1) & 1)) =
+            dv_role ? make_float2(s[e], s[e + 1])
+                    : make_float2(expf(s[e] - lc[0]), expf(s[e + 1] - lc[1]));
+      }
+    }
+    bar_sync(1, 256);
+    if (wgi == (dv_role ? 0 : 1)) {
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const float* lc = lt + 8 * (e >> 2);
+        const int off = p_offset(wl, g8, tq, e >> 2, (e >> 1) & 1);
+        const float2 x = *reinterpret_cast<const float2*>(sm.p + off);
+        float x0, x1;
+        if (dv_role) {
+          x0 = expf((s[e] + x.x) - lc[0]);
+          x1 = expf((s[e + 1] + x.y) - lc[1]);
+        } else {
+          x0 = x.x * (s[e] - lc[T]);
+          x1 = x.y * (s[e + 1] - lc[T + 1]);
+        }
+        store_p_tf32(sm.p, off, x0, x1);
+      }
+      wg::fence_async_shared();
+    }
+    bar_sync(1, 256);
+    if (lane == 0) wg::mbar_arrive(sm.er + 8 * (i & 1));
+    phase2_tf32(acc, p, och, sm.fo, sm.eo, j, wgi, mask, lane);
+  }
+
+  if (!dv_role) {
+    float* dk = static_cast<float*>(a.dk) + (size_t)bi * a.m * a.d;
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      if (!(mask >> h & 1)) continue;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int col = o0 + 256 * wgi + T * h + 8 * (e >> 2) + 2 * tq + (e & 1);
+        const int key = k0 + 16 * wl + g8 + 8 * ((e >> 1) & 1);
+        if (col < a.d && key < a.m) dk[(size_t)key * a.d + col] = acc[h][e];
+      }
+    }
+  } else {
+    const float* v = static_cast<const float*>(a.v) + bi * a.v_bs;
+    float* dv = static_cast<float*>(a.dv) + (size_t)bi * a.m * a.c;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!(mask >> h & 1)) continue;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int col = o0 + 128 * wgi + T * h + 8 * (e >> 2) + 2 * tq + (e & 1);
+        const int key = k0 + 16 * wl + g8 + 8 * ((e >> 1) & 1);
+        if (col < a.c && key < a.m) {
+          const size_t at = (size_t)key * a.c + col;
+          dv[at] = acc[h][e] + 2.f * v[at] * acc[h + 2][e];
+        }
       }
     }
   }
 }
+
+// The pre-pass: one operand, (planes, rows, cols) float32 with rows
+// contiguous and planes `stride` apart, into dst (2, planes, drows, dcols)
+// as big and small tf32 parts, zero past the source.  Mode 0 copies, 1
+// squares first (W = V o V, in float32), 2 transposes (drows = cols, dcols
+// >= rows).  Block 32 x 8 threads per 32 x 32 tile of dst; grid (dcols /
+// 32, drows / 32, planes), rounded up.
+struct SplitJob {
+  const float* src;
+  long long stride;
+  int rows, cols;
+  float* dst;
+  int drows, dcols, planes, mode;
+};
+
+__global__ void __launch_bounds__(256) split_tf32(SplitJob j) {
+  __shared__ float tile[32][33];
+  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32, pl = blockIdx.z;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const float* src = j.src + pl * j.stride;
+  const size_t part = (size_t)j.planes * j.drows * j.dcols;
+  float* dst = j.dst + (size_t)pl * j.drows * j.dcols;
+  if (j.mode == 2) {   // tile[query - c0][col - r0]
+    for (int r = ty; r < 32; r += 8) {
+      const int qq = c0 + r, col = r0 + tx;
+      tile[r][tx] = qq < j.rows && col < j.cols
+                        ? src[(size_t)qq * j.cols + col] : 0.f;
+    }
+    __syncthreads();
+  }
+  for (int r = ty; r < 32; r += 8) {
+    const int row = r0 + r, col = c0 + tx;
+    if (row >= j.drows || col >= j.dcols) continue;
+    float x;
+    if (j.mode == 2) {
+      x = tile[tx][r];
+    } else {
+      x = col < j.cols ? src[(size_t)row * j.cols + col] : 0.f;
+      if (j.mode == 1) x *= x;
+    }
+    unsigned big, small;
+    wg::tf32_split(x, &big, &small);
+    dst[(size_t)row * j.dcols + col] = __uint_as_float(big);
+    dst[part + (size_t)row * j.dcols + col] = __uint_as_float(small);
+  }
+}
+
+// The f32 K5's scratch: the pre-pass jobs of the nine split operands (q,
+// k, v, w, dm1, dm2, qt, dm1t, dm2t) one after another from base, and
+// their total size in floats.
+struct SplitLayout {
+  SplitJob job[9];
+  long long total;
+  SplitLayout(const BwdArgs& a, int b, float* base) {
+    const int pq = a.q_bs ? b : 1, pk = a.k_bs ? b : 1, pv = a.v_bs ? b : 1;
+    const int dp = (a.d + 3) / 4 * 4, cp = (a.c + 3) / 4 * 4;
+    const int np = (a.n + 3) / 4 * 4;
+    const long long nc = static_cast<long long>(a.n) * a.c;
+    const float *q = static_cast<const float*>(a.q),
+                *k = static_cast<const float*>(a.k),
+                *v = static_cast<const float*>(a.v),
+                *d1 = static_cast<const float*>(a.dm1),
+                *d2 = static_cast<const float*>(a.dm2);
+    const SplitJob spec[9] = {
+        {q, a.q_bs, a.n, a.d, nullptr, a.n, dp, pq, 0},
+        {k, a.k_bs, a.m, a.d, nullptr, a.m, dp, pk, 0},
+        {v, a.v_bs, a.m, a.c, nullptr, a.m, cp, pv, 0},
+        {v, a.v_bs, a.m, a.c, nullptr, a.m, cp, pv, 1},
+        {d1, nc, a.n, a.c, nullptr, a.n, cp, b, 0},
+        {d2, nc, a.n, a.c, nullptr, a.n, cp, b, 0},
+        {q, a.q_bs, a.n, a.d, nullptr, a.d, np, pq, 2},
+        {d1, nc, a.n, a.c, nullptr, a.c, np, b, 2},
+        {d2, nc, a.n, a.c, nullptr, a.c, np, b, 2}};
+    total = 0;
+    for (int i = 0; i < 9; ++i) {
+      job[i] = spec[i];
+      job[i].dst = base ? base + total : nullptr;
+      total += 2LL * job[i].planes * job[i].drows * job[i].dcols;
+    }
+  }
+};
 
 static cudaError_t make_maps(Maps* mp, const BwdArgs& a, int b) {
   cudaError_t e = chunk_map(&mp->q, a.q, a.d, a.n, b, a.q_bs);
@@ -892,7 +1240,40 @@ static cudaError_t make_maps(Maps* mp, const BwdArgs& a, int b) {
   return e;
 }
 
+// The f32 K5's pre-pass and main kernel.  scratch holds
+// vst_k5_scratch_floats(...) floats.
+static cudaError_t k5_tf32(const BwdArgs& a, int b, float* scratch,
+                           cudaStream_t s) {
+  const SplitLayout lay(a, b, scratch);
+  for (const SplitJob& j : lay.job) {
+    const dim3 grid((j.dcols + 31) / 32, (j.drows + 31) / 32, j.planes);
+    split_tf32<<<grid, dim3(32, 8), 0, s>>>(j);
+  }
+  SplitMaps mp;
+  CUtensorMap* maps[9] = {&mp.q, &mp.k, &mp.v, &mp.w, &mp.dm1, &mp.dm2,
+                          &mp.qt, &mp.dm1t, &mp.dm2t};
+  cudaError_t e = cudaGetLastError();
+  for (int i = 0; i < 9 && e == cudaSuccess; ++i) {
+    const SplitJob& j = lay.job[i];
+    e = chunk_map_f32(maps[i], j.dst, j.dcols, j.drows, 2 * j.planes);
+  }
+  mp.pq = lay.job[0].planes;
+  mp.pk = lay.job[1].planes;
+  mp.pv = lay.job[2].planes;
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_dkv_tf32,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_F32);
+  if (e != cudaSuccess) return e;
+  const int roles = (a.d + SLICE_DQ - 1) / SLICE_DQ;
+  const dim3 grid((a.m + T - 1) / T, roles + (a.c + SLICE_DV - 1) / SLICE_DV,
+                  b);
+  attn_dkv_tf32<<<grid, NTH, SMEM_F32, s>>>(a, mp, roles);
+  return cudaGetLastError();
+}
+
 }  // namespace k45
+
 
 // Each returns 0 on success, else the CUDA error of the tensor maps, the
 // attribute call or the launch.  bf16 needs d and c multiples of 8 and
@@ -926,34 +1307,43 @@ extern "C" int vst_k4_attention_dq(
 extern "C" int vst_k5_attention_dkv(
     const void* q, const void* k, const void* v, const void* dm1,
     const void* dm2, const float* lse, const float* dd, void* dk, void* dv,
-    int b, int n, int m, int d, int c, long long q_bs, long long k_bs,
-    long long v_bs, int bf16, void* stream) {
+    void* scratch, int b, int n, int m, int d, int c, long long q_bs,
+    long long k_bs, long long v_bs, int bf16, void* stream) {
   using namespace k45;
   BwdArgs a{q, k, v, dm1, dm2, lse, dd, nullptr, dk, dv,
             n, m, d, c, q_bs, k_bs, v_bs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    Maps mp;
-    cudaError_t e = make_maps(&mp, a, b);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(attn_dkv_bf16,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BF16);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int roles = (d + SLICE_DQ - 1) / SLICE_DQ;
-    const dim3 grid((m + T - 1) / T, roles + (c + SLICE_DV - 1) / SLICE_DV, b);
-    attn_dkv_bf16<<<grid, NTH, SMEM_BF16, s>>>(a, mp, roles);
-  } else {
-    const int roles = (d + FO - 1) / FO;
-    const dim3 grid((m + FR - 1) / FR, roles + (c + FDV - 1) / FDV, b);
-    attn_dkv_f32<<<grid, FTH, 0, s>>>(a, roles);
-  }
+  if (!bf16) return static_cast<int>(k5_tf32(a, b, static_cast<float*>(scratch), s));
+  Maps mp;
+  cudaError_t e = make_maps(&mp, a, b);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_dkv_bf16,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BF16);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int roles = (d + SLICE_DQ - 1) / SLICE_DQ;
+  const dim3 grid((m + T - 1) / T, roles + (c + SLICE_DV - 1) / SLICE_DV, b);
+  attn_dkv_bf16<<<grid, NTH, SMEM_BF16, s>>>(a, mp, roles);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 launch configuration: out = {dynamic shared memory bytes per
-// block, resident blocks per SM of K4, of K5, dQ/dK columns per block, dV
-// columns per block}.  Returns a CUDA error code.
+// Floats of scratch the f32 K5 needs (its split operands; the wrapper
+// allocates them).
+extern "C" long long vst_k5_scratch_floats(int b, int n, int m, int d, int c,
+                                          long long q_bs, long long k_bs,
+                                          long long v_bs) {
+  using namespace k45;
+  const BwdArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, nullptr, nullptr,
+                  n, m, d, c, q_bs, k_bs, v_bs};
+  return SplitLayout(a, b, nullptr).total;
+}
+
+// The launch configuration of the wgmma bodies: out = {bf16 K4/K5 dynamic
+// shared memory bytes per block, resident blocks per SM of bf16 K4, of
+// bf16 K5, dQ/dK columns per block, dV columns per block, then the f32
+// K5's shared memory, blocks per SM, dK and dV columns per block}.
+// Returns a CUDA error code.
 extern "C" int vst_k45_launch_config(int* out) {
   using namespace k45;
   cudaError_t e = cudaFuncSetAttribute(
@@ -963,13 +1353,23 @@ extern "C" int vst_k45_launch_config(int* out) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_BF16);
   if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_dkv_tf32,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_F32);
+  if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], attn_dq_bf16,
                                                       NTH, SMEM_BF16);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], attn_dkv_bf16,
                                                       NTH, SMEM_BF16);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[6], attn_dkv_tf32,
+                                                      NTH, SMEM_F32);
   out[0] = SMEM_BF16;
   out[3] = SLICE_DQ;
   out[4] = SLICE_DV;
+  out[5] = SMEM_F32;
+  out[7] = SLICE_DQ;
+  out[8] = SLICE_DV;
   return static_cast<int>(e);
 }

@@ -1,9 +1,10 @@
 // Shared by K3 (adaattn_fwd.cu) and K4/K5 (adaattn_bwd.cu): bf16 packing,
-// the softmax constants, and the pieces of their bf16 wgmma bodies: 64 x 64
-// bf16 chunks loaded by TMA through 3-D tensor maps with the 128-byte
-// swizzle, their descriptors read K-major or N-major, P (or dS) written by
-// the threads in the same swizzled K-major layout, the producer's claim of
-// a ring slot and the consumers' named barriers.
+// the softmax constants, and the pieces of their wgmma bodies: 64 x 64
+// bf16 chunks (and the f32 K5's 64 x 32 float32 ones) loaded by TMA
+// through 3-D tensor maps with the 128-byte swizzle, their descriptors
+// read K-major or N-major, P (or dS) written by the threads in the same
+// swizzled K-major layout, the producer's claim of a ring slot and the
+// consumers' named barriers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,6 +99,29 @@ inline cudaError_t chunk_map(CUtensorMap* map, const void* base, int cols,
   const cuuint32_t box[3] = {T, T, 1};
   const cuuint32_t estride[3] = {1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(base), dims, strides, box, estride,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 3-D tensor map over a contiguous float32 (planes, rows, cols) tensor,
+// cols a multiple of 4 (16-byte rows), read in boxes of 64 rows x 32
+// floats (128 bytes) with the 128-byte swizzle: the tf32 operand chunks.
+inline cudaError_t chunk_map_f32(CUtensorMap* map, const void* base, int cols,
+                                 int rows, int planes) {
+  wg::EncodeTiled enc = wg::encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 4,
+                                 static_cast<cuuint64_t>(rows) * cols * 4};
+  const cuuint32_t box[3] = {32, T, 1};
+  const cuuint32_t estride[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
                          const_cast<void*>(base), dims, strides, box, estride,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,

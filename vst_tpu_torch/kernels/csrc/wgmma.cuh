@@ -1,9 +1,10 @@
-// Hopper primitives shared by the bf16 kernels that run on wgmma: K1/K2's
-// conv3x3_wgmma (conv3x3_wgmma.cuh) and K4/K5's attention backward
-// (adaattn_bwd.cu).  cp.async and the async-proxy fence, mbarriers, TMA
-// tile loads, the wgmma fence/commit/wait, shared-memory matrix
-// descriptors, the m64nNk16 bf16 instruction with B's layout as a
-// parameter, and the runtime lookup of cuTensorMapEncodeTiled.
+// Hopper primitives shared by the kernels that run on wgmma: K1/K2's
+// conv3x3_wgmma (conv3x3_wgmma.cuh), K3 (adaattn_fwd.cu) and K4/K5's
+// attention backward (adaattn_bwd.cu).  cp.async and the async-proxy
+// fence, mbarriers, TMA tile loads, the wgmma fence/commit/wait,
+// shared-memory matrix descriptors, the m64nNk16 bf16 instruction with B's
+// layout as a parameter, the m64n64k8 tf32 one with the 3xTF32 split, and
+// the runtime lookup of cuTensorMapEncodeTiled.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap (types only; the encoder comes from the runtime)
@@ -323,6 +324,47 @@ template <int N, int B_LAYOUT>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
                                            uint64_t db) {
   Wgmma<N>::template mma<B_LAYOUT>(d, da, db);
+}
+
+// tf32: the m64n64k8 instruction (float32 accumulate).  PTX takes tf32
+// operands from shared memory only K-major (the transpose immediates exist
+// for f16/bf16 alone).  A k8 step
+// is 32 bytes, as bf16's k16: rows of 32 floats in the 128-byte swizzle
+// (the TMA box {32, 64} of float32) use the same descriptor as rows of 64
+// bf16, stride 1024 between 8-row groups, the start moved 32 bytes a step.
+// accumulate = 0 writes d = A B (d's old values are not read).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da,
+                                           uint64_t db, int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// x rounded to tf32 (to nearest, ties away), low 13 bits zero.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
+  return u & 0xFFFFE000u;
+}
+
+// The 3xTF32 split: x = big + small + r with big = tf32(x), small =
+// tf32(x - big) (x - big is exact in float32), |r| <= 2^-22 |x|.
+__device__ __forceinline__ void tf32_split(float x, unsigned* big,
+                                           unsigned* small) {
+  *big = tf32_rna(x);
+  *small = tf32_rna(x - __uint_as_float(*big));
 }
 
 // cuTensorMapEncodeTiled from libcuda, looked up through the runtime (no
