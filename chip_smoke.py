@@ -14,7 +14,7 @@ result line):
    each kernel's registers and spills (ptxas) and, for the bf16 K1/K2
    (``conv3x3_wgmma``), the output-channel tile, dynamic shared memory and
    resident blocks per SM at every shape phase 3 runs, and the same for
-   the bf16 K3 and K4/K5 and the f32 (3xTF32) K5;
+   the bf16 K3 and K4/K5 and the f32 (3xTF32) K3 and K5;
 3. kernels: K1 (without and with its prologue) at (8,128,128,192) and K2
    at the stem and head packed shapes, bf16 and f32; in bf16 also K1 at
    the SD1/SD2 width (8,128,128,64) and the 640×360 stream's
@@ -22,9 +22,12 @@ result line):
    stream's packed (8,92,162,·), and two launches of each giving the same
    bits; K3 in bf16 at the
    three AdaAttN 512² batch-2 level shapes (and at relu3_1's with sharp
-   scores of std 10 and with a stride-0 K/V), at the edge of its value
-   slices (c = 264), each launched twice for the same bits, and in f32 at
-   a ragged shape and the relu4_1 shape;
+   scores of std 10 and with a stride-0 K/V) and at the edge of its value
+   slices (c = 264), and in f32 (3xTF32) against the float64 evaluation
+   at the three training level shapes (256², batch 8), the serving
+   relu3_1 shape, relu3_1's with scores of std 10 and 100, a ragged
+   shape, its slice edges and with a stride-0 K/V and Q, every case
+   launched twice for the same bits;
    K4 and K5 in bf16 at the three AdaAttN training level shapes (256²,
    batch 8; relu3_1's also with sharp scores), at the edges of their
    output slices (d = 520: two dQ/dK slices, the last ragged; c = 264:
@@ -33,7 +36,9 @@ result line):
    launched twice for the same bits, and in f32 at a ragged shape and
    the same three, the f32 K5 also at relu3_1's with sharp scores, at its
    slice edges and with a stride-0 K/V and Q, launched twice for the same
-   bits; each against its plain version on the same inputs;
+   bits; each against its plain version on the same inputs; with
+   ``--parent DIR`` the f32 K5 also gives the bits of DIR's (a checkout of
+   the parent commit, built here) at the three level shapes;
 4. model: the f32 ReCoNet forward through the kernels against the same
    forward through the plain versions at 1×256×256 (and, with grad mode
    on, raising: K1/K2 have no backward yet), the f32 AdaAttN
@@ -60,14 +65,19 @@ result line):
    rows also carry ms, TFLOP/s and the bound's share per launch; K3-K5
    rows the same per level, and the f32 K3/K4/K5 times at the three
    training levels as ``ms_f32`` beside ``bound_ms_f32`` (3xTF32 peak)
-   and ``library_ms_f32`` (SDPA in f32, TF32 off)); K3's and K4/K5's
-   executed-work factor per level is logged, from the slice widths the
-   built library reports;
+   and ``library_ms_f32`` (SDPA in f32, TF32 off); the f32 K1 and K2 at
+   the bf16 rows' shapes beside cuDNN in f32, TF32 off); K3's (bf16 and
+   f32) and K4/K5's executed-work factor per level is logged, from the
+   slice widths the built library reports;
 7. profile: device time by kernel over two forwards (train steps) of each
    main path (torch.profiler) and the device's busy share of that window.
 
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card and
 the CUDA toolkit (nvcc); no network, no cv2, no PIL.
+
+    python3 chip_smoke.py --parent DIR
+
+runs everything above and holds the f32 K5 to the bits of DIR's.
 
     python3 chip_smoke.py --f32-step
 
@@ -268,9 +278,11 @@ def phase_build():
             f"dynamic smem {smem} B, {occ} block(s)/SM")
     k3 = _build.load("adaattn_fwd").vst_k3_launch_config
     k3.argtypes = [ctypes.c_void_p]
-    smem, occ, slice_v = _wgmma_config(k3)
+    smem, occ, slice_v, smem3, occ3, slice3 = _wgmma_config(k3, size=6)
     log(f"  K3 bf16 (wgmma): dynamic smem {smem} B, {occ} block(s)/SM, value "
         f"slices of {slice_v} columns")
+    log(f"  K3 f32 (3xTF32 on wgmma, attn_fwd_tf32): dynamic smem {smem3} B, "
+        f"{occ3} block(s)/SM, value slices of {slice3} columns")
     k45 = _build.load("adaattn_bwd").vst_k45_launch_config
     k45.argtypes = [ctypes.c_void_p]
     (smem, occ4, occ5, slice_dq, slice_dv, smem_f32, occ_f32, slice_dk_f32,
@@ -281,7 +293,7 @@ def phase_build():
     log(f"  K5 f32 (3xTF32 on wgmma, attn_dkv_tf32): dynamic smem {smem_f32} "
         f"B, {occ_f32} block(s)/SM, output slices of {slice_dk_f32} dK and "
         f"{slice_dv_f32} dV columns")
-    return {"K3": slice_v, "K45": (slice_dq, slice_dv),
+    return {"K3": slice_v, "K3_f32": slice3, "K45": (slice_dq, slice_dv),
             "K5_f32": (slice_dk_f32, slice_dv_f32)}
 
 
@@ -382,51 +394,85 @@ def k3_inputs(g, b, n, m, d, c, dtype, score_std=1.0):
             rnd(g, (b, m, d), s, dtype), rnd(g, (b, m, c), 1.0, dtype))
 
 
+def _broadcast(q, k, v, which):
+    """``which`` "kv": one K and V for the batch, "q": one Q, read through a
+    batch stride of 0."""
+    if "q" in which:
+        q = q[:1].expand_as(q)
+    if "kv" in which:
+        k, v = k[:1].expand_as(k), v[:1].expand_as(v)
+    return q, k, v
+
+
 def phase_kernels_k3(g):
-    """K3 against its plain version, at unit-scale scores and, in bf16 at
-    relu3_1, at sharp scores of std 10 (base-2 running max and rescale,
+    """K3 against its plain version, every case launched twice for the
+    same bits.  bf16 at the three AdaAttN 512² batch-2 level shapes, at
+    relu3_1's with sharp scores of std 10 (base-2 running max and rescale,
     P rounded to bf16) and with a stride-0 K/V (the cached style), and at
     the edge of the value slices (c = 264: a second slice of 8 columns;
-    d = 520, n ≠ m, both off the 64-row tile); every bf16 case launched
-    twice for the same bits.  Tolerances: bf16 M1, M2 2^-6·max|plain|
-    (one bf16 ulp of the output rounding plus the f32 difference of P
-    rounded to bf16 against a running max instead of the row max); f32
-    1e-4·max|plain| (sums in another order over up to 16384 keys); L
-    1e-5·max|L| (f32 in both)."""
-    errs = []
-    cases = [("bf16", torch.bfloat16, (K3_BATCH, n, n, d, c), 1.0, False)
+    d = 520, n ≠ m, both off the 64-row tile).  f32 (3xTF32) against the
+    plain formulas evaluated in float64 on the same inputs: the three
+    training level shapes (256² batch 8), the serving relu3_1 shape (512²
+    batch 2), relu3_1's training shape with scores of std 10 and 100, a
+    ragged shape, the slice edges (c = 264; c = 512 over two slices with
+    d = 1480 past relu5_1's), a stride-0 K/V and a stride-0 Q.
+    Tolerances: bf16 M1, M2 2^-6·max|plain| (one bf16 ulp of the output
+    rounding plus the f32 difference of P rounded to bf16 against a
+    running max instead of the row max); f32 1e-4 of each output's scale
+    (3xTF32 products within about 2^-21 of float32's, sums in another
+    order over up to 16384 keys; float64 is the reference because at
+    scores of std 100 true float32 is itself off by a good part of that);
+    L 1e-5·max|L|."""
+    cases = [("bf16", torch.bfloat16, (K3_BATCH, n, n, d, c), 1.0, "")
              for n, d, c in K3_LEVELS]
     n, d, c = K3_LEVELS[0]
-    cases += [("bf16 sharp", torch.bfloat16, (K3_BATCH, n, n, d, c), 10.0,
-               False),
+    n3, d3, c3 = TRAIN_LEVELS[0]
+    cases += [("bf16 sharp", torch.bfloat16, (K3_BATCH, n, n, d, c), 10.0, ""),
               ("bf16 stride-0 K/V", torch.bfloat16, (K3_BATCH, n, n, d, c),
-               1.0, True),
+               1.0, "kv"),
               ("bf16 slice edge", torch.bfloat16, (2, 200, 330, 520, 264), 1.0,
-               False),
-              ("f32", torch.float32, (2, 300, 520, 96, 64), 1.0, False),
-              ("f32", torch.float32, (K3_BATCH, 4096, 4096, 960, 512), 1.0,
-               False)]
+               "")]
+    cases += [("f32", torch.float32, (TRAIN_BATCH, nt, nt, dt, ct), 1.0, "")
+              for nt, dt, ct in TRAIN_LEVELS]
+    cases += [("f32 serving", torch.float32, (K3_BATCH, n, n, d, c), 1.0, ""),
+              ("f32 sharp", torch.float32, (TRAIN_BATCH, n3, n3, d3, c3),
+               10.0, ""),
+              ("f32 sharper", torch.float32, (TRAIN_BATCH, n3, n3, d3, c3),
+               100.0, ""),
+              ("f32 ragged", torch.float32, (2, 300, 520, 96, 64), 1.0, ""),
+              ("f32 slice edge", torch.float32, (2, 200, 330, 520, 264), 1.0,
+               ""),
+              ("f32 slice edges", torch.float32, (2, 130, 200, 1480, 512),
+               1.0, ""),
+              ("f32 stride-0 K/V", torch.float32, (4, 200, 330, 448, 256),
+               1.0, "kv"),
+              ("f32 stride-0 Q", torch.float32, (4, 200, 330, 448, 256), 1.0,
+               "q")]
+    errs = {"K3": 0.0, "K3 f32": 0.0}
     for tag, dtype, shape, score_std, bcast in cases:
         apply_precision(dtype)
-        q, k, v = k3_inputs(g, *shape, dtype, score_std)
-        if bcast:
-            k, v = k[:1].expand_as(k), v[:1].expand_as(v)
+        q, k, v = _broadcast(*k3_inputs(g, *shape, dtype, score_std), bcast)
         m1, m2, lse = adaattn_attention.softmax_attention_moments(q, k, v)
-        p1, p2, pl = adaattn_attention.softmax_attention_moments_plain(q, k, v)
-        tol = 2 * BF16_ULP if dtype == torch.bfloat16 else 1e-4
-        name = f"K3 {tag} {shape}"
-        e = max(check(f"{name} M1", m1, p1, tol), check(f"{name} M2", m2, p2, tol))
-        check(f"{name} L", lse, pl, 1e-5)
+        again = adaattn_attention.softmax_attention_moments(q, k, v)
+        if not all(torch.equal(a, b) for a, b in zip((m1, m2, lse), again)):
+            raise AssertionError(f"K3 {tag} {shape}: two launches differ")
+        del again
         if dtype == torch.bfloat16:
-            errs.append(e)
-            again = adaattn_attention.softmax_attention_moments(q, k, v)
-            if not all(torch.equal(a, b) for a, b in zip((m1, m2, lse), again)):
-                raise AssertionError(f"{name}: two launches differ")
-            del again
-        del q, k, v, m1, m2, lse, p1, p2, pl
-    log("  bf16 K3: a second launch gives the same bits at every shape")
+            ref, tol = adaattn_attention.softmax_attention_moments_plain(
+                q, k, v), 2 * BF16_ULP
+        else:
+            ref, tol = adaattn_attention.softmax_attention_moments_plain(
+                q.double(), k.double(), v.double()), 1e-4
+        name = f"K3 {tag} {shape}"
+        e = max(check(f"{name} M1", m1, ref[0], tol),
+                check(f"{name} M2", m2, ref[1], tol))
+        check(f"{name} L", lse, ref[2], 1e-5)
+        key = "K3" if dtype == torch.bfloat16 else "K3 f32"
+        errs[key] = max(errs[key], e)
+        del q, k, v, m1, m2, lse, ref
+    log("  K3 bf16 and f32: a second launch gives the same bits at every shape")
     torch.cuda.synchronize()
-    return max(errs)
+    return errs
 
 
 # AdaAttN training at 256² (relu3_1, relu4_1, relu5_1): (n = m, d, c)
@@ -439,18 +485,61 @@ def k45_inputs(g, b, n, m, d, c, dtype, score_std=1.0, broadcast=""):
     cotangents in the inputs' type and the row term D.  ``broadcast``:
     "kv" for one K and V for the batch, "q" for one Q, read through a
     batch stride of 0."""
-    q, k, v = k3_inputs(g, b, n, m, d, c, dtype, score_std)
-    if "q" in broadcast:
-        q = q[:1].expand(b, -1, -1)
-    if "kv" in broadcast:
-        k, v = k[:1].expand(b, -1, -1), v[:1].expand(b, -1, -1)
+    q, k, v = _broadcast(*k3_inputs(g, b, n, m, d, c, dtype, score_std),
+                         broadcast)
     m1, m2, lse = adaattn_attention.softmax_attention_moments_plain(q, k, v)
     dm1, dm2 = rnd(g, (b, n, c), 1.0, dtype), rnd(g, (b, n, c), 1.0, dtype)
     dd = adaattn_attention.row_term(m1, m2, dm1, dm2)
     return q, k, v, lse, dd, dm1, dm2
 
 
-def phase_kernels_k45(g):
+def start_parent_build(parent):
+    """Starts nvcc on a parent checkout's ``adaattn_bwd.cu`` with the
+    package's flags, into ``build/parent_k5/``; returns (library, process)."""
+    src = os.path.join(os.path.abspath(parent), "vst_tpu_torch", "kernels",
+                       "csrc")
+    out = os.path.join(ROOT, "build", "parent_k5")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, "libadaattn_bwd.so")
+    return lib, subprocess.Popen(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", src, "-o", lib,
+         os.path.join(src, "adaattn_bwd.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def parent_k5(started):
+    """The parent's K5 (``softmax_attention_dkv``'s arguments, f32 only)
+    once its build from ``start_parent_build`` is done."""
+    lib, proc = started
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the parent's adaattn_bwd.cu:\n{out}")
+    so = ctypes.CDLL(lib)
+    fn = so.vst_k5_attention_dkv
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
+    floats = so.vst_k5_scratch_floats
+    floats.argtypes = [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
+    floats.restype = ctypes.c_longlong
+
+    def dkv(q, k, v, lse, dd, dm1, dm2):
+        b, n, d = q.shape
+        m, c = k.shape[1], v.shape[2]
+        strides = (q.stride(0), k.stride(0), v.stride(0))
+        dk = torch.empty((b, m, d), device=q.device)
+        dv = torch.empty((b, m, c), device=q.device)
+        scratch = torch.empty(floats(b, n, m, d, c, *strides), device=q.device)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dm1.data_ptr(),
+                dm2.data_ptr(), lse.data_ptr(), dd.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), scratch.data_ptr(), b, n, m, d, c, *strides, 0,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"parent K5 launch failed: CUDA error {rc}")
+        return dk, dv
+    return dkv
+
+
+def phase_kernels_k45(g, parent=None):
     """K4 (dQ) and K5 (dK, dV) against their plain versions on the same
     inputs and cotangents: bf16 at the three AdaAttN training level shapes
     (256², batch 8), at relu3_1's with sharp scores of std 10, at the
@@ -460,7 +549,9 @@ def phase_kernels_k45(g):
     launches both at all three) and, for the 3xTF32 K5, at relu3_1's with
     sharp scores, at its slice edges (d = 520 and c = 264; d = 1030 and c =
     515, off its 16-byte rows) and with a stride-0 Q and a stride-0 K/V.
-    A second launch of bf16 K4/K5 and of f32 K5 must give the same bits.
+    A second launch of bf16 K4/K5 and of f32 K5 must give the same bits;
+    with ``parent`` (``parent_k5``) the f32 K5 must also give the parent
+    checkout's bits at the three level shapes.
     Tolerances, of each output's scale: bf16 2^-6 (one bf16 ulp of the
     output rounding plus A and dS rounded to bf16 from f32 values summed in
     another order); f32 1e-4 (sums in another order over up to 4096 terms;
@@ -508,6 +599,12 @@ def phase_kernels_k45(g):
             errs["K5"] = max(errs["K5"], e5)
         else:
             errs["K5 f32"] = max(errs["K5 f32"], e5)
+        if parent is not None and tag == "f32" and shape in levels:
+            if not all(torch.equal(a, b) for a, b in zip((dk, dv),
+                                                         parent(*args))):
+                raise AssertionError(f"K5 f32 {shape}: differs from the "
+                                     f"parent's")
+            log(f"  K5 f32 {shape}: the same bits as the parent's")
         del args, dq, dk, dv, pq, pk, pv
     log("  bf16 K4 and K5, f32 K5: a second launch gives the same bits at "
         "every shape")
@@ -968,8 +1065,60 @@ def phase_timing(launches, errs, slice_v):
         k2["ms_per_launch"].append(tk)
         by2.add(by)
     k2["bound_by"] = "operations" if "operations" in by2 else "bytes"
+    timing_f32_convs(g, k1, k2)
     torch.cuda.synchronize()
     return [k1, k2, timing_k3(launches["K3"], errs["K3"], slice_v)]
+
+
+def timing_f32_convs(g, k1, k2):
+    """f32 K1 (without and with its prologue) and f32 K2 (packed stem and
+    head) at the bf16 rows' 512² batch-8 shapes (the f32 ReCoNet forward of
+    [4] runs both bodies), beside cuDNN ``F.conv2d`` in f32 with TF32 off,
+    per forward as the bf16 rows; event time over 5 launches after 1.
+    Bound in the f32 K3-K5 columns' convention: FLOPs over 3xTF32's 495 /
+    3 TFLOP/s, bytes (float32) over 3.35 TB/s.  Added to the rows as
+    ``ms_f32``, ``bound_ms_f32``, ``library_ms_f32``."""
+    dt = torch.float32
+    apply_precision(dt)
+    x, wt, b, gamma, beta = k1_inputs(g, dt)
+    n, h, w, c = K1_SHAPE
+    y, s = res_block.conv3x3_in_stats(x, wt, b)
+    tk = event_ms(lambda: res_block.conv3x3_in_stats(x, wt, b), 5, 1)
+    tk_pro = event_ms(lambda: res_block.conv3x3_in_stats(
+        y, wt, b, s, gamma, beta), 5, 1)
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").contiguous(
+        memory_format=torch.channels_last)
+    w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    tl = event_ms(lambda: F.conv2d(xp, w_oihw, b), 5, 1)
+    flops = 2 * 9 * c * c * n * h * w
+    nbytes = (2 * n * h * w * c + 9 * c * c + c + n * 2 * c) * 4
+    b1, _ = bound(flops, nbytes, "tf32x3")
+    b1_pro, _ = bound(flops, nbytes + (n * 2 * c + 2 * c) * 4, "tf32x3")
+    k1.update(ms_f32=5 * (tk + tk_pro), bound_ms_f32=5 * (b1 + b1_pro),
+              library_ms_f32=10 * tl, ms_f32_per_launch=[tk, tk_pro],
+              library_f32="F.conv2d f32 (cuDNN, TF32 off)")
+    log(f"  K1 f32 ms per launch: kernel {tk:.4f}, with prologue "
+        f"{tk_pro:.4f} ({flops / tk / 1e9:.1f} / {flops / tk_pro / 1e9:.1f} "
+        f"TFLOP/s); cuDNN f32 conv {tl:.4f}; bound {b1:.4f} / {b1_pro:.4f}")
+    k2.update(ms_f32=0.0, bound_ms_f32=0.0, library_ms_f32=0.0,
+              ms_f32_per_launch=[], library_f32="F.conv2d f32 (cuDNN, TF32 off)")
+    for part, (c2, co) in K2_SHAPES.items():
+        xk, wk = k2_inputs(g, (8, 130, 130, c2, co), dt)
+        tk = event_ms(lambda: head_conv.conv3x3_valid(xk, wk), 5, 1)
+        xl = xk.permute(0, 3, 1, 2)
+        wl = wk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        tl = event_ms(lambda: F.conv2d(xl, wl), 5, 1)
+        flops2 = 2 * 9 * c2 * co * 8 * 128 * 128
+        bb, _ = bound(flops2, (8 * 130 * 130 * c2 + 9 * c2 * co
+                               + 8 * 128 * 128 * co) * 4, "tf32x3")
+        log(f"  K2 f32 {part} ms: kernel {tk:.4f} ({flops2 / tk / 1e9:.1f} "
+            f"TFLOP/s), cuDNN f32 conv {tl:.4f}, bound {bb:.4f}")
+        k2["ms_f32"] += tk
+        k2["library_ms_f32"] += tl
+        k2["bound_ms_f32"] += bb
+        k2["ms_f32_per_launch"].append(tk)
+        del xk, wk, xl, wl
+    apply_precision(torch.bfloat16)
 
 
 def timing_k3(launches, err, slice_v):
@@ -1062,7 +1211,7 @@ def executed_work(kid, d, c, slice_dq, slice_dv):
     return (s * (2 * d + 4 * c) + 2 * d + r * 2 * d + 4 * c) / (4 * d + 8 * c)
 
 
-def timing_k45(launches, errs, slices, slices_f32):
+def timing_k45(launches, errs, slices, slices_f32, slice_k3_f32):
     """K4, K5 and their plain versions at the three AdaAttN training level
     shapes (256², batch 8), bf16, one launch each per level per step, with
     the executed-work factor of each level (logged; ``slices`` are the
@@ -1078,10 +1227,11 @@ def timing_k45(launches, errs, slices, slices_f32):
     1), beside ``F.scaled_dot_product_attention`` in f32 with TF32 off:
     its forward beside K3, its backward beside K4 + K5, each with the
     backend it chose.  f32 bounds: FLOPs over 3xTF32's 495 / 3 TFLOP/s
-    (K5's route; K3 and K4 still run on the CUDA cores, whose 67 TFLOP/s
-    would give 2.5x these), bytes in float32.  The f32 K3 numbers are
-    returned; K4/K5's go in their rows as ``ms_f32``, ``bound_ms_f32``,
-    ``library_ms_f32``."""
+    (K3's and K5's route; K4 still runs on the CUDA cores, whose 67
+    TFLOP/s would give 2.5x these), bytes in float32.  The f32 K3's
+    executed-work factor per level comes from ``slice_k3_f32``, the built
+    library's value slice width.  The f32 K3 numbers are returned; K4/K5's
+    go in their rows as ``ms_f32``, ``bound_ms_f32``, ``library_ms_f32``."""
     log("[6] K4, K5 at the AdaAttN training level shapes (256² b8, bf16)")
     g = torch.Generator(device="cuda").manual_seed(5)
     dt = torch.bfloat16
@@ -1109,7 +1259,8 @@ def timing_k45(launches, errs, slices, slices_f32):
             "ms_f32_per_launch": [], "bound_ms_f32": 0.0,
             "library_ms_f32": 0.0, "library_f32": None, "library": None})
     rows["K5"]["row"]["max_abs_err_f32"] = errs["K5 f32"]
-    k3_f32 = {"ms": [], "bound_ms": 0.0, "library_ms": 0.0, "library": None}
+    k3_f32 = {"ms": [], "bound_ms": 0.0, "library_ms": 0.0, "library": None,
+              "work": [], "tflops": []}
     for n, d, c in TRAIN_LEVELS:
         args = k45_inputs(g, TRAIN_BATCH, n, n, d, c, dt)
         q, k, v, lse, dd, dm1, dm2 = args
@@ -1174,6 +1325,9 @@ def timing_k45(launches, errs, slices, slices_f32):
         b3, _ = bound(2 * TRAIN_BATCH * n * n * (d + 2 * c),
                       TRAIN_BATCH * 4 * (2 * n * d + 3 * n * c + n), "tf32x3")
         k3_f32["bound_ms"] += b3
+        k3_f32["work"].append((-(-c // slice_k3_f32) * d + 2 * c) / (d + 2 * c))
+        k3_f32["tflops"].append(2 * TRAIN_BATCH * n * n * (d + 2 * c)
+                                / k3_f32["ms"][-1] / 1e9)
         k3_f32["library_ms"] += t_fwd
         k3_f32["library"] = f"F.scaled_dot_product_attention f32 ({be_fwd})"
         for kid, r in rows.items():
@@ -1190,7 +1344,9 @@ def timing_k45(launches, errs, slices, slices_f32):
         work = executed_work("K5", d, c, *slices_f32)
         k5r = rows["K5"]["row"]
         log(f"  f32 (n={n}, d={d}, c={c}) ms per launch: K3 "
-            f"{k3_f32['ms'][-1]:.4f} (bound {b3:.4f}), K4 "
+            f"{k3_f32['ms'][-1]:.4f} (3xTF32 {3 * k3_f32['work'][-1]:.3f}x "
+            f"the least work in tf32 products, {k3_f32['tflops'][-1]:.1f} "
+            f"TFLOP/s on the least; bound {b3:.4f}), K4 "
             f"{rows['K4']['row']['ms_f32_per_launch'][-1]:.4f}, K5 "
             f"{k5r['ms_f32_per_launch'][-1]:.4f} (3xTF32 {3 * work:.3f}x the "
             f"least work in tf32 products, "
@@ -1304,22 +1460,24 @@ def main(argv):
         print("error: no CUDA device; chip_smoke.py runs only on a GPU",
               file=sys.stderr)
         return 1
-    if argv not in ([], ["--f32-step"]):
-        print(f"usage: chip_smoke.py [--f32-step]; got {argv}",
+    parent = argv[1] if len(argv) == 2 and argv[0] == "--parent" else None
+    if argv not in ([], ["--f32-step"]) and parent is None:
+        print(f"usage: chip_smoke.py [--f32-step | --parent DIR]; got {argv}",
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     smi = phase_card()
-    if argv:
+    if argv == ["--f32-step"]:
         phase_f32_step()
         log(f"wall {time.perf_counter() - t0:.1f} s")
         log(smi)
         return 0
+    started = start_parent_build(parent) if parent else None
     slices = phase_build()
     g = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernels(g)
-    errs["K3"] = phase_kernels_k3(g)
-    errs.update(phase_kernels_k45(g))
+    errs.update(phase_kernels_k3(g))
+    errs.update(phase_kernels_k45(g, started and parent_k5(started)))
     phase_model()
     launches = phase_main_path()
     launches["K3"] = phase_main_adaattn()
@@ -1328,7 +1486,7 @@ def main(argv):
     launches["K3"] += train["K3"]
     launches.update(K4=train["K4"], K5=train["K5"])
     k45_rows, k3_f32 = timing_k45(launches, errs, slices["K45"],
-                                  slices["K5_f32"])
+                                  slices["K5_f32"], slices["K3_f32"])
     kernels = phase_timing(launches, errs, slices["K3"]) + k45_rows
     kernels[2]["launches_by_path"] = by_path
     kernels[2]["ms_f32"] = sum(k3_f32["ms"])
@@ -1336,6 +1494,9 @@ def main(argv):
     kernels[2]["bound_ms_f32"] = k3_f32["bound_ms"]
     kernels[2]["library_ms_f32"] = k3_f32["library_ms"]
     kernels[2]["library_f32"] = k3_f32["library"]
+    kernels[2]["max_abs_err_f32"] = errs["K3 f32"]
+    kernels[2]["executed_work_f32"] = k3_f32["work"]
+    kernels[2]["tflops_f32_per_launch"] = k3_f32["tflops"]
     kernels[2]["ms_f32_per"] = ("one f32 launch at each AdaAttN training "
                                 "level (256x256 batch 8)")
     phase_profile()

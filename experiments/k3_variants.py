@@ -168,7 +168,7 @@ def build(src):
         print(f"  {name}: bf16 kernel {used.split(':', 1)[1].strip()}",
               flush=True)
         fn = ctypes.CDLL(lib).vst_k3_attention_moments
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
         fns[name] = (fn, checked)
     return fns
@@ -181,7 +181,7 @@ def launch(fn, q, k, v):
     m2 = torch.empty_like(m1)
     lse = torch.empty((b, n, 1), dtype=torch.float32, device=q.device)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), m1.data_ptr(),
-            m2.data_ptr(), lse.data_ptr(), b, n, m, d, c, q.stride(0),
+            m2.data_ptr(), lse.data_ptr(), None, b, n, m, d, c, q.stride(0),
             k.stride(0), v.stride(0), 1, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch failed: CUDA error {rc}")

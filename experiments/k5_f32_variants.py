@@ -7,9 +7,12 @@ formulas, and times in turns.
     python3 experiments/k5_f32_variants.py
 
 Each variant is the shipped source, ``vst_tpu_torch/kernels/csrc/
-adaattn_bwd.cu``, with a few text edits (each must apply exactly once),
-built with the package's nvcc flags into ``build/k5_f32_variants/<name>/``,
-all ``nvcc``s at once, and called through its C entry point.
+adaattn_bwd.cu`` and the ``attn_common.cuh`` it includes (whose 3xTF32
+phase it shares with the f32 K3), with a few text edits (each must apply
+exactly once), written into ``build/k5_f32_variants/<name>/`` (the
+header beside the source, where its include finds it first) and built
+with the package's nvcc flags, all ``nvcc``s at once, and called through
+its C entry point.
 
 - ``shipped``: every 32-column stage of S^T and dA^T, and every output
   chunk of a query tile, is summed into a fresh partial that the consumer
@@ -46,7 +49,7 @@ sys.path.insert(0, ROOT)
 from vst_tpu_torch.device import apply_precision  # noqa: E402
 from vst_tpu_torch.kernels import _build, adaattn_attention  # noqa: E402
 
-SRC_PATH = os.path.join(_build.CSRC, "adaattn_bwd.cu")
+SOURCES = ("adaattn_bwd.cu", "attn_common.cuh")   # the files the edits touch
 OUT = os.path.join(ROOT, "build", "k5_f32_variants")
 
 STAGE_FIRST = "kmajor(b + 2 * FB, ks), ks > 0);"
@@ -65,16 +68,35 @@ PHASE1_CHAIN = """    stage_tf32(acc, wg::smem_u32(ring + slot * FSTAGE));
 OUT_PART = "      float part[32];\n      wg::fence_acc(part);"
 OUT_FIRST = "kmajor(b, ks), kh + ks > 0);"
 OUT_ADD = "#pragma unroll\n      for (int i = 0; i < 32; ++i) acc[h][i] += part[i];\n"
-CHAIN_S = [(STAGE_FIRST, "kmajor(b + 2 * FB, ks));"), (PHASE1, PHASE1_CHAIN)]
-CHAIN_OUT = [(OUT_PART, "      float (&part)[32] = acc[h];\n      wg::fence_acc(part);"),
-             (OUT_FIRST, "kmajor(b, ks));"), (OUT_ADD, "")]
+CHAIN_S = [("attn_common.cuh", STAGE_FIRST, "kmajor(b + 2 * FB, ks));"),
+           ("attn_common.cuh", PHASE1, PHASE1_CHAIN)]
+CHAIN_OUT = [("adaattn_bwd.cu", OUT_PART,
+              "      float (&part)[32] = acc[h];\n      wg::fence_acc(part);"),
+             ("adaattn_bwd.cu", OUT_FIRST, "kmajor(b, ks));"),
+             ("adaattn_bwd.cu", OUT_ADD, "")]
 TOL = 1e-4
 
 
 def variants():
-    """name -> list of (old, new) edits."""
+    """name -> list of (file, old, new) edits."""
     return {"shipped": [], "chain_s": CHAIN_S, "chain_out": CHAIN_OUT,
             "chain_both": CHAIN_S + CHAIN_OUT}
+
+
+def sources():
+    """file name -> the shipped text of each file the edits touch."""
+    return {f: open(os.path.join(_build.CSRC, f)).read() for f in SOURCES}
+
+
+def apply(src, edits):
+    """The texts of ``src`` (file name -> text) with ``edits`` applied; an
+    edit that does not match exactly once raises."""
+    texts = dict(src)
+    for f, old, new in edits:
+        if texts[f].count(old) != 1:
+            raise RuntimeError(f"{f}: edit does not apply once: {old[:60]!r}")
+        texts[f] = texts[f].replace(old, new)
+    return texts
 
 
 def build(src):
@@ -83,15 +105,11 @@ def build(src):
     nvcc = _build.find_nvcc()
     procs = {}
     for name, edits in variants().items():
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: edit does not apply once: {old[:60]!r}")
-            text = text.replace(old, new)
         d = os.path.join(OUT, name)
         os.makedirs(d, exist_ok=True)
-        with open(os.path.join(d, "adaattn_bwd.cu"), "w") as f:
-            f.write(text)
+        for f, text in apply(src, edits).items():
+            with open(os.path.join(d, f), "w") as out:
+                out.write(text)
         lib = os.path.join(d, "libk5.so")
         procs[name] = (lib, subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o", lib,
@@ -176,7 +194,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"[k5 f32 variants] {smi}", flush=True)
-    fns = build(open(SRC_PATH).read())
+    fns = build(sources())
     apply_precision(torch.float32)
     g = torch.Generator(device="cuda").manual_seed(0)
     fails = 0

@@ -231,6 +231,17 @@ def _k3_inputs(cuda, b, n, m, d, c, dtype, broadcast=False):
     return q, k, v
 
 
+def _k3_reference(q, k, v):
+    """What K3 is held against: the plain version on the same inputs in
+    bf16, the same formulas evaluated in float64 in f32 (the 3xTF32 body;
+    with scores of std 100 true float32 is itself off the exact value by
+    a good part of the tolerance)."""
+    if q.dtype == torch.bfloat16:
+        return adaattn_attention.softmax_attention_moments_plain(q, k, v)
+    return adaattn_attention.softmax_attention_moments_plain(
+        q.double(), k.double(), v.double())
+
+
 @pytest.mark.parametrize("n,m,d,c", K3_SHAPES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2.0 ** -6)])
@@ -243,13 +254,51 @@ def test_k3(cuda, n, m, d, c, dtype, tol, broadcast):
     q, k, v = _k3_inputs(cuda, 2, n, m, d, c, dtype, broadcast)
     before = adaattn_attention.softmax_attention_moments.launches
     m1, m2, lse = adaattn_attention.softmax_attention_moments(q, k, v)
-    p1, p2, pl = adaattn_attention.softmax_attention_moments_plain(q, k, v)
+    p1, p2, pl = _k3_reference(q, k, v)
     torch.cuda.synchronize()
     assert adaattn_attention.softmax_attention_moments.launches == before + 1
     assert m1.dtype == dtype and lse.shape == (2, n, 1)
     _close(m1, p1, tol)
     _close(m2, p2, tol)
     _close(lse, pl, 1e-5)
+
+
+@pytest.mark.parametrize("b,n,m,d,c,std,broadcast", [
+    (8, 4096, 4096, 448, 256, 1.0, ""),     # the three training levels
+    (8, 1024, 1024, 960, 512, 1.0, ""),
+    (8, 256, 256, 1472, 512, 1.0, ""),
+    (2, 16384, 16384, 448, 256, 1.0, ""),   # serving relu3_1
+    (8, 4096, 4096, 448, 256, 10.0, ""),    # sharp scores at relu3_1
+    (8, 4096, 4096, 448, 256, 100.0, ""),
+    (2, 300, 520, 96, 64, 1.0, ""),         # ragged
+    (2, 200, 330, 520, 264, 1.0, ""),       # a second value slice of 8
+    (2, 130, 200, 1480, 512, 1.0, ""),      # two slices, d past relu5_1's
+    (4, 200, 330, 448, 256, 1.0, "kv"),     # one K and V for the batch
+    (4, 200, 330, 448, 256, 1.0, "q")])     # one Q for the batch
+def test_k3_f32(cuda, b, n, m, d, c, std, broadcast):
+    """The 3xTF32 K3 against the float64 evaluation of the same formulas:
+    M1, M2 within 1e-4 of each output's scale, L within 1e-5·max|L|, and a
+    second launch with the same bits (no atomics, every sum in a fixed
+    order; the pre-pass included).  Scores of std ``std``; a stride-0 K/V
+    or Q read in place."""
+    g = torch.Generator(device=cuda).manual_seed(n + m + d)
+    s = std ** 0.5 / d ** 0.25
+    q = torch.randn(b, n, d, device=cuda, generator=g) * s
+    k = torch.randn(b, m, d, device=cuda, generator=g) * s
+    v = torch.randn(b, m, c, device=cuda, generator=g)
+    if "kv" in broadcast:
+        k, v = k[:1].expand_as(k), v[:1].expand_as(v)
+    if "q" in broadcast:
+        q = q[:1].expand_as(q)
+    first = adaattn_attention.softmax_attention_moments(q, k, v)
+    again = adaattn_attention.softmax_attention_moments(q, k, v)
+    for a, r in zip(first, again):
+        assert torch.equal(a, r)
+    del again
+    ref = _k3_reference(q, k, v)
+    for ours, r, tol in zip(first, ref, (1e-4, 1e-4, 1e-5)):
+        assert ours.shape == r.shape and torch.isfinite(ours).all()
+        _close(ours, r, tol)
 
 
 @pytest.mark.parametrize("n,m,d,c", [(4096, 4096, 448, 256),
@@ -269,15 +318,18 @@ def test_k3_bf16_deterministic(cuda, n, m, d, c, broadcast):
 def test_k3_extreme_logits(cuda, dtype):
     """Scores in the thousands: the online softmax stays finite and exact.
     bf16 (base-2 running max and rescale, P rounded to bf16) holds to
-    2^-6 of the output scale, as in ``test_k3``."""
+    2^-6 of the output scale, as in ``test_k3``; f32 against the float64
+    evaluation, as in ``test_k3``."""
     q, k, v = _k3_inputs(cuda, 1, 128, 256, 32, 16, dtype)
     q, k = q * 30, k * 30
     m1, m2, _ = adaattn_attention.softmax_attention_moments(q, k, v)
-    p1, p2, _ = adaattn_attention.softmax_attention_moments_plain(q, k, v)
+    p1, p2, _ = _k3_reference(q, k, v)
     assert torch.isfinite(m1).all() and torch.isfinite(m2).all()
     if dtype == torch.float32:
-        torch.testing.assert_close(m1, p1, rtol=1e-3, atol=1e-3)
-        torch.testing.assert_close(m2, p2, rtol=1e-3, atol=1e-3)
+        torch.testing.assert_close(m1, p1, rtol=1e-3, atol=1e-3,
+                                   check_dtype=False)
+        torch.testing.assert_close(m2, p2, rtol=1e-3, atol=1e-3,
+                                   check_dtype=False)
     else:
         _close(m1, p1, 2.0 ** -6)
         _close(m2, p2, 2.0 ** -6)

@@ -1,23 +1,27 @@
-"""The 3xTF32 split of the port's float32 K5 (``csrc/adaattn_bwd.cu``,
-``attn_dkv_tf32``), emulated in torch on the CPU: the kernel's arithmetic
-without the card.  Each operand x of a product is split as the kernel
-splits it, big = tf32(x) and small = tf32(x − big), both rounded to
-nearest with ties away from zero (``cvt.rna.tf32.f32``); a product is
-a_small·b_big + a_big·b_small + a_big·b_big with small·small dropped, the
-two small terms of a stage first, each stage (32 columns of d or c; one
-64-query tile in the output products) summed into a fresh partial that
-is added to the running sum in float32, in the kernel's order.  The
-emulation lives here, not in the package.
+"""The 3xTF32 split of the port's float32 K3 and K5 (``csrc/adaattn_fwd.cu``
+``attn_fwd_tf32``, ``csrc/adaattn_bwd.cu`` ``attn_dkv_tf32``), emulated in
+torch on the CPU: the kernels' arithmetic without the card.  Each operand
+x of a product is split as the kernels split it, big = tf32(x) and small
+= tf32(x − big), both rounded to nearest with ties away from zero
+(``cvt.rna.tf32.f32``); a product is a_small·b_big + a_big·b_small +
+a_big·b_big with small·small dropped, the small terms of a stage first,
+each stage summed into a fresh partial that is added to the running sum in
+float32, in the kernel's order.  K5's stages are 32 columns of d or c, and
+one 64-query tile in the output products; K3's are 32 columns of d for S
+and one 64-key tile for P·V and P·W, whose partial is added as M = M·α +
+partial after the online softmax's rescale.  The emulation lives here, not
+in the package.
 
-dK and dV are held within 1e-4 of each output's scale against ``jax.vjp``
-of the Pallas kernel in interpret mode (float32), as
-``test_torch_adaattn_bwd.py`` holds the plain version, at scores of std 1
-and 10, where JAX and the port's plain float32 agree well within that
+dK and dV, and K3's M1, M2 and L, are held within 1e-4 of each output's
+scale (L within 1e-5 of max|L|) against the Pallas kernels in interpret
+mode (float32; ``jax.vjp`` for K5), as ``test_torch_adaattn_bwd.py`` and
+``test_torch_adaattn.py`` hold the plain versions, at scores of std 1 and
+10, where JAX and the port's plain float32 agree well within that
 tolerance.  At std 100 (the card test's q, k × 10) float32 itself is off
-the exact value by nearly the tolerance, and the emulation lies on the
+the exact value by nearly the tolerance, and the emulation may lie on the
 other side of it, so there the emulation is held against the same
-formulas evaluated in float64 (``softmax_attention_dkv_plain`` on float64
-inputs), as the card test holds the kernel.
+formulas evaluated in float64 (the plain versions on float64 inputs), as
+the card tests hold the kernels.
 """
 
 import jax
@@ -27,12 +31,13 @@ import pytest
 import torch
 
 from vst_tpu.kernels import softmax_attention_moments_pallas
+from vst_tpu.kernels.adaattn_attention import _forward as j_forward
 from vst_tpu_torch.kernels import adaattn_attention as att
 
 SHAPES = [(2, 300, 520, 96, 64),    # ragged n and m, d and c under a slice
           (2, 64, 64, 448, 256)]    # relu3_1's d and c
 FW = 32    # columns of a stage: one 128-byte row of float32
-T = 64     # queries of a tile
+T = 64     # queries (K5) or keys (K3) of a tile
 
 
 def tf32(x):
@@ -139,3 +144,46 @@ def test_split_meets_the_card_tolerance(rng, b, n, m, d, c, std):
             w2.double())
     for name, ours, r in (("dK", dk, ref[0]), ("dV", dv, ref[1])):
         assert _rel(ours, r) <= 1e-4, (name, _rel(ours, r))
+
+
+def moments_tf32x3(q, k, v):
+    """The f32 K3's M1, M2 and L: per key tile of 64, S over d in stages
+    of 32 columns, the online softmax in natural exponentials (running
+    max, rescale α), P split from its float32 values, M = M·α + the tile's
+    3xTF32 product (W = V∘V in float32), and M·(1/l) at the end."""
+    b, n, _ = q.shape
+    w = v * v
+    mrow = torch.full((b, n, 1), -1e30)
+    l = torch.zeros((b, n, 1))
+    m1 = torch.zeros((b, n, v.shape[-1]))
+    m2 = torch.zeros_like(m1)
+    for j0 in range(0, k.shape[1], T):
+        keys = slice(j0, j0 + T)
+        s = mm3(q, k[:, keys].transpose(1, 2), FW)
+        mnew = torch.maximum(mrow, s.amax(-1, keepdim=True))
+        alpha = torch.exp(mrow - mnew)
+        p = torch.exp(s - mnew)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m1 = m1 * alpha + mm3(p, v[:, keys], T)
+        m2 = m2 * alpha + mm3(p, w[:, keys], T)
+        mrow = mnew
+    inv = 1.0 / l
+    return m1 * inv, m2 * inv, mrow + torch.log(l)
+
+
+@pytest.mark.parametrize("b,n,m,d,c", SHAPES)
+@pytest.mark.parametrize("std", [1.0, 10.0, 100.0])
+def test_k3_split_meets_the_card_tolerance(rng, b, n, m, d, c, std):
+    q, k, v = _inputs(rng, b, n, m, d, c, std)[:3]
+    m1, m2, lse = moments_tf32x3(q, k, v)
+    assert m1.shape == m2.shape == (b, n, c) and lse.shape == (b, n, 1)
+    if std < 100.0:
+        ref = [torch.from_numpy(np.asarray(r)[:, :n]) for r in j_forward(
+            *(jnp.asarray(t.numpy()) for t in (q, k, v)), 128, 128, True,
+            False)]
+    else:
+        ref = att.softmax_attention_moments_plain(q.double(), k.double(),
+                                                  v.double())
+    for name, ours, r in (("M1", m1, ref[0]), ("M2", m2, ref[1])):
+        assert _rel(ours, r) <= 1e-4, (name, _rel(ours, r))
+    assert _rel(lse, ref[2]) <= 1e-5, ("L", _rel(lse, ref[2]))

@@ -5,14 +5,16 @@ Counterpart of ``vst_tpu/kernels/adaattn_attention.py::
 softmax_attention_moments_pallas`` and its custom VJP:
 - K3 (``_fwd_kernel``, source ``csrc/adaattn_fwd.cu``): M1 = softmax(QKᵀ)·V,
   M2 = softmax(QKᵀ)·(V∘V) and the row logsumexp L, without materializing
-  the (n×m) attention map; in bf16 on ``wgmma`` with S computed once per
-  key tile and value slice of ≤ 256 columns;
+  the (n×m) attention map; on ``wgmma`` with S computed once per key tile
+  and value slice of ≤ 256 columns, in bf16 and, in float32, as 3xTF32;
 - K4 (``_bwd_dq_kernel``, ``csrc/adaattn_bwd.cu``): dQ = dS·K;
 - K5 (``_bwd_dkv_kernel``, ``csrc/adaattn_bwd.cu``): dK = dSᵀ·Q and
   dV = Aᵀ·dM1 + 2V∘(Aᵀ·dM2); on ``wgmma`` with S and dA computed once per
-  tile and output slice, in bf16 and, in float32, as 3xTF32 (each product
-  split into a big and a small tf32 part, three products summed);
-with A = exp(S − L), dA = dM1·Vᵀ + dM2·(V∘V)ᵀ, dS = A∘(dA − D) and the row
+  tile and output slice, in bf16 and, in float32, as 3xTF32;
+3xTF32 splits each float32 operand into a big and a small tf32 part and
+sums three tf32 products; a pre-pass writes the parts into scratch that
+the wrapper allocates.  With A = exp(S − L), dA = dM1·Vᵀ + dM2·(V∘V)ᵀ,
+dS = A∘(dA − D) and the row
 term D = Σ_c(dM1∘M1 + dM2∘M2), taken in float32 outside the kernels as
 JAX does.  The backward never materializes the map either.
 
@@ -35,7 +37,7 @@ from vst_tpu_torch.kernels import _build
 @functools.cache
 def _kernel():
     fn = _build.load("adaattn_fwd").vst_k3_attention_moments
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -52,11 +54,27 @@ def _bwd_kernel(name):
 
 
 @functools.cache
-def _k5_scratch_floats():
-    fn = _build.load("adaattn_bwd").vst_k5_scratch_floats
+def _scratch_floats(lib, name):
+    fn = getattr(_build.load(lib), name)
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
     fn.restype = ctypes.c_longlong
     return fn
+
+
+def _f32_scratch(q, k, v, lib, name):
+    """The float32 scratch of K3 or K5 (its split operands, about twice
+    the bytes of the inputs it splits), or None for bf16."""
+    if q.dtype != torch.float32:
+        return None
+    b, n, d = q.shape
+    m, c = k.shape[1], v.shape[2]
+    floats = _scratch_floats(lib, name)(b, n, m, d, c, q.stride(0),
+                                        k.stride(0), v.stride(0))
+    return torch.empty(floats, dtype=torch.float32, device=q.device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 # ---------------------------------------------------------- plain versions
@@ -67,17 +85,20 @@ def softmax_attention_moments_plain(q, k, v, chunk: int = 1024):
     products (the kernel's rounding point), row sums of the unrounded P,
     V∘V formed in float32 and rounded to the input type, and L by
     ``torch.logsumexp``.  Returns (M1, M2) in q.dtype and L (b, n, 1)
-    float32."""
+    float32.  float64 inputs are evaluated in float64, L included (the
+    exact form the tests hold the 3xTF32 K3 against where true float32 is
+    itself off by more than their tolerance)."""
     n = q.shape[1]
-    vf = v.float()
-    wf = (vf * vf).to(v.dtype).float()
-    kt = k.float().transpose(1, 2)
+    wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+    vf = v.to(wide)
+    wf = (vf * vf).to(v.dtype).to(wide)
+    kt = k.to(wide).transpose(1, 2)
     m1, m2, lse = [], [], []
     for i in range(0, n, chunk):
-        s = torch.matmul(q[:, i:i + chunk].float(), kt)
+        s = torch.matmul(q[:, i:i + chunk].to(wide), kt)
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
         inv = 1.0 / p.sum(dim=-1, keepdim=True)
-        pr = p.to(q.dtype).float()
+        pr = p.to(q.dtype).to(wide)
         m1.append(torch.matmul(pr, vf) * inv)
         m2.append(torch.matmul(pr, wf) * inv)
         lse.append(torch.logsumexp(s, dim=-1, keepdim=True))
@@ -185,7 +206,10 @@ def _stream(dev):
 # ------------------------------------------------------------------ kernels
 
 def _moments_fwd(q, k, v):
-    """K3: (M1, M2, L) for q (b, n, d), k (b, m, d), v (b, m, c)."""
+    """K3: (M1, M2, L) for q (b, n, d), k (b, m, d), v (b, m, c).
+    float32 runs 3xTF32 on the tensor cores; its pre-pass writes Q, K,
+    Vᵀ and (V∘V)ᵀ as two tf32 parts each into scratch allocated here
+    (about 0.37 GB at b 2, n = m = 16384, d 448, c 256), for any shape."""
     if q.device.type == "cpu":
         return softmax_attention_moments_plain(q, k, v)
     _check(q, k, v)
@@ -194,10 +218,12 @@ def _moments_fwd(q, k, v):
     m1 = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
     m2 = torch.empty_like(m1)
     lse = torch.empty((b, n, 1), dtype=torch.float32, device=q.device)
+    scratch = _f32_scratch(q, k, v, "adaattn_fwd", "vst_k3_scratch_floats")
     with torch.cuda.device(q.device):
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        m1.data_ptr(), m2.data_ptr(), lse.data_ptr(),
-                       b, n, m, d, c, q.stride(0), k.stride(0), v.stride(0),
+                       _ptr(scratch), b, n, m, d, c, q.stride(0),
+                       k.stride(0), v.stride(0),
                        int(q.dtype == torch.bfloat16), _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"K3 softmax_attention_moments launch failed: "
@@ -260,19 +286,15 @@ def softmax_attention_dkv(q, k, v, lse, dd, dm1, dm2):
     _check_bwd(q, k, v, lse, dd, dm1, dm2, "softmax_attention_dkv")
     b, n, d = q.shape
     m, c = k.shape[1], v.shape[2]
-    strides = (q.stride(0), k.stride(0), v.stride(0))
     dk = torch.empty((b, m, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, m, c), dtype=v.dtype, device=q.device)
-    scratch = None
-    if q.dtype == torch.float32:
-        floats = _k5_scratch_floats()(b, n, m, d, c, *strides)
-        scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
+    scratch = _f32_scratch(q, k, v, "adaattn_bwd", "vst_k5_scratch_floats")
     with torch.cuda.device(q.device):
         rc = _bwd_kernel("vst_k5_attention_dkv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dm1.data_ptr(),
             dm2.data_ptr(), lse.data_ptr(), dd.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            b, n, m, d, c, *strides, int(q.dtype == torch.bfloat16),
+            dv.data_ptr(), _ptr(scratch), b, n, m, d, c, q.stride(0),
+            k.stride(0), v.stride(0), int(q.dtype == torch.bfloat16),
             _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"K5 softmax_attention_dkv launch failed: CUDA "
@@ -312,8 +334,8 @@ def softmax_attention_moments(q, k, v):
     """q (b, n, d), k (b, m, d), v (b, m, c) → M1, M2 (b, n, c) in q.dtype
     and L (b, n, 1) float32 (natural log); differentiable in q, k and v.
 
-    All float32 (parity with true float32: K3 and K4 on the CUDA cores,
-    K5 3xTF32 on the tensor cores) or all bfloat16 (tensor cores; d, c
+    All float32 (parity with true float32: K3 and K5 3xTF32 on the tensor
+    cores, K4 on the CUDA cores) or all bfloat16 (tensor cores; d, c
     multiples of 8).  Rows must be contiguous; K and V may
     be broadcast over the batch with ``expand`` (batch stride 0), which the
     kernels read in place."""

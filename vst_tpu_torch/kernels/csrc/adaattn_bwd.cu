@@ -95,7 +95,8 @@
 // tensor core truncates or rounds a raw float32's low 13 bits), and a b =
 // a_small b_big + a_big b_small + a_big b_big, the small terms first,
 // small x small dropped (relative error about 2^-21 a product).  A pre-pass
-// kernel writes both parts of every operand the rings read into scratch
+// kernel (split_tf32, attn_common.cuh, shared with the float32 K3) writes
+// both parts of every operand the rings read into scratch
 // the wrapper allocates (Q^T and dM^T too: tf32 takes no N-major B), and
 // the threads split dS^T and A^T.  The tensor core's float32 accumulation
 // does not round to nearest: S and dA as one chain of wgmma per tile left
@@ -764,9 +765,6 @@ __global__ void __launch_bounds__(FTH) attn_dq_f32(BwdArgs a) {
 // B), rows padded to a multiple of 4 floats (16 bytes, TMA's row stride)
 // with zeros.  dS^T and A^T are split by the threads that form them.
 
-constexpr int FW = 32;                  // floats per box row (128 bytes)
-constexpr int FB = T * FW * 4;          // one 64 x 32 float32 box: 8 KB
-constexpr int FSTAGE = 4 * FB;          // [A big | A small | B big | B small]
 constexpr int FR0 = 2;                  // consumer 0's ring (S^T over d)
 constexpr int FR1 = 2;                  // consumer 1's ring (dA^T over c, or S^T)
 constexpr int FNO = 4;                  // output-product rings: 2 slots a consumer
@@ -787,89 +785,6 @@ struct SplitMaps {
   CUtensorMap qt, dm1t, dm2t;         // transposed (queries contiguous)
   int pq, pk, pv;                     // planes of Q, K and V (dM: b)
 };
-
-// Plane of part `small` (0 big, 1 small) of image bi in an operand of P planes.
-__device__ __forceinline__ int plane(int small, int p, int bi) {
-  return small * p + (p > 1 ? bi : 0);
-}
-
-// Loads one phase-1 stage: the big and small 64 x 32 boxes of A at (col,
-// a_row) and of B at (col, b_row).
-__device__ __forceinline__ void load_stage(unsigned dst, unsigned bar,
-                                           const CUtensorMap* ma, int pa,
-                                           int a_row, const CUtensorMap* mb,
-                                           int pb, int b_row, int col,
-                                           int bi) {
-  wg::tma_load_3d(dst, ma, col, a_row, plane(0, pa, bi), bar);
-  wg::tma_load_3d(dst + FB, ma, col, a_row, plane(1, pa, bi), bar);
-  wg::tma_load_3d(dst + 2 * FB, mb, col, b_row, plane(0, pb, bi), bar);
-  wg::tma_load_3d(dst + 3 * FB, mb, col, b_row, plane(1, pb, bi), bar);
-}
-
-// part = A B^T over one stage at b, 3xTF32: the eight small-part products
-// first (the first overwrites part), then the four big ones, so that only
-// these four are added at the partial sum's full magnitude.
-__device__ __forceinline__ void stage_tf32(float (&part)[32], unsigned b) {
-#pragma unroll
-  for (int ks = 0; ks < FW / 8; ++ks) {
-    wg::wgmma_tf32(part, kmajor(b + FB, ks), kmajor(b + 2 * FB, ks), ks > 0);
-    wg::wgmma_tf32(part, kmajor(b, ks), kmajor(b + 3 * FB, ks));
-  }
-#pragma unroll
-  for (int ks = 0; ks < FW / 8; ++ks)
-    wg::wgmma_tf32(part, kmajor(b, ks), kmajor(b + 2 * FB, ks));
-}
-
-// acc = sum over `count` stages of A B^T (stage counter g carried across
-// tiles, as phase1).  Each stage's 12 products go into a fresh partial
-// sum that is added to acc in float32 once they are done: the tensor
-// core's float32 accumulation does not round to nearest, and the error of
-// a long chain of wgmma into one accumulator grows with its length
-// (PERF.md).  A second partial sum in flight would not fit the registers
-// beside the output accumulators.
-template <int D>
-__device__ __forceinline__ void phase1_tf32(float (&acc)[32],
-                                            unsigned char* ring, unsigned full,
-                                            unsigned empty, int& g, int count,
-                                            int lane) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  for (int t = 0; t < count; ++t, ++g) {
-    const int slot = g % D;
-    float part[32];
-    wg::mbar_wait(full + 8 * slot, (g / D) & 1);
-    wg::fence_acc(part);
-    wg::wgmma_fence();
-    stage_tf32(part, wg::smem_u32(ring + slot * FSTAGE));
-    wg::wgmma_commit();
-    wg::wgmma_wait<0>();
-    wg::fence_acc(part);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] += part[i];
-    if (lane == 0) wg::mbar_arrive(empty + 8 * slot);
-  }
-}
-
-// Byte offset in P of the pair of this thread's accumulator positions
-// (row 16 wl + g8 + 8 h, columns 8 jj + 2 tq + {0, 1}): P holds per
-// 32-column half jj / 4 a big and then a small box of 64 x 32 floats in
-// the swizzled K-major layout of TMA's boxes.
-__device__ __forceinline__ int p_offset(int wl, int g8, int tq, int jj,
-                                        int h) {
-  const int r = 16 * wl + g8 + 8 * h;
-  return (jj >> 2) * 2 * FB + r * 128 +
-         ((((2 * (jj & 3) + (tq >> 1)) ^ g8) << 4) | ((tq & 1) * 8));
-}
-
-// Writes (x0, x1) at offset `off` of P as tf32 parts, big and small.
-__device__ __forceinline__ void store_p_tf32(unsigned char* P, int off,
-                                             float x0, float x1) {
-  uint2 big, small;
-  wg::tf32_split(x0, &big.x, &small.x);
-  wg::tf32_split(x1, &big.y, &small.y);
-  *reinterpret_cast<uint2*>(P + off) = big;
-  *reinterpret_cast<uint2*>(P + off + FB) = small;
-}
 
 // Second phase: acc[h] += P O_h^T over the tile for the chunks whose bit
 // is set in mask: P (dS^T or A^T, 64 keys x 64 queries, tf32 parts) and
@@ -1149,86 +1064,30 @@ __global__ void __launch_bounds__(NTH, 1)
   }
 }
 
-// The pre-pass: one operand, (planes, rows, cols) float32 with rows
-// contiguous and planes `stride` apart, into dst (2, planes, drows, dcols)
-// as big and small tf32 parts, zero past the source.  Mode 0 copies, 1
-// squares first (W = V o V, in float32), 2 transposes (drows = cols, dcols
-// >= rows).  Block 32 x 8 threads per 32 x 32 tile of dst; grid (dcols /
-// 32, drows / 32, planes), rounded up.
-struct SplitJob {
-  const float* src;
-  long long stride;
-  int rows, cols;
-  float* dst;
-  int drows, dcols, planes, mode;
-};
-
-__global__ void __launch_bounds__(256) split_tf32(SplitJob j) {
-  __shared__ float tile[32][33];
-  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32, pl = blockIdx.z;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const float* src = j.src + pl * j.stride;
-  const size_t part = (size_t)j.planes * j.drows * j.dcols;
-  float* dst = j.dst + (size_t)pl * j.drows * j.dcols;
-  if (j.mode == 2) {   // tile[query - c0][col - r0]
-    for (int r = ty; r < 32; r += 8) {
-      const int qq = c0 + r, col = r0 + tx;
-      tile[r][tx] = qq < j.rows && col < j.cols
-                        ? src[(size_t)qq * j.cols + col] : 0.f;
-    }
-    __syncthreads();
-  }
-  for (int r = ty; r < 32; r += 8) {
-    const int row = r0 + r, col = c0 + tx;
-    if (row >= j.drows || col >= j.dcols) continue;
-    float x;
-    if (j.mode == 2) {
-      x = tile[tx][r];
-    } else {
-      x = col < j.cols ? src[(size_t)row * j.cols + col] : 0.f;
-      if (j.mode == 1) x *= x;
-    }
-    unsigned big, small;
-    wg::tf32_split(x, &big, &small);
-    dst[(size_t)row * j.dcols + col] = __uint_as_float(big);
-    dst[part + (size_t)row * j.dcols + col] = __uint_as_float(small);
-  }
+// The f32 K5's split operands (q, k, v, w, dm1, dm2, qt, dm1t, dm2t) one
+// after another from base.
+static SplitLayout<9> k5_layout(const BwdArgs& a, int b, float* base) {
+  const int pq = a.q_bs ? b : 1, pk = a.k_bs ? b : 1, pv = a.v_bs ? b : 1;
+  const int dp = (a.d + 3) / 4 * 4, cp = (a.c + 3) / 4 * 4;
+  const int np = (a.n + 3) / 4 * 4;
+  const long long nc = static_cast<long long>(a.n) * a.c;
+  const float *q = static_cast<const float*>(a.q),
+              *k = static_cast<const float*>(a.k),
+              *v = static_cast<const float*>(a.v),
+              *d1 = static_cast<const float*>(a.dm1),
+              *d2 = static_cast<const float*>(a.dm2);
+  const SplitJob spec[9] = {
+      {q, a.q_bs, a.n, a.d, nullptr, a.n, dp, pq, 0},
+      {k, a.k_bs, a.m, a.d, nullptr, a.m, dp, pk, 0},
+      {v, a.v_bs, a.m, a.c, nullptr, a.m, cp, pv, 0},
+      {v, a.v_bs, a.m, a.c, nullptr, a.m, cp, pv, 1},
+      {d1, nc, a.n, a.c, nullptr, a.n, cp, b, 0},
+      {d2, nc, a.n, a.c, nullptr, a.n, cp, b, 0},
+      {q, a.q_bs, a.n, a.d, nullptr, a.d, np, pq, 2},
+      {d1, nc, a.n, a.c, nullptr, a.c, np, b, 2},
+      {d2, nc, a.n, a.c, nullptr, a.c, np, b, 2}};
+  return SplitLayout<9>(spec, base);
 }
-
-// The f32 K5's scratch: the pre-pass jobs of the nine split operands (q,
-// k, v, w, dm1, dm2, qt, dm1t, dm2t) one after another from base, and
-// their total size in floats.
-struct SplitLayout {
-  SplitJob job[9];
-  long long total;
-  SplitLayout(const BwdArgs& a, int b, float* base) {
-    const int pq = a.q_bs ? b : 1, pk = a.k_bs ? b : 1, pv = a.v_bs ? b : 1;
-    const int dp = (a.d + 3) / 4 * 4, cp = (a.c + 3) / 4 * 4;
-    const int np = (a.n + 3) / 4 * 4;
-    const long long nc = static_cast<long long>(a.n) * a.c;
-    const float *q = static_cast<const float*>(a.q),
-                *k = static_cast<const float*>(a.k),
-                *v = static_cast<const float*>(a.v),
-                *d1 = static_cast<const float*>(a.dm1),
-                *d2 = static_cast<const float*>(a.dm2);
-    const SplitJob spec[9] = {
-        {q, a.q_bs, a.n, a.d, nullptr, a.n, dp, pq, 0},
-        {k, a.k_bs, a.m, a.d, nullptr, a.m, dp, pk, 0},
-        {v, a.v_bs, a.m, a.c, nullptr, a.m, cp, pv, 0},
-        {v, a.v_bs, a.m, a.c, nullptr, a.m, cp, pv, 1},
-        {d1, nc, a.n, a.c, nullptr, a.n, cp, b, 0},
-        {d2, nc, a.n, a.c, nullptr, a.n, cp, b, 0},
-        {q, a.q_bs, a.n, a.d, nullptr, a.d, np, pq, 2},
-        {d1, nc, a.n, a.c, nullptr, a.c, np, b, 2},
-        {d2, nc, a.n, a.c, nullptr, a.c, np, b, 2}};
-    total = 0;
-    for (int i = 0; i < 9; ++i) {
-      job[i] = spec[i];
-      job[i].dst = base ? base + total : nullptr;
-      total += 2LL * job[i].planes * job[i].drows * job[i].dcols;
-    }
-  }
-};
 
 static cudaError_t make_maps(Maps* mp, const BwdArgs& a, int b) {
   cudaError_t e = chunk_map(&mp->q, a.q, a.d, a.n, b, a.q_bs);
@@ -1244,19 +1103,10 @@ static cudaError_t make_maps(Maps* mp, const BwdArgs& a, int b) {
 // vst_k5_scratch_floats(...) floats.
 static cudaError_t k5_tf32(const BwdArgs& a, int b, float* scratch,
                            cudaStream_t s) {
-  const SplitLayout lay(a, b, scratch);
-  for (const SplitJob& j : lay.job) {
-    const dim3 grid((j.dcols + 31) / 32, (j.drows + 31) / 32, j.planes);
-    split_tf32<<<grid, dim3(32, 8), 0, s>>>(j);
-  }
+  const SplitLayout<9> lay = k5_layout(a, b, scratch);
   SplitMaps mp;
-  CUtensorMap* maps[9] = {&mp.q, &mp.k, &mp.v, &mp.w, &mp.dm1, &mp.dm2,
-                          &mp.qt, &mp.dm1t, &mp.dm2t};
-  cudaError_t e = cudaGetLastError();
-  for (int i = 0; i < 9 && e == cudaSuccess; ++i) {
-    const SplitJob& j = lay.job[i];
-    e = chunk_map_f32(maps[i], j.dst, j.dcols, j.drows, 2 * j.planes);
-  }
+  cudaError_t e = lay.run({&mp.q, &mp.k, &mp.v, &mp.w, &mp.dm1, &mp.dm2,
+                           &mp.qt, &mp.dm1t, &mp.dm2t}, s);
   mp.pq = lay.job[0].planes;
   mp.pk = lay.job[1].planes;
   mp.pv = lay.job[2].planes;
@@ -1336,7 +1186,7 @@ extern "C" long long vst_k5_scratch_floats(int b, int n, int m, int d, int c,
   const BwdArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                   nullptr, nullptr, nullptr, nullptr,
                   n, m, d, c, q_bs, k_bs, v_bs};
-  return SplitLayout(a, b, nullptr).total;
+  return k5_layout(a, b, nullptr).total;
 }
 
 // The launch configuration of the wgmma bodies: out = {bf16 K4/K5 dynamic

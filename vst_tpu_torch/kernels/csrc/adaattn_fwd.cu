@@ -75,9 +75,38 @@
 // accumulators in float32.  Deterministic: no atomics, every sum in a fixed
 // order.
 //
-// float32 (parity), attn_fwd_f32: true float32 on the CUDA cores (JAX's
-// HIGHEST), 64 query rows x 64 keys x 64 value channels per block of 256
-// threads, scores, P and both accumulators as 4 x 4 register tiles, expf.
+// float32 (parity: JAX's HIGHEST, 1e-4 of each output's scale), 3xTF32 on
+// wgmma (attn_common.cuh), attn_fwd_tf32:
+// - The bf16 body's tiling and roles: block = (image, 64 query rows, a
+//   value slice of <= 256 columns), S computed once per (key tile, slice):
+//   executed 1.00 / 1.48 / 1.59x the least at relu3_1 / relu4_1 /
+//   relu5_1, each product as three tf32 ones.
+// - A pre-pass (split_tf32) writes big/small tf32 parts of Q and K as they
+//   lie and of V^T and W^T = (V o V)^T (W squared in float32), keys
+//   contiguous, since tf32's wgmma takes K-major B only; rows padded to 16
+//   bytes with zeros, so every shape runs.  Consumer 0 splits P itself.
+// - The tensor core's float32 accumulation does not round to nearest, so
+//   S is summed per 32-column stage of d, and P V and P W per (key tile,
+//   64-column chunk), in fresh partials that the consumers add in float32
+//   (M = M alpha + partial).  A 64 x 256 accumulator and one 64 x 64
+//   partial fit a consumer's registers; a partial for the whole slice
+//   would not.
+// - Rings: (Q, K) stages of 32 KB, 3 deep; a ring of 16 KB (chunk, key
+//   half) slots of V^T for consumer 0 and one of W^T for consumer 1, 3
+//   deep each (one ring per consumer); P as tf32 parts, 32 KB, one buffer
+//   behind two named barriers.  231,056 bytes: one block of 384 threads
+//   per SM.
+// - What bounds it: the least work is tensor-core bound (2nm(d + 2c) per
+//   image over 495 / 3 TFLOP/s for 3xTF32: 1.56 ms at relu3_1, 256^2 b8).
+//   What holds this design (experiments/k3_f32_variants.py, PERF.md): not
+//   the L2 bytes (Q and K are streamed as big/small parts, about 700 KB
+//   per (block, key tile) at relu3_1, yet loading Q once per block saves
+//   nothing measurable), nor the partial sums' drains (about 2%), but
+//   consumer 0's phases in series: S, the softmax and P V one after the
+//   other while consumer 1 waits for P.
+// - Rounding points: natural exponentials (expf) and log, as JAX's f32
+//   kernel; P split from the unrounded float32 values, the row sums of
+//   those values.  Deterministic: no atomics, every sum in a fixed order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -354,143 +383,300 @@ __global__ void __launch_bounds__(NTH, 1)
 
 // ---------------------------------------------------------------- float32
 
-constexpr int FM = 64;    // query rows per block
-constexpr int FN = 64;    // keys per tile
-constexpr int FC = 64;    // value channels per block
-constexpr int FD = 16;    // d per shared-memory stage
-constexpr int FTH = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int FSLICE = 256;            // value columns per block
+constexpr int FNV = FSLICE / T;        // 64-column chunks of a slice
+constexpr int FRQ = 3;                 // (Q, K) stages of 32 columns of d
+constexpr int FRV = 3;                 // V^T (or W^T) slots of a consumer's ring
+constexpr int FSLOT = 2 * FB;          // one (chunk, 32-key half): [big | small]
+constexpr int FOFF_V = FRQ * FSTAGE;
+constexpr int FOFF_W = FOFF_V + FRV * FSLOT;
+constexpr int FOFF_P = FOFF_W + FRV * FSLOT;     // P: [half][big | small]
+constexpr int FOFF_ROW = FOFF_P + 4 * FB;        // rescale factors [T], 1/l [T]
+constexpr int FOFF_BAR = FOFF_ROW + 2 * T * 4;
+constexpr int FNBAR = 2 * (FRQ + 2 * FRV);
+constexpr int SMEM_F32 = 1024 + FOFF_BAR + FNBAR * 8;
+static_assert(SMEM_F32 <= 232448, "f32 K3 exceeds a block's shared memory");
 
-__global__ void __launch_bounds__(FTH) attn_fwd_f32(AttnArgs a) {
-  __shared__ float Qs[FD][FM + 1];
-  __shared__ float Ks[FD][FN + 1];
-  __shared__ float Ps[FN][FM + 1];   // P transposed: [key][row]
-  __shared__ float Vs[FN][FC];
+// The operands as the pre-pass writes them: tensor maps over (2 P, rows,
+// cols) float32, big parts in planes [0, P), small in [P, 2P); P = 1 for
+// an input broadcast over the batch (stride 0), else b.
+struct SplitMaps {
+  CUtensorMap q, k;     // (n, d), (m, d)
+  CUtensorMap vt, wt;   // (c, m): keys contiguous
+  int pq, pk, pv;
+};
 
-  const int bi = blockIdx.z, q0 = blockIdx.x * FM, c0 = blockIdx.y * FC;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* q = static_cast<const float*>(a.q) + bi * a.q_bs;
-  const float* k = static_cast<const float*>(a.k) + bi * a.k_bs;
-  const float* v = static_cast<const float*>(a.v) + bi * a.v_bs;
-  const int nkt = (a.m + FN - 1) / FN;
-
-  // rows ty + 16 i; keys / channels tx + 16 jj (a row lives in 16 lanes)
-  float acc1[4][4], acc2[4][4], mrow[4], lrow[4];
+// acc[h] = acc[h] + P O_h^T over one key tile for the chunks h < nv: P
+// (64 rows x 64 keys, tf32 parts in two 32-key halves) and the chunk's two
+// 32-key halves of O^T (64 columns x 32 keys, big and small) from this
+// consumer's ring (uses g and g + 1, counted across tiles).  Each chunk's
+// 24 products go into a fresh partial sum, the small-part ones first,
+// added to acc[h] in float32 once they are done; its slots are then
+// released (one arrive per warp).
+__device__ __forceinline__ void pv_tf32(float (&acc)[FNV][32], unsigned p,
+                                        unsigned char* ring, unsigned full,
+                                        unsigned empty, int& g, int nv,
+                                        int lane) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    mrow[i] = NEG;
-    lrow[i] = 0.f;
+  for (int h = 0; h < FNV; ++h) {
+    if (h < nv) {
+      float part[32];
+      wg::fence_acc(part);
+      wg::wgmma_fence();
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc1[i][jj] = acc2[i][jj] = 0.f;
-  }
-
-  for (int j = 0; j < nkt; ++j) {
+      for (int kh = 0; kh < 2; ++kh) {   // the small-part products first
+        const int u = g + kh, slot = u % FRV;
+        wg::mbar_wait(full + 8 * slot, (u / FRV) & 1);
+        const unsigned b = wg::smem_u32(ring + slot * FSLOT), a = p + kh * 2 * FB;
 #pragma unroll
-    for (int r = 0; r < (FN * FC) / FTH; ++r) {
-      const int e = tid + FTH * r;
-      const int row = e / FC, col = e % FC;
-      const int key = j * FN + row, cc = c0 + col;
-      Vs[row][col] = (key < a.m && cc < a.c) ? v[(size_t)key * a.c + cc] : 0.f;
-    }
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
-    for (int d0 = 0; d0 < a.d; d0 += FD) {
-#pragma unroll
-      for (int r = 0; r < (FM * FD) / FTH; ++r) {
-        const int e = tid + FTH * r;
-        const int row = e / FD, kk = e % FD;
-        const bool dok = d0 + kk < a.d;
-        Qs[kk][row] = (dok && q0 + row < a.n)
-                          ? q[(size_t)(q0 + row) * a.d + d0 + kk] : 0.f;
-        Ks[kk][row] = (dok && j * FN + row < a.m)
-                          ? k[(size_t)(j * FN + row) * a.d + d0 + kk] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < FD; ++kk) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = Qs[kk][ty + 16 * i];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) bv[jj] = Ks[kk][tx + 16 * jj];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(av[i], bv[jj], s[i][jj]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tmax = NEG;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        if (j * FN + tx + 16 * jj >= a.m) s[i][jj] = NEG;
-        tmax = fmaxf(tmax, s[i][jj]);
-      }
-#pragma unroll
-      for (int o = 1; o < 16; o <<= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      const float mnew = fmaxf(mrow[i], tmax);
-      const float alpha = expf(mrow[i] - mnew);
-      mrow[i] = mnew;
-      float ls = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float p = expf(s[i][jj] - mnew);
-        ls += p;
-        Ps[tx + 16 * jj][ty + 16 * i] = p;
-      }
-      lrow[i] = lrow[i] * alpha + ls;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        acc1[i][jj] *= alpha;
-        acc2[i][jj] *= alpha;
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int key = 0; key < FN; ++key) {
-      float pv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[key][ty + 16 * i];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) vv[jj] = Vs[key][tx + 16 * jj];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float w = vv[jj] * vv[jj];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc1[i][jj] = fmaf(pv[i], vv[jj], acc1[i][jj]);
-          acc2[i][jj] = fmaf(pv[i], w, acc2[i][jj]);
+        for (int ks = 0; ks < FW / 8; ++ks) {
+          wg::wgmma_tf32(part, kmajor(a + FB, ks), kmajor(b, ks), kh + ks > 0);
+          wg::wgmma_tf32(part, kmajor(a, ks), kmajor(b + FB, ks));
         }
       }
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh) {
+        const unsigned b = wg::smem_u32(ring + (g + kh) % FRV * FSLOT),
+                       a = p + kh * 2 * FB;
+#pragma unroll
+        for (int ks = 0; ks < FW / 8; ++ks)
+          wg::wgmma_tf32(part, kmajor(a, ks), kmajor(b, ks));
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_acc(part);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[h][i] += part[i];
+      if (lane == 0) {
+        wg::mbar_arrive(empty + 8 * (g % FRV));
+        wg::mbar_arrive(empty + 8 * ((g + 1) % FRV));
+      }
+      g += 2;
     }
-    __syncthreads();
   }
+}
 
-  float* o1 = static_cast<float*>(a.m1) + (size_t)bi * a.n * a.c;
-  float* o2 = static_cast<float*>(a.m2) + (size_t)bi * a.n * a.c;
+// Writes acc[h] * inv (acc[h][4 jj + 2 hh + t]: row q0 + 16 wl + g8 + 8 hh,
+// column c0 + 64 h + 8 jj + 2 tq + t) into out (b, n, c) float32, inside
+// [0, n) x [0, c).
+__device__ __forceinline__ void store_slice_f32(void* out,
+                                                const float (&acc)[FNV][32],
+                                                const float (&inv)[2],
+                                                const AttnArgs& a, int bi,
+                                                int q0, int c0, int wl, int g8,
+                                                int tq) {
+  float* o = static_cast<float*>(out) + (size_t)bi * a.n * a.c;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float l = lrow[i];
+  for (int h = 0; h < FNV; ++h)
 #pragma unroll
-    for (int o = 1; o < 16; o <<= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
-    const float inv = 1.f / l;
-    const int row = q0 + ty + 16 * i;
-    if (row >= a.n) continue;
+    for (int e = 0; e < 32; ++e) {
+      const int col = c0 + T * h + 8 * (e >> 2) + 2 * tq + (e & 1);
+      const int hh = (e >> 1) & 1, row = q0 + 16 * wl + g8 + 8 * hh;
+      if (col < a.c && row < a.n) o[(size_t)row * a.c + col] = acc[h][e] * inv[hh];
+    }
+}
+
+// The f32 kernel, block (query tile, value slice, image).  Consumer 0
+// computes S = Q K^T over d in stages of 32 columns (phase1_tf32: a fresh
+// partial per stage), runs the online softmax in natural exponentials,
+// writes P as tf32 parts and the tile's rescale factors to shared memory,
+// then M1 = M1 alpha + P V; consumer 1 computes M2 = M2 alpha + P W from
+// the same P.  P has one buffer: consumer 0 writes P(j) once consumer 1
+// is done with P(j - 1) (named barrier 2), consumer 1 reads it once it is
+// out (named barrier 1), so consumer 1's P W of tile j runs beside
+// consumer 0's S of tile j + 1.  The producer's warps run one ring each:
+// (Q, K) stages; V^T slots (consumer 0's); W^T slots (consumer 1's).
+__global__ void __launch_bounds__(NTH, 1)
+    attn_fwd_tf32(AttnArgs a, const __grid_constant__ SplitMaps mp) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring_qk = sm;
+  float* alpha_s = reinterpret_cast<float*>(sm + FOFF_ROW);   // [T]
+  float* linv_s = alpha_s + T;                                 // [T]
+  const unsigned fq = wg::smem_u32(sm + FOFF_BAR), eq = fq + 8 * FRQ;
+  const unsigned fv = eq + 8 * FRQ, ev = fv + 8 * FRV;
+  const unsigned fw = ev + 8 * FRV, ew = fw + 8 * FRV;
+  const unsigned pb = wg::smem_u32(sm + FOFF_P);
+
+  const int bi = blockIdx.z, q0 = blockIdx.x * T, c0 = blockIdx.y * FSLICE;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nkt = (a.m + T - 1) / T, nd = (a.d + FW - 1) / FW;
+  const int nv = min(FNV, (a.c - c0 + T - 1) / T);   // chunks inside c
+
+  // Full barriers: one arrive (the producer's expect_tx).  Empty: one
+  // arrive per warp of the consumer that reads the ring.
+  if (tid == 0) {
+    for (int i = 0; i < FRQ; ++i) {
+      wg::mbar_init(fq + 8 * i, 1);
+      wg::mbar_init(eq + 8 * i, 4);
+    }
+    for (int i = 0; i < FRV; ++i) {
+      wg::mbar_init(fv + 8 * i, 1);
+      wg::mbar_init(ev + 8 * i, 4);
+      wg::mbar_init(fw + 8 * i, 1);
+      wg::mbar_init(ew + 8 * i, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (lane != 0) return;
+    if (warp == 8) {          // Q and K over d, for every key tile
+      for (int j = 0, g = 0; j < nkt; ++j)
+        for (int t = 0; t < nd; ++t, ++g) {
+          const int s = claim<FRQ>(fq, eq, g, FSTAGE);
+          load_stage(wg::smem_u32(ring_qk + s * FSTAGE), fq + 8 * s, &mp.q,
+                     mp.pq, q0, &mp.k, mp.pk, T * j, FW * t, bi);
+        }
+    } else if (warp <= 10) {  // V^T (warp 9) or W^T (warp 10) at the slice
+      const bool w = warp == 10;
+      const CUtensorMap* map = w ? &mp.wt : &mp.vt;
+      unsigned char* ring = sm + (w ? FOFF_W : FOFF_V);
+      const unsigned full = w ? fw : fv, empty = w ? ew : ev;
+      for (int j = 0, u = 0; j < nkt; ++j)
+        for (int h = 0; h < nv; ++h)
+          for (int kh = 0; kh < 2; ++kh, ++u) {
+            const int s = claim<FRV>(full, empty, u, FSLOT);
+            const unsigned dst = wg::smem_u32(ring + s * FSLOT);
+            const int key = T * j + FW * kh, col = c0 + T * h;
+            wg::tma_load_3d(dst, map, key, col, plane(0, mp.pv, bi),
+                            full + 8 * s);
+            wg::tma_load_3d(dst + FB, map, key, col, plane(1, mp.pv, bi),
+                            full + 8 * s);
+          }
+    }
+    return;
+  }
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wgi = warp >> 2, wl = warp & 3;
+  const int g8 = lane >> 2, tq = lane & 3;
+  float acc[FNV][32];   // consumer 0: M1, consumer 1: M2 (unnormalized)
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int col = c0 + tx + 16 * jj;
-      if (col < a.c) {
-        o1[(size_t)row * a.c + col] = acc1[i][jj] * inv;
-        o2[(size_t)row * a.c + col] = acc2[i][jj] * inv;
+  for (int h = 0; h < FNV; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  float inv[2];
+  int g = 0;   // uses of this consumer's value ring
+
+  if (wgi == 0) {
+    float mrow[2] = {NEG, NEG};   // running max of this thread's two rows
+    float lrow[2] = {0.f, 0.f};   // this thread's share of their running sums
+    int gq = 0;
+    for (int j = 0; j < nkt; ++j) {
+      float s[32];
+      phase1_tf32<FRQ>(s, ring_qk, fq, eq, gq, nd, lane);
+      // Online softmax.  s[4 jj + 2 h + t]: row 16 wl + g8 + 8 h, key T j +
+      // 8 jj + 2 tq + t.
+      float tmax[2] = {NEG, NEG};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        if (T * j + 8 * (e >> 2) + 2 * tq + (e & 1) >= a.m) s[e] = NEG;
+        tmax[(e >> 1) & 1] = fmaxf(tmax[(e >> 1) & 1], s[e]);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
+        tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
+        const float mnew = fmaxf(mrow[h], tmax[h]);
+        alpha[h] = expf(mrow[h] - mnew);
+        mrow[h] = mnew;
+      }
+      if (j > 0) bar_sync(2, 256);   // consumer 1 is done with P(j - 1)
+      unsigned char* P = sm + FOFF_P;
+      float ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int h = (e >> 1) & 1;
+        const float p0 = expf(s[e] - mrow[h]), p1 = expf(s[e + 1] - mrow[h]);
+        ls[h] += p0 + p1;
+        store_p_tf32(P, p_offset(wl, g8, tq, e >> 2, h), p0, p1);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        lrow[h] = lrow[h] * alpha[h] + ls[h];
+        if (tq == 0) alpha_s[16 * wl + g8 + 8 * h] = alpha[h];
+      }
+      wg::fence_async_shared();
+      bar_arrive(1, 256);   // P(j) and its factors are out
+#pragma unroll
+      for (int h = 0; h < FNV; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[h][i] *= alpha[(i >> 1) & 1];
+      pv_tf32(acc, pb, sm + FOFF_V, fv, ev, g, nv, lane);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = lrow[h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[h] = 1.f / l;
+      const int r = 16 * wl + g8 + 8 * h;
+      if (tq == 0) {
+        linv_s[r] = inv[h];
+        if (blockIdx.y == 0 && q0 + r < a.n)
+          a.lse[(size_t)bi * a.n + q0 + r] = mrow[h] + logf(l);
       }
     }
-    if (blockIdx.y == 0 && tx == 0) a.lse[(size_t)bi * a.n + row] = mrow[i] + logf(l);
+    bar_sync(2, 256);     // consumer 1 is past its last tile's factors
+    bar_arrive(1, 256);   // 1/l is out
+    store_slice_f32(a.m1, acc, inv, a, bi, q0, c0, wl, g8, tq);
+  } else {
+    for (int j = 0; j < nkt; ++j) {
+      bar_sync(1, 256);   // P(j) and its factors are in
+      const float alpha[2] = {alpha_s[16 * wl + g8], alpha_s[16 * wl + g8 + 8]};
+#pragma unroll
+      for (int h = 0; h < FNV; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[h][i] *= alpha[(i >> 1) & 1];
+      pv_tf32(acc, pb, sm + FOFF_W, fw, ew, g, nv, lane);
+      bar_arrive(2, 256);   // P(j) is free
+    }
+    bar_sync(1, 256);
+    inv[0] = linv_s[16 * wl + g8];
+    inv[1] = linv_s[16 * wl + g8 + 8];
+    store_slice_f32(a.m2, acc, inv, a, bi, q0, c0, wl, g8, tq);
   }
+}
+
+// The f32 K3's split operands (q, k, v^T, w^T) one after another from base.
+static SplitLayout<4> k3_layout(const AttnArgs& a, int b, float* base) {
+  const int pq = a.q_bs ? b : 1, pk = a.k_bs ? b : 1, pv = a.v_bs ? b : 1;
+  const int dp = (a.d + 3) / 4 * 4, mp = (a.m + 3) / 4 * 4;
+  const float *q = static_cast<const float*>(a.q),
+              *k = static_cast<const float*>(a.k),
+              *v = static_cast<const float*>(a.v);
+  const SplitJob spec[4] = {
+      {q, a.q_bs, a.n, a.d, nullptr, a.n, dp, pq, 0},
+      {k, a.k_bs, a.m, a.d, nullptr, a.m, dp, pk, 0},
+      {v, a.v_bs, a.m, a.c, nullptr, a.c, mp, pv, 2},
+      {v, a.v_bs, a.m, a.c, nullptr, a.c, mp, pv, 3}};
+  return SplitLayout<4>(spec, base);
+}
+
+// The f32 K3's pre-pass and main kernel.  scratch holds
+// vst_k3_scratch_floats(...) floats.
+static cudaError_t k3_tf32(const AttnArgs& a, int b, float* scratch,
+                           cudaStream_t s) {
+  const SplitLayout<4> lay = k3_layout(a, b, scratch);
+  SplitMaps mp;
+  cudaError_t e = lay.run({&mp.q, &mp.k, &mp.vt, &mp.wt}, s);
+  mp.pq = lay.job[0].planes;
+  mp.pk = lay.job[1].planes;
+  mp.pv = lay.job[2].planes;
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_fwd_tf32,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_F32);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.n + T - 1) / T, (a.c + FSLICE - 1) / FSLICE, b);
+  attn_fwd_tf32<<<grid, NTH, SMEM_F32, s>>>(a, mp);
+  return cudaGetLastError();
 }
 
 }  // namespace k3
@@ -498,43 +684,62 @@ __global__ void __launch_bounds__(FTH) attn_fwd_f32(AttnArgs a) {
 // Returns 0 on success, else the CUDA error of the tensor maps, the
 // attribute call or the launch.  bf16 needs d and c multiples of 8 and
 // 16-byte aligned rows and batch strides (TMA); the wrapper checks.
+// float32 needs scratch of vst_k3_scratch_floats(...) floats (its split
+// operands); bf16 takes none.
 extern "C" int vst_k3_attention_moments(
     const void* q, const void* k, const void* v, void* m1, void* m2,
-    float* lse, int b, int n, int m, int d, int c, long long q_bs,
-    long long k_bs, long long v_bs, int bf16, void* stream) {
+    float* lse, void* scratch, int b, int n, int m, int d, int c,
+    long long q_bs, long long k_bs, long long v_bs, int bf16, void* stream) {
   using namespace k3;
   AttnArgs a{q, k, v, m1, m2, lse, n, m, d, c, q_bs, k_bs, v_bs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    Maps mp;
-    cudaError_t e = chunk_map(&mp.q, q, d, n, b, q_bs);
-    if (e == cudaSuccess) e = chunk_map(&mp.k, k, d, m, b, k_bs);
-    if (e == cudaSuccess) e = chunk_map(&mp.v, v, c, m, b, v_bs);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(attn_fwd_bf16,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BF16);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid((n + T - 1) / T, (c + SLICE - 1) / SLICE, b);
-    attn_fwd_bf16<<<grid, NTH, SMEM_BF16, s>>>(a, mp);
-  } else {
-    const dim3 grid((n + FM - 1) / FM, (c + FC - 1) / FC, b);
-    attn_fwd_f32<<<grid, FTH, 0, s>>>(a);
-  }
+  if (!bf16) return static_cast<int>(k3_tf32(a, b, static_cast<float*>(scratch), s));
+  Maps mp;
+  cudaError_t e = chunk_map(&mp.q, q, d, n, b, q_bs);
+  if (e == cudaSuccess) e = chunk_map(&mp.k, k, d, m, b, k_bs);
+  if (e == cudaSuccess) e = chunk_map(&mp.v, v, c, m, b, v_bs);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_fwd_bf16,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BF16);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((n + T - 1) / T, (c + SLICE - 1) / SLICE, b);
+  attn_fwd_bf16<<<grid, NTH, SMEM_BF16, s>>>(a, mp);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 launch configuration: out = {dynamic shared memory bytes per
-// block, resident blocks per SM, value columns per block}.  Returns a CUDA
-// error code.
+// Floats of scratch the f32 K3 needs (its split operands; the wrapper
+// allocates them).
+extern "C" long long vst_k3_scratch_floats(int b, int n, int m, int d, int c,
+                                          long long q_bs, long long k_bs,
+                                          long long v_bs) {
+  using namespace k3;
+  const AttnArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                   n, m, d, c, q_bs, k_bs, v_bs};
+  return k3_layout(a, b, nullptr).total;
+}
+
+// The launch configuration of both bodies: out = {bf16 dynamic shared
+// memory bytes per block, resident blocks per SM, value columns per block,
+// then the same three of the f32 (3xTF32) body}.  Returns a CUDA error
+// code.
 extern "C" int vst_k3_launch_config(int* out) {
   using namespace k3;
   cudaError_t e = cudaFuncSetAttribute(
       attn_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BF16);
   if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_fwd_tf32,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_F32);
+  if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], attn_fwd_bf16,
                                                       NTH, SMEM_BF16);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], attn_fwd_tf32,
+                                                      NTH, SMEM_F32);
   out[0] = SMEM_BF16;
   out[2] = SLICE;
+  out[3] = SMEM_F32;
+  out[5] = FSLICE;
   return static_cast<int>(e);
 }
