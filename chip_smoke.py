@@ -14,7 +14,7 @@ result line):
    each kernel's registers and spills (ptxas) and, for the bf16 K1/K2
    (``conv3x3_wgmma``), the output-channel tile, dynamic shared memory and
    resident blocks per SM at every shape phase 3 runs, and the same for
-   the bf16 K3 and K4/K5 and the f32 (3xTF32) K3 and K5;
+   the bf16 K3 and K4/K5 and the f32 (3xTF32) K3, K4 and K5;
 3. kernels: K1 (without and with its prologue) at (8,128,128,192) and K2
    at the stem and head packed shapes, bf16 and f32; in bf16 also K1 at
    the SD1/SD2 width (8,128,128,64) and the 640×360 stream's
@@ -33,12 +33,13 @@ result line):
    output slices (d = 520: two dQ/dK slices, the last ragged; c = 264:
    two dV slices, the last ragged; n ≠ m, both off the 64-row tile) and
    with a broadcast (stride-0) K/V and a broadcast Q at d = 448, each
-   launched twice for the same bits, and in f32 at a ragged shape and
-   the same three, the f32 K5 also at relu3_1's with sharp scores, at its
-   slice edges and with a stride-0 K/V and Q, launched twice for the same
-   bits; each against its plain version on the same inputs; with
-   ``--parent DIR`` the f32 K5 also gives the bits of DIR's (a checkout of
-   the parent commit, built here) at the three level shapes;
+   launched twice for the same bits, against the plain version on the
+   same inputs; and in f32 (3xTF32) against the float64 evaluation at a
+   ragged shape and the same three, relu3_1's with scores of std 10 and
+   100, the slice edges and with a stride-0 K/V and Q, launched twice for
+   the same bits; with ``--parent DIR`` the f32 K5 also gives the bits of
+   DIR's (a checkout of the parent commit, built here) at the three level
+   shapes;
 4. model: the f32 ReCoNet forward through the kernels against the same
    forward through the plain versions at 1×256×256 (and, with grad mode
    on, raising: K1/K2 have no backward yet), the f32 AdaAttN
@@ -64,7 +65,8 @@ result line):
    at the main paths' shapes, printed as one JSON ``kernels`` line (K1/K2
    rows also carry ms, TFLOP/s and the bound's share per launch; K3-K5
    rows the same per level, and the f32 K3/K4/K5 times at the three
-   training levels as ``ms_f32`` beside ``bound_ms_f32`` (3xTF32 peak)
+   training levels as ``ms_f32`` (with TFLOP/s and the executed-work
+   factor per level) beside ``bound_ms_f32`` (3xTF32 peak)
    and ``library_ms_f32`` (SDPA in f32, TF32 off); the f32 K1 and K2 at
    the bf16 rows' shapes beside cuDNN in f32, TF32 off); K3's (bf16 and
    f32) and K4/K5's executed-work factor per level is logged, from the
@@ -286,14 +288,19 @@ def phase_build():
     k45 = _build.load("adaattn_bwd").vst_k45_launch_config
     k45.argtypes = [ctypes.c_void_p]
     (smem, occ4, occ5, slice_dq, slice_dv, smem_f32, occ_f32, slice_dk_f32,
-     slice_dv_f32) = _wgmma_config(k45, size=9)
+     slice_dv_f32, smem4_f32, occ4_f32, slice_dq_f32) = _wgmma_config(
+         k45, size=12)
     log(f"  K4/K5 bf16 (wgmma): dynamic smem {smem} B, {occ4} / {occ5} "
         f"block(s)/SM, output slices of {slice_dq} dQ/dK and {slice_dv} dV "
+        f"columns")
+    log(f"  K4 f32 (3xTF32 on wgmma, attn_dq_tf32): dynamic smem {smem4_f32} "
+        f"B, {occ4_f32} block(s)/SM, output slices of {slice_dq_f32} dQ "
         f"columns")
     log(f"  K5 f32 (3xTF32 on wgmma, attn_dkv_tf32): dynamic smem {smem_f32} "
         f"B, {occ_f32} block(s)/SM, output slices of {slice_dk_f32} dK and "
         f"{slice_dv_f32} dV columns")
     return {"K3": slice_v, "K3_f32": slice3, "K45": (slice_dq, slice_dv),
+            "K4_f32": (slice_dq_f32, slice_dv),
             "K5_f32": (slice_dk_f32, slice_dv_f32)}
 
 
@@ -540,23 +547,26 @@ def parent_k5(started):
 
 
 def phase_kernels_k45(g, parent=None):
-    """K4 (dQ) and K5 (dK, dV) against their plain versions on the same
-    inputs and cotangents: bf16 at the three AdaAttN training level shapes
+    """K4 (dQ) and K5 (dK, dV) on the same inputs and cotangents: bf16
+    against the plain version at the three AdaAttN training level shapes
     (256², batch 8), at relu3_1's with sharp scores of std 10, at the
     edges of the output slices (d = 520, c = 264, n = 300 ≠ m = 200) and
-    with a stride-0 K/V and a stride-0 Q at d = 448; f32 at a ragged
-    shape, the three level shapes (the f32 image step, the config default,
-    launches both at all three) and, for the 3xTF32 K5, at relu3_1's with
-    sharp scores, at its slice edges (d = 520 and c = 264; d = 1030 and c =
-    515, off its 16-byte rows) and with a stride-0 Q and a stride-0 K/V.
-    A second launch of bf16 K4/K5 and of f32 K5 must give the same bits;
-    with ``parent`` (``parent_k5``) the f32 K5 must also give the parent
-    checkout's bits at the three level shapes.
+    with a stride-0 K/V and a stride-0 Q at d = 448; f32 (3xTF32) against
+    the same formulas evaluated in float64 (the plain versions on float64
+    inputs: at scores of std 100 true float32 is itself over 1e-4 of the
+    scale from them) at a ragged shape, the three level shapes (the f32
+    image step, the config default, launches both at all three), relu3_1's
+    with scores of std 10 and 100, the slice edges (d = 520 and c = 264;
+    d = 513 and c = 257, one column past; d = 1030 and c = 515, off the
+    16-byte rows) and with a stride-0 Q and a stride-0 K/V.  A second
+    launch must give the same bits, every case; with ``parent``
+    (``parent_k5``) the f32 K5 must also give the parent checkout's bits
+    at the three level shapes.
     Tolerances, of each output's scale: bf16 2^-6 (one bf16 ulp of the
     output rounding plus A and dS rounded to bf16 from f32 values summed in
-    another order); f32 1e-4 (sums in another order over up to 4096 terms;
-    3xTF32 products within about 2^-21 of float32's)."""
-    errs = {"K4": 0.0, "K5": 0.0, "K5 f32": 0.0}
+    another order); f32 1e-4 (3xTF32 products within about 2^-21 of
+    float32's, sums over up to 4096 terms in fresh partials)."""
+    errs = {"K4": 0.0, "K5": 0.0, "K4 f32": 0.0, "K5 f32": 0.0}
     levels = [(TRAIN_BATCH, n, n, d, c) for n, d, c in TRAIN_LEVELS]
     cases = [("bf16", torch.bfloat16, shape, 1.0, "") for shape in levels]
     cases += [("bf16 sharp", torch.bfloat16, levels[0], 10.0, ""),
@@ -569,7 +579,10 @@ def phase_kernels_k45(g, parent=None):
               ("f32", torch.float32, (2, 300, 520, 96, 64), 1.0, "")]
     cases += [("f32", torch.float32, shape, 1.0, "") for shape in levels]
     cases += [("f32 sharp", torch.float32, levels[0], 10.0, ""),
+              ("f32 sharper", torch.float32, levels[0], 100.0, ""),
               ("f32 slice edges", torch.float32, (2, 300, 200, 520, 264),
+               1.0, ""),
+              ("f32 slice edges", torch.float32, (2, 65, 129, 513, 257),
                1.0, ""),
               ("f32 slice edges", torch.float32, (2, 130, 200, 1030, 515),
                1.0, ""),
@@ -582,31 +595,33 @@ def phase_kernels_k45(g, parent=None):
         args = k45_inputs(g, *shape, dtype, score_std, bcast)
         dq = adaattn_attention.softmax_attention_dq(*args)
         dk, dv = adaattn_attention.softmax_attention_dkv(*args)
-        same_q = (dtype == torch.float32
-                  or torch.equal(dq, adaattn_attention.softmax_attention_dq(*args)))
-        if not (same_q and all(torch.equal(a, b) for a, b in zip(
-                (dk, dv), adaattn_attention.softmax_attention_dkv(*args)))):
+        if not (torch.equal(dq, adaattn_attention.softmax_attention_dq(*args))
+                and all(torch.equal(a, b) for a, b in zip(
+                    (dk, dv), adaattn_attention.softmax_attention_dkv(*args)))):
             raise AssertionError(f"K4/K5 {tag} {shape}: two launches differ")
-        pq = adaattn_attention.softmax_attention_dq_plain(*args)
-        pk, pv = adaattn_attention.softmax_attention_dkv_plain(*args)
+        ref = args
+        if dtype == torch.float32:   # the float64 evaluation
+            q, k, v, lse, dd, dm1, dm2 = args
+            ref = (q.double(), k.double(), v.double(), lse, dd, dm1.double(),
+                   dm2.double())
+        pq = adaattn_attention.softmax_attention_dq_plain(*ref)
+        pk, pv = adaattn_attention.softmax_attention_dkv_plain(*ref)
         tol = 2 * BF16_ULP if dtype == torch.bfloat16 else 1e-4
         name = f"{tag} {shape}"
         e4 = check(f"K4 {name} dQ", dq, pq, tol)
         e5 = max(check(f"K5 {name} dK", dk, pk, tol),
                  check(f"K5 {name} dV", dv, pv, tol))
-        if dtype == torch.bfloat16:
-            errs["K4"] = max(errs["K4"], e4)
-            errs["K5"] = max(errs["K5"], e5)
-        else:
-            errs["K5 f32"] = max(errs["K5 f32"], e5)
+        suffix = "" if dtype == torch.bfloat16 else " f32"
+        errs["K4" + suffix] = max(errs["K4" + suffix], e4)
+        errs["K5" + suffix] = max(errs["K5" + suffix], e5)
         if parent is not None and tag == "f32" and shape in levels:
             if not all(torch.equal(a, b) for a, b in zip((dk, dv),
                                                          parent(*args))):
                 raise AssertionError(f"K5 f32 {shape}: differs from the "
                                      f"parent's")
             log(f"  K5 f32 {shape}: the same bits as the parent's")
-        del args, dq, dk, dv, pq, pk, pv
-    log("  bf16 K4 and K5, f32 K5: a second launch gives the same bits at "
+        del args, ref, dq, dk, dv, pq, pk, pv
+    log("  K4 and K5, bf16 and f32: a second launch gives the same bits at "
         "every shape")
     torch.cuda.synchronize()
     return errs
@@ -1202,16 +1217,16 @@ def executed_work(kid, d, c, slice_dq, slice_dv):
     """The multiply-adds bf16 K4 or K5 runs as a multiple of the least
     (4nm(d + c), 4nmd + 8nmc): each of the s dQ/dK output slices computes
     S (2nmd) and dA (4nmc), each of the r dV slices S; the slice widths
-    are the built library's (``vst_k45_launch_config``).  The f32 K5 runs
-    the same tiling with its own slice widths, each product as three tf32
-    ones."""
+    are the built library's (``vst_k45_launch_config``).  The f32 K4 and
+    K5 run the same tiling with their own slice widths, each product as
+    three tf32 ones."""
     s, r = -(-d // slice_dq), -(-c // slice_dv)
     if kid == "K4":
         return (s * (2 * d + 4 * c) + 2 * d) / (4 * d + 4 * c)
     return (s * (2 * d + 4 * c) + 2 * d + r * 2 * d + 4 * c) / (4 * d + 8 * c)
 
 
-def timing_k45(launches, errs, slices, slices_f32, slice_k3_f32):
+def timing_k45(launches, errs, slices):
     """K4, K5 and their plain versions at the three AdaAttN training level
     shapes (256², batch 8), bf16, one launch each per level per step, with
     the executed-work factor of each level (logged; ``slices`` are the
@@ -1227,11 +1242,13 @@ def timing_k45(launches, errs, slices, slices_f32, slice_k3_f32):
     1), beside ``F.scaled_dot_product_attention`` in f32 with TF32 off:
     its forward beside K3, its backward beside K4 + K5, each with the
     backend it chose.  f32 bounds: FLOPs over 3xTF32's 495 / 3 TFLOP/s
-    (K3's and K5's route; K4 still runs on the CUDA cores, whose 67
-    TFLOP/s would give 2.5x these), bytes in float32.  The f32 K3's
-    executed-work factor per level comes from ``slice_k3_f32``, the built
-    library's value slice width.  The f32 K3 numbers are returned; K4/K5's
-    go in their rows as ``ms_f32``, ``bound_ms_f32``, ``library_ms_f32``."""
+    (the route of all three), bytes in float32.  The f32 executed-work
+    factors per level come from the built library's slice widths
+    (``slices`` "K3_f32", "K4_f32", "K5_f32").  The f32 K3 numbers
+    are returned; K4/K5's go in their rows as ``ms_f32``, ``bound_ms_f32``,
+    ``library_ms_f32``, ``executed_work_f32`` (as K3's: products run per
+    product of the least work, each of them three tf32 ones) and
+    ``tflops_f32_per_launch`` (on the least work)."""
     log("[6] K4, K5 at the AdaAttN training level shapes (256² b8, bf16)")
     g = torch.Generator(device="cuda").manual_seed(5)
     dt = torch.bfloat16
@@ -1257,8 +1274,9 @@ def timing_k45(launches, errs, slices, slices_f32, slice_k3_f32):
             "ms_per_launch": [], "tflops_per_launch": [],
             "bound_share_per_launch": [], "ms_f32": 0.0,
             "ms_f32_per_launch": [], "bound_ms_f32": 0.0,
-            "library_ms_f32": 0.0, "library_f32": None, "library": None})
-    rows["K5"]["row"]["max_abs_err_f32"] = errs["K5 f32"]
+            "library_ms_f32": 0.0, "library_f32": None, "library": None,
+            "max_abs_err_f32": errs[f"{kid} f32"], "executed_work_f32": [],
+            "tflops_f32_per_launch": []})
     k3_f32 = {"ms": [], "bound_ms": 0.0, "library_ms": 0.0, "library": None,
               "work": [], "tflops": []}
     for n, d, c in TRAIN_LEVELS:
@@ -1283,7 +1301,7 @@ def timing_k45(launches, errs, slices, slices_f32, slice_k3_f32):
                                     + 8 * n + 2 * out_elems)
             flops = TRAIN_BATCH * r["flops"](n, d, c)
             bb, by = bound(flops, nbytes, dt)
-            work = executed_work(kid, d, c, *slices)
+            work = executed_work(kid, d, c, *slices["K45"])
             log(f"  {kid} (n={n}, d={d}, c={c}) ms: kernel {tk:.4f} "
                 f"({flops / tk / 1e9:.1f} TFLOP/s on the least work, "
                 f"executed {work:.3f}x it, bound share {bb / tk:.3f}), plain "
@@ -1325,34 +1343,37 @@ def timing_k45(launches, errs, slices, slices_f32, slice_k3_f32):
         b3, _ = bound(2 * TRAIN_BATCH * n * n * (d + 2 * c),
                       TRAIN_BATCH * 4 * (2 * n * d + 3 * n * c + n), "tf32x3")
         k3_f32["bound_ms"] += b3
-        k3_f32["work"].append((-(-c // slice_k3_f32) * d + 2 * c) / (d + 2 * c))
+        k3_f32["work"].append((-(-c // slices["K3_f32"]) * d + 2 * c)
+                              / (d + 2 * c))
         k3_f32["tflops"].append(2 * TRAIN_BATCH * n * n * (d + 2 * c)
                                 / k3_f32["ms"][-1] / 1e9)
         k3_f32["library_ms"] += t_fwd
         k3_f32["library"] = f"F.scaled_dot_product_attention f32 ({be_fwd})"
+        msg = []
         for kid, r in rows.items():
             row = r["row"]
             t32 = event_ms(lambda: r["fn"](*a32), reps=5, warmup=1)
-            b32, _ = bound(TRAIN_BATCH * r["flops"](n, d, c),
-                           nb(n * d if kid == "K4" else n * (d + c)), "tf32x3")
+            flops = TRAIN_BATCH * r["flops"](n, d, c)
+            b32, _ = bound(flops, nb(n * d if kid == "K4" else n * (d + c)),
+                           "tf32x3")
+            work = executed_work(kid, d, c, *slices[f"{kid}_f32"])
             row["ms_f32"] += t32
             row["ms_f32_per_launch"].append(t32)
             row["bound_ms_f32"] += b32
             row["library_ms_f32"] += t_bwd
             row["library_f32"] = (f"backward of F.scaled_dot_product_attention"
                                   f" f32 ({be_bwd}), dQ, dK, dV together")
-        work = executed_work("K5", d, c, *slices_f32)
-        k5r = rows["K5"]["row"]
+            row["executed_work_f32"].append(work)
+            row["tflops_f32_per_launch"].append(flops / t32 / 1e9)
+            msg.append(f"{kid} {t32:.4f} (3xTF32 {3 * work:.3f}x the least work "
+                       f"in tf32 products, {flops / t32 / 1e9:.1f} TFLOP/s on "
+                       f"the least, bound {b32:.4f}, share {b32 / t32:.3f})")
         log(f"  f32 (n={n}, d={d}, c={c}) ms per launch: K3 "
             f"{k3_f32['ms'][-1]:.4f} (3xTF32 {3 * k3_f32['work'][-1]:.3f}x "
             f"the least work in tf32 products, {k3_f32['tflops'][-1]:.1f} "
-            f"TFLOP/s on the least; bound {b3:.4f}), K4 "
-            f"{rows['K4']['row']['ms_f32_per_launch'][-1]:.4f}, K5 "
-            f"{k5r['ms_f32_per_launch'][-1]:.4f} (3xTF32 {3 * work:.3f}x the "
-            f"least work in tf32 products, "
-            f"{TRAIN_BATCH * rows['K5']['flops'](n, d, c) / k5r['ms_f32_per_launch'][-1] / 1e9:.1f}"
-            f" TFLOP/s on the least); SDPA f32 forward ({be_fwd}) "
-            f"{t_fwd:.4f}, backward ({be_bwd}) {t_bwd:.4f}")
+            f"TFLOP/s on the least; bound {b3:.4f}), {', '.join(msg)}; SDPA "
+            f"f32 forward ({be_fwd}) {t_fwd:.4f}, backward ({be_bwd}) "
+            f"{t_bwd:.4f}")
         apply_precision(dt)
         del args, a32, q, k, v, lse, dd, dm1, dm2, vv, leaves, out, go
     k4, k5 = rows["K4"]["row"], rows["K5"]["row"]
@@ -1361,7 +1382,8 @@ def timing_k45(launches, errs, slices, slices_f32, slice_k3_f32):
     log(f"  per f32 step: K3 {sum(k3_f32['ms']):.4f} ms (6 launches: "
         f"{2 * sum(k3_f32['ms']):.4f}) against the f32 SDPA forward's "
         f"{k3_f32['library_ms']:.4f} (bound {k3_f32['bound_ms']:.4f}); K4 + K5 "
-        f"{k4['ms_f32'] + k5['ms_f32']:.4f} ms (K5 {k5['ms_f32']:.4f}, bound "
+        f"{k4['ms_f32'] + k5['ms_f32']:.4f} ms (K4 {k4['ms_f32']:.4f}, bound "
+        f"{k4['bound_ms_f32']:.4f}; K5 {k5['ms_f32']:.4f}, bound "
         f"{k5['bound_ms_f32']:.4f}) against the f32 SDPA backward's "
         f"{k4['library_ms_f32']:.4f}")
     torch.cuda.synchronize()
@@ -1485,8 +1507,7 @@ def main(argv):
     by_path = {"serving": launches["K3"], "training": train["K3"]}
     launches["K3"] += train["K3"]
     launches.update(K4=train["K4"], K5=train["K5"])
-    k45_rows, k3_f32 = timing_k45(launches, errs, slices["K45"],
-                                  slices["K5_f32"], slices["K3_f32"])
+    k45_rows, k3_f32 = timing_k45(launches, errs, slices)
     kernels = phase_timing(launches, errs, slices["K3"]) + k45_rows
     kernels[2]["launches_by_path"] = by_path
     kernels[2]["ms_f32"] = sum(k3_f32["ms"])

@@ -453,12 +453,13 @@ def test_k4_k5(cuda, n, m, d, c, scale, dtype, tol):
     of 256, the last of 8; n ≠ m, both off the 64-row tile).  bf16 within
     2^-6 of each output's scale (one bf16 ulp of the output rounding plus
     dS and A rounded to bf16 from f32 values summed in another order); f32
-    within 1e-4 of the scale.  The f32 K5 (3xTF32 on the tensor cores) is
-    held against the plain formulas evaluated in float64 on the same
-    inputs: with q, k × 10 (scores of std 100) the true-float32 plain
+    within 1e-4 of the scale.  The f32 K4 and K5 (3xTF32 on the tensor
+    cores) are held against the plain formulas evaluated in float64 on the
+    same inputs: with q, k × 10 (scores of std 100) the true-float32 plain
     version is itself 1.7e-4 (dK) and 1.5e-4 (dV) of the scale from that
     exact form, the kernel 3.6e-5 (experiments/k5_f32_variants.py on an
-    NVIDIA H100)."""
+    NVIDIA H100), dQ 1.5e-4 against the kernel's 5.1e-5 at relu3_1's
+    shape (experiments/k4_f32_variants.py)."""
     q, k, v, m1, m2, lse, dm1, dm2 = _bwd_inputs(cuda, 2, n, m, d, c, dtype,
                                                  scale)
     dd = adaattn_attention.row_term(m1, m2, dm1, dm2)
@@ -470,9 +471,9 @@ def test_k4_k5(cuda, n, m, d, c, scale, dtype, tol):
     ref = adaattn_attention.softmax_attention_moments_bwd_plain(
         q, k, v, m1, m2, lse, dm1, dm2)
     if dtype == torch.float32:
-        ref = (ref[0], *adaattn_attention.softmax_attention_dkv_plain(
-            q.double(), k.double(), v.double(), lse, dd, dm1.double(),
-            dm2.double()))
+        ref = adaattn_attention.softmax_attention_moments_bwd_plain(
+            q.double(), k.double(), v.double(), m1, m2, lse, dm1.double(),
+            dm2.double())
     torch.cuda.synchronize()
     assert (adaattn_attention.softmax_attention_dq.launches - before[0],
             adaattn_attention.softmax_attention_dkv.launches - before[1]) == (1, 1)
@@ -510,7 +511,7 @@ def test_k4_k5_broadcast(cuda, which, dtype, tol):
 def test_k4_k5_deterministic(cuda, n, m, d, c, dtype):
     """Two launches of K4 and of K5 on the same inputs give the same bits
     (no atomics; every sum in a fixed order), in bf16 and in f32 (the
-    3xTF32 K5 and its pre-pass included)."""
+    3xTF32 K4 and K5 and their pre-passes included)."""
     q, k, v, m1, m2, lse, dm1, dm2 = _bwd_inputs(cuda, 2, n, m, d, c, dtype)
     args = (q, k, v, lse, adaattn_attention.row_term(m1, m2, dm1, dm2), dm1,
             dm2)
@@ -543,6 +544,30 @@ def test_k5_f32_slice_edges(cuda, n, m, d, c):
     for ours, r in ((dk, pk), (dv, pv)):
         assert ours.shape == r.shape and torch.isfinite(ours).all()
         _close(ours, r, 1e-4)
+
+
+@pytest.mark.parametrize("n,m,d,c", [(64, 64, 512, 256),     # one slice
+                                     (65, 129, 513, 257),    # one column past
+                                     (130, 200, 1030, 515),  # third slice, off 16 bytes
+                                     (20, 37, 13, 7)])       # under one box
+def test_k4_f32_slice_edges(cuda, n, m, d, c):
+    """The 3xTF32 K4 at the edges of its dQ slices (512 columns a block),
+    of its 64-row query and key tiles and 32-column boxes, and of the
+    16-byte rows its pre-pass pads d, c and m to: within 1e-4 of dQ's
+    scale against the plain formulas evaluated in float64, one launch
+    each."""
+    q, k, v, m1, m2, lse, dm1, dm2 = _bwd_inputs(cuda, 2, n, m, d, c,
+                                                 torch.float32)
+    dd = adaattn_attention.row_term(m1, m2, dm1, dm2)
+    before = adaattn_attention.softmax_attention_dq.launches
+    dq = adaattn_attention.softmax_attention_dq(q, k, v, lse, dd, dm1, dm2)
+    ref = adaattn_attention.softmax_attention_dq_plain(
+        q.double(), k.double(), v.double(), lse, dd, dm1.double(),
+        dm2.double())
+    torch.cuda.synchronize()
+    assert adaattn_attention.softmax_attention_dq.launches == before + 1
+    assert dq.shape == ref.shape and torch.isfinite(dq).all()
+    _close(dq, ref, 1e-4)
 
 
 @pytest.mark.parametrize("need", ["qkv", "kv", "q"])

@@ -1,20 +1,23 @@
-"""The 3xTF32 split of the port's float32 K3 and K5 (``csrc/adaattn_fwd.cu``
-``attn_fwd_tf32``, ``csrc/adaattn_bwd.cu`` ``attn_dkv_tf32``), emulated in
-torch on the CPU: the kernels' arithmetic without the card.  Each operand
+"""The 3xTF32 split of the port's float32 K3, K4 and K5
+(``csrc/adaattn_fwd.cu`` ``attn_fwd_tf32``, ``csrc/adaattn_bwd.cu``
+``attn_dq_tf32`` and ``attn_dkv_tf32``), emulated in torch on the CPU: the
+kernels' arithmetic without the card.  Each operand
 x of a product is split as the kernels split it, big = tf32(x) and small
 = tf32(x − big), both rounded to nearest with ties away from zero
 (``cvt.rna.tf32.f32``); a product is a_small·b_big + a_big·b_small +
 a_big·b_big with small·small dropped, the small terms of a stage first,
 each stage summed into a fresh partial that is added to the running sum in
 float32, in the kernel's order.  K5's stages are 32 columns of d or c, and
-one 64-query tile in the output products; K3's are 32 columns of d for S
+one 64-query tile in the output products; K4's the same with queries and
+keys swapped (one 64-key tile in dS·K); K3's are 32 columns of d for S
 and one 64-key tile for P·V and P·W, whose partial is added as M = M·α +
 partial after the online softmax's rescale.  The emulation lives here, not
 in the package.
 
-dK and dV, and K3's M1, M2 and L, are held within 1e-4 of each output's
-scale (L within 1e-5 of max|L|) against the Pallas kernels in interpret
-mode (float32; ``jax.vjp`` for K5), as ``test_torch_adaattn_bwd.py`` and
+dQ, dK and dV, and K3's M1, M2 and L, are held within 1e-4 of each
+output's scale (L within 1e-5 of max|L|) against the Pallas kernels in
+interpret mode (float32; ``jax.vjp`` for K4 and K5), as
+``test_torch_adaattn_bwd.py`` and
 ``test_torch_adaattn.py`` hold the plain versions, at scores of std 1 and
 10, where JAX and the port's plain float32 agree well within that
 tolerance.  At std 100 (the card test's q, k × 10) float32 itself is off
@@ -187,3 +190,35 @@ def test_k3_split_meets_the_card_tolerance(rng, b, n, m, d, c, std):
     for name, ours, r in (("M1", m1, ref[0]), ("M2", m2, ref[1])):
         assert _rel(ours, r) <= 1e-4, (name, _rel(ours, r))
     assert _rel(lse, ref[2]) <= 1e-5, ("L", _rel(lse, ref[2]))
+
+
+def dq_tf32x3(q, k, v, lse, dd, dm1, dm2):
+    """The f32 K4's dQ: S over d in stages of 32 columns, dA in stages of
+    (dM1, V) and (dM2, W) per 32 columns of c, dS = A∘(dA − D) with A =
+    exp(S − L), then dS·K over each 64-key tile in a fresh partial."""
+    s = mm3(q, k.transpose(1, 2), FW)
+    w = v * v
+    da = torch.zeros_like(s)
+    for c0 in range(0, v.shape[-1], FW):
+        c = slice(c0, c0 + FW)
+        da = da + mm3(dm1[..., c], v[..., c].transpose(1, 2), FW)
+        da = da + mm3(dm2[..., c], w[..., c].transpose(1, 2), FW)
+    ds = torch.exp(s - lse) * (da - dd)
+    return mm3(ds, k, T)
+
+
+@pytest.mark.parametrize("b,n,m,d,c", SHAPES)
+@pytest.mark.parametrize("std", [1.0, 10.0, 100.0])
+def test_k4_split_meets_the_card_tolerance(rng, b, n, m, d, c, std):
+    q, k, v, w1, w2 = _inputs(rng, b, n, m, d, c, std)
+    m1, m2, lse = att.softmax_attention_moments_plain(q, k, v)
+    dd = att.row_term(m1, m2, w1, w2)
+    dq = dq_tf32x3(q, k, v, lse, dd, w1, w2)
+    assert dq.shape == (b, n, d)
+    if std < 100.0:
+        ref = _jax_vjp(q, k, v, w1, w2)[0]
+    else:
+        ref = att.softmax_attention_dq_plain(
+            q.double(), k.double(), v.double(), lse, dd, w1.double(),
+            w2.double())
+    assert _rel(dq, ref) <= 1e-4, _rel(dq, ref)

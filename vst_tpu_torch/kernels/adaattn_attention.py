@@ -9,8 +9,9 @@ softmax_attention_moments_pallas`` and its custom VJP:
   and value slice of ≤ 256 columns, in bf16 and, in float32, as 3xTF32;
 - K4 (``_bwd_dq_kernel``, ``csrc/adaattn_bwd.cu``): dQ = dS·K;
 - K5 (``_bwd_dkv_kernel``, ``csrc/adaattn_bwd.cu``): dK = dSᵀ·Q and
-  dV = Aᵀ·dM1 + 2V∘(Aᵀ·dM2); on ``wgmma`` with S and dA computed once per
-  tile and output slice, in bf16 and, in float32, as 3xTF32;
+  dV = Aᵀ·dM1 + 2V∘(Aᵀ·dM2);
+  K4 and K5 on ``wgmma`` with S and dA computed once per tile and output
+  slice, in bf16 and, in float32, as 3xTF32;
 3xTF32 splits each float32 operand into a big and a small tf32 part and
 sums three tf32 products; a pre-pass writes the parts into scratch that
 the wrapper allocates.  With A = exp(S − L), dA = dM1·Vᵀ + dM2·(V∘V)ᵀ,
@@ -46,7 +47,7 @@ def _kernel():
 @functools.cache
 def _bwd_kernel(name):
     fn = getattr(_build.load("adaattn_bwd"), name)
-    n_ptr = 8 if name == "vst_k4_attention_dq" else 10
+    n_ptr = 9 if name == "vst_k4_attention_dq" else 10
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -62,8 +63,8 @@ def _scratch_floats(lib, name):
 
 
 def _f32_scratch(q, k, v, lib, name):
-    """The float32 scratch of K3 or K5 (its split operands, about twice
-    the bytes of the inputs it splits), or None for bf16."""
+    """The float32 scratch of K3, K4 or K5 (its split operands, about
+    twice the bytes of the inputs it splits), or None for bf16."""
     if q.dtype != torch.float32:
         return None
     b, n, d = q.shape
@@ -254,19 +255,23 @@ def _check_bwd(q, k, v, lse, dd, dm1, dm2, what):
 def softmax_attention_dq(q, k, v, lse, dd, dm1, dm2):
     """K4: dQ (b, n, d) in q's dtype, from the forward's inputs, its L,
     the row term D (``row_term``) and the cotangents dM1, dM2 in q's
-    dtype (all (b, n, ·), contiguous)."""
+    dtype (all (b, n, ·), contiguous).  float32 runs 3xTF32 on the tensor
+    cores: its pre-pass writes Q, K, V, V∘V, dM1, dM2 and Kᵀ as two tf32
+    parts each into scratch allocated here (about 0.62 GB at b 8, n = m =
+    4096, d 448, c 256), for any shape."""
     if q.device.type == "cpu":
         return softmax_attention_dq_plain(q, k, v, lse, dd, dm1, dm2)
     _check_bwd(q, k, v, lse, dd, dm1, dm2, "softmax_attention_dq")
     b, n, d = q.shape
     m, c = k.shape[1], v.shape[2]
     dq = torch.empty((b, n, d), dtype=q.dtype, device=q.device)
+    scratch = _f32_scratch(q, k, v, "adaattn_bwd", "vst_k4_scratch_floats")
     with torch.cuda.device(q.device):
         rc = _bwd_kernel("vst_k4_attention_dq")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dm1.data_ptr(),
             dm2.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
-            b, n, m, d, c, q.stride(0), k.stride(0), v.stride(0),
-            int(q.dtype == torch.bfloat16), _stream(q.device))
+            _ptr(scratch), b, n, m, d, c, q.stride(0), k.stride(0),
+            v.stride(0), int(q.dtype == torch.bfloat16), _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"K4 softmax_attention_dq launch failed: CUDA "
                            f"error {rc}")
@@ -334,11 +339,10 @@ def softmax_attention_moments(q, k, v):
     """q (b, n, d), k (b, m, d), v (b, m, c) → M1, M2 (b, n, c) in q.dtype
     and L (b, n, 1) float32 (natural log); differentiable in q, k and v.
 
-    All float32 (parity with true float32: K3 and K5 3xTF32 on the tensor
-    cores, K4 on the CUDA cores) or all bfloat16 (tensor cores; d, c
-    multiples of 8).  Rows must be contiguous; K and V may
-    be broadcast over the batch with ``expand`` (batch stride 0), which the
-    kernels read in place."""
+    All float32 (parity with true float32: K3, K4 and K5 3xTF32 on the
+    tensor cores) or all bfloat16 (tensor cores; d, c multiples of 8).
+    Rows must be contiguous; K and V may be broadcast over the batch with
+    ``expand`` (batch stride 0), which the kernels read in place."""
     return SoftmaxAttentionMoments.apply(q, k, v)
 
 

@@ -9,8 +9,9 @@
 // strides as arguments (a Q, K or V broadcast with stride 0 is read in
 // place); dM1, dM2 (b, n, c) contiguous in the inputs' type; L, D (b, n)
 // float32, L in the natural log.  dQ (b, n, d), dK (b, m, d), dV (b, m, c)
-// come out contiguous in the inputs' type.  The float32 K5 also takes
-// scratch for its split operands (vst_k5_scratch_floats).
+// come out contiguous in the inputs' type.  The float32 K4 and K5 also
+// take scratch for their split operands (vst_k4_scratch_floats,
+// vst_k5_scratch_floats).
 //
 // Replaces the Pallas TPU kernels vst_tpu/kernels/adaattn_attention.py
 // _bwd_dq_kernel (:151, K4) and _bwd_dkv_kernel (:182, K5), driven by
@@ -19,7 +20,7 @@
 // device memory, no atomics, the result does not depend on the order
 // blocks run in (two launches give the same bits).  Ragged n, m, d and c
 // are masked in the kernel (zero-filled loads, A = 0 outside [0, n) x
-// [0, m)): no padded copies, but for the float32 K5's split operands.
+// [0, m)): no padded copies, but for the float32 split operands.
 //
 // bf16 (training at the serving type), on Hopper's wgmma.  The TPU keeps a
 // whole (block x d) float32 accumulator in VMEM; a 64 x 1472 one (376 KB)
@@ -86,32 +87,42 @@
 // accumulators and dV's epilogue in float32.  Scores are scaled by log2 e
 // for exp2f; L arrives in the natural log and is scaled the same way.
 //
-// float32 (parity, 1e-4 of each output's scale against true float32).
-// K4: true float32 on the CUDA cores (JAX's HIGHEST), 256 threads, 64 x 64
-// score tiles as 4 x 4 register tiles, 64 x 128 output tiles as 4 x 8,
-// expf.  K5: 3xTF32 on wgmma m64n64k8 with the bf16 body's tiling, roles
-// and rings: x = big + small with big = tf32(x) and small = tf32(x - big)
-// (both rounded to nearest by cvt.rna, so nothing depends on whether the
-// tensor core truncates or rounds a raw float32's low 13 bits), and a b =
-// a_small b_big + a_big b_small + a_big b_big, the small terms first,
-// small x small dropped (relative error about 2^-21 a product).  A pre-pass
-// kernel (split_tf32, attn_common.cuh, shared with the float32 K3) writes
-// both parts of every operand the rings read into scratch
-// the wrapper allocates (Q^T and dM^T too: tf32 takes no N-major B), and
-// the threads split dS^T and A^T.  The tensor core's float32 accumulation
-// does not round to nearest: S and dA as one chain of wgmma per tile left
-// dK 1.3e-4 of its scale from float64 at relu3_1 with scores of std 10,
-// the output products as one chain over 64 query tiles 3e-5 at unit
-// scores, so every stage (32 columns of d or c) and every output chunk of
-// a tile is summed in a fresh partial that the consumer adds in float32:
-// 8e-7 / 6e-6 / 4e-5 at scores of std 1 / 10 / 100, for 1% of the time
-// (experiments/k5_f32_variants.py).  Shared memory: rings of 2 x 32 KB
-// and 2 x 32 KB, two output rings of 2 x 16 KB (one per consumer), 32 KB
-// of dS^T / A^T parts (the exchange goes through it in place), 1 KB of L
-// and D: 231,584 bytes, one block per SM; 168 registers at launch, no
-// spills.  Executed tf32 work 3 x the bf16 factors, 3.7 / 6.0 / 7.8x the
-// least at relu3_1 / relu4_1 / relu5_1; bound by the tensor cores' 495
-// TFLOP/s tf32 peak (165 for 3xTF32 on the least work).
+// float32 (parity, 1e-4 of each output's scale against float64): 3xTF32
+// on wgmma m64n64k8 with the bf16 bodies' tiling, roles and rings (K4
+// attn_dq_tf32, K5 attn_dkv_tf32): x = big + small with big = tf32(x) and
+// small = tf32(x - big) (both rounded to nearest by cvt.rna, so nothing
+// depends on whether the tensor core truncates or rounds a raw float32's
+// low 13 bits), and a b = a_small b_big + a_big b_small + a_big b_big, the
+// small terms first, small x small dropped (relative error about 2^-21 a
+// product).  A pre-pass kernel (split_tf32, attn_common.cuh, shared with
+// the float32 K3) writes both parts of every operand the rings read into
+// scratch the wrapper allocates (K^T for K4, Q^T and dM^T for K5 too: tf32
+// takes no N-major B), and the threads split dS (dS^T, A^T).  The tensor
+// core's float32 accumulation does not round to nearest: S and dA as one
+// chain of wgmma per tile left dK 1.3e-4 of its scale from float64 at
+// relu3_1 with scores of std 10, the output products as one chain over 64
+// query tiles 3e-5 at unit scores, so every stage (32 columns of d or c)
+// and every output chunk of a tile is summed in a fresh partial that the
+// consumer adds in float32: 8e-7 / 6e-6 / 4e-5 at scores of std 1 / 10 /
+// 100, for 1% of the time (experiments/k5_f32_variants.py,
+// k4_f32_variants.py).  K4 is K5's dK role with queries and keys swapped:
+// a block owns 64 query rows and 512 dQ columns and walks the key tiles,
+// consumer 0 computes S over d, consumer 1 dA over c, the exchange goes
+// through P in place (A = exp(S - L) raw, then dS as tf32 parts), each
+// consumer adds dS K into its 256 columns from an output ring of K^T
+// halves; L and D of the block's rows are written once to shared memory.
+// Shared memory (both): rings of 2 x 32 KB and 2 x 32 KB, two output rings
+// of 2 x 16 KB (one per consumer), 32 KB of dS / dS^T / A^T parts, 1 KB of
+// L and D: 231,584 bytes, one block per SM; 168 registers at launch, no
+// spills.  Executed tf32 work 3 x the bf16
+// factors: K4 3.0 / 5.0 / 6.8x and K5 3.7 / 6.0 / 7.8x the least at relu3_1
+// / relu4_1 / relu5_1; the least work is bound by the tensor cores' 495
+// TFLOP/s tf32 peak (165 for 3xTF32 on the least work).  What holds the
+// f32 K4 (experiments/k4_f32_variants.py, PERF.md) is not its products but
+// the L2 bytes: a block streams the parts of Q, K, dM1, dM2, V, W and K^T
+// every key tile, 1.2 MB per (block, key tile) at relu3_1, 39.5 GB a
+// launch, about 5.5 TB/s at its 7.2 ms; without dA it is no faster,
+// without S 3%, without dS K 8%.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -627,146 +638,18 @@ __global__ void __launch_bounds__(NTH, 1)
 
 // ---------------------------------------------------------------- float32
 
-constexpr int FR = 64;    // rows per block (K4 queries, K5 keys)
-constexpr int FT = 64;    // the other side's tile
-constexpr int FD = 16;    // d or c per staged chunk
-constexpr int FO = 128;   // output columns per block (dV: 2 x 64)
-constexpr int FS = 8;     // tile rows per staged output-product chunk
-constexpr int FTH = 256;  // 16 x 16 threads
+// K4 and K5, float32: 3xTF32 on wgmma.  The pre-pass (split_tf32) writes
+// every operand the rings read as two tf32 parts, big = tf32(x) and small
+// = tf32(x - big), into wrapper-allocated scratch: Q, K, V, W = V o V, dM1
+// and dM2 as they lie (K-major over d or c), and the output products' B
+// K-major over the tile's rows, which tf32's wgmma needs: K^T (K4; keys
+// contiguous), Q^T, dM1^T, dM2^T (K5; queries contiguous).  Rows are
+// padded to a multiple of 4 floats (16 bytes, TMA's row stride) with
+// zeros.  dS (K4), dS^T and A^T (K5) are split by the threads that form
+// them.
 
-// K4, float32.  Thread (ty, tx): query rows ty + 16 i, keys tx + 16 jj,
-// dQ columns tx + 16 jj (jj < 8).
-__global__ void __launch_bounds__(FTH) attn_dq_f32(BwdArgs a) {
-  __shared__ float As[FD][FR + 1];   // q or dM1 chunk, [col][row]
-  __shared__ float A2[FD][FR + 1];   // dM2 chunk
-  __shared__ float Bs[FD][FT + 1];   // k or v chunk, [col][key]
-  __shared__ float Ps[FT][FR + 1];   // dS^T, [key][row]
-  __shared__ float Ks[FS][FO];       // k at dQ's columns, [key][col]
-
-  const int bi = blockIdx.z, q0 = blockIdx.x * FR, o0 = blockIdx.y * FO;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* q = static_cast<const float*>(a.q) + bi * a.q_bs;
-  const float* k = static_cast<const float*>(a.k) + bi * a.k_bs;
-  const float* v = static_cast<const float*>(a.v) + bi * a.v_bs;
-  const float* dm1 = static_cast<const float*>(a.dm1) + (size_t)bi * a.n * a.c;
-  const float* dm2 = static_cast<const float*>(a.dm2) + (size_t)bi * a.n * a.c;
-
-  float lrow[4], drow[4], acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lrow[i] = row < a.n ? a.lse[(size_t)bi * a.n + row] : BIG;
-    drow[i] = row < a.n ? a.dd[(size_t)bi * a.n + row] : 0.f;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
-  }
-
-  const int nkt = (a.m + FT - 1) / FT;
-  for (int j = 0; j < nkt; ++j) {
-    const int k0 = j * FT;
-    float s[4][4], da[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = da[i][jj] = 0.f;
-    for (int t = 0; t < a.d; t += FD) {
-#pragma unroll
-      for (int r = 0; r < (FR * FD) / FTH; ++r) {
-        const int e = tid + FTH * r;
-        const int row = e / FD, kk = e % FD;
-        const bool ok = t + kk < a.d;
-        As[kk][row] = ok && q0 + row < a.n ? q[(size_t)(q0 + row) * a.d + t + kk] : 0.f;
-        Bs[kk][row] = ok && k0 + row < a.m ? k[(size_t)(k0 + row) * a.d + t + kk] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < FD; ++kk)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-            s[i][jj] = fmaf(As[kk][ty + 16 * i], Bs[kk][tx + 16 * jj], s[i][jj]);
-      __syncthreads();
-    }
-    for (int u = 0; u < a.c; u += FD) {
-#pragma unroll
-      for (int r = 0; r < (FR * FD) / FTH; ++r) {
-        const int e = tid + FTH * r;
-        const int row = e / FD, kk = e % FD;
-        const bool ok = u + kk < a.c;
-        const bool qok = ok && q0 + row < a.n;
-        As[kk][row] = qok ? dm1[(size_t)(q0 + row) * a.c + u + kk] : 0.f;
-        A2[kk][row] = qok ? dm2[(size_t)(q0 + row) * a.c + u + kk] : 0.f;
-        Bs[kk][row] = ok && k0 + row < a.m ? v[(size_t)(k0 + row) * a.c + u + kk] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < FD; ++kk)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const float vv = Bs[kk][tx + 16 * jj], w = vv * vv;
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            da[i][jj] = fmaf(A2[kk][ty + 16 * i], w,
-                             fmaf(As[kk][ty + 16 * i], vv, da[i][jj]));
-        }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int key = k0 + tx + 16 * jj;
-        const float p = key < a.m ? expf(s[i][jj] - lrow[i]) : 0.f;
-        Ps[tx + 16 * jj][ty + 16 * i] = p * (da[i][jj] - drow[i]);
-      }
-    __syncthreads();
-    for (int kb = 0; kb < FT; kb += FS) {
-#pragma unroll
-      for (int r = 0; r < (FS * FO) / FTH; ++r) {
-        const int e = tid + FTH * r;
-        const int kk = e / FO, col = e % FO;
-        const int key = k0 + kb + kk;
-        Ks[kk][col] = key < a.m && o0 + col < a.d
-                          ? k[(size_t)key * a.d + o0 + col] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < FS; ++kk)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = Ps[kb + kk][ty + 16 * i];
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj)
-            acc[i][jj] = fmaf(p, Ks[kk][tx + 16 * jj], acc[i][jj]);
-        }
-      __syncthreads();
-    }
-  }
-
-  float* dq = static_cast<float*>(a.dq) + (size_t)bi * a.n * a.d;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= a.n) continue;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int col = o0 + tx + 16 * jj;
-      if (col < a.d) dq[(size_t)row * a.d + col] = acc[i][jj];
-    }
-  }
-}
-
-// K5, float32: 3xTF32 on wgmma.  The pre-pass (split_tf32) writes every
-// operand the rings read as two tf32 parts, big = tf32(x) and small =
-// tf32(x - big), into wrapper-allocated scratch: Q, K, V, W = V o V, dM1
-// and dM2 as they lie (K-major over d or c) and Q^T, dM1^T, dM2^T (K-major
-// over the queries, which tf32's wgmma needs for the output products'
-// B), rows padded to a multiple of 4 floats (16 bytes, TMA's row stride)
-// with zeros.  dS^T and A^T are split by the threads that form them.
-
-constexpr int FR0 = 2;                  // consumer 0's ring (S^T over d)
-constexpr int FR1 = 2;                  // consumer 1's ring (dA^T over c, or S^T)
+constexpr int FR0 = 2;                  // consumer 0's ring (S or S^T over d)
+constexpr int FR1 = 2;                  // consumer 1's ring (dA or dA^T over c, or S^T)
 constexpr int FNO = 4;                  // output-product rings: 2 slots a consumer
 constexpr int FOFF_R1 = FR0 * FSTAGE;
 constexpr int FOFF_O = FOFF_R1 + FR1 * FSTAGE;
@@ -775,22 +658,24 @@ constexpr int FOFF_ROW = FOFF_P + 4 * FB;       // L and D, [2][2][T] float32
 constexpr int FOFF_BAR = FOFF_ROW + 2 * 2 * T * 4;
 constexpr int FNBAR = 2 * (FR0 + FR1 + FNO + 2);
 constexpr int SMEM_F32 = 1024 + FOFF_BAR + FNBAR * 8;
-static_assert(SMEM_F32 <= 232448, "f32 K5 exceeds a block's shared memory");
+static_assert(SMEM_F32 <= 232448, "f32 K4/K5 exceed a block's shared memory");
 
-// The operands of the f32 K5 as the pre-pass writes them: tensor maps over
-// (2 P, rows, cols) float32, big parts in planes [0, P), small in [P, 2P);
-// P = 1 for an input broadcast over the batch (stride 0), else b.
+// The operands of the f32 K4 and K5 as the pre-pass writes them: tensor
+// maps over (2 P, rows, cols) float32, big parts in planes [0, P), small in
+// [P, 2P); P = 1 for an input broadcast over the batch (stride 0), else b.
 struct SplitMaps {
   CUtensorMap q, k, v, w, dm1, dm2;   // as they lie
-  CUtensorMap qt, dm1t, dm2t;         // transposed (queries contiguous)
+  CUtensorMap qt, dm1t, dm2t;         // K5: transposed (queries contiguous)
+  CUtensorMap kt;                     // K4: K^T (keys contiguous)
   int pq, pk, pv;                     // planes of Q, K and V (dM: b)
 };
 
 // Second phase: acc[h] += P O_h^T over the tile for the chunks whose bit
-// is set in mask: P (dS^T or A^T, 64 keys x 64 queries, tf32 parts) and
-// O_h's two 32-query halves from this consumer's output ring (slots 2 g
-// and 2 g + 1; the consumer's use j, counted across tiles, in slot 2 g +
-// j % 2), both K-major over the queries.  Each chunk's 24 products go
+// is set in mask: P (64 x 64, tf32 parts: dS^T or A^T of 64 keys x 64
+// queries in K5, dS of 64 queries x 64 keys in K4) and O_h's two 32-row
+// halves of the tile from this consumer's output ring (slots 2 g and 2 g +
+// 1; the consumer's use j, counted across tiles, in slot 2 g + j % 2),
+// both K-major over the tile's rows.  Each chunk's 24 products go
 // into a fresh partial sum, the small-part ones first, added to acc[h] in
 // float32 once they are done (as in phase1_tf32).  A ring of its own per
 // consumer: with one shared ring a consumer could wait on a slot whose
@@ -838,7 +723,8 @@ __device__ __forceinline__ void phase2_tf32(float (&acc)[4][32], unsigned p,
   }
 }
 
-// Shared-memory layout and barrier addresses of the f32 K5.
+// Shared-memory layout and barrier addresses of the f32 K4 and K5 (K4
+// writes its row stage once and uses no row barriers).
 struct SmemF32 {
   unsigned char *ring0, *ring1, *och, *p;
   float* rowv;
@@ -1064,28 +950,193 @@ __global__ void __launch_bounds__(NTH, 1)
   }
 }
 
-// The f32 K5's split operands (q, k, v, w, dm1, dm2, qt, dm1t, dm2t) one
-// after another from base.
-static SplitLayout<9> k5_layout(const BwdArgs& a, int b, float* base) {
+// K4, float32.  Block (query tile, dQ slice of 512 columns, image) as
+// attn_dq_bf16, walking the key tiles of 64: K5's dK role with queries and
+// keys swapped.  Consumer 0 computes S = Q K^T over d in (Q, K) stages,
+// consumer 1 dA = dM1 V^T + dM2 W^T over c in stages of (dM1, V) and (dM2,
+// W), each stage a fresh partial (phase1_tf32); the exchange goes through
+// P in place; then each consumer adds dS K into its 256 dQ columns, one
+// fresh partial per (key tile, 64-column chunk), from its output ring of
+// K^T halves (64 columns x 32 keys).  L and D of the block's rows are the
+// same for every key tile: the consumers write them once into the row
+// stage, no loader warp.  The producer's warps run one ring each: (Q, K)
+// stages, (dM, V or W) stages, K^T slots.
+__global__ void __launch_bounds__(NTH, 1)
+    attn_dq_tf32(BwdArgs a, const __grid_constant__ SplitMaps mp) {
+  extern __shared__ unsigned char smem_raw[];
+  const SmemF32 sm(smem_raw);
+  const int bi = blockIdx.z, q0 = blockIdx.x * T, o0 = blockIdx.y * SLICE_DQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nkt = (a.m + T - 1) / T, nd = (a.d + FW - 1) / FW;
+  const int nc = (a.c + FW - 1) / FW;
+
+  if (tid == 0) sm.init();
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (lane != 0) return;
+    if (warp == 8) {          // Q and K over d, for every key tile
+      for (int j = 0, g = 0; j < nkt; ++j)
+        for (int t = 0; t < nd; ++t, ++g) {
+          const int s = claim<FR0>(sm.f0, sm.e0, g, FSTAGE);
+          load_stage(wg::smem_u32(sm.ring0 + s * FSTAGE), sm.f0 + 8 * s,
+                     &mp.q, mp.pq, q0, &mp.k, mp.pk, T * j, FW * t, bi);
+        }
+    } else if (warp == 9) {   // (dM1, V), (dM2, W) over c, for every key tile
+      for (int j = 0, g = 0; j < nkt; ++j)
+        for (int u = 0; u < 2 * nc; ++u, ++g) {
+          const int s = claim<FR1>(sm.f1, sm.e1, g, FSTAGE);
+          load_stage(wg::smem_u32(sm.ring1 + s * FSTAGE), sm.f1 + 8 * s,
+                     u & 1 ? &mp.dm2 : &mp.dm1, gridDim.z, q0,
+                     u & 1 ? &mp.w : &mp.v, mp.pv, T * j, FW * (u >> 1), bi);
+        }
+    } else if (warp == 10) {  // K^T at the slice, per key half
+      int used[2] = {0, 0};   // uses of each consumer's output ring
+      for (int j = 0; j < nkt; ++j)
+        for (int h = 0; h < 4; ++h)
+          for (int kh = 0; kh < 2; ++kh)
+            for (int g = 0; g < 2; ++g) {
+              int which, col;
+              if (!out_chunk(4 * g + h, false, o0, a.d, &which, &col)) continue;
+              const int u = used[g]++, s = 2 * g + (u & 1);
+              wg::mbar_wait(sm.eo + 8 * s, ((u >> 1) & 1) ^ 1);
+              wg::mbar_expect_tx(sm.fo + 8 * s, 2 * FB);
+              const unsigned dst = wg::smem_u32(sm.och + s * 2 * FB);
+              const int key = T * j + FW * kh;
+              wg::tma_load_3d(dst, &mp.kt, key, col, plane(0, mp.pk, bi),
+                              sm.fo + 8 * s);
+              wg::tma_load_3d(dst + FB, &mp.kt, key, col, plane(1, mp.pk, bi),
+                              sm.fo + 8 * s);
+            }
+    }
+    return;
+  }
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wgi = warp >> 2, wl = warp & 3;
+  const int g8 = lane >> 2, tq = lane & 3;
+  const unsigned och = wg::smem_u32(sm.och), p = wg::smem_u32(sm.p);
+  const int mask = out_mask(wgi, false, o0, a.d);
+  // L (consumer 0; BIG past n) or D (consumer 1) of this thread's two
+  // rows, rv[0] and rv[8], in the row stage (held in registers they
+  // spill); written once, read after the first exchange barrier.
+  float* rv = sm.rowv + T * wgi + 16 * wl + g8;
+  if (tq == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + 16 * wl + g8 + 8 * h;
+      const bool ok = row < a.n;
+      const size_t at = (size_t)bi * a.n + (ok ? row : 0);
+      rv[8 * h] = wgi == 0 ? (ok ? a.lse[at] : BIG) : (ok ? a.dd[at] : 0.f);
+    }
+  }
+  // acc[h] = dQ's columns o0 + 256 wgi + 64 h
+  float acc[4][32];
+#pragma unroll
+  for (int h = 0; h < 4; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+
+  int g = 0, uo = 0;   // stages of this consumer's ring, uses of its output ring
+  for (int j = 0; j < nkt; ++j) {
+    float s[32];
+    if (wgi == 0)
+      phase1_tf32<FR0>(s, sm.ring0, sm.f0, sm.e0, g, nd, lane);
+    else
+      phase1_tf32<FR1>(s, sm.ring1, sm.f1, sm.e1, g, 2 * nc, lane);
+
+    // The exchange, through P in place (each thread reads and writes only
+    // its own positions): consumer 0 writes A = exp(S - L) as raw float32
+    // into the big boxes (0 for keys >= m), consumer 1 replaces it with dS
+    // = A o (dA - D) as tf32 parts.  s[4 jj + 2 h + t]: row 16 wl + g8 + 8
+    // h, key T j + 8 jj + 2 tq + t.  S - L is formed before the
+    // exponential, so two large scores do not cancel after rounding.  The
+    // first barrier keeps P until both consumers' output products of the
+    // tile before are done.
+    bar_sync(1, 256);
+    if (wgi == 0) {
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int key = T * j + 8 * (e >> 2) + 2 * tq;
+        const float l = rv[8 * ((e >> 1) & 1)];
+        *reinterpret_cast<float2*>(
+            sm.p + p_offset(wl, g8, tq, e >> 2, (e >> 1) & 1)) =
+            make_float2(key < a.m ? expf(s[e] - l) : 0.f,
+                        key + 1 < a.m ? expf(s[e + 1] - l) : 0.f);
+      }
+    }
+    bar_sync(1, 256);
+    if (wgi == 1) {
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const float dd = rv[8 * ((e >> 1) & 1)];
+        const int off = p_offset(wl, g8, tq, e >> 2, (e >> 1) & 1);
+        const float2 x = *reinterpret_cast<const float2*>(sm.p + off);
+        store_p_tf32(sm.p, off, x.x * (s[e] - dd), x.y * (s[e + 1] - dd));
+      }
+      wg::fence_async_shared();
+    }
+    bar_sync(1, 256);
+    phase2_tf32(acc, p, och, sm.fo, sm.eo, uo, wgi, mask, lane);
+  }
+
+  float* dq = static_cast<float*>(a.dq) + (size_t)bi * a.n * a.d;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    if (!(mask >> h & 1)) continue;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int col = o0 + 256 * wgi + T * h + 8 * (e >> 2) + 2 * tq + (e & 1);
+      const int row = q0 + 16 * wl + g8 + 8 * ((e >> 1) & 1);
+      if (col < a.d && row < a.n) dq[(size_t)row * a.d + col] = acc[h][e];
+    }
+  }
+}
+
+// The split operands both f32 kernels read as they lie (q, k, v, w, dm1,
+// dm2), the first six jobs of their layouts.
+static void direct_jobs(const BwdArgs& a, int b, SplitJob* spec) {
   const int pq = a.q_bs ? b : 1, pk = a.k_bs ? b : 1, pv = a.v_bs ? b : 1;
   const int dp = (a.d + 3) / 4 * 4, cp = (a.c + 3) / 4 * 4;
-  const int np = (a.n + 3) / 4 * 4;
   const long long nc = static_cast<long long>(a.n) * a.c;
   const float *q = static_cast<const float*>(a.q),
               *k = static_cast<const float*>(a.k),
               *v = static_cast<const float*>(a.v),
               *d1 = static_cast<const float*>(a.dm1),
               *d2 = static_cast<const float*>(a.dm2);
-  const SplitJob spec[9] = {
-      {q, a.q_bs, a.n, a.d, nullptr, a.n, dp, pq, 0},
-      {k, a.k_bs, a.m, a.d, nullptr, a.m, dp, pk, 0},
-      {v, a.v_bs, a.m, a.c, nullptr, a.m, cp, pv, 0},
-      {v, a.v_bs, a.m, a.c, nullptr, a.m, cp, pv, 1},
-      {d1, nc, a.n, a.c, nullptr, a.n, cp, b, 0},
-      {d2, nc, a.n, a.c, nullptr, a.n, cp, b, 0},
-      {q, a.q_bs, a.n, a.d, nullptr, a.d, np, pq, 2},
-      {d1, nc, a.n, a.c, nullptr, a.c, np, b, 2},
-      {d2, nc, a.n, a.c, nullptr, a.c, np, b, 2}};
+  spec[0] = {q, a.q_bs, a.n, a.d, nullptr, a.n, dp, pq, 0};
+  spec[1] = {k, a.k_bs, a.m, a.d, nullptr, a.m, dp, pk, 0};
+  spec[2] = {v, a.v_bs, a.m, a.c, nullptr, a.m, cp, pv, 0};
+  spec[3] = {v, a.v_bs, a.m, a.c, nullptr, a.m, cp, pv, 1};
+  spec[4] = {d1, nc, a.n, a.c, nullptr, a.n, cp, b, 0};
+  spec[5] = {d2, nc, a.n, a.c, nullptr, a.n, cp, b, 0};
+}
+
+// The f32 K4's split operands (q, k, v, w, dm1, dm2, kt) one after another
+// from base.
+static SplitLayout<7> k4_layout(const BwdArgs& a, int b, float* base) {
+  SplitJob spec[7];
+  direct_jobs(a, b, spec);
+  spec[6] = {static_cast<const float*>(a.k), a.k_bs, a.m, a.d, nullptr, a.d,
+             (a.m + 3) / 4 * 4, spec[1].planes, 2};
+  return SplitLayout<7>(spec, base);
+}
+
+// The f32 K5's split operands (q, k, v, w, dm1, dm2, qt, dm1t, dm2t) one
+// after another from base.
+static SplitLayout<9> k5_layout(const BwdArgs& a, int b, float* base) {
+  SplitJob spec[9];
+  direct_jobs(a, b, spec);
+  const int np = (a.n + 3) / 4 * 4;
+  const long long nc = static_cast<long long>(a.n) * a.c;
+  spec[6] = {static_cast<const float*>(a.q), a.q_bs, a.n, a.d, nullptr, a.d,
+             np, spec[0].planes, 2};
+  spec[7] = {static_cast<const float*>(a.dm1), nc, a.n, a.c, nullptr, a.c,
+             np, b, 2};
+  spec[8] = {static_cast<const float*>(a.dm2), nc, a.n, a.c, nullptr, a.c,
+             np, b, 2};
   return SplitLayout<9>(spec, base);
 }
 
@@ -1097,6 +1148,27 @@ static cudaError_t make_maps(Maps* mp, const BwdArgs& a, int b) {
   if (e == cudaSuccess) e = chunk_map(&mp->dm1, a.dm1, a.c, a.n, b, nc);
   if (e == cudaSuccess) e = chunk_map(&mp->dm2, a.dm2, a.c, a.n, b, nc);
   return e;
+}
+
+// The f32 K4's pre-pass and main kernel.  scratch holds
+// vst_k4_scratch_floats(...) floats.
+static cudaError_t k4_tf32(const BwdArgs& a, int b, float* scratch,
+                           cudaStream_t s) {
+  const SplitLayout<7> lay = k4_layout(a, b, scratch);
+  SplitMaps mp;
+  cudaError_t e = lay.run({&mp.q, &mp.k, &mp.v, &mp.w, &mp.dm1, &mp.dm2,
+                           &mp.kt}, s);
+  mp.pq = lay.job[0].planes;
+  mp.pk = lay.job[1].planes;
+  mp.pv = lay.job[2].planes;
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_dq_tf32,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_F32);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.n + T - 1) / T, (a.d + SLICE_DQ - 1) / SLICE_DQ, b);
+  attn_dq_tf32<<<grid, NTH, SMEM_F32, s>>>(a, mp);
+  return cudaGetLastError();
 }
 
 // The f32 K5's pre-pass and main kernel.  scratch holds
@@ -1127,30 +1199,28 @@ static cudaError_t k5_tf32(const BwdArgs& a, int b, float* scratch,
 
 // Each returns 0 on success, else the CUDA error of the tensor maps, the
 // attribute call or the launch.  bf16 needs d and c multiples of 8 and
-// 16-byte aligned rows and batch strides; the wrapper checks.
+// 16-byte aligned rows and batch strides; the wrapper checks.  float32
+// needs scratch of vst_k4_scratch_floats(...) or vst_k5_scratch_floats(...)
+// floats (its split operands); bf16 takes none.
 extern "C" int vst_k4_attention_dq(
     const void* q, const void* k, const void* v, const void* dm1,
-    const void* dm2, const float* lse, const float* dd, void* dq, int b,
-    int n, int m, int d, int c, long long q_bs, long long k_bs,
-    long long v_bs, int bf16, void* stream) {
+    const void* dm2, const float* lse, const float* dd, void* dq,
+    void* scratch, int b, int n, int m, int d, int c, long long q_bs,
+    long long k_bs, long long v_bs, int bf16, void* stream) {
   using namespace k45;
   BwdArgs a{q, k, v, dm1, dm2, lse, dd, dq, nullptr, nullptr,
             n, m, d, c, q_bs, k_bs, v_bs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    Maps mp;
-    cudaError_t e = make_maps(&mp, a, b);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(attn_dq_bf16,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BF16);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid((n + T - 1) / T, (d + SLICE_DQ - 1) / SLICE_DQ, b);
-    attn_dq_bf16<<<grid, NTH, SMEM_BF16, s>>>(a, mp);
-  } else {
-    const dim3 grid((n + FR - 1) / FR, (d + FO - 1) / FO, b);
-    attn_dq_f32<<<grid, FTH, 0, s>>>(a);
-  }
+  if (!bf16) return static_cast<int>(k4_tf32(a, b, static_cast<float*>(scratch), s));
+  Maps mp;
+  cudaError_t e = make_maps(&mp, a, b);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_dq_bf16,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BF16);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((n + T - 1) / T, (d + SLICE_DQ - 1) / SLICE_DQ, b);
+  attn_dq_bf16<<<grid, NTH, SMEM_BF16, s>>>(a, mp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1177,8 +1247,18 @@ extern "C" int vst_k5_attention_dkv(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Floats of scratch the f32 K5 needs (its split operands; the wrapper
-// allocates them).
+// Floats of scratch the f32 K4 and K5 need (their split operands; the
+// wrapper allocates them).
+extern "C" long long vst_k4_scratch_floats(int b, int n, int m, int d, int c,
+                                          long long q_bs, long long k_bs,
+                                          long long v_bs) {
+  using namespace k45;
+  const BwdArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, nullptr, nullptr,
+                  n, m, d, c, q_bs, k_bs, v_bs};
+  return k4_layout(a, b, nullptr).total;
+}
+
 extern "C" long long vst_k5_scratch_floats(int b, int n, int m, int d, int c,
                                           long long q_bs, long long k_bs,
                                           long long v_bs) {
@@ -1192,7 +1272,8 @@ extern "C" long long vst_k5_scratch_floats(int b, int n, int m, int d, int c,
 // The launch configuration of the wgmma bodies: out = {bf16 K4/K5 dynamic
 // shared memory bytes per block, resident blocks per SM of bf16 K4, of
 // bf16 K5, dQ/dK columns per block, dV columns per block, then the f32
-// K5's shared memory, blocks per SM, dK and dV columns per block}.
+// K5's shared memory, blocks per SM, dK and dV columns per block, then the
+// f32 K4's shared memory, blocks per SM and dQ columns per block}.
 // Returns a CUDA error code.
 extern "C" int vst_k45_launch_config(int* out) {
   using namespace k45;
@@ -1207,6 +1288,10 @@ extern "C" int vst_k45_launch_config(int* out) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_F32);
   if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_dq_tf32,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_F32);
+  if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], attn_dq_bf16,
                                                       NTH, SMEM_BF16);
   if (e == cudaSuccess)
@@ -1215,11 +1300,16 @@ extern "C" int vst_k45_launch_config(int* out) {
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[6], attn_dkv_tf32,
                                                       NTH, SMEM_F32);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[10], attn_dq_tf32,
+                                                      NTH, SMEM_F32);
   out[0] = SMEM_BF16;
   out[3] = SLICE_DQ;
   out[4] = SLICE_DV;
   out[5] = SMEM_F32;
   out[7] = SLICE_DQ;
   out[8] = SLICE_DV;
+  out[9] = SMEM_F32;
+  out[11] = SLICE_DQ;
   return static_cast<int>(e);
 }
