@@ -11,16 +11,16 @@ result line):
 
 1. card: nvidia-smi's name and power limit;
 2. build: every kernel of ``vst_tpu_torch/kernels/csrc`` from source, with
-   each kernel's registers and spills (ptxas) and, for the bf16 K1/K2
-   (``conv3x3_wgmma``), the output-channel tile, dynamic shared memory and
-   resident blocks per SM at every shape phase 3 runs, and the same for
-   the bf16 K3 and K4/K5 and the f32 (3xTF32) K3, K4 and K5;
-3. kernels: K1 (without and with its prologue) at (8,128,128,192) and K2
-   at the stem and head packed shapes, bf16 and f32; in bf16 also K1 at
-   the SD1/SD2 width (8,128,128,64) and the 640×360 stream's
-   (8,90,160,192), K2 at the SD1/SD2 packed stems and heads and the
-   stream's packed (8,92,162,·), and two launches of each giving the same
-   bits; K3 in bf16 at the
+   each kernel's registers and spills (ptxas) and, for K1/K2 in bf16
+   (``conv3x3_wgmma``) and f32 (``conv3x3_tf32``, 3xTF32), the
+   output-channel tile, dynamic shared memory and resident blocks per SM
+   at every shape phase 3 runs, and the same for the bf16 K3 and K4/K5
+   and the f32 (3xTF32) K3, K4 and K5;
+3. kernels: K1 (without and with its prologue) at (8,128,128,192), the
+   SD1/SD2 width (8,128,128,64) and the 640×360 stream's (8,90,160,192),
+   K2 at the ReCoNet, SD1 and SD2 packed stems and heads and the stream's
+   packed (8,92,162,·), in bf16 and f32, in f32 also at C = 6, Co = 10,
+   and two launches of each giving the same bits; K3 in bf16 at the
    three AdaAttN 512² batch-2 level shapes (and at relu3_1's with sharp
    scores of std 10 and with a stride-0 K/V) and at the edge of its value
    slices (c = 264), and in f32 (3xTF32) against the float64 evaluation
@@ -52,7 +52,9 @@ result line):
 5. main paths, each with the launch counts set to 0 just before it and
    read just after: full-width ReCoNet from the port's seeded init, 512²
    batch 8 bf16, through ``stylize_reconet`` (uint8 and I420 wires), then
-   ``StreamingStylizer`` over 96 synthetic 640×360 uint8 frames; then
+   ``StreamingStylizer`` over 96 synthetic 640×360 uint8 frames; the same
+   weights in f32 (the dtype of a reference checkpoint), 512² batch 8
+   through ``stylize_reconet``, K1 10 and K2 2 launches a forward; then
    full-width AdaAttN (VGG19 seed 0, AdaAttN seed 1), 512² batch 2 bf16
    softmax, through ``stylize_adaattn`` and ``adaattn_style_state`` +
    ``stylize_adaattn_cached``, and ``AdaAttNVideoStylizer`` over 512×256
@@ -68,11 +70,14 @@ result line):
    training levels as ``ms_f32`` (with TFLOP/s and the executed-work
    factor per level) beside ``bound_ms_f32`` (3xTF32 peak)
    and ``library_ms_f32`` (SDPA in f32, TF32 off); the f32 K1 and K2 at
-   the bf16 rows' shapes beside cuDNN in f32, TF32 off); K3's (bf16 and
+   the bf16 rows' shapes beside their plain versions and cuDNN in f32,
+   TF32 off, in benchmark mode and the faster of NCHW and channels_last);
+   K3's (bf16 and
    f32) and K4/K5's executed-work factor per level is logged, from the
    slice widths the built library reports;
 7. profile: device time by kernel over two forwards (train steps) of each
-   main path (torch.profiler) and the device's busy share of that window.
+   main path, ReCoNet in bf16 and f32 (torch.profiler), and the device's
+   busy share of that window.
 
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card and
 the CUDA toolkit (nvcc); no network, no cv2, no PIL.
@@ -89,6 +94,13 @@ device time by kernel.  It calls only the K3-K5 wrappers and the image
 step builder, whose interfaces date from the port's training slice, so a
 copy of this script placed beside an older checkout's ``vst_tpu_torch``
 measures that checkout the same way.
+
+    python3 chip_smoke.py --f32-reconet
+
+does the same for the f32 ReCoNet 512² b8 batch: the f32 K1 and K2 per
+launch, the batch's time with its launch counts, and its device time by
+kernel; it calls only ``stylize_reconet``, ``init_reconet`` and the K1/K2
+wrappers, whose interfaces date from the port's first slice.
 """
 
 import contextlib
@@ -266,18 +278,22 @@ def phase_build():
     for name in _build.KERNELS:
         _build.load(name)
     k1 = _build.load("res_block").vst_k1_launch_config
-    k1.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    k1.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     k2 = _build.load("head_conv").vst_k2_launch_config
-    k2.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    for c in sorted({s[3] for s in K1_BF16.values()}):
-        for pro in (0, 1):
-            n, smem, occ = _wgmma_config(k1, c, c, pro)
-            log(f"  K1 conv3x3_wgmma {c}->{c}{' prologue' if pro else ''}: "
-                f"tile N={n}, dynamic smem {smem} B, {occ} block(s)/SM")
-    for c, co in sorted({s[3:] for s in K2_BF16.values()}):
-        n, smem, occ = _wgmma_config(k2, c, co)
-        log(f"  K2 conv3x3_wgmma {c}->{co}: tile N={n} x {-(-co // n)}, "
-            f"dynamic smem {smem} B, {occ} block(s)/SM")
+    k2.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    for bf16, body in ((1, "conv3x3_wgmma"), (0, "conv3x3_tf32")):
+        shapes = K1_BF16 if bf16 else {**K1_BF16, **K1_F32_ODD}
+        for c, co in sorted({(s[3], s[4] if len(s) > 4 else s[3])
+                             for s in shapes.values()}):
+            for pro in (0, 1):
+                n, smem, occ = _wgmma_config(k1, c, co, pro, bf16)
+                log(f"  K1 {body} {c}->{co}{' prologue' if pro else ''}: "
+                    f"tile N={n}, dynamic smem {smem} B, {occ} block(s)/SM")
+        shapes = K2_BF16 if bf16 else {**K2_BF16, **K2_F32_ODD}
+        for c, co in sorted({s[3:] for s in shapes.values()}):
+            n, smem, occ = _wgmma_config(k2, c, co, bf16)
+            log(f"  K2 {body} {c}->{co}: tile N={n} x {-(-co // n)}, "
+                f"dynamic smem {smem} B, {occ} block(s)/SM")
     k3 = _build.load("adaattn_fwd").vst_k3_launch_config
     k3.argtypes = [ctypes.c_void_p]
     smem, occ, slice_v, smem3, occ3, slice3 = _wgmma_config(k3, size=6)
@@ -317,15 +333,21 @@ K2_BF16 = {"ReCoNet stem": (8, 130, 130, 48, 768),
            "SD2 stem": (8, 130, 130, 48, 256), "SD2 head": (8, 130, 130, 256, 48),
            "stream stem": (8, 92, 162, 48, 768),
            "stream head": (8, 92, 162, 768, 48)}
+# f32 only: channel counts that are not multiples of 4 (the bf16 body
+# takes multiples of 8); K1's shape is (N, H, W, C, Co).
+K1_F32_ODD = {"C6 Co10": (2, 11, 19, 6, 10)}
+K2_F32_ODD = {"C6 Co10": (2, 12, 21, 6, 10)}
 
 
 def k1_inputs(g, dtype, shape=K1_SHAPE):
-    c = shape[3]
-    x = rnd(g, shape, 3.0, dtype)
-    wt = rnd(g, (3, 3, c, c), 0.02, dtype)
-    b = rnd(g, (c,), 0.02, dtype)
-    gamma = rnd(g, (c,), 0.3, shift=1.0)
-    beta = rnd(g, (c,), 0.1)
+    """x (N, H, W, C) and w, b, gamma, beta for Co output channels: shape
+    (N, H, W, C) with Co = C, or (N, H, W, C, Co)."""
+    c, co = shape[3], shape[-1]
+    x = rnd(g, shape[:4], 3.0, dtype)
+    wt = rnd(g, (3, 3, c, co), 0.02, dtype)
+    b = rnd(g, (co,), 0.02, dtype)
+    gamma = rnd(g, (co,), 0.3, shift=1.0)
+    beta = rnd(g, (co,), 0.1)
     return x, wt, b, gamma, beta
 
 
@@ -335,23 +357,25 @@ def k2_inputs(g, shape, dtype):
 
 
 def _k1_check(g, dtype, label, shape, tol):
-    """K1 without and with its prologue against the plain version at
-    ``shape``; in bf16 also a second launch of each, which must give the
-    same bits.  Returns the worst y error."""
+    """K1 without and with its prologue (on the first launch's output and
+    statistics) against the plain version at ``shape``, and a second
+    launch of each, which must give the same bits.  Returns the worst y
+    error."""
     x, wt, b, gamma, beta = k1_inputs(g, dtype, shape)
+    c, co = wt.shape[2:]
+    w2 = wt if c == co else rnd(g, (3, 3, co, co), 0.02, dtype)
     y, s = res_block.conv3x3_in_stats(x, wt, b)
     yp, sp = res_block.conv3x3_in_stats_plain(x, wt, b)
     e1 = check(f"K1 {label} {shape} y", y, yp, tol)
     check(f"K1 {label} stats", s, sp, 1e-4)
-    y2, s2 = res_block.conv3x3_in_stats(y, wt, b, s, gamma, beta)
-    y2p, s2p = res_block.conv3x3_in_stats_plain(y, wt, b, s, gamma, beta)
+    y2, s2 = res_block.conv3x3_in_stats(y, w2, b, s, gamma, beta)
+    y2p, s2p = res_block.conv3x3_in_stats_plain(y, w2, b, s, gamma, beta)
     e2 = check(f"K1 {label} prologue y", y2, y2p, tol)
     check(f"K1 {label} prologue stats", s2, s2p, 1e-4)
-    if dtype == torch.bfloat16:
-        again = (*res_block.conv3x3_in_stats(x, wt, b),
-                 *res_block.conv3x3_in_stats(y, wt, b, s, gamma, beta))
-        if not all(torch.equal(a, r) for a, r in zip(again, (y, s, y2, s2))):
-            raise AssertionError(f"K1 {label}: two launches differ")
+    again = (*res_block.conv3x3_in_stats(x, wt, b),
+             *res_block.conv3x3_in_stats(y, w2, b, s, gamma, beta))
+    if not all(torch.equal(a, r) for a, r in zip(again, (y, s, y2, s2))):
+        raise AssertionError(f"K1 {label}: two launches differ")
     return max(e1, e2)
 
 
@@ -360,30 +384,36 @@ def _k2_check(g, dtype, label, shape, tol):
     yk = head_conv.conv3x3_valid(xk, wk)
     err = check(f"K2 {label} {shape}", yk,
                 head_conv.conv3x3_valid_plain(xk, wk), tol)
-    if dtype == torch.bfloat16 and not torch.equal(
-            yk, head_conv.conv3x3_valid(xk, wk)):
+    if not torch.equal(yk, head_conv.conv3x3_valid(xk, wk)):
         raise AssertionError(f"K2 {label}: two launches differ")
     return err
 
 
 def phase_kernels(g):
-    """K1 and K2 against their plain versions on the same inputs: f32 at
-    the ReCoNet 512² shapes, bf16 at every shape of K1_BF16 and K2_BF16,
-    where a second launch must also give the same bits.  Tolerances: f32
-    1e-4·max|plain| (sums in another order over up to 6912 terms); bf16
-    one bf16 ulp at the output's scale, 2^-7·max|plain| (the f32 sums may
-    round to neighbouring bf16 values); the f32 stats 1e-4·max|plain|."""
+    """K1 and K2 against their plain versions on the same inputs, f32
+    (3xTF32) and bf16, at every shape of K1_BF16 and K2_BF16 and in f32
+    also at channel counts that are not multiples of 4 (K1_F32_ODD,
+    K2_F32_ODD); a second launch must give the same bits.  Tolerances: f32
+    1e-4·max|plain| (sums in another order over up to 6912 terms, and the
+    split's 2^-21-relative products); bf16 one bf16 ulp at the output's
+    scale, 2^-7·max|plain| (the f32 sums may round to neighbouring bf16
+    values); the f32 stats 1e-4·max|plain|."""
     log("[3] kernels against their plain versions")
     apply_precision(torch.float32)
-    _k1_check(g, torch.float32, "f32", K1_SHAPE, 1e-4)
-    for part, (c, co) in K2_SHAPES.items():
-        _k2_check(g, torch.float32, f"f32 {part}", (8, 130, 130, c, co), 1e-4)
+    errs = {"K1 f32": max(_k1_check(g, torch.float32, f"f32 {label}", shape,
+                                    1e-4) for label, shape in
+                          {**K1_BF16, **K1_F32_ODD}.items()),
+            "K2 f32": max(_k2_check(g, torch.float32, f"f32 {label}", shape,
+                                    1e-4) for label, shape in
+                          {**K2_BF16, **K2_F32_ODD}.items())}
     apply_precision(torch.bfloat16)
-    errs = {"K1": max(_k1_check(g, torch.bfloat16, f"bf16 {label}", shape,
-                                BF16_ULP) for label, shape in K1_BF16.items()),
-            "K2": max(_k2_check(g, torch.bfloat16, f"bf16 {label}", shape,
-                                BF16_ULP) for label, shape in K2_BF16.items())}
-    log("  bf16 K1 and K2: a second launch gives the same bits at every shape")
+    errs.update(
+        K1=max(_k1_check(g, torch.bfloat16, f"bf16 {label}", shape, BF16_ULP)
+               for label, shape in K1_BF16.items()),
+        K2=max(_k2_check(g, torch.bfloat16, f"bf16 {label}", shape, BF16_ULP)
+               for label, shape in K2_BF16.items()))
+    log("  f32 and bf16 K1 and K2: a second launch gives the same bits at "
+        "every shape")
     torch.cuda.synchronize()
     return errs
 
@@ -833,6 +863,45 @@ def phase_main_path():
     return {"K1": k1, "K2": k2}
 
 
+def reconet_f32_batch():
+    """The f32 ReCoNet 512² batch 8 through ``stylize_reconet`` from the
+    same seeded ``init_reconet(0)`` weights as the bf16 path (the dtype a
+    reference .pth or a JAX .npz loads in): one warmup and 5 timed
+    batches, launch counts set to 0 just before and read just after.
+    Returns (median ms, the runs, the counts)."""
+    apply_precision(torch.float32)
+    model = init_reconet(0, device="cuda")
+    x = np.random.default_rng(2).integers(0, 256, (8, 512, 512, 3)).astype(
+        np.uint8)
+    reset_counts()
+    out = stylize_reconet(model, x, uint8_out=True)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        stylize_reconet(model, x, uint8_out=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = counts()
+    if out.shape != (8, 512, 512, 3) or out.dtype != torch.uint8:
+        raise AssertionError(f"f32 uint8 wire: {tuple(out.shape)} {out.dtype}")
+    return float(np.median(times)), times, launches
+
+
+def phase_main_f32():
+    """Full-width ReCoNet, 512² batch 8 float32: K1 10 and K2 2 launches
+    per forward, nothing else."""
+    log("[5] main path: ReCoNet 48/96/192, f32")
+    ms, times, launches = reconet_f32_batch()
+    log(f"  launches: K1-K5 {launches} over 6 forwards")
+    if launches != (60, 12, 0, 0, 0):
+        raise AssertionError(f"expected K1 60, K2 12, K3-K5 0 launches, got "
+                             f"{launches}")
+    log(f"  512² b8 f32 stylize_reconet: {ms:.3f} ms/batch (median of 5) "
+        f"→ {8e3 / ms:.1f} frames/s; runs {[round(t, 3) for t in times]}")
+    return {"K1": launches[0], "K2": launches[1]}
+
+
 ADA_SIZE = 512
 ADA_FRAMES = (256, 512)   # video frames, H × W
 ADA_CLIP = 24
@@ -1030,6 +1099,8 @@ def phase_timing(launches, errs, slice_v):
           "source": "vst_tpu_torch/kernels/csrc/res_block.cu",
           "replaces": "vst_tpu/kernels/res_block.py:38",
           "launches": launches["K1"], "max_abs_err": errs["K1"],
+          "max_abs_err_f32": errs["K1 f32"],
+          "launches_by_path": launches["K1 by path"],
           "ms": 5 * (t["k"] + t["k_pro"]),
           "plain_ms": 5 * (t["p"] + t["p_pro"]),
           "bound_ms": 5 * (b1 + b1_pro), "bound_by": by1,
@@ -1050,6 +1121,8 @@ def phase_timing(launches, errs, slice_v):
           "source": "vst_tpu_torch/kernels/csrc/head_conv.cu",
           "replaces": "vst_tpu/kernels/head_conv.py:33",
           "launches": launches["K2"], "max_abs_err": errs["K2"],
+          "max_abs_err_f32": errs["K2 f32"],
+          "launches_by_path": launches["K2 by path"],
           "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
           "library_ms": 0.0,
           "per": "one 512x512 batch-8 bf16 forward: the packed stem "
@@ -1085,14 +1158,37 @@ def phase_timing(launches, errs, slice_v):
     return [k1, k2, timing_k3(launches["K3"], errs["K3"], slice_v)]
 
 
+def cudnn_f32_ms(x_nchw, w_oihw, b=None):
+    """The fair library yardstick of an f32 K1/K2 launch: cuDNN's
+    ``F.conv2d`` in f32 (TF32 off) with ``torch.backends.cudnn.benchmark``
+    set only around this timing, in the NCHW and the channels_last layout;
+    returns (the faster's ms, its layout, both ms)."""
+    was = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        ms = {}
+        for layout, fmt in (("NCHW", torch.contiguous_format),
+                            ("channels_last", torch.channels_last)):
+            xl = x_nchw.contiguous(memory_format=fmt)
+            wl = w_oihw.contiguous(memory_format=fmt)
+            ms[layout] = event_ms(lambda: F.conv2d(xl, wl, b), 5, 2)
+            del xl, wl
+    finally:
+        torch.backends.cudnn.benchmark = was
+    best = min(ms, key=ms.get)
+    return ms[best], best, ms
+
+
 def timing_f32_convs(g, k1, k2):
     """f32 K1 (without and with its prologue) and f32 K2 (packed stem and
-    head) at the bf16 rows' 512² batch-8 shapes (the f32 ReCoNet forward of
-    [4] runs both bodies), beside cuDNN ``F.conv2d`` in f32 with TF32 off,
-    per forward as the bf16 rows; event time over 5 launches after 1.
-    Bound in the f32 K3-K5 columns' convention: FLOPs over 3xTF32's 495 /
-    3 TFLOP/s, bytes (float32) over 3.35 TB/s.  Added to the rows as
-    ``ms_f32``, ``bound_ms_f32``, ``library_ms_f32``."""
+    head), both 3xTF32 on wgmma, at the bf16 rows' 512² batch-8 shapes
+    (the f32 ReCoNet forward of [4] and [5] runs both bodies), beside
+    cuDNN's f32 conv in benchmark mode in the faster of NCHW and
+    channels_last (``cudnn_f32_ms``), per forward as the bf16 rows; event
+    time over 5 launches after 1.  Bound in the f32 K3-K5 columns'
+    convention: FLOPs over 3xTF32's 495 / 3 TFLOP/s, bytes (float32) over
+    3.35 TB/s.  Added to the rows as ``ms_f32``, ``bound_ms_f32``,
+    ``library_ms_f32`` (with TFLOP/s and the layout)."""
     dt = torch.float32
     apply_precision(dt)
     x, wt, b, gamma, beta = k1_inputs(g, dt)
@@ -1101,38 +1197,64 @@ def timing_f32_convs(g, k1, k2):
     tk = event_ms(lambda: res_block.conv3x3_in_stats(x, wt, b), 5, 1)
     tk_pro = event_ms(lambda: res_block.conv3x3_in_stats(
         y, wt, b, s, gamma, beta), 5, 1)
-    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").contiguous(
-        memory_format=torch.channels_last)
-    w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    tl = event_ms(lambda: F.conv2d(xp, w_oihw, b), 5, 1)
+    tp = event_ms(lambda: res_block.conv3x3_in_stats_plain(x, wt, b), 5, 1)
+    tp_pro = event_ms(lambda: res_block.conv3x3_in_stats_plain(
+        y, wt, b, s, gamma, beta), 5, 1)
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    tl, layout, both = cudnn_f32_ms(xp, wt.permute(3, 2, 0, 1), b)
+    del xp
     flops = 2 * 9 * c * c * n * h * w
     nbytes = (2 * n * h * w * c + 9 * c * c + c + n * 2 * c) * 4
     b1, _ = bound(flops, nbytes, "tf32x3")
     b1_pro, _ = bound(flops, nbytes + (n * 2 * c + 2 * c) * 4, "tf32x3")
     k1.update(ms_f32=5 * (tk + tk_pro), bound_ms_f32=5 * (b1 + b1_pro),
+              plain_ms_f32=5 * (tp + tp_pro),
               library_ms_f32=10 * tl, ms_f32_per_launch=[tk, tk_pro],
-              library_f32="F.conv2d f32 (cuDNN, TF32 off)")
+              tflops_f32_per_launch=[flops / tk / 1e9, flops / tk_pro / 1e9],
+              bound_share_f32_per_launch=[b1 / tk, b1_pro / tk_pro],
+              library_ms_f32_per_launch=tl,
+              library_tflops_f32=flops / tl / 1e9,
+              library_f32=f"F.conv2d f32 (cuDNN, TF32 off, benchmark mode, "
+                          f"{layout}; NCHW {both['NCHW']:.4f}, channels_last "
+                          f"{both['channels_last']:.4f} ms)")
     log(f"  K1 f32 ms per launch: kernel {tk:.4f}, with prologue "
         f"{tk_pro:.4f} ({flops / tk / 1e9:.1f} / {flops / tk_pro / 1e9:.1f} "
-        f"TFLOP/s); cuDNN f32 conv {tl:.4f}; bound {b1:.4f} / {b1_pro:.4f}")
+        f"TFLOP/s; bound share {b1 / tk:.3f} / {b1_pro / tk_pro:.3f}); plain "
+        f"{tp:.4f} / {tp_pro:.4f}; cuDNN "
+        f"f32 conv {tl:.4f} ({flops / tl / 1e9:.1f} TFLOP/s, {layout}; NCHW "
+        f"{both['NCHW']:.4f}, channels_last {both['channels_last']:.4f}); "
+        f"bound {b1:.4f} / {b1_pro:.4f}")
     k2.update(ms_f32=0.0, bound_ms_f32=0.0, library_ms_f32=0.0,
-              ms_f32_per_launch=[], library_f32="F.conv2d f32 (cuDNN, TF32 off)")
+              plain_ms_f32=0.0,
+              ms_f32_per_launch=[], tflops_f32_per_launch=[],
+              bound_share_f32_per_launch=[], library_ms_f32_per_launch=[],
+              library_f32=[])
     for part, (c2, co) in K2_SHAPES.items():
         xk, wk = k2_inputs(g, (8, 130, 130, c2, co), dt)
         tk = event_ms(lambda: head_conv.conv3x3_valid(xk, wk), 5, 1)
-        xl = xk.permute(0, 3, 1, 2)
-        wl = wk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        tl = event_ms(lambda: F.conv2d(xl, wl), 5, 1)
+        tp = event_ms(lambda: head_conv.conv3x3_valid_plain(xk, wk), 5, 1)
+        tl, layout, both = cudnn_f32_ms(xk.permute(0, 3, 1, 2),
+                                        wk.permute(3, 2, 0, 1))
         flops2 = 2 * 9 * c2 * co * 8 * 128 * 128
         bb, _ = bound(flops2, (8 * 130 * 130 * c2 + 9 * c2 * co
                                + 8 * 128 * 128 * co) * 4, "tf32x3")
         log(f"  K2 f32 {part} ms: kernel {tk:.4f} ({flops2 / tk / 1e9:.1f} "
-            f"TFLOP/s), cuDNN f32 conv {tl:.4f}, bound {bb:.4f}")
+            f"TFLOP/s, bound share {bb / tk:.3f}), plain {tp:.4f}, cuDNN "
+            f"f32 conv {tl:.4f} "
+            f"({flops2 / tl / 1e9:.1f} TFLOP/s, {layout}; NCHW "
+            f"{both['NCHW']:.4f}, channels_last {both['channels_last']:.4f}), "
+            f"bound {bb:.4f}")
         k2["ms_f32"] += tk
         k2["library_ms_f32"] += tl
+        k2["plain_ms_f32"] += tp
         k2["bound_ms_f32"] += bb
         k2["ms_f32_per_launch"].append(tk)
-        del xk, wk, xl, wl
+        k2["tflops_f32_per_launch"].append(flops2 / tk / 1e9)
+        k2["bound_share_f32_per_launch"].append(bb / tk)
+        k2["library_ms_f32_per_launch"].append(tl)
+        k2["library_f32"].append(
+            f"{part}: F.conv2d f32 (cuDNN, TF32 off, benchmark mode, {layout})")
+        del xk, wk
     apply_precision(torch.bfloat16)
 
 
@@ -1435,6 +1557,11 @@ def phase_profile():
     x = rng.integers(0, 256, (8, 512, 512, 3)).astype(np.uint8)
     _profile("ReCoNet 512² b8 bf16",
              lambda: stylize_reconet(model, x, uint8_out=True))
+    apply_precision(torch.float32)
+    model32 = init_reconet(0, device="cuda")
+    _profile("ReCoNet 512² b8 f32",
+             lambda: stylize_reconet(model32, x, uint8_out=True))
+    del model32
     vgg, net = _ada_models(0, 1, dt)
     c, s = (rng.integers(0, 256, (K3_BATCH, ADA_SIZE, ADA_SIZE, 3))
             .astype(np.uint8) for _ in range(2))
@@ -1477,20 +1604,59 @@ def phase_f32_step():
              lambda: step(state, batch), top=24)
 
 
+def phase_f32_reconet():
+    """``--f32-reconet``: the f32 K1 (without and with its prologue) and K2
+    (stem, head) per launch at the 512² b8 shapes (event time over 5
+    launches after 1), the f32 batch of [5] (``reconet_f32_batch``, launch
+    counts asserted) and its device time by kernel over two batches."""
+    log("[f32] ReCoNet 512² b8 float32, broken down")
+    log(f"  build: {_build.build_all():.2f} s")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dt = torch.float32
+    apply_precision(dt)
+    x, wt, b, gamma, beta = k1_inputs(g, dt)
+    y, s = res_block.conv3x3_in_stats(x, wt, b)
+    ms = [event_ms(lambda: res_block.conv3x3_in_stats(x, wt, b), 5, 1),
+          event_ms(lambda: res_block.conv3x3_in_stats(y, wt, b, s, gamma,
+                                                      beta), 5, 1)]
+    del x, y
+    for c, co in K2_SHAPES.values():
+        xk, wk = k2_inputs(g, (8, 130, 130, c, co), dt)
+        ms.append(event_ms(lambda: head_conv.conv3x3_valid(xk, wk), 5, 1))
+        del xk, wk
+    log(f"  f32 ms per launch: K1 {ms[0]:.4f}, with prologue {ms[1]:.4f}; K2 "
+        f"stem {ms[2]:.4f}, head {ms[3]:.4f}; per forward K1 "
+        f"{5 * (ms[0] + ms[1]):.4f}, K2 {ms[2] + ms[3]:.4f}")
+    batch_ms, times, launches = reconet_f32_batch()
+    log(f"  512² b8 f32 stylize_reconet: {batch_ms:.3f} ms/batch (median of "
+        f"5) → {8e3 / batch_ms:.1f} frames/s; runs "
+        f"{[round(t, 3) for t in times]}; launches K1-K5 {launches} over 6 "
+        f"forwards")
+    if launches != (60, 12, 0, 0, 0):
+        raise AssertionError(f"launches {launches}")
+    model = init_reconet(0, device="cuda")
+    frames = np.random.default_rng(4).integers(0, 256, (8, 512, 512, 3)).astype(
+        np.uint8)
+    _profile("ReCoNet 512² b8 f32",
+             lambda: stylize_reconet(model, frames, uint8_out=True))
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("error: no CUDA device; chip_smoke.py runs only on a GPU",
               file=sys.stderr)
         return 1
     parent = argv[1] if len(argv) == 2 and argv[0] == "--parent" else None
-    if argv not in ([], ["--f32-step"]) and parent is None:
-        print(f"usage: chip_smoke.py [--f32-step | --parent DIR]; got {argv}",
-              file=sys.stderr)
+    alone = {"--f32-step": phase_f32_step, "--f32-reconet": phase_f32_reconet}
+    if not (argv == [] or (len(argv) == 1 and argv[0] in alone)
+            or parent is not None):
+        print(f"usage: chip_smoke.py [--f32-step | --f32-reconet | --parent "
+              f"DIR]; got {argv}", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     smi = phase_card()
-    if argv == ["--f32-step"]:
-        phase_f32_step()
+    if len(argv) == 1:
+        alone[argv[0]]()
         log(f"wall {time.perf_counter() - t0:.1f} s")
         log(smi)
         return 0
@@ -1501,7 +1667,11 @@ def main(argv):
     errs.update(phase_kernels_k3(g))
     errs.update(phase_kernels_k45(g, started and parent_k5(started)))
     phase_model()
-    launches = phase_main_path()
+    bf16, f32 = phase_main_path(), phase_main_f32()
+    launches = {k: bf16[k] + f32[k] for k in ("K1", "K2")}
+    for k in ("K1", "K2"):
+        launches[f"{k} by path"] = {"ReCoNet bf16": bf16[k],
+                                    "ReCoNet f32": f32[k]}
     launches["K3"] = phase_main_adaattn()
     train = phase_main_train()
     by_path = {"serving": launches["K3"], "training": train["K3"]}

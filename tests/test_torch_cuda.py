@@ -65,12 +65,11 @@ def test_k2(cuda, c, co, dtype, tol):
     assert head_conv.conv3x3_valid.launches == before + 1
 
 
-def _k1_bf16_inputs(cuda, n, h, wd, c, co, seed=0):
+def _k1_inputs(cuda, n, h, wd, c, co, dtype=torch.bfloat16, seed=0):
     g = torch.Generator(device=cuda).manual_seed(seed)
-    bf = torch.bfloat16
-    x = (torch.randn(n, h, wd, c, device=cuda, generator=g) * 3).to(bf)
-    w = (torch.randn(3, 3, c, co, device=cuda, generator=g) * 0.05).to(bf)
-    b = (torch.randn(co, device=cuda, generator=g) * 0.05).to(bf)
+    x = (torch.randn(n, h, wd, c, device=cuda, generator=g) * 3).to(dtype)
+    w = (torch.randn(3, 3, c, co, device=cuda, generator=g) * 0.05).to(dtype)
+    b = (torch.randn(co, device=cuda, generator=g) * 0.05).to(dtype)
     stats = torch.stack([torch.randn(n, c, device=cuda, generator=g),
                          torch.rand(n, c, device=cuda, generator=g) * 9 + 1], 1)
     gm = torch.rand(c, device=cuda, generator=g) + 0.5
@@ -90,7 +89,7 @@ def test_k1_bf16_shapes(cuda, n, h, wd, c, co, prologue):
     """The wgmma K1 at the model's widths, the stream's ragged size and
     tiles that overhang the image: y to one bf16 ulp of its scale, the
     float32 stats to 1e-3."""
-    x, w, b, pro = _k1_bf16_inputs(cuda, n, h, wd, c, co)
+    x, w, b, pro = _k1_inputs(cuda, n, h, wd, c, co)
     kw = dict(zip(("stats_in", "gamma", "beta"), pro)) if prologue else {}
     y, s = res_block.conv3x3_in_stats(x, w, b, **kw)
     yp, sp = res_block.conv3x3_in_stats_plain(x, w, b, **kw)
@@ -123,7 +122,7 @@ def test_k2_bf16_one_row_and_narrow(cuda, hp, wp):
 def test_k1_k2_bf16_deterministic(cuda):
     """Two launches on the same inputs give the same bits: y and stats of
     K1 with and without the prologue, and K2."""
-    x, w, b, (st, gm, bt) = _k1_bf16_inputs(cuda, 2, 40, 56, 192, 192)
+    x, w, b, (st, gm, bt) = _k1_inputs(cuda, 2, 40, 56, 192, 192)
     for kw in ({}, dict(stats_in=st, gamma=gm, beta=bt)):
         (y1, s1), (y2, s2) = (res_block.conv3x3_in_stats(x, w, b, **kw)
                               for _ in range(2))
@@ -136,19 +135,74 @@ def test_k1_k2_bf16_deterministic(cuda):
 
 def test_k1_partial_blocks_follow_the_library(cuda):
     """The scratch for K1's partial sums is sized by the library's own
-    count, which differs between the f32 (64-pixel) and the bf16 (8 x 16)
-    tiles: at 9 x 17 bf16 needs 4 blocks where f32 needs 3."""
-    assert res_block.partial_blocks(9, 17, True) == 4
-    assert res_block.partial_blocks(9, 17, False) == 3
-    assert res_block.partial_blocks(128, 128, True) == 128
-    assert res_block.partial_blocks(128, 128, False) == 256
+    count, one per 8 x 16 tile in both dtypes: 4 blocks at 9 x 17, 128 at
+    128 x 128."""
+    assert res_block.partial_blocks(9, 17) == 4
+    assert res_block.partial_blocks(128, 128) == 128
     for dtype, tol in ((torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-4)):
-        x, w, b, _ = _k1_bf16_inputs(cuda, 3, 9, 17, 64, 64)
-        x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+        x, w, b, _ = _k1_inputs(cuda, 3, 9, 17, 64, 64, dtype)
         y, s = res_block.conv3x3_in_stats(x, w, b)
         yp, sp = res_block.conv3x3_in_stats_plain(x, w, b)
         _close(y, yp, tol)
         torch.testing.assert_close(s, sp, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("n,h,wd,c,co", [
+    (2, 128, 128, 192, 192),   # ReCoNet's residual stack (one 192-wide tile)
+    (2, 128, 128, 64, 64),     # SD1/SD2's residual stack
+    (1, 90, 160, 192, 192),    # the 640x360 stream
+    (1, 2, 37, 64, 64),        # the least height, a ragged width
+    (2, 9, 5, 192, 192),       # a width below one tile
+    (2, 11, 19, 6, 10),        # C and Co not multiples of 4
+])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_k1_f32_shapes(cuda, n, h, wd, c, co, prologue):
+    """The 3xTF32 K1 at the bf16 shapes and at channel counts the bf16
+    body refuses: y and the stats within 1e-4 of their scale; a second
+    launch gives the same bits."""
+    x, w, b, pro = _k1_inputs(cuda, n, h, wd, c, co, torch.float32)
+    kw = dict(zip(("stats_in", "gamma", "beta"), pro)) if prologue else {}
+    y, s = res_block.conv3x3_in_stats(x, w, b, **kw)
+    yp, sp = res_block.conv3x3_in_stats_plain(x, w, b, **kw)
+    _close(y, yp, 1e-4)
+    _close(s, sp, 1e-4)
+    y2, s2 = res_block.conv3x3_in_stats(x, w, b, **kw)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.parametrize("n,hp,wp,c,co", [
+    (1, 130, 130, 48, 768), (1, 130, 130, 768, 48),   # ReCoNet stem, head
+    (1, 130, 130, 48, 512), (1, 130, 130, 512, 48),   # SD1
+    (1, 130, 130, 48, 256), (1, 130, 130, 256, 48),   # SD2
+    (1, 92, 162, 48, 768), (1, 92, 162, 768, 48),     # the 640x360 stream
+    (2, 3, 40, 48, 256), (2, 20, 7, 48, 256),         # one row; narrow
+    (2, 12, 21, 6, 10),                               # C, Co not multiples of 4
+])
+def test_k2_f32_packed_shapes(cuda, n, hp, wp, c, co):
+    """The 3xTF32 K2 at the packed stems and heads: within 1e-4 of the
+    output's scale, and a second launch gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(n, hp, wp, c, device=cuda, generator=g)
+    w = torch.randn(3, 3, c, co, device=cuda, generator=g) * 0.05
+    y = head_conv.conv3x3_valid(x, w)
+    _close(y, head_conv.conv3x3_valid_plain(x, w), 1e-4)
+    assert torch.equal(y, head_conv.conv3x3_valid(x, w))
+
+
+def test_f32_misaligned_input(cuda):
+    """A float32 input that does not start on 16 bytes takes the kernels'
+    scalar staging: the same values as the aligned copy."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    base = torch.randn(1 * 10 * 12 * 8 + 1, device=cuda, generator=g)
+    x = base[1:].view(1, 10, 12, 8)
+    w = torch.randn(3, 3, 8, 16, device=cuda, generator=g) * 0.05
+    b = torch.randn(16, device=cuda, generator=g) * 0.05
+    assert x.data_ptr() % 16
+    assert torch.equal(head_conv.conv3x3_valid(x, w),
+                       head_conv.conv3x3_valid(x.clone(), w))
+    y, s = res_block.conv3x3_in_stats(x, w, b)
+    ya, sa = res_block.conv3x3_in_stats(x.clone(), w, b)
+    assert torch.equal(y, ya) and torch.equal(s, sa)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

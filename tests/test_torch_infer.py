@@ -143,6 +143,38 @@ def test_cli_end_to_end_cpu(tmp_path, capsys, extra, width):
     assert Image.open(dumped[0]).size == (width, 24)
 
 
+def test_cli_frames_ext_png_is_lossless(tmp_path):
+    """--frames-ext png dumps exactly the frames stylize_reconet gives for
+    the decoded, resized input (one frame a batch, from a written .npz of
+    seeded weights); without the flag the dump stays .jpg, as in JAX."""
+    from PIL import Image
+    from vst_tpu.models.reconet import init_reconet
+    from vst_tpu.train.checkpoint import save_params
+    from vst_tpu_torch.cli import infer_video
+    from vst_tpu_torch.infer.image import stylize_reconet
+    from vst_tpu_torch.infer.video import frames_from_source
+
+    video = _mjpg(tmp_path / "in.avi", n=3)
+    weights = str(tmp_path / "reconet.npz")
+    save_params(init_reconet(0), weights)
+    common = ["--model", "reconet", "--weights", weights, "--video", video,
+              "--size", "32", "24", "--batch-size", "1", "--device", "cpu"]
+    infer_video.main(common + ["--frames-dir", str(tmp_path / "png"),
+                               "--frames-ext", "png"])
+    dumped = sorted((tmp_path / "png").iterdir())
+    assert [f.name for f in dumped] == ["00000.png", "00001.png", "00002.png"]
+    model = infer_video._load_model("reconet", weights, 1, torch.device("cpu"))
+    frames = list(frames_from_source(video, (32, 24), "linear"))
+    assert len(frames) == 3
+    for f, frame in zip(dumped, frames):
+        ref = stylize_reconet(model, np.asarray(frame)[None], uint8_out=True)
+        np.testing.assert_array_equal(np.asarray(Image.open(f)),
+                                      ref[0].numpy())
+    infer_video.main(common + ["--frames-dir", str(tmp_path / "jpg")])
+    assert sorted(f.name for f in (tmp_path / "jpg").iterdir()) == [
+        "00000.jpg", "00001.jpg", "00002.jpg"]
+
+
 def test_native_decoder_matches_jax_binding(tmp_path):
     """The port's own ctypes binding decodes what vst_tpu's does (both are
     None when native/libvstvideo.so is not built)."""

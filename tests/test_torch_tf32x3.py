@@ -1,6 +1,7 @@
 """The 3xTF32 split of the port's float32 K3, K4 and K5
 (``csrc/adaattn_fwd.cu`` ``attn_fwd_tf32``, ``csrc/adaattn_bwd.cu``
-``attn_dq_tf32`` and ``attn_dkv_tf32``), emulated in torch on the CPU: the
+``attn_dq_tf32`` and ``attn_dkv_tf32``) and of the float32 K1 and K2
+(``csrc/conv3x3_tf32.cuh``), emulated in torch on the CPU: the
 kernels' arithmetic without the card.  Each operand
 x of a product is split as the kernels split it, big = tf32(x) and small
 = tf32(x − big), both rounded to nearest with ties away from zero
@@ -11,8 +12,9 @@ float32, in the kernel's order.  K5's stages are 32 columns of d or c, and
 one 64-query tile in the output products; K4's the same with queries and
 keys swapped (one 64-key tile in dS·K); K3's are 32 columns of d for S
 and one 64-key tile for P·V and P·W, whose partial is added as M = M·α +
-partial after the online softmax's rescale.  The emulation lives here, not
-in the package.
+partial after the online softmax's rescale; K1's and K2's one (32-channel
+chunk, tap) pair, chunk by chunk and in each the nine taps.  The
+emulation lives here, not in the package.
 
 dQ, dK and dV, and K3's M1, M2 and L, are held within 1e-4 of each
 output's scale (L within 1e-5 of max|L|) against the Pallas kernels in
@@ -24,8 +26,12 @@ tolerance.  At std 100 (the card test's q, k × 10) float32 itself is off
 the exact value by nearly the tolerance, and the emulation may lie on the
 other side of it, so there the emulation is held against the same
 formulas evaluated in float64 (the plain versions on float64 inputs), as
-the card tests hold the kernels.
+the card tests hold the kernels.  The conv emulation is held within 1e-4
+of each output's scale against the Pallas K1 and K2 in interpret mode and
+against the float64 evaluation.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -33,9 +39,13 @@ import numpy as np
 import pytest
 import torch
 
+from vst_tpu.kernels import res_block as jrb
 from vst_tpu.kernels import softmax_attention_moments_pallas
 from vst_tpu.kernels.adaattn_attention import _forward as j_forward
+from vst_tpu.kernels.head_conv import conv3x3_valid_pallas
 from vst_tpu_torch.kernels import adaattn_attention as att
+from vst_tpu_torch.kernels import head_conv, res_block
+from vst_tpu_torch.ops.pad import reflection_pad2d
 
 SHAPES = [(2, 300, 520, 96, 64),    # ragged n and m, d and c under a slice
           (2, 64, 64, 448, 256)]    # relu3_1's d and c
@@ -222,3 +232,91 @@ def test_k4_split_meets_the_card_tolerance(rng, b, n, m, d, c, std):
             q.double(), k.double(), v.double(), lse, dd, w1.double(),
             w2.double())
     assert _rel(dq, ref) <= 1e-4, _rel(dq, ref)
+
+
+KC = 32    # channels of a conv stage: one 128-byte row of float32
+
+
+def conv3x3_tf32x3(x, w, b=None, stats_in=None, gamma=None, beta=None):
+    """The f32 K2 (``b`` None: VALID over the packed input) or K1 (reflect
+    padding, bias, per-image mean and biased variance, with the prologue
+    relu((x − mean)·scale + beta) in float32 when ``stats_in`` is given),
+    as the card computes it: input and weights split, and per 32-channel
+    chunk and, in it, per tap a fresh partial of the 3xTF32 products
+    (small terms first) added to the accumulator in float32; then the
+    bias, and the statistics from the float32 result."""
+    v = x
+    if stats_in is not None:
+        mean, scale, bt = res_block._prologue(stats_in, gamma, beta)
+        v = torch.relu((x - mean[:, None, None, :]) * scale[:, None, None, :]
+                       + bt)
+    if b is not None:
+        v = reflection_pad2d(v, 1)
+    n, hp, wp, c = v.shape
+    ho, wo = hp - 2, wp - 2
+    (vb, vs), (wb, ws) = split(v), split(w)
+    acc = torch.zeros((n, ho, wo, w.shape[3]), dtype=torch.float32)
+    for c0 in range(0, c, KC):
+        k = slice(c0, c0 + KC)
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            ab = vb[:, dy:dy + ho, dx:dx + wo, k]
+            as_ = vs[:, dy:dy + ho, dx:dx + wo, k]
+            part = as_ @ wb[dy, dx, k] + ab @ ws[dy, dx, k]
+            acc = acc + (part + ab @ wb[dy, dx, k])
+    if b is None:
+        return acc
+    y = acc + b
+    hw = float(ho * wo)
+    mean = y.sum(dim=(1, 2)) / hw
+    var = (y * y).sum(dim=(1, 2)) / hw - mean * mean
+    return y, torch.stack([mean, var], dim=1)
+
+
+def _conv_inputs(rng, n, h, wd, c, co, scale=1.0):
+    x = rng.standard_normal((n, h, wd, c)) * scale
+    w = rng.standard_normal((3, 3, c, co)) * 0.05
+    b = rng.standard_normal(co) * 0.05
+    stats = np.stack([rng.standard_normal((n, c)), rng.random((n, c)) * 9 + 1],
+                     1)
+    gamma = rng.random(c) + 0.5
+    beta = rng.standard_normal(c)
+    return [torch.from_numpy(a.astype(np.float32))
+            for a in (x, w, b, stats, gamma, beta)]
+
+
+@pytest.mark.parametrize("n,hp,wp,c,co", [(2, 10, 18, 48, 64),   # a stem's C
+                                          (1, 11, 21, 40, 24),   # ragged chunk
+                                          (1, 6, 9, 6, 10)])     # C, Co % 4 ≠ 0
+def test_k2_split_meets_the_card_tolerance(rng, n, hp, wp, c, co):
+    x, w = _conv_inputs(rng, n, hp, wp, c, co)[:2]
+    y = conv3x3_tf32x3(x, w)
+    assert y.shape == (n, hp - 2, wp - 2, co)
+    ref = torch.from_numpy(np.asarray(conv3x3_valid_pallas(
+        jnp.asarray(x.numpy()), jnp.asarray(w.numpy()),
+        bh=math.gcd(hp - 2, 8), interpret=True)))
+    assert _rel(y, ref) <= 1e-4, _rel(y, ref)
+    exact = head_conv.conv3x3_valid_plain(x.double(), w.double())
+    assert exact.dtype == torch.float64
+    assert _rel(y, exact) <= 1e-4, _rel(y, exact)
+
+
+@pytest.mark.parametrize("n,h,wd,c,co", [(2, 10, 18, 40, 24),
+                                         (1, 9, 17, 6, 10)])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_k1_split_meets_the_card_tolerance(rng, n, h, wd, c, co, prologue):
+    x, w, b, stats, gamma, beta = _conv_inputs(rng, n, h, wd, c, co, 3.0)
+    kw = dict(stats_in=stats, gamma=gamma, beta=beta) if prologue else {}
+    y, s = conv3x3_tf32x3(x, w, b, **kw)
+    assert y.shape == (n, h, wd, co) and s.shape == (n, 2, co)
+    yj, sj = jrb.conv3x3_in_stats(
+        *(jnp.asarray(t.numpy()) for t in (x, w, b)),
+        **{k: jnp.asarray(v.numpy()) for k, v in kw.items()}, interpret=True)
+    exact = res_block.conv3x3_in_stats_plain(
+        x.double(), w.double(), b.double(),
+        **{k: v.double() for k, v in kw.items()})
+    assert exact[0].dtype == exact[1].dtype == torch.float64
+    for ref in ((torch.from_numpy(np.asarray(yj)),
+                 torch.from_numpy(np.asarray(sj))), exact):
+        assert _rel(y, ref[0]) <= 1e-4, _rel(y, ref[0])
+        assert _rel(s, ref[1]) <= 1e-4, _rel(s, ref[1])

@@ -75,7 +75,10 @@ def build_parser():
                         "512 256)")
     p.add_argument("--out", help="output video path (.mp4); omit to only "
                                  "report fps")
-    p.add_argument("--frames-dir", help="also dump frames here (jpg)")
+    p.add_argument("--frames-dir", help="also dump frames here")
+    p.add_argument("--frames-ext", default="jpg", choices=["jpg", "png"],
+                   help="frame dump format (jpg as the reference's "
+                        "AdaAttN/infer_video.py; png is lossless)")
     p.add_argument("--show", action="store_true",
                    help="live cv2 playback window, 'q' quits")
     p.add_argument("--wire", default="rgb", choices=["rgb", "i420"],
@@ -175,8 +178,8 @@ def main(argv=None):
         if writer is not None:
             writer.put(np.asarray(frame))
         if args.frames_dir:
-            save_image_255(frame, os.path.join(args.frames_dir,
-                                               f"{count - 1:05d}.jpg"))
+            save_image_255(frame, os.path.join(
+                args.frames_dir, f"{count - 1:05d}.{args.frames_ext}"))
         if show:
             cv2.imshow("stylized", np.asarray(frame)[..., ::-1])  # RGB→BGR
             if cv2.waitKey(1) & 0xFF == ord("q"):

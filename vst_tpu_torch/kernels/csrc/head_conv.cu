@@ -15,35 +15,49 @@
 //   by blocks that run together), the head C=768 -> Co=48
 //   (a 48-wide tile, no zero columns, of 16 x 16 pixels, so each stage
 //   does twice the work of a 128-pixel tile).
+// - float32 runs on conv3x3_tf32 (conv3x3_tf32.cuh), the same tiling as
+//   3xTF32 wgmma (tiles of at most 192 output channels: the stem's 768 in
+//   four, the head's 48 in one), the halo split into tf32 parts in shared
+//   memory, the weights by a pre-pass per launch into scratch the wrapper
+//   allocates (vst_k2_weight_floats).
 // - The packed head carries 1.78x the arithmetic of the 9x9 conv as
 //   structural zeros.  That is the JAX package's choice, kept here.
 //
 // Bound on the H100 at 512^2 batch 8 bf16: 87.0 GFLOP per launch, stem and
 // head alike, against about 214 MB for the stem (mostly its output) and
 // 221 MB for the head (mostly its 208 MB packed input), so operations
-// bound it (0.088 ms at 989 TFLOP/s against 0.066 ms for the bytes).
-// float32 runs on the CUDA cores (conv3x3_f32).
-#include "conv3x3_wgmma.cuh"
+// bound it (0.088 ms at 989 TFLOP/s against 0.066 ms for the bytes); in
+// float32 twice the bytes against 0.53 ms at 3xTF32's 495 / 3 TFLOP/s.
+#include "conv3x3_tf32.cuh"   // and conv3x3_wgmma.cuh
 
-// bf16 launch configuration for (C, Co): out = {output-channel tile,
-// dynamic shared memory bytes, resident blocks per SM}.  Returns a CUDA
-// error code (0 on success).
-extern "C" int vst_k2_launch_config(int c, int co, int* out) {
-  return static_cast<int>(vst::wg::config<false, false, false>(c, co, out));
+// Floats of the float32 launch's weight scratch for (C, Co).
+extern "C" long long vst_k2_weight_floats(int c, int co) {
+  return vst::tf::weight_floats(c, co);
 }
 
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int vst_k2_conv3x3_valid(const void* x, const void* w, void* y,
-                                    int n, int hp, int wp, int c, int co,
-                                    int bf16, void* stream) {
+// Launch configuration for (C, Co) in bf16 or float32: out = {output-channel
+// tile, dynamic shared memory bytes, resident blocks per SM}.  Returns a
+// CUDA error code (0 on success).
+extern "C" int vst_k2_launch_config(int c, int co, int bf16, int* out) {
   using namespace vst;
-  const int ho = hp - 2, wo = wp - 2;
+  return static_cast<int>(bf16 ? wg::config<false, false, false>(c, co, out)
+                               : tf::config<false, false, false>(co, out));
+}
+
+// Returns cudaGetLastError() after the launches (0 on success).  bf16 != 0
+// selects __nv_bfloat16 (C and Co multiples of 8), else float32 (any C and
+// Co), which also takes wsplit, a float32 scratch of
+// vst_k2_weight_floats(c, co).
+extern "C" int vst_k2_conv3x3_valid(const void* x, const void* w,
+                                    void* wsplit, void* y, int n, int hp,
+                                    int wp, int c, int co, int bf16,
+                                    void* stream) {
+  using namespace vst;
   ConvArgs a{x, w, nullptr, nullptr, nullptr, nullptr,
-             y, nullptr, hp, wp, ho, wo, c, co};
+             y, nullptr, hp, wp, hp - 2, wp - 2, c, co};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)   // tensor cores; C and Co multiples of 8
-    return static_cast<int>(wg::launch<false, false, false>(a, n, s));
-  const dim3 grid((ho * wo + TM - 1) / TM, (co + TN - 1) / TN, n);
-  conv3x3_f32<false, false, false><<<grid, NT, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      bf16 ? wg::launch<false, false, false>(a, n, s)
+           : tf::launch<false, false, false>(a, static_cast<float*>(wsplit),
+                                             n, s));
 }

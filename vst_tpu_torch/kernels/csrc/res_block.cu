@@ -24,16 +24,22 @@
 //   192 output channels of 128 pixels, so the input is read and the
 //   prologue applied once per pixel per 64-channel chunk; a 192->192 3x3
 //   weight tensor (648 KB) streams through a TMA ring of 64 x 192 stages.
-//   float32 runs on the CUDA cores (conv3x3_f32).
+// - float32 runs on conv3x3_tf32 (conv3x3_tf32.cuh), the same tiling as
+//   3xTF32 wgmma: the halo is split into tf32 parts in shared memory by the
+//   threads that staged it (after the prologue), the weights by a pre-pass
+//   per launch into (part, tap, Co, C) scratch the wrapper allocates
+//   (vst_k1_weight_floats), and every (32-channel chunk, tap) stage is a
+//   fresh partial added in float32.
 // - The prologue's mean, scale = gamma * rsqrt(var + eps) and beta come
 //   from one small launch (prologue_params) on the previous conv's stats.
 //
-// Bound on the H100 at the main path's shape ((8,128,128,192) -> 192,
-// bf16): 87.0 GFLOP against about 101 MB, so the work is bound by
-// operations (0.088 ms at 989 TFLOP/s).  The kernel reaches about half of
-// that rate: its consumers keep wgmma busy, and what is left is the
-// tensor cores' rate on this tile shape plus the epilogue (PERF.md).
-#include "conv3x3_wgmma.cuh"
+// Bound on the H100 at the main path's shape ((8,128,128,192) -> 192):
+// 87.0 GFLOP against about 101 MB in bf16 (0.088 ms at 989 TFLOP/s) and
+// 202 MB in float32 (0.53 ms at 3xTF32's 495 / 3 TFLOP/s): both are bound
+// by operations.  The bf16 body reaches about half of that rate: its
+// consumers keep wgmma busy, and what is left is the tensor cores' rate on
+// this tile shape plus the epilogue (PERF.md).
+#include "conv3x3_tf32.cuh"   // and conv3x3_wgmma.cuh
 
 namespace vst {
 
@@ -75,45 +81,51 @@ __global__ void prologue_params(const float* __restrict__ stats_in,
                            : static_cast<const float*>(beta)[ch];
 }
 
-// Blocks along one image's pixels: the partial sums per image.
-int partial_blocks(int h, int wd, bool bf16) {
-  return bf16 ? wg::tiles(h, wd) : (h * wd + TM - 1) / TM;
-}
-
 template <bool PRO>
-cudaError_t launch(const ConvArgs& a, int n, bool bf16, cudaStream_t s) {
-  if (bf16) return wg::launch<true, PRO, true>(a, n, s);
-  const dim3 grid(partial_blocks(a.h_out, a.w_out, false), (a.co + TN - 1) / TN, n);
-  conv3x3_f32<true, PRO, true><<<grid, NT, 0, s>>>(a);
-  return cudaGetLastError();
+cudaError_t launch(const ConvArgs& a, float* wsplit, int n, bool bf16,
+                   cudaStream_t s) {
+  return bf16 ? wg::launch<true, PRO, true>(a, n, s)
+              : tf::launch<true, PRO, true>(a, wsplit, n, s);
 }
 
 }  // namespace vst
 
 // The number of partial-sum blocks per image that vst_k1_conv3x3_in_stats
-// writes for an (h, wd) image: the scratch is (n, this, 2, co) float32.
-extern "C" int vst_k1_partial_blocks(int h, int wd, int bf16) {
-  return vst::partial_blocks(h, wd, bf16 != 0);
+// writes for an (h, wd) image, in both dtypes (one per 8 x 16 tile): the
+// scratch is (n, this, 2, co) float32.
+extern "C" int vst_k1_partial_blocks(int h, int wd) {
+  return vst::wg::tiles(h, wd);
 }
 
-// bf16 launch configuration for (C, Co): out = {output-channel tile,
-// dynamic shared memory bytes, resident blocks per SM}.  Returns a CUDA
-// error code (0 on success).
-extern "C" int vst_k1_launch_config(int c, int co, int prologue, int* out) {
-  return static_cast<int>(prologue ? vst::wg::config<true, true, true>(c, co, out)
-                                   : vst::wg::config<true, false, true>(c, co, out));
+// Floats of the float32 launch's weight scratch for (C, Co).
+extern "C" long long vst_k1_weight_floats(int c, int co) {
+  return vst::tf::weight_floats(c, co);
+}
+
+// Launch configuration for (C, Co) in bf16 or float32: out = {output-channel
+// tile, dynamic shared memory bytes, resident blocks per SM}.  Returns a
+// CUDA error code (0 on success).
+extern "C" int vst_k1_launch_config(int c, int co, int prologue, int bf16,
+                                    int* out) {
+  using namespace vst;
+  if (bf16)
+    return static_cast<int>(prologue ? wg::config<true, true, true>(c, co, out)
+                                     : wg::config<true, false, true>(c, co, out));
+  return static_cast<int>(prologue ? tf::config<true, true, true>(co, out)
+                                   : tf::config<true, false, true>(co, out));
 }
 
 // Returns cudaGetLastError() after the launches (0 on success).
 // stats_in == nullptr means no prologue; else stats_in (n, 2, c) float32,
 // gamma and beta (c,) float32 or, with gb_bf16, bf16, and pro a float32
 // scratch of 2 * n * c + c.  bf16 != 0 selects __nv_bfloat16 storage (C
-// and Co multiples of 8), else float32.  partial: (n,
-// vst_k1_partial_blocks(h, wd, bf16), 2, co) float32.
+// and Co multiples of 8), else float32 (any C and Co), which also takes
+// wsplit, a float32 scratch of vst_k1_weight_floats(c, co).  partial: (n,
+// vst_k1_partial_blocks(h, wd), 2, co) float32.
 extern "C" int vst_k1_conv3x3_in_stats(
     const void* x, const void* w, const void* b, const void* stats_in,
-    const void* gamma, const void* beta, int gb_bf16, void* pro, void* y,
-    void* partial, void* stats, int n, int h, int wd, int c, int co,
+    const void* gamma, const void* beta, int gb_bf16, void* pro, void* wsplit,
+    void* y, void* partial, void* stats, int n, int h, int wd, int c, int co,
     int bf16, void* stream) {
   using namespace vst;
   float* mean = stats_in != nullptr ? static_cast<float*>(pro) : nullptr;
@@ -129,11 +141,13 @@ extern "C" int vst_k1_conv3x3_in_stats(
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const cudaError_t err = stats_in != nullptr ? launch<true>(a, n, bf16 != 0, s)
-                                              : launch<false>(a, n, bf16 != 0, s);
+  float* ws = static_cast<float*>(wsplit);
+  const cudaError_t err = stats_in != nullptr
+                              ? launch<true>(a, ws, n, bf16 != 0, s)
+                              : launch<false>(a, ws, n, bf16 != 0, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   finalize_stats<<<dim3((co + 127) / 128, n), 128, 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(stats),
-      partial_blocks(h, wd, bf16 != 0), co, static_cast<float>(h * wd));
+      wg::tiles(h, wd), co, static_cast<float>(h * wd));
   return static_cast<int>(cudaGetLastError());
 }

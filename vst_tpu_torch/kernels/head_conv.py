@@ -25,25 +25,37 @@ from vst_tpu_torch.kernels._grad import refuse_grad
 @functools.cache
 def _kernel():
     fn = _build.load("head_conv").vst_k2_conv3x3_valid
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
+def weight_floats(c: int, co: int) -> int:
+    """Floats of the scratch that the float32 launch splits the weights
+    into (their tf32 parts, transposed), from the kernel library."""
+    fn = _build.load("head_conv").vst_k2_weight_floats
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_longlong
+    return fn(c, co)
+
+
 def conv3x3_valid_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: one float32 conv over the packed input (the JAX kernel
-    casts both operands to f32), output in x.dtype."""
-    out = F.conv2d(x.permute(0, 3, 1, 2).float(),
-                   w.permute(3, 2, 0, 1).float())
+    casts both operands to f32), output in x.dtype; float64 inputs run in
+    float64 (the exact evaluation)."""
+    acc_t = torch.float64 if x.dtype == torch.float64 else torch.float32
+    out = F.conv2d(x.permute(0, 3, 1, 2).to(acc_t),
+                   w.permute(3, 2, 0, 1).to(acc_t))
     return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
 def conv3x3_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """3×3 VALID convolution, NHWC × HWIO → NHWC, float32 accumulation.
 
-    x: (N, Ho+2, Wo+2, C); w: (3, 3, C, Co), same dtype (float32 on the
-    CUDA cores, or bfloat16 on the tensor cores with C and Co multiples of
-    8); output (N, Ho, Wo, Co) in x.dtype."""
+    x: (N, Ho+2, Wo+2, C); w: (3, 3, C, Co), same dtype (float32 as 3xTF32
+    on the tensor cores, any C and Co; or bfloat16 with C and Co multiples
+    of 8); output (N, Ho, Wo, Co) in x.dtype."""
     if x.device.type == "cpu":
         return conv3x3_valid_plain(x, w)
     n, hp, wp, c = x.shape
@@ -64,12 +76,16 @@ def conv3x3_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("conv3x3_valid: bf16 x and w must start on 16 bytes "
                          "(the kernel reads them as 16-byte vectors)")
     refuse_grad("K2 conv3x3_valid", x, w)
+    bf16 = x.dtype == torch.bfloat16
     y = torch.empty((n, hp - 2, wp - 2, co), dtype=x.dtype, device=x.device)
+    wsplit = None if bf16 else torch.empty(
+        weight_floats(c, co), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel()(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), n, hp, wp, c, co,
-            int(x.dtype == torch.bfloat16), stream)
+            x.data_ptr(), w.data_ptr(),
+            None if wsplit is None else wsplit.data_ptr(), y.data_ptr(), n,
+            hp, wp, c, co, int(bf16), stream)
     if rc != 0:
         raise RuntimeError(f"K2 conv3x3_valid launch failed: CUDA error {rc}")
     conv3x3_valid.launches += 1

@@ -29,47 +29,60 @@ EPS = 1e-5   # torch InstanceNorm2d default
 def _kernel():
     fn = _build.load("res_block").vst_k1_conv3x3_in_stats
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
-def partial_blocks(h: int, wd: int, bf16: bool) -> int:
+def partial_blocks(h: int, wd: int) -> int:
     """Blocks per image whose partial statistics K1 writes for an (h, wd)
     image, from the kernel library itself (the tile lives in csrc/)."""
     fn = _build.load("res_block").vst_k1_partial_blocks
-    fn.argtypes = [ctypes.c_int] * 3
+    fn.argtypes = [ctypes.c_int] * 2
     fn.restype = ctypes.c_int
-    return fn(h, wd, int(bf16))
+    return fn(h, wd)
+
+
+@functools.cache
+def weight_floats(c: int, co: int) -> int:
+    """Floats of the scratch that the float32 launch splits the weights
+    into (their tf32 parts, transposed), from the kernel library."""
+    fn = _build.load("res_block").vst_k1_weight_floats
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_longlong
+    return fn(c, co)
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _prologue(stats_in, gamma, beta):
+def _prologue(stats_in, gamma, beta, dtype=torch.float32):
     """Per-image (mean, scale) and beta of relu((v − mean)·scale + beta),
-    scale = γ·rsqrt(var + eps), all float32."""
-    mean = stats_in[:, 0].float().contiguous()
-    scale = (gamma.float() * torch.rsqrt(stats_in[:, 1].float() + EPS))
-    return mean, scale.contiguous(), beta.float().contiguous()
+    scale = γ·rsqrt(var + eps), all in ``dtype``."""
+    mean = stats_in[:, 0].to(dtype).contiguous()
+    scale = gamma.to(dtype) * torch.rsqrt(stats_in[:, 1].to(dtype) + EPS)
+    return mean, scale.contiguous(), beta.to(dtype).contiguous()
 
 
 def conv3x3_in_stats_plain(x, w, b, stats_in=None, gamma=None, beta=None):
     """Plain version, same rounding points as the kernel and the JAX one:
     the prologue output is rounded to x.dtype; the conv runs in float32;
-    the stats come from the float32 result before it is rounded."""
+    the stats come from the float32 result before it is rounded.  Float64
+    inputs run in float64 throughout (the exact evaluation a card check
+    may hold the float32 kernel against)."""
     n, h, wd, _ = x.shape
+    acc_t = torch.float64 if x.dtype == torch.float64 else torch.float32
     v = x
     if stats_in is not None:
-        mean, scale, bt = _prologue(stats_in, gamma, beta)
-        vf = (x.float() - mean[:, None, None, :]) * scale[:, None, None, :]
+        mean, scale, bt = _prologue(stats_in, gamma, beta, acc_t)
+        vf = (x.to(acc_t) - mean[:, None, None, :]) * scale[:, None, None, :]
         v = torch.relu(vf + bt).to(x.dtype)
     vp = reflection_pad2d(v, 1)
-    acc = F.conv2d(vp.permute(0, 3, 1, 2).float(),
-                   w.permute(3, 2, 0, 1).float(), b.float())
+    acc = F.conv2d(vp.permute(0, 3, 1, 2).to(acc_t),
+                   w.permute(3, 2, 0, 1).to(acc_t), b.to(acc_t))
     acc = acc.permute(0, 2, 3, 1)
     hw = float(h * wd)
     mean = acc.sum(dim=(1, 2)) / hw
@@ -118,22 +131,24 @@ def conv3x3_in_stats(x, w, b, stats_in=None, gamma=None, beta=None):
     channel (mean, biased var) (B, 2, Co) float32).
 
     3×3 conv of the reflect-padded input with HWIO weights w (3, 3, C, Co)
-    and bias b (Co,), all float32 (CUDA cores) or all bfloat16 (tensor
-    cores; C and Co multiples of 8).  With ``stats_in`` (B, 2, C) and
-    ``gamma``, ``beta`` (C,) (float32 or bfloat16) the input is first
-    normalized with those per-image statistics and relu'd (the res block's
-    middle normalize+relu, fused into the second conv); the library
-    derives the scale = γ·rsqrt(var + eps) itself, in one launch."""
+    and bias b (Co,), all float32 (3xTF32 on the tensor cores; any C and
+    Co) or all bfloat16 (C and Co multiples of 8).  With ``stats_in`` (B,
+    2, C) and ``gamma``, ``beta`` (C,) (float32 or bfloat16) the input is
+    first normalized with those per-image statistics and relu'd (the res
+    block's middle normalize+relu, fused into the second conv); the
+    library derives the scale = γ·rsqrt(var + eps) itself, in one
+    launch."""
     if x.device.type == "cpu":
         return conv3x3_in_stats_plain(x, w, b, stats_in, gamma, beta)
     _check(x, w, b, stats_in, gamma, beta)
     refuse_grad("K1 conv3x3_in_stats", x, w, b, stats_in, gamma, beta)
     n, h, wd, c = x.shape
     co = w.shape[3]
-    nblk = partial_blocks(h, wd, x.dtype == torch.bfloat16)
+    bf16 = x.dtype == torch.bfloat16
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
-    partial = torch.empty((n, nblk, 2, co), **f32)
+    partial = torch.empty((n, partial_blocks(h, wd), 2, co), **f32)
+    wsplit = None if bf16 else torch.empty(weight_floats(c, co), **f32)
     stats = torch.empty((n, 2, co), **f32)
     pro = [None] * 4   # stats_in, gamma, beta and the prologue's scratch
     if stats_in is not None:
@@ -145,8 +160,8 @@ def conv3x3_in_stats(x, w, b, stats_in=None, gamma=None, beta=None):
             x.data_ptr(), w.data_ptr(), b.data_ptr(),
             *(_ptr(t) for t in pro[:3]),
             int(stats_in is not None and gamma.dtype == torch.bfloat16),
-            _ptr(pro[3]), y.data_ptr(), partial.data_ptr(), stats.data_ptr(),
-            n, h, wd, c, co, int(x.dtype == torch.bfloat16), stream)
+            _ptr(pro[3]), _ptr(wsplit), y.data_ptr(), partial.data_ptr(),
+            stats.data_ptr(), n, h, wd, c, co, int(bf16), stream)
     if rc != 0:
         raise RuntimeError(f"K1 conv3x3_in_stats launch failed: CUDA error {rc}")
     conv3x3_in_stats.launches += 1
