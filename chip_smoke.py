@@ -61,6 +61,18 @@ result line):
    synthetic uint8 frames at batch 4, softmax and cosine; then AdaAttN
    training, ``make_adaattn_image_step`` at 256² batch 8 softmax in f32
    and bf16 and ``make_adaattn_video_step`` at 256×512 batch 4 cosine;
+5b. main path, the AdaAttN trainer through the loop: the image trainer at
+   its config's settings (256² b8 softmax f32) through ``run_training`` on
+   32 synthetic pairs (4 batches an epoch; the card's machine has no PIL):
+   ``BatchLoader`` + ``device_prefetch`` bitwise against the host batches;
+   an uninterrupted 2-epoch run (K3 48, K4 24, K5 24 launches, finite
+   metrics at every step, the epoch ``.npz``/``.pth`` and ``_last_state``
+   written, the ``.npz`` reloading to the model's tensors); a run preempted
+   by SIGUSR1 at epoch 1 batch 3 and resumed through the CLI's
+   ``resume_position`` (the same batches, losses within rtol 1e-3,
+   parameters but the g biases within 1e-4 relative L2); the loop's
+   samples/s after a warmup epoch beside [5]'s bare step; and the video
+   trainer for 2 steps through the loop;
 6. timing: each kernel, its plain version and a library yardstick the
    port never calls (cuDNN ``F.conv2d`` of the same conv for K1/K2,
    ``F.scaled_dot_product_attention`` for K3 and its backward for K4/K5)
@@ -68,8 +80,9 @@ result line):
    rows also carry ms, TFLOP/s and the bound's share per launch; K3-K5
    rows the same per level, and the f32 K3/K4/K5 times at the three
    training levels as ``ms_f32`` (with TFLOP/s and the executed-work
-   factor per level) beside ``bound_ms_f32`` (3xTF32 peak)
-   and ``library_ms_f32`` (SDPA in f32, TF32 off); the f32 K1 and K2 at
+   factor per level) beside ``bound_ms_f32`` (3xTF32 peak),
+   ``plain_ms_f32`` (the plain versions in f32) and ``library_ms_f32``
+   (SDPA in f32, TF32 off); the f32 K1 and K2 at
    the bf16 rows' shapes beside their plain versions and cuDNN in f32,
    TF32 off, in benchmark mode and the faster of NCHW and channels_last);
    K3's (bf16 and
@@ -104,10 +117,14 @@ wrappers, whose interfaces date from the port's first slice.
 """
 
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import json
+import math
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -116,6 +133,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vst_tpu_torch.cli.train import resume_position
+from vst_tpu_torch.compat import load_weights
+from vst_tpu_torch.data.pipeline import BatchLoader, device_prefetch
 from vst_tpu_torch.device import apply_precision
 from vst_tpu_torch.infer.image import (adaattn_style_state, stylize_adaattn,
                                        stylize_adaattn_cached, stylize_reconet)
@@ -129,7 +149,9 @@ from vst_tpu_torch.models.reconet import (init_reconet, init_reconet_sd1,
 from vst_tpu_torch.models.vgg import init_vgg19_adaattn
 from vst_tpu_torch.ops import conv as ops_conv
 from vst_tpu_torch.ops.yuv import rgb_to_i420
+from vst_tpu_torch.train import checkpoint as ckpt
 from vst_tpu_torch.train.config import AdaAttNImageConfig, AdaAttNVideoConfig
+from vst_tpu_torch.train.loop import TrainingPreempted, run_training
 from vst_tpu_torch.train.state import create
 from vst_tpu_torch.train.steps import (make_adaattn_image_step,
                                        make_adaattn_video_step)
@@ -995,7 +1017,8 @@ def _train_run(label, cfg, build, batch, steps, warmup, per_step):
     from fresh seeded weights (VGG19 seed 0, AdaAttN seed 1), with the
     launch counts set to 0 just before and read just after.  Asserts
     finite metrics at every step, parameters that moved, and exactly
-    ``per_step`` (K3, K4, K5) launches per step; returns the counts.
+    ``per_step`` (K3, K4, K5) launches per step; returns the counts and
+    the median ms of the timed steps (None without any).
     "Moved" counts parameter tensors: with seeded weights half the
     decoder's ReLUs are dead, so many single weights get no gradient, and
     the g conv biases (softmax is invariant to them) get one below what
@@ -1027,8 +1050,8 @@ def _train_run(label, cfg, build, batch, steps, warmup, per_step):
     log(f"  {label}: launches K1-K5 {launches} over {total} steps; metrics "
         f"finite at every step, last {last}; {moved} of {len(before)} "
         f"parameter tensors moved; peak {peak:.2f} GiB")
+    ms = float(np.median(times)) if times else None
     if times:
-        ms = float(np.median(times))
         log(f"  {label}: {ms:.3f} ms/step median of {steps} (min "
             f"{min(times):.3f}, max {max(times):.3f}) -> {b * 1e3 / ms:.2f} "
             f"samples/s (min {b * 1e3 / max(times):.2f}, max "
@@ -1036,7 +1059,7 @@ def _train_run(label, cfg, build, batch, steps, warmup, per_step):
     if bad or launches != expect or moved < len(before) - 3:
         raise AssertionError(f"{label}: non-finite steps {bad}, launches "
                              f"{launches} (expected {expect}), moved {moved}")
-    return launches
+    return launches, ms
 
 
 def phase_main_train():
@@ -1050,11 +1073,12 @@ def phase_main_train():
     rng = np.random.default_rng(8)
     cfg = AdaAttNImageConfig()
     batch = _image_batch(rng, cfg.batch_size, cfg.crop_size)
-    total = [0, 0, 0]
+    total, ms = [0, 0, 0], {}
     for dtype in ("float32", "bfloat16"):
         c = dataclasses.replace(cfg, dtype=dtype)
-        launches = _train_run(f"image {dtype}", c, make_adaattn_image_step,
-                              batch, 6, 2, (6, 3, 3))
+        launches, ms[dtype] = _train_run(
+            f"image {dtype}", c, make_adaattn_image_step, batch, 6, 2,
+            (6, 3, 3))
         total = [a + b for a, b in zip(total, launches[2:])]
     vcfg = AdaAttNVideoConfig()
     vbatch = [torch.from_numpy(rng.integers(0, 256, (vcfg.batch_size,
@@ -1062,7 +1086,282 @@ def phase_main_train():
                                .astype(np.float32)).cuda() for _ in range(3)]
     _train_run("video float32 cosine", vcfg, make_adaattn_video_step, vbatch,
                3, 0, (0, 0, 0))
-    return dict(zip(("K3", "K4", "K5"), total))
+    return dict(zip(("K3", "K4", "K5"), total)), ms["float32"]
+
+
+class SyntheticPairs:
+    """The AdaAttN datasets' protocol on synthetic data (the card's machine
+    has no PIL): ``count`` HWC float32 0-255 arrays of integers per item,
+    drawn from ``default_rng((seed, epoch, idx))`` as ``CocoWikiArt``
+    draws its crops, and ``set_epoch``."""
+
+    def __init__(self, n, size, seed, count=2):
+        self.n, self.size, self.seed, self.count = n, size, seed, count
+        self._epoch = 0
+
+    def set_epoch(self, epoch):
+        self._epoch = epoch
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx):
+        rng = np.random.default_rng((self.seed, self._epoch, idx))
+        return tuple(rng.integers(0, 256, (*self.size, 3)).astype(np.float32)
+                     for _ in range(self.count))
+
+
+LOOP_OUT = os.path.join(ROOT, "build", "chip_smoke_loop")
+LOOP_NAME = "adaattn-image"
+
+
+def _recording(step, sums, preempt_at=None):
+    """``step`` that first records its batch's sums on the card (exact: the
+    pixels are integers) and, at global step ``preempt_at``, sends SIGUSR1
+    to this process while the step is in flight."""
+    def wrapped(state, batch):
+        if state.step == preempt_at:
+            os.kill(os.getpid(), signal.SIGUSR1)
+        sums.append(torch.stack([x.double().sum() for x in batch]))
+        return step(state, batch)
+    return wrapped
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return {r["step"]: r for r in map(json.loads, f)}
+
+
+def _loop_prefetch(ds, batch_size):
+    """BatchLoader + device_prefetch(size=2) over one epoch: each batch
+    is read on the card only behind a long matmul and released at once,
+    and its copy must equal its host source bit for bit."""
+    host, dev = [], []
+
+    def recorded(it):
+        for b in it:
+            host.append(b)
+            yield b
+
+    a = torch.randn(4096, 4096, device="cuda")
+    loader = BatchLoader(ds, batch_size, seed=12, num_workers=4)
+    for batch in device_prefetch(recorded(iter(loader)), 2, "cuda"):
+        busy = a @ a
+        dev.append([x.clone() for x in batch])
+        del batch, busy
+    torch.cuda.synchronize()
+    same = [np.array_equal(d.cpu().numpy(), h)
+            for dev_b, host_b in zip(dev, host, strict=True)
+            for d, h in zip(dev_b, host_b, strict=True)]
+    log(f"  prefetch: {len(dev)} batches of {len(host[0])} tensors "
+        f"{tuple(host[0][0].shape)}, {sum(same)} of {len(same)} tensors "
+        f"bitwise equal to their host source")
+    if not (all(same) and len(dev) == len(loader)):
+        raise AssertionError("device_prefetch: a batch differs from its source")
+
+
+def _rel_l2(a, b, keys):
+    num = sum(float((a[k].double() - b[k].double()).square().sum())
+              for k in keys)
+    den = sum(float(b[k].double().square().sum()) for k in keys)
+    return (num / den) ** 0.5
+
+
+def _loop_costs(ds, batch_size, state, extra_ms, steps):
+    """What the loop adds to the bare steps, each part timed alone on this
+    run's data and state: one batch's host work (decode by the loader's
+    threads, stack, pin), the rollback snapshot (model and Adam state to
+    the host) and each epoch-end write."""
+    it = iter(BatchLoader(ds, batch_size, seed=12, num_workers=4))
+    host_ms = []
+    for _ in range(len(ds) // batch_size):
+        t = time.perf_counter()
+        [torch.from_numpy(x).pin_memory() for x in next(it)]
+        host_ms.append((time.perf_counter() - t) * 1e3)
+    out = os.path.join(LOOP_OUT, "costs")
+    os.makedirs(out, exist_ok=True)
+    torch.cuda.synchronize()
+    ms = {}
+    for name, fn in (
+            ("snapshot", lambda: ckpt.snapshot(state)),
+            ("save_params .npz", lambda: ckpt.save_params(
+                snap["model"], os.path.join(out, "p.npz"))),
+            ("save_state", lambda: ckpt.save_state(
+                snap, os.path.join(out, "state"))),
+            ("export_pth", lambda: ckpt.export_pth(
+                snap["model"], os.path.join(out, "p.pth")))):
+        t = time.perf_counter()
+        r = fn()
+        ms[name] = (time.perf_counter() - t) * 1e3
+        if name == "snapshot":
+            snap = r
+    mb = sum(v.numel() * v.element_size() for v in snap["model"].values())
+    log(f"  loop costs: {extra_ms:.1f} ms over {steps} × the bare step "
+        f"between the log points (one drain: the log point's metric fetch "
+        f"waits for the card, then the next batch's host work runs before "
+        f"the card has work again); one batch's host work "
+        f"{float(np.median(host_ms)):.1f} ms median (decode by 4 threads, "
+        f"stack, pin; {[round(t, 1) for t in host_ms]}); "
+        + "; ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+        + f" (the model {mb / 2**20:.1f} MiB, with Adam's moments "
+        f"{3 * mb / 2**20:.1f} MiB)")
+
+
+def phase_main_loop(bare_ms):
+    """The AdaAttN image trainer through ``run_training`` at its config's
+    settings (256² b8 softmax f32; VGG19 seed 0, AdaAttN seed 1) on 32
+    synthetic pairs (4 batches an epoch): the prefetch, an uninterrupted
+    2-epoch run (launch counts, finite metrics, checkpoints reloaded), a
+    run preempted at epoch 1 batch 3 and resumed through the CLI's
+    ``resume_position`` (same batches, losses within rtol 1e-3,
+    parameters within 1e-4 relative L2), the loop's samples/s beside
+    [5]'s bare step (one more epoch of the uninterrupted run's state, at
+    the CLI's defaults), and the video trainer for 2 steps through the
+    loop."""
+    log("[5b] main path: AdaAttN trainer through the loop (run_training, "
+        "image 256² b8 softmax f32, 32 synthetic pairs)")
+    t_phase = time.perf_counter()
+    apply_precision(torch.float32)
+    cfg = AdaAttNImageConfig()
+    ds = SyntheticPairs(32, cfg.crop_size, seed=11)
+    n_batches = len(ds) // cfg.batch_size
+    _loop_prefetch(ds, cfg.batch_size)
+    shutil.rmtree(LOOP_OUT, ignore_errors=True)
+    vgg = init_vgg19_adaattn(0, device="cuda")
+    step = make_adaattn_image_step(cfg, vgg)
+    net = init_stylizing_network(1, device="cuda")
+
+    def fresh():
+        return create(copy.deepcopy(net), cfg.lr)
+
+    def indented(msg):
+        log(f"    {msg}")
+
+    kw = dict(batch_size=cfg.batch_size, model_name=LOOP_NAME, seed=12,
+              num_workers=4, log_fn=indented)
+    run = dict(epochs=2, log_every=1, save_every_steps=2, **kw)
+
+    # uninterrupted
+    out_a = os.path.join(LOOP_OUT, "full")
+    sums_a = []
+    state_a = fresh()
+    torch.cuda.synchronize()
+    reset_counts()
+    state_a = run_training(_recording(step, sums_a), state_a, ds,
+                           out_dir=out_a, metrics_jsonl=os.path.join(
+                               out_a, "metrics.jsonl"), **run)
+    torch.cuda.synchronize()
+    launches = counts()
+    steps = 2 * n_batches
+    expect = (0, 0, 6 * steps, 3 * steps, 3 * steps)
+    rec_a = _jsonl(os.path.join(out_a, "metrics.jsonl"))
+    finite = all(v is not None and math.isfinite(v) for r in rec_a.values()
+                 for k, v in r.items() if k.startswith("loss"))
+    files = sorted(os.listdir(out_a))
+    want = [f"{LOOP_NAME}_epoch_{e}_batchSize_{cfg.batch_size}{x}"
+            for e in (1, 2) for x in (".npz", ".pth")] + [
+                f"{LOOP_NAME}_last_state"]
+    npz = load_weights(os.path.join(out_a, want[2]))
+    live = {k: v.cpu() for k, v in state_a.model.state_dict().items()}
+    reload_ok = npz.keys() == live.keys() and all(
+        torch.equal(npz[k], live[k]) for k in live)
+    log(f"  uninterrupted: launches K1-K5 {launches} over {steps} steps "
+        f"(expected {expect}); {len(rec_a)} logged steps, losses finite: "
+        f"{finite}; files {files}; epoch 2 .npz reloads through "
+        f"compat.load_weights to the model's tensors: {reload_ok}")
+    if (launches != expect or not finite or sorted(rec_a) != list(
+            range(1, steps + 1)) or not set(want) <= set(files)
+            or not reload_ok):
+        raise AssertionError("uninterrupted loop run")
+
+    # preempted at epoch 1 batch 3, resumed as --resume auto resumes
+    out_b = os.path.join(LOOP_OUT, "preempted")
+    sums_b = []
+    try:
+        run_training(_recording(step, sums_b, preempt_at=2), fresh(), ds,
+                     out_dir=out_b, metrics_jsonl=os.path.join(
+                         out_b, "metrics.jsonl"), **run)
+    except TrainingPreempted as e:
+        log(f"  preempted: {e}")
+    else:
+        raise AssertionError("the SIGUSR1 run was not preempted")
+    state_b = fresh()
+    epoch_start, start_batch = resume_position(
+        state_b, "auto", out_b, LOOP_NAME, 1, n_batches, log=indented)
+    state_b = run_training(_recording(step, sums_b), state_b, ds,
+                           out_dir=out_b, epoch_start=epoch_start,
+                           start_batch=start_batch, metrics_jsonl=os.path.join(
+                               out_b, "metrics.jsonl"), **run)
+    same_data = torch.equal(torch.stack(sums_a).cpu(),
+                            torch.stack(sums_b).cpu())
+    rec_b = _jsonl(os.path.join(out_b, "metrics.jsonl"))
+    loss_err = max(abs(rec_b[s][k] - rec_a[s][k]) / abs(rec_a[s][k])
+                   for s in rec_b for k in rec_b[s] if k.startswith("loss"))
+    pa = {k: v.cpu() for k, v in state_a.model.state_dict().items()}
+    pb = {k: v.cpu() for k, v in state_b.model.state_dict().items()}
+    held = [k for k in pa if not k.endswith(".g.bias")]
+    rel = _rel_l2(pb, pa, held)
+    rel_all = _rel_l2(pb, pa, list(pa))
+    log(f"  resumed at epoch {epoch_start} batch {start_batch + 1}: "
+        f"{len(sums_b)} batches, the same as the uninterrupted run's: "
+        f"{same_data}; logged steps {sorted(rec_b)}, losses max relative "
+        f"{loss_err:.3e} tol 1e-3; parameters relative L2 {rel:.3e} tol "
+        f"1e-4 (all but the g biases; with them {rel_all:.3e}); step "
+        f"{state_b.step}")
+    if not (same_data and (epoch_start, start_batch) == (1, 3)
+            and sorted(rec_b) == [s for s in rec_a if s != 3]
+            and loss_err <= 1e-3 and rel <= 1e-4
+            and state_b.step == state_a.step == steps):
+        raise AssertionError("preempted and resumed loop run")
+
+    # the loop's rate at the CLI's defaults (no periodic saves), one
+    # epoch timed after the runs above warmed the same loop (epoch 3 of
+    # the uninterrupted run's state)
+    out_t = os.path.join(LOOP_OUT, "timed")
+    stamps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state_t = run_training(
+        step, state_a, ds, out_dir=out_t, epochs=3, epoch_start=3,
+        **{**kw, "log_every": n_batches - 1,
+           "log_fn": lambda m: stamps.append((time.perf_counter(), m))})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    between_ms = (stamps[-1][0] - stamps[0][0]) * 1e3
+    steady = (n_batches - 1) * cfg.batch_size * 1e3 / between_ms
+    logged = float(stamps[-1][1].split("(")[1].split()[0])
+    bare = cfg.batch_size * 1e3 / bare_ms
+    log(f"  loop samples/s, f32 256² b8, one epoch of {n_batches} steps "
+        f"after the runs above: {steady:.2f} between its first and last "
+        f"log point ({100 * (steady / bare - 1):+.1f}% against [5]'s bare "
+        f"step {bare:.2f} = {bare_ms:.3f} ms median); {logged:.3g} as the "
+        f"loop logs it (from the loader's start); "
+        f"{n_batches * cfg.batch_size / wall:.2f} over the whole call "
+        f"({wall * 1e3:.1f} ms, epoch-end checkpoints included)")
+    _loop_costs(ds, cfg.batch_size, state_t, between_ms
+                - (n_batches - 1) * bare_ms, n_batches - 1)
+
+    # the video trainer, 2 steps through the loop: no K3-K5
+    vcfg = AdaAttNVideoConfig()
+    vds = SyntheticPairs(2 * vcfg.batch_size, vcfg.frame_size, seed=13,
+                         count=3)
+    vstep = make_adaattn_video_step(vcfg, vgg)
+    vlogs = []
+    reset_counts()
+    vstate = run_training(vstep, create(net, vcfg.lr), vds,
+                          batch_size=vcfg.batch_size, epochs=1,
+                          out_dir=os.path.join(LOOP_OUT, "video"),
+                          model_name="adaattn-video", log_every=1,
+                          num_workers=4, log_fn=vlogs.append)
+    torch.cuda.synchronize()
+    vlaunches = counts()
+    log(f"  video 256×512 b4 cosine, 2 steps through the loop: launches "
+        f"K1-K5 {vlaunches}; {vlogs[-1]}")
+    if vlaunches != (0,) * 5 or vstate.step != 2 or "nan" in " ".join(vlogs):
+        raise AssertionError("video loop run")
+    shutil.rmtree(LOOP_OUT, ignore_errors=True)
+    log(f"  [5b] wall {time.perf_counter() - t_phase:.1f} s")
+    return dict(zip(("K3", "K4", "K5"), launches[2:]))
 
 
 def phase_timing(launches, errs, slice_v):
@@ -1368,9 +1667,9 @@ def timing_k45(launches, errs, slices):
     factors per level come from the built library's slice widths
     (``slices`` "K3_f32", "K4_f32", "K5_f32").  The f32 K3 numbers
     are returned; K4/K5's go in their rows as ``ms_f32``, ``bound_ms_f32``,
-    ``library_ms_f32``, ``executed_work_f32`` (as K3's: products run per
-    product of the least work, each of them three tf32 ones) and
-    ``tflops_f32_per_launch`` (on the least work)."""
+    ``plain_ms_f32``, ``library_ms_f32``, ``executed_work_f32`` (as K3's:
+    products run per product of the least work, each of them three tf32
+    ones) and ``tflops_f32_per_launch`` (on the least work)."""
     log("[6] K4, K5 at the AdaAttN training level shapes (256² b8, bf16)")
     g = torch.Generator(device="cuda").manual_seed(5)
     dt = torch.bfloat16
@@ -1400,7 +1699,7 @@ def timing_k45(launches, errs, slices):
             "max_abs_err_f32": errs[f"{kid} f32"], "executed_work_f32": [],
             "tflops_f32_per_launch": []})
     k3_f32 = {"ms": [], "bound_ms": 0.0, "library_ms": 0.0, "library": None,
-              "work": [], "tflops": []}
+              "work": [], "tflops": [], "plain_ms": 0.0}
     for n, d, c in TRAIN_LEVELS:
         args = k45_inputs(g, TRAIN_BATCH, n, n, d, c, dt)
         q, k, v, lse, dd, dm1, dm2 = args
@@ -1447,6 +1746,9 @@ def timing_k45(launches, errs, slices):
         k3_f32["ms"].append(event_ms(
             lambda: adaattn_attention.softmax_attention_moments(*a32[:3]),
             reps=5, warmup=1))
+        k3_f32["plain_ms"] += event_ms(
+            lambda: adaattn_attention.softmax_attention_moments_plain(
+                *a32[:3]), reps=3, warmup=1)
         q, k, v, lse, dd, dm1, dm2 = a32
         vv = torch.cat([v, v * v], dim=-1)
         fwd = lambda: F.scaled_dot_product_attention(q, k, vv, scale=1.0)
@@ -1475,6 +1777,8 @@ def timing_k45(launches, errs, slices):
         for kid, r in rows.items():
             row = r["row"]
             t32 = event_ms(lambda: r["fn"](*a32), reps=5, warmup=1)
+            row["plain_ms_f32"] = row.get("plain_ms_f32", 0.0) + event_ms(
+                lambda: r["plain"](*a32), reps=3, warmup=1)
             flops = TRAIN_BATCH * r["flops"](n, d, c)
             b32, _ = bound(flops, nb(n * d if kid == "K4" else n * (d + c)),
                            "tf32x3")
@@ -1507,7 +1811,9 @@ def timing_k45(launches, errs, slices):
         f"{k4['ms_f32'] + k5['ms_f32']:.4f} ms (K4 {k4['ms_f32']:.4f}, bound "
         f"{k4['bound_ms_f32']:.4f}; K5 {k5['ms_f32']:.4f}, bound "
         f"{k5['bound_ms_f32']:.4f}) against the f32 SDPA backward's "
-        f"{k4['library_ms_f32']:.4f}")
+        f"{k4['library_ms_f32']:.4f}; plain versions in f32: K3 "
+        f"{k3_f32['plain_ms']:.4f}, K4 {k4['plain_ms_f32']:.4f}, K5 "
+        f"{k5['plain_ms_f32']:.4f}")
     torch.cuda.synchronize()
     return [k4, k5], k3_f32
 
@@ -1673,14 +1979,17 @@ def main(argv):
         launches[f"{k} by path"] = {"ReCoNet bf16": bf16[k],
                                     "ReCoNet f32": f32[k]}
     launches["K3"] = phase_main_adaattn()
-    train = phase_main_train()
-    by_path = {"serving": launches["K3"], "training": train["K3"]}
-    launches["K3"] += train["K3"]
-    launches.update(K4=train["K4"], K5=train["K5"])
+    train, bare_ms = phase_main_train()
+    loop = phase_main_loop(bare_ms)
+    by_path = {"serving": launches["K3"], "training": train["K3"],
+               "training loop": loop["K3"]}
+    launches["K3"] += train["K3"] + loop["K3"]
+    launches.update(K4=train["K4"] + loop["K4"], K5=train["K5"] + loop["K5"])
     k45_rows, k3_f32 = timing_k45(launches, errs, slices)
     kernels = phase_timing(launches, errs, slices["K3"]) + k45_rows
     kernels[2]["launches_by_path"] = by_path
     kernels[2]["ms_f32"] = sum(k3_f32["ms"])
+    kernels[2]["plain_ms_f32"] = k3_f32["plain_ms"]
     kernels[2]["ms_f32_per_launch"] = k3_f32["ms"]
     kernels[2]["bound_ms_f32"] = k3_f32["bound_ms"]
     kernels[2]["library_ms_f32"] = k3_f32["library_ms"]

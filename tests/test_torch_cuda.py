@@ -692,3 +692,85 @@ def test_image_step_launch_counts(cuda, dtype, remat, k3_per_step):
     assert all(torch.isfinite(m) for m in metrics.values())
     assert any(not torch.equal(a, p) for a, p in
                zip(before, state.model.parameters()))
+
+
+def test_device_prefetch_bitwise_under_a_concurrent_kernel(cuda):
+    """Batches prefetched on the side stream reach the consumer bit for bit
+    while the consumer's stream is busy: each batch is read only behind a
+    long matmul and released at once, so a missing wait on the copy, or a
+    missing record_stream letting the next copy reuse its memory, shows as
+    a wrong sum."""
+    import numpy as np
+
+    from vst_tpu_torch.data.pipeline import device_prefetch
+
+    rng = np.random.default_rng(0)
+    host = [(rng.integers(0, 256, (4, 128, 128, 3)).astype(np.float32),
+             rng.integers(0, 256, (4, 64)).astype(np.float32))
+            for _ in range(12)]
+    a = torch.randn(4096, 4096, device=cuda)
+    sums = []
+    for batch in device_prefetch(iter(host), size=2, device=cuda):
+        busy = a @ a @ a                      # the consumer's stream is busy
+        sums.append([(busy[0, 0] * 0 + t.double().sum()) for t in batch])
+        del batch
+    torch.cuda.synchronize()
+    for got, (x, y) in zip(sums, host, strict=True):
+        assert [float(s) for s in got] == [float(x.astype(np.float64).sum()),
+                                           float(y.astype(np.float64).sum())]
+    copies = list(device_prefetch(iter(host[:3]), size=2, device=cuda))
+    for (x, y), (dx, dy) in zip(host, copies):
+        assert dx.device.type == "cuda"
+        assert np.array_equal(dx.cpu().numpy(), x)
+        assert np.array_equal(dy.cpu().numpy(), y)
+
+
+def test_run_training_two_steps_on_the_card(cuda, tmp_path):
+    """Two f32 image steps at 64² (batch 1) through the loop: K3 6, K4 3 and
+    K5 3 launches a step, no K1/K2, finite logged metrics, and a
+    ``_last_state`` that reloads to the live state bit for bit."""
+    import numpy as np
+
+    from vst_tpu_torch.models.adaattn import init_stylizing_network
+    from vst_tpu_torch.models.vgg import init_vgg19_adaattn
+    from vst_tpu_torch.train.checkpoint import load_state
+    from vst_tpu_torch.train.config import AdaAttNImageConfig
+    from vst_tpu_torch.train.loop import run_training
+    from vst_tpu_torch.train.state import create
+    from vst_tpu_torch.train.steps import make_adaattn_image_step
+
+    class Pairs:
+        def __len__(self):
+            return 2
+
+        def __getitem__(self, i):
+            rng = np.random.default_rng(i)
+            return tuple(rng.integers(0, 256, (64, 64, 3)).astype(np.float32)
+                         for _ in range(2))
+
+    cfg = AdaAttNImageConfig(batch_size=1)
+    state = create(init_stylizing_network(1, device=cuda), cfg.lr)
+    step = make_adaattn_image_step(cfg, init_vgg19_adaattn(0, device=cuda))
+    wrappers = (res_block.conv3x3_in_stats, head_conv.conv3x3_valid,
+                adaattn_attention.softmax_attention_moments,
+                adaattn_attention.softmax_attention_dq,
+                adaattn_attention.softmax_attention_dkv)
+    before = [w.launches for w in wrappers]
+    logs = []
+    state = run_training(step, state, Pairs(), batch_size=1, epochs=1,
+                         out_dir=str(tmp_path), model_name="ada",
+                         log_every=1, num_workers=0, log_fn=logs.append)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [
+        0, 0, 12, 6, 6]
+    assert len(logs) == 2 and "nan" not in " ".join(logs)
+    assert state.step == 2
+    again = load_state(str(tmp_path / "ada_last_state"), like=create(
+        init_stylizing_network(2, device=cuda), cfg.lr))
+    assert again.step == 2
+    for a, b in zip(state.model.parameters(), again.model.parameters()):
+        assert torch.equal(a, b)
+    sa, sb = state.optimizer.state_dict(), again.optimizer.state_dict()
+    for i, st in sa["state"].items():
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(st[key], sb["state"][i][key]), (i, key)

@@ -1,12 +1,11 @@
 """Shared CLI helpers: weight loading and checking, image input and
 output.  Counterpart of ``vst_tpu/cli/common.py``."""
 
-import os
-
 import numpy as np
 import torch
 
 from vst_tpu_torch.compat import load_weights
+from vst_tpu_torch.data.datasets import list_files, load_image
 from vst_tpu_torch.models import adaattn, vgg
 from vst_tpu_torch.models.reconet import FAMILIES
 
@@ -45,17 +44,8 @@ def load_vgg_weights(path: str | None, device="cuda",
 
 def load_image_255(path, size_wh=None) -> np.ndarray:
     """PIL load as RGB (+ a BILINEAR resize to ``size_wh`` = (W, H)) → HWC
-    float32 0–255, as ``vst_tpu/data/datasets.py::load_image``."""
-    from PIL import Image
-
-    img = Image.open(path).convert("RGB")
-    if size_wh is not None and img.size != tuple(size_wh):
-        img = img.resize(tuple(size_wh), Image.BILINEAR)
-    return np.asarray(img, dtype=np.float32)
-
-
-def list_files(directory) -> list:
-    return sorted(f.path for f in os.scandir(directory) if f.is_file())
+    float32 0–255."""
+    return load_image(path, size_wh)
 
 
 def save_image_255(arr, path):

@@ -1,5 +1,6 @@
 """Weights carried across: JAX ``.npz`` parameters (both ways), reference
-``.pth`` state_dicts.
+``.pth`` state_dicts, and a JAX AdaAttN train state (Adam moments and
+count) for a port run that continues it.
 
 Counterpart of ``vst_tpu/compat/torch_params.py`` and
 ``vst_tpu/train/checkpoint.py::load_params``.  Both packages key their
@@ -35,6 +36,33 @@ def params_to_jax(state_dict: dict) -> dict:
             arr = arr.transpose(2, 3, 1, 0)
         out[key] = np.ascontiguousarray(arr)
     return out
+
+
+def train_state_from_jax(params: dict, mu: dict, nu: dict, count, lr: float,
+                         device="cuda"):
+    """A JAX AdaAttN train state carried across: the port's ``TrainState``
+    holding ``params`` with the Adam moments ``mu`` / ``nu`` and update
+    ``count`` of JAX's ``TrainState(params, (ScaleByAdamState(count, mu,
+    nu), EmptyState()), step)``, all given as numpy dicts (conv weights and
+    moments HWIO → OIHW).  ``step`` becomes ``count``.
+
+    torch's Adam keeps the update count per parameter as a tensor and its
+    bias correction reads it, so every parameter's state gets ``step`` =
+    ``count``: a state without it would resume with other updates."""
+    from vst_tpu_torch.models.adaattn import build
+    from vst_tpu_torch.train.state import create
+
+    # copies: the state is updated in place, and from_numpy shares memory
+    weights = {k: v.clone() for k, v in params_from_jax(params).items()}
+    state = create(build(weights, device), lr)
+    exp_avg, exp_avg_sq = params_from_jax(mu), params_from_jax(nu)
+    for name, p in state.model.named_parameters():
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+            "exp_avg": exp_avg[name].to(p.device, copy=True),
+            "exp_avg_sq": exp_avg_sq[name].to(p.device, copy=True)}
+    state.step = int(np.asarray(count))
+    return state
 
 
 def load_weights(path: str) -> dict:
