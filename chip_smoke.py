@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of vst_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version, drives the three paths of
+holds each against its plain PyTorch version, drives the four paths of
 the port (ReCoNet streaming stylization, AdaAttN arbitrary-style serving,
-AdaAttN training) and checks what comes out.
+AdaAttN training, ReCoNet training) and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -42,7 +42,7 @@ result line):
    shapes;
 4. model: the f32 ReCoNet forward through the kernels against the same
    forward through the plain versions at 1×256×256 (and, with grad mode
-   on, raising: K1/K2 have no backward yet), the f32 AdaAttN
+   on, the same kernels' outputs bit for bit), the f32 AdaAttN
    forward (softmax through K3 against the plain version, cosine against
    the materialized oracle) at 1×256², the ReCoNet, SD1, SD2 and both
    AdaAttN forwards against the reference goldens
@@ -73,6 +73,21 @@ result line):
    parameters but the g biases within 1e-4 relative L2); the loop's
    samples/s after a warmup epoch beside [5]'s bare step; and the video
    trainer for 2 steps through the loop;
+5c. main path, ReCoNet training: K1's and K2's autograd Functions
+   (kernel forward, library conv-gradient backward) against the same
+   Functions' plain route in float64 at the f32 flow step's shapes (K1
+   (4,90,160,192) without and with the prologue, K2's packed stem and
+   head), f32 (tol 1e-4 of each gradient's scale) and bf16 (3e-2); one
+   full-width f32 flow step (``RECONET_CANDY``: ReCoNet 48/96/192 seed 1,
+   VGG16 seed 0, 360×640 frame pairs, batch 2) through the kernels and
+   one through the plain versions, each against the plain float64 step
+   (metrics 1e-4 relative; gradients within max(1e-3, 2 × the plain f32
+   route's distance) of their scale); the flow step timed (2 warmup, 6 timed: ms, samples/s,
+   peak memory; K1 10, K2 2 launches a step), under remat (K1 20, K2 4),
+   the coco step (256² b4) and the SD1 → SD2 distillation (K1 20, K2 4
+   with the teacher; SD1's SD loss NaN); K1's and K2's forward and
+   backward ms per flow step; the flow trainer through ``run_training``
+   on 8 synthetic items, uninterrupted and preempted + resumed;
 6. timing: each kernel, its plain version and a library yardstick the
    port never calls (cuDNN ``F.conv2d`` of the same conv for K1/K2,
    ``F.scaled_dot_product_attention`` for K3 and its backward for K4/K5)
@@ -89,8 +104,8 @@ result line):
    f32) and K4/K5's executed-work factor per level is logged, from the
    slice widths the built library reports;
 7. profile: device time by kernel over two forwards (train steps) of each
-   main path, ReCoNet in bf16 and f32 (torch.profiler), and the device's
-   busy share of that window.
+   main path, ReCoNet in bf16 and f32, the f32 ReCoNet flow step
+   (torch.profiler), and the device's busy share of that window.
 
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card and
 the CUDA toolkit (nvcc); no network, no cv2, no PIL.
@@ -114,6 +129,10 @@ does the same for the f32 ReCoNet 512² b8 batch: the f32 K1 and K2 per
 launch, the batch's time with its launch counts, and its device time by
 kernel; it calls only ``stylize_reconet``, ``init_reconet`` and the K1/K2
 wrappers, whose interfaces date from the port's first slice.
+
+    python3 chip_smoke.py --reconet-train
+
+builds the kernels and runs [5c] alone, then profiles the f32 flow step.
 """
 
 import contextlib
@@ -146,15 +165,22 @@ from vst_tpu_torch.models.adaattn import (init_stylizing_network,
                                           stylizing_network_cached)
 from vst_tpu_torch.models.reconet import (init_reconet, init_reconet_sd1,
                                           init_reconet_sd2)
-from vst_tpu_torch.models.vgg import init_vgg19_adaattn
+from vst_tpu_torch.models.vgg import init_vgg16_reconet, init_vgg19_adaattn
 from vst_tpu_torch.ops import conv as ops_conv
 from vst_tpu_torch.ops.yuv import rgb_to_i420
 from vst_tpu_torch.train import checkpoint as ckpt
-from vst_tpu_torch.train.config import AdaAttNImageConfig, AdaAttNVideoConfig
+from vst_tpu_torch.train.config import (DISTILL_SD1, DISTILL_SD2,
+                                        RECONET_CANDY, AdaAttNImageConfig,
+                                        AdaAttNVideoConfig, ReCoNetCocoConfig)
 from vst_tpu_torch.train.loop import TrainingPreempted, run_training
 from vst_tpu_torch.train.state import create
+from vst_tpu_torch.train import steps as steps_m
 from vst_tpu_torch.train.steps import (make_adaattn_image_step,
-                                       make_adaattn_video_step)
+                                       make_adaattn_video_step,
+                                       make_reconet_coco_step,
+                                       make_reconet_distill_step,
+                                       make_reconet_flow_step,
+                                       reconet_style_grams)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM data sheet, dense: bf16 tensor-core peak, float32 outside the
@@ -738,14 +764,14 @@ def phase_model():
         ours = model(x)
         with plain_kernels():
             ref = model(x)
-    try:   # K1/K2 have no backward: a forward that needs a gradient raises
-        model(x)
-    except RuntimeError as e:
-        if "has no backward" not in str(e):
-            raise
-        log(f"  ReCoNet f32 forward with grad mode on raises: {e}")
-    else:
-        raise AssertionError("ReCoNet forward with grad mode on did not raise")
+    reset_counts()
+    graded = model(x)   # grad mode on: K1/K2 as their autograd Functions
+    same = all(torch.equal(a.detach(), b) for a, b in zip(graded, ours))
+    log(f"  ReCoNet f32 forward with grad mode on: K1, K2 launches "
+        f"{counts()[:2]}, outputs bitwise those of inference mode: {same}")
+    if not same or counts()[:2] != (10, 2):
+        raise AssertionError("ReCoNet forward with grad mode on")
+    del graded
     for i, (o, r) in enumerate(zip(ours, ref)):
         err = max_err(o, r)
         log(f"  ReCoNet f32 256² tap {i}: max_abs_err {err:.3e} tol 2e-3")
@@ -1364,6 +1390,467 @@ def phase_main_loop(bare_ms):
     return dict(zip(("K3", "K4", "K5"), launches[2:]))
 
 
+# ------------------------------------------------------- ReCoNet training
+
+RECONET_OUT = os.path.join(ROOT, "build", "chip_smoke_reconet")
+# biases of the convs an instance norm follows: their true gradient is 0,
+# so both routes hold float32 noise there (and Adam turns it into ±lr steps)
+_IN_BIAS = ("conv1.conv2d.bias", "conv2.conv2d.bias", "conv3.conv2d.bias",
+            "deconv1.conv2d.bias", "deconv2.conv2d.bias")
+
+
+def _before_norm(key):
+    return key.startswith("res") and key.endswith("conv2d.bias") or (
+        key in _IN_BIAS)
+
+
+def _vjp(fn, args, cot):
+    """Every input's gradient of ``fn(*args)`` (a tuple or one tensor)
+    under the cotangents ``cot``, in float64."""
+    leaves = [a.detach().requires_grad_() for a in args]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, tuple(c.to(o.dtype)
+                                        for c, o in zip(cot, outs)))
+    return [leaf.grad.double() for leaf in leaves]
+
+
+def _k1_plain64(*a):
+    return res_block.Conv3x3InStats.apply(
+        *a, *([None] * (6 - len(a))), res_block.conv3x3_in_stats_plain)
+
+
+def _k2_plain64(x, w):
+    return head_conv.Conv3x3Valid.apply(x, w, head_conv.conv3x3_valid_plain)
+
+
+# the f32 flow step's shapes at 360×640, batch 2 (the frame pair in one
+# batch of 4): the residual stack at 90×160×192 and the 9×9 stem and head
+# on the 92×162 packed input
+RC_K1 = (4, 90, 160, 192)
+RC_K2 = {"stem": (4, 92, 162, 48, 768), "head": (4, 92, 162, 768, 48)}
+
+
+def _k1_grad_inputs(g, dtype, prologue):
+    n, h, w, c = RC_K1
+    args = [rnd(g, RC_K1, 2.0), rnd(g, (3, 3, c, c), 1 / (3 * c ** 0.5)),
+            rnd(g, (c,), 0.1)]
+    args = [a.to(dtype) for a in args]
+    if prologue:
+        args += [torch.stack([rnd(g, (n, c)), rnd(g, (n, c), 0.2, shift=1.0)
+                              .abs()], 1),
+                 rnd(g, (c,), 0.3, shift=1.0), rnd(g, (c,), 0.1)]
+    return args, (rnd(g, RC_K1), rnd(g, (n, 2, c)))
+
+
+def _k2_grad_inputs(g, dtype, shape):
+    n, hp, wp, c, co = shape
+    return ([rnd(g, (n, hp, wp, c), 50.0, dtype),
+             rnd(g, (3, 3, c, co), 1 / (3 * c ** 0.5), dtype)],
+            (rnd(g, (n, hp - 2, wp - 2, co)),))
+
+
+# tolerance on each input's gradient, of its largest element, against the
+# float64 plain route on the same (rounded) inputs: f32 3xTF32 forwards and
+# f32 library backwards sit near 1e-6 of the scale (the f32 K1/K2
+# forward within 1e-6 of float64); bf16 rounds y, the prologue output and
+# the gradient of the kernel's input to bf16 (2⁻⁹ relative each)
+GRAD_TOLS = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _k1_k2_grad_checks(g):
+    """K1's and K2's autograd Functions on the card (kernel forward,
+    library backward) against the same Functions' plain route in float64
+    on the card, at the f32 flow step's block shapes, f32 and bf16."""
+    errs = {}
+    names = ("x", "w", "b", "stats_in", "gamma", "beta")
+    for dtype, tol in GRAD_TOLS.items():
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for prologue in (False, True):
+            args, cot = _k1_grad_inputs(g, dtype, prologue)
+            ours = _vjp(res_block.conv3x3_in_stats, args, cot)
+            ref = _vjp(_k1_plain64, [a.double() for a in args], cot)
+            e = [max_err(a, r) / r.abs().max().item()
+                 for a, r in zip(ours, ref)]
+            log(f"  K1 Function {tag} {RC_K1}{' prologue' if prologue else ''}"
+                f": gradient errors of the largest against float64 "
+                + ", ".join(f"{k} {v:.2e}" for k, v in zip(names, e))
+                + f" tol {tol:.0e}")
+            errs[f"K1 {tag}{' prologue' if prologue else ''}"] = max(e)
+            if not max(e) <= tol:
+                raise AssertionError(f"K1 {tag} gradient: {e}")
+        for part, shape in RC_K2.items():
+            args, cot = _k2_grad_inputs(g, dtype, shape)
+            ours = _vjp(head_conv.conv3x3_valid, args, cot)
+            ref = _vjp(_k2_plain64, [a.double() for a in args], cot)
+            e = [max_err(a, r) / r.abs().max().item()
+                 for a, r in zip(ours, ref)]
+            log(f"  K2 Function {tag} {part} {shape}: gradient errors x "
+                f"{e[0]:.2e}, w {e[1]:.2e} tol {tol:.0e}")
+            errs[f"K2 {tag} {part}"] = max(e)
+            if not max(e) <= tol:
+                raise AssertionError(f"K2 {tag} {part} gradient: {e}")
+    return errs
+
+
+def _k1_k2_step_times(g):
+    """Event times per f32 flow step of what K1 and K2 do in it: the
+    forwards (kernels; 5 launches without and 5 with the prologue, the stem
+    and the head) and their backwards (the VJPs' library convolutions and
+    elementwise folds)."""
+    apply_precision(torch.float32)
+    args, (gy, gs) = _k1_grad_inputs(g, torch.float32, True)
+    x, w, b, s, gm, bt = args
+    y, st = res_block.conv3x3_in_stats(x, w, b)
+    fwd = event_ms(lambda: res_block.conv3x3_in_stats(x, w, b))
+    fwd_pro = event_ms(lambda: res_block.conv3x3_in_stats(x, w, b, s, gm, bt))
+    bwd = event_ms(lambda: res_block.conv3x3_in_stats_vjp(
+        x, w, b, None, None, None, y, st, gy, gs, (True, True, True, False,
+                                                   False, False)))
+    bwd_pro = event_ms(lambda: res_block.conv3x3_in_stats_vjp(
+        x, w, b, s, gm, bt, y, st, gy, gs))
+    t = {"K1 forward": 5 * (fwd + fwd_pro), "K1 backward": 5 * (bwd + bwd_pro),
+         "K2 forward": 0.0, "K2 backward": 0.0}
+    for part, shape in RC_K2.items():
+        (xk, wk), (gk,) = _k2_grad_inputs(g, torch.float32, shape)
+        t["K2 forward"] += event_ms(lambda: head_conv.conv3x3_valid(xk, wk))
+        t["K2 backward"] += event_ms(
+            lambda: head_conv.conv3x3_valid_vjp(xk, wk, gk))
+    log("  K1/K2 per f32 flow step (event times at its shapes): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+        + f"; K1 per launch forward {fwd:.4f} / {fwd_pro:.4f}, backward "
+        f"{bwd:.4f} / {bwd_pro:.4f} (without / with the prologue)")
+    return t
+
+
+def _flow_batch(rng, cfg, b=None):
+    """A synthetic flow batch at ``cfg``'s size: two 0-255 integer frames
+    (stacks of input_frame_num), a flow of std 2 pixels, a mask of ones at
+    80% of the pixels."""
+    b = b or cfg.batch_size
+    h, w = cfg.img_size
+    c = 3 * cfg.input_frame_num
+    img = [torch.from_numpy(rng.integers(0, 256, (b, h, w, c))
+                            .astype(np.float32)).cuda() for _ in range(2)]
+    flow = torch.from_numpy((rng.standard_normal((b, h, w, 2)) * 2)
+                            .astype(np.float32)).cuda()
+    mask = torch.from_numpy((rng.random((b, h, w)) > 0.2)
+                            .astype(np.float32)).cuda()
+    return (*img, flow, mask)
+
+
+def _style_grams(vgg, cfg, rng):
+    h, w = cfg.img_size
+    style = rng.integers(0, 256, (1, h, w, 3)).astype(np.float32)
+    return reconet_style_grams(vgg, style)
+
+
+@contextlib.contextmanager
+def _float64_steps():
+    """Let a step builder take ``dtype="float64"`` (the exact evaluation
+    of this check; the package offers float32 and bfloat16)."""
+    steps_m.DTYPES["float64"] = torch.float64
+    try:
+        yield
+    finally:
+        del steps_m.DTYPES["float64"]
+
+
+def _flow_step_against_plain(vgg, grams, batch):
+    """One flow step (RECONET_CANDY, 360×640 b2) from the same state three
+    ways: f32 through K1/K2 (kernel forwards, library backwards), f32 and
+    float64 through their plain versions (cuDNN, autograd).  Against the
+    float64 step: the kernel route's metrics within 1e-4 relative, and each
+    parameter gradient within max(1e-3, 2 × the plain f32 route's own
+    distance) of the key's scale — the calibration of
+    tests/test_train_parity.py: float32 alone puts this step's gradients
+    up to 1% of their scale apart (the FTL's weight of 1e12 makes them
+    differences of large terms).  The biases before an instance norm,
+    whose true gradient is 0, are measured against the model's largest
+    gradient."""
+    cfg = RECONET_CANDY
+    runs = {}
+    for name, dtype, plain in (("kernels", "float32", False),
+                               ("plain", "float32", True),
+                               ("float64", "float64", True)):
+        state = create(init_reconet(1, device="cuda"), cfg.lr)
+        with _float64_steps(), (plain_kernels() if plain
+                                else contextlib.nullcontext()):
+            step = make_reconet_flow_step(
+                dataclasses.replace(cfg, dtype=dtype), vgg, grams)
+            _, m = step(state, batch)
+        runs[name] = ({k: float(v) for k, v in m.items()},
+                      {k: p.grad for k, p in state.model.named_parameters()})
+    (mk, gk), (mp, gp), (m64, g64) = (runs[k] for k in ("kernels", "plain",
+                                                        "float64"))
+    merr = {k: abs(mk[k] - m64[k]) / abs(m64[k]) for k in m64}
+    log("  flow step 360×640 b2, f32 through the kernels against float64: "
+        "metrics " + ", ".join(f"{k} {mk[k]:.6e} ({merr[k]:.1e}; plain f32 "
+                               f"{abs(mp[k] - m64[k]) / abs(m64[k]):.1e})"
+                               for k in m64) + " tol 1e-4")
+    top = max(g.abs().max().item() for g in g64.values())
+    bad, worst = [], (0.0, "", 0.0)
+    for k, g in g64.items():
+        scale = top if _before_norm(k) else g.abs().max().item()
+        ek, ep = max_err(gk[k], g) / scale, max_err(gp[k], g) / scale
+        if ek > max(1e-3, 2 * ep):
+            bad.append((k, ek, ep))
+        worst = max(worst, (ek, k, ep))
+    log(f"  gradients of {len(g64)} parameters against float64: worst "
+        f"kernels {worst[0]:.3e} ({worst[1]}; plain f32 {worst[2]:.3e}), "
+        f"tol max(1e-3, 2 × plain f32's) of each key's scale; the biases "
+        f"before an instance norm against the largest gradient {top:.3e}")
+    if bad or max(merr.values()) > 1e-4 or not all(
+            torch.isfinite(g).all() for g in gk.values()):
+        raise AssertionError(f"flow step against float64: {merr}, {bad}")
+    return max(merr.values()), worst[0]
+
+
+def _reconet_run(label, state, step, batch, steps, warmup, per_step,
+                 nan_sdl=False):
+    """``warmup`` + ``steps`` steps on one batch with the launch counts set
+    to 0 just before and read just after: finite metrics at every step (the
+    SD loss NaN at every step where ``nan_sdl``), parameters that moved,
+    exactly ``per_step`` (K1, K2) launches a step; returns the counts, the
+    median ms of the timed steps (None without any), and the peak GiB."""
+    before = [p.detach().clone() for p in state.model.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, metrics = [], []
+    for i in range(warmup + steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    total = warmup + steps
+    expect = tuple(n * total for n in per_step) + (0, 0, 0)
+    bad = [i for i, m in enumerate(metrics)
+           if not all(math.isfinite(v) for k, v in m.items() if k != "SDL")
+           or ("SDL" in m and math.isnan(m["SDL"]) != nan_sdl)]
+    moved = sum(not torch.equal(a, p)
+                for a, p in zip(before, state.model.parameters()))
+    last = {k: float(f"{v:.6g}") for k, v in metrics[-1].items()}
+    b = (batch if torch.is_tensor(batch) else batch[0]).shape[0]
+    log(f"  {label}: launches K1-K5 {launches} over {total} steps; metrics "
+        f"finite at every step{' (SDL NaN)' if nan_sdl else ''}, last {last}; "
+        f"{moved} of {len(before)} parameter tensors moved; peak {peak:.2f} "
+        f"GiB")
+    ms = float(np.median(times)) if times else None
+    if times:
+        log(f"  {label}: {ms:.3f} ms/step median of {steps} (min "
+            f"{min(times):.3f}, max {max(times):.3f}) -> {b * 1e3 / ms:.2f} "
+            f"samples/s (min {b * 1e3 / max(times):.2f}, max "
+            f"{b * 1e3 / min(times):.2f})")
+    if bad or launches != expect or moved < len(before) - 3:
+        raise AssertionError(f"{label}: bad steps {bad}, launches {launches} "
+                             f"(expected {expect}), moved {moved}")
+    return launches, ms, peak
+
+
+class SyntheticFlowPairs:
+    """The SceneFlow datasets' protocol on synthetic data (the card's
+    machine has no PIL): (img1, img2, flow, mask) per item as
+    ``_flow_batch`` draws them, from ``default_rng((seed, idx))``."""
+
+    def __init__(self, n, size, seed):
+        self.n, self.size, self.seed = n, size, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx):
+        rng = np.random.default_rng((self.seed, idx))
+        h, w = self.size
+        return (rng.integers(0, 256, (h, w, 3)).astype(np.float32),
+                rng.integers(0, 256, (h, w, 3)).astype(np.float32),
+                (rng.standard_normal((h, w, 2)) * 2).astype(np.float32),
+                (rng.random((h, w)) > 0.2).astype(np.float32))
+
+
+def _train_tensors(state):
+    """The model's and Adam's tensors of a train state, by name."""
+    out = dict(state.model.state_dict())
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"adam.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+def _flow_loop(vgg, grams):
+    """The flow trainer (RECONET_CANDY, 360×640 b2 f32) through
+    ``run_training`` on 8 synthetic items (4 steps an epoch): an
+    uninterrupted 2-epoch run (K1 80 and K2 16 launches, finite losses,
+    the epoch checkpoints), and a run preempted by SIGUSR1 at epoch 1
+    batch 3 and resumed through the CLI's ``resume_position``: the model
+    and Adam state restored bitwise as the preempted run left them, the
+    same batches, then losses within 5e-2 relative and parameters within
+    5e-2 relative L2 (all but the biases before an instance norm) of the
+    uninterrupted run.  The two runs are not bitwise alike before the
+    preemption already: the backward sums in no fixed order (cuDNN's
+    weight gradients, grid_sample's, the stem's packed weights; on the
+    CPU the stem's alone), and Adam's first steps, about ±lr whatever a
+    gradient's size, carry that float32 noise into the parameters: on the
+    CPU at 24×32 the same check gave 1.9e-3 (losses) and 3.0e-3
+    (parameters) after 8 steps."""
+    cfg = RECONET_CANDY
+    ds = SyntheticFlowPairs(8, cfg.img_size, seed=21)
+    n_batches = len(ds) // cfg.batch_size
+    shutil.rmtree(RECONET_OUT, ignore_errors=True)
+    step = make_reconet_flow_step(cfg, vgg, grams)
+    net = init_reconet(1, device="cuda")
+    name = "reconet-candy"
+
+    def indented(msg):
+        log(f"    {msg}")
+
+    run = dict(batch_size=cfg.batch_size, model_name=name, seed=22,
+               num_workers=4, log_fn=indented, epochs=2, log_every=1,
+               save_every_steps=2)
+    out_a = os.path.join(RECONET_OUT, "full")
+    sums_a = []
+    torch.cuda.synchronize()
+    reset_counts()
+    state_a = run_training(_recording(step, sums_a),
+                           create(copy.deepcopy(net), cfg.lr), ds,
+                           out_dir=out_a, metrics_jsonl=os.path.join(
+                               out_a, "metrics.jsonl"), **run)
+    torch.cuda.synchronize()
+    launches = counts()
+    steps = 2 * n_batches
+    rec_a = _jsonl(os.path.join(out_a, "metrics.jsonl"))
+    finite = all(v is not None and math.isfinite(v) for r in rec_a.values()
+                 for v in r.values())
+    files = sorted(os.listdir(out_a))
+    want = [f"{name}_epoch_{e}_batchSize_{cfg.batch_size}{x}"
+            for e in (1, 2) for x in (".npz", ".pth")] + [f"{name}_last_state"]
+    log(f"  loop, uninterrupted: launches K1-K5 {launches} over {steps} "
+        f"steps; {len(rec_a)} logged steps, losses finite: {finite}; files "
+        f"{files}")
+    if (launches != (10 * steps, 2 * steps, 0, 0, 0) or not finite
+            or sorted(rec_a) != list(range(1, steps + 1))
+            or not set(want) <= set(files)):
+        raise AssertionError("ReCoNet loop run")
+    out_b = os.path.join(RECONET_OUT, "preempted")
+    sums_b = []
+    try:
+        run_training(_recording(step, sums_b, preempt_at=2),
+                     create(copy.deepcopy(net), cfg.lr), ds, out_dir=out_b,
+                     metrics_jsonl=os.path.join(out_b, "metrics.jsonl"), **run)
+    except TrainingPreempted as e:
+        log(f"  loop, preempted: {e}")
+        preempted = {k: v.detach().cpu().clone() for k, v in
+                     _train_tensors(e.state).items()}
+    else:
+        raise AssertionError("the SIGUSR1 run was not preempted")
+    state_b = create(copy.deepcopy(net), cfg.lr)
+    epoch_start, start_batch = resume_position(
+        state_b, "auto", out_b, name, 1, n_batches, log=indented)
+    restored = _train_tensors(state_b)
+    exact = restored.keys() == preempted.keys() and all(
+        torch.equal(restored[k].cpu(), preempted[k]) for k in preempted)
+    state_b = run_training(_recording(step, sums_b), state_b, ds,
+                           out_dir=out_b, epoch_start=epoch_start,
+                           start_batch=start_batch, metrics_jsonl=os.path.join(
+                               out_b, "metrics.jsonl"), **run)
+    same_data = torch.equal(torch.stack(sums_a).cpu(),
+                            torch.stack(sums_b).cpu())
+    rec_b = _jsonl(os.path.join(out_b, "metrics.jsonl"))
+    keys = [k for k in rec_a[1] if k not in ("epoch", "batch", "step",
+                                             "samples_per_s")]
+    loss_err = max(abs(rec_b[s][k] - rec_a[s][k]) / abs(rec_a[s][k])
+                   for s in rec_b for k in keys)
+    pa = {k: v.cpu() for k, v in state_a.model.state_dict().items()}
+    pb = {k: v.cpu() for k, v in state_b.model.state_dict().items()}
+    held = [k for k in pa if not _before_norm(k)]
+    rel = _rel_l2(pb, pa, held)
+    log(f"  loop, resumed at epoch {epoch_start} batch {start_batch + 1}: "
+        f"the model and Adam state bitwise the preempted run's: {exact}; "
+        f"the same {len(sums_b)} batches: {same_data}; logged steps "
+        f"{sorted(rec_b)}, losses max relative {loss_err:.3e} tol 5e-2; "
+        f"parameters relative L2 {rel:.3e} tol 5e-2 (all but the biases "
+        f"before an instance norm; with them {_rel_l2(pb, pa, list(pa)):.3e})"
+        f"; step {state_b.step}")
+    if not (exact and same_data and (epoch_start, start_batch) == (1, 3)
+            and sorted(rec_b) == [s for s in rec_a if s != 3]
+            and loss_err <= 5e-2 and rel <= 5e-2
+            and state_b.step == state_a.step == steps):
+        raise AssertionError("preempted and resumed ReCoNet loop run")
+    shutil.rmtree(RECONET_OUT, ignore_errors=True)
+    return launches
+
+
+def phase_main_reconet_train(g):
+    """ReCoNet training: K1's and K2's gradients at the flow step's shapes;
+    the full-width flow step (RECONET_CANDY: ReCoNet 48/96/192, 5 blocks,
+    seed 1; VGG16 seed 0; 360×640 frame pairs, batch 2, f32) against the
+    plain route, then timed (2 warmup, 6 timed steps; K1 10, K2 2 a step),
+    under remat (K1 20, K2 4: the checkpointed forward runs again in the
+    backward); the coco step (256² b4) and the SD1 → SD2 distillation
+    (teacher forward included: K1 20, K2 4 a step; SD1's SD loss NaN);
+    what K1/K2 cost per step, forward and backward; the flow trainer
+    through the loop with a resume."""
+    log("[5c] main path: ReCoNet training (flow step 360×640 b2 f32, coco "
+        "256² b4, SD1 and SD2 distillation, the flow trainer's loop)")
+    t_phase = time.perf_counter()
+    errs = _k1_k2_grad_checks(g)
+    apply_precision(torch.float32)
+    rng = np.random.default_rng(20)
+    cfg = RECONET_CANDY
+    vgg = init_vgg16_reconet(0, device="cuda")
+    grams = _style_grams(vgg, cfg, rng)
+    batch = _flow_batch(rng, cfg)
+    m_err, g_err = _flow_step_against_plain(vgg, grams, batch)
+    total = [0, 0]
+    out = {"errs": errs, "metric_err": m_err, "grad_err": g_err}
+
+    def add(launches):
+        total[0] += launches[0]
+        total[1] += launches[1]
+
+    for remat, (steps, warmup) in ((False, (6, 2)), (True, (2, 1))):
+        c = dataclasses.replace(cfg, remat=remat)
+        launches, ms, peak = _reconet_run(
+            f"flow f32{' remat' if remat else ''}",
+            create(init_reconet(1, device="cuda"), c.lr),
+            make_reconet_flow_step(c, vgg, grams), batch, steps, warmup,
+            (20, 4) if remat else (10, 2))
+        add(launches)
+        out["remat_ms" if remat else "ms"] = ms
+        out["remat_peak_gib" if remat else "peak_gib"] = peak
+    ccfg = ReCoNetCocoConfig()
+    cbatch = torch.from_numpy(rng.integers(0, 256, (ccfg.batch_size,
+                                                    *ccfg.img_size, 3))
+                              .astype(np.float32)).cuda()
+    launches, out["coco_ms"], _ = _reconet_run(
+        "coco 256² b4 f32", create(init_reconet(1, device="cuda"), ccfg.lr),
+        make_reconet_coco_step(ccfg, vgg, _style_grams(vgg, ccfg, rng)),
+        cbatch, 3, 1, (10, 2))
+    add(launches)
+    student = None
+    for dcfg, teacher, init in ((DISTILL_SD1, init_reconet(0, device="cuda"),
+                                 init_reconet_sd1),
+                                (DISTILL_SD2, None, init_reconet_sd2)):
+        teacher = teacher if teacher is not None else student
+        state = create(init(1, device="cuda"), dcfg.lr)
+        launches, ms, _ = _reconet_run(
+            f"distill {dcfg.teacher}->{dcfg.student} 360×640 b2 f32", state,
+            make_reconet_distill_step(dcfg, vgg, grams, teacher), batch, 3, 1,
+            (20, 4), nan_sdl=dcfg.student == "sd1")
+        add(launches)
+        out[f"{dcfg.student}_ms"] = ms
+        student = state.model
+    out["times"] = _k1_k2_step_times(g)
+    add(_flow_loop(vgg, grams))
+    out["K1"], out["K2"] = total
+    log(f"  [5c] launches over the phase's main-path runs: K1 {total[0]}, "
+        f"K2 {total[1]}; wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_timing(launches, errs, slice_v):
     """Kernel, plain-version and cuDNN times at the main path's shapes, per
     forward: K1 five launches without and five with its prologue; K2 the
@@ -1879,6 +2366,21 @@ def phase_profile():
     batch = _image_batch(rng, cfg.batch_size, cfg.crop_size)
     _profile("AdaAttN train 256² b8 bf16 image step",
              lambda: step(state, batch))
+    del state, step, batch
+    _profile_flow_step(rng)
+
+
+def _profile_flow_step(rng):
+    """Device time by kernel of the f32 flow step (RECONET_CANDY): K1/K2's
+    forwards beside their library backwards and the rest."""
+    apply_precision(torch.float32)
+    cfg = RECONET_CANDY
+    vgg = init_vgg16_reconet(0, device="cuda")
+    state = create(init_reconet(1, device="cuda"), cfg.lr)
+    step = make_reconet_flow_step(cfg, vgg, _style_grams(vgg, cfg, rng))
+    batch = _flow_batch(rng, cfg)
+    _profile("ReCoNet train 360×640 b2 f32 flow step",
+             lambda: step(state, batch), top=24)
 
 
 def phase_f32_step():
@@ -1947,17 +2449,26 @@ def phase_f32_reconet():
              lambda: stylize_reconet(model, frames, uint8_out=True))
 
 
+def phase_reconet_train_alone():
+    """``--reconet-train``: the kernels' build and [5c] alone, then the
+    f32 flow step's device time by kernel."""
+    log(f"  build: {_build.build_all():.2f} s")
+    phase_main_reconet_train(torch.Generator(device="cuda").manual_seed(0))
+    _profile_flow_step(np.random.default_rng(4))
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("error: no CUDA device; chip_smoke.py runs only on a GPU",
               file=sys.stderr)
         return 1
     parent = argv[1] if len(argv) == 2 and argv[0] == "--parent" else None
-    alone = {"--f32-step": phase_f32_step, "--f32-reconet": phase_f32_reconet}
+    alone = {"--f32-step": phase_f32_step, "--f32-reconet": phase_f32_reconet,
+             "--reconet-train": phase_reconet_train_alone}
     if not (argv == [] or (len(argv) == 1 and argv[0] in alone)
             or parent is not None):
-        print(f"usage: chip_smoke.py [--f32-step | --f32-reconet | --parent "
-              f"DIR]; got {argv}", file=sys.stderr)
+        print(f"usage: chip_smoke.py [--f32-step | --f32-reconet | "
+              f"--reconet-train | --parent DIR]; got {argv}", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     smi = phase_card()
@@ -1981,6 +2492,10 @@ def main(argv):
     launches["K3"] = phase_main_adaattn()
     train, bare_ms = phase_main_train()
     loop = phase_main_loop(bare_ms)
+    rtrain = phase_main_reconet_train(g)
+    for k in ("K1", "K2"):
+        launches[k] += rtrain[k]
+        launches[f"{k} by path"]["ReCoNet training"] = rtrain[k]
     by_path = {"serving": launches["K3"], "training": train["K3"],
                "training loop": loop["K3"]}
     launches["K3"] += train["K3"] + loop["K3"]
@@ -1999,6 +2514,17 @@ def main(argv):
     kernels[2]["tflops_f32_per_launch"] = k3_f32["tflops"]
     kernels[2]["ms_f32_per"] = ("one f32 launch at each AdaAttN training "
                                 "level (256x256 batch 8)")
+    times = rtrain["times"]
+    for row, k in ((kernels[0], "K1"), (kernels[1], "K2")):
+        row["train_forward_ms_per_step"] = times[f"{k} forward"]
+        row["train_backward_ms_per_step"] = times[f"{k} backward"]
+        row["train_backward"] = ("library: torch.nn.grad.conv2d_input / "
+                                 "conv2d_weight in f32, TF32 off")
+        row["train_per"] = ("one RECONET_CANDY flow step, 360x640 batch 2 "
+                            "f32 (the frame pair as a batch of 4)")
+        row["train_grad_err"] = {e: v for e, v in rtrain["errs"].items()
+                                 if e.startswith(k)}
+    kernels[0]["train_step_ms"] = rtrain["ms"]
     phase_profile()
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB; wall {time.perf_counter() - t0:.1f} s")

@@ -170,8 +170,9 @@ def test_preempted_run_resumes_bitwise(uninterrupted, folders, tmp_path,
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--trainer", "reconet-candy"], "items 12-15"),
-    (["--trainer", "reconet-sd1"], "items 12-15"),
+    (["--trainer", "reconet-candy"], "--style is required"),
+    (["--trainer", "reconet-sd1", "--style", "s.png"],
+     "--teacher-weights is required"),
     (["--trainer", "rtnstv"], "item 17"),
     (["--trainer", "adaattn-image", "--data-parallel", "2"], "item 20"),
     (["--trainer", "adaattn-video", "--multihost"], "item 20"),

@@ -240,29 +240,99 @@ def test_model_routes_through_the_kernels(cuda):
         torch.testing.assert_close(o.cpu(), r.detach(), rtol=2e-3, atol=2e-3)
 
 
-def test_k1_k2_refuse_a_gradient(cuda):
-    """K1 and K2 have no backward yet: a ReCoNet forward on the card with
-    grad mode on raises instead of returning outputs whose kernel-side
-    parameters get no gradient.  The same forward under inference_mode
-    still launches K1 ten times and K2 twice, and the CPU forward (plain
-    versions) still gives every parameter a gradient."""
+def test_k1_k2_carry_a_gradient(cuda):
+    """A small f32 ReCoNet forward and backward on the card launches K1 ten
+    times and K2 twice (the backward launches neither) and gives every
+    parameter the CPU route's gradient, within 2e-3 of the key's largest
+    (3xTF32 forward against the CPU's float32; the biases before an
+    instance norm, whose true gradient is 0, against the model's largest
+    gradient)."""
     from vst_tpu_torch.models.reconet import init_reconet
 
-    x = torch.rand(1, 36, 44, 3, generator=torch.Generator().manual_seed(0)) * 255
+    x = torch.rand(2, 36, 44, 3, generator=torch.Generator().manual_seed(0)) * 255
+    cpu = init_reconet(0, device="cpu")
+    sum(o.square().mean() for o in cpu(x)).backward()
     model = init_reconet(0, device=cuda)
-    with pytest.raises(RuntimeError, match="has no backward"):
-        model(x.to(cuda))
     before = (res_block.conv3x3_in_stats.launches,
               head_conv.conv3x3_valid.launches)
-    with torch.inference_mode():
-        model(x.to(cuda))
+    out = model(x.to(cuda))
     assert (res_block.conv3x3_in_stats.launches - before[0],
             head_conv.conv3x3_valid.launches - before[1]) == (10, 2)
-    cpu = init_reconet(0, device="cpu")
-    sum(o.float().square().mean() for o in cpu(x)).backward()
-    missing = [k for k, p in cpu.named_parameters()
-               if p.grad is None or not torch.isfinite(p.grad).all()]
-    assert not missing, missing
+    sum(o.square().mean() for o in out).backward()
+    assert (res_block.conv3x3_in_stats.launches - before[0],
+            head_conv.conv3x3_valid.launches - before[1]) == (10, 2)
+    ref = dict(cpu.named_parameters())
+    top = max(p.grad.abs().max() for p in ref.values())
+    for k, p in model.named_parameters():
+        g = ref[k].grad
+        scale = top if k.endswith("conv2d.bias") else g.abs().max()
+        assert (p.grad.cpu() - g).abs().max() <= 2e-3 * scale, k
+
+
+def _grad_case(cuda, shape, dtype, prologue, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n, h, wd, c, co = shape
+    args = [torch.randn(n, h, wd, c, device=cuda, generator=g) * 2,
+            torch.randn(3, 3, c, co, device=cuda, generator=g) / (3 * c ** 0.5),
+            torch.randn(co, device=cuda, generator=g) * 0.1]
+    if prologue:
+        args += [torch.stack([torch.randn(n, c, device=cuda, generator=g),
+                              torch.rand(n, c, device=cuda, generator=g) + 0.5],
+                             1),
+                 torch.rand(c, device=cuda, generator=g) + 0.5,
+                 torch.randn(c, device=cuda, generator=g) * 0.1]
+    cot = (torch.randn(n, h, wd, co, device=cuda, generator=g),
+           torch.randn(n, 2, co, device=cuda, generator=g))
+    cast = [a.to(dtype) if i < 3 else a for i, a in enumerate(args)]
+    return cast, [a.double() for a in cast], cot
+
+
+def _grads(fn, args, cot):
+    leaves = [a.detach().requires_grad_() for a in args]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, tuple(c.to(o.dtype)
+                                        for c, o in zip(cot, outs)))
+    return [leaf.grad.double() for leaf in leaves]
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 13, 24, 40), (3, 17, 6, 64, 64),
+                                   (1, 2, 2, 8, 16)])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_k1_function_grad_ragged(cuda, shape, prologue, dtype, tol):
+    """K1's Function on the card (kernel forward, library backward) against
+    its plain route in float64 on the same (rounded) inputs, at ragged
+    shapes: each input's gradient within ``tol`` of its largest (bf16: the
+    rounded forward, saved y and input gradient, 2⁻⁹ relative each)."""
+    args, args64, cot = _grad_case(cuda, shape, dtype, prologue)
+    ours = _grads(res_block.conv3x3_in_stats, args, cot)
+    ref = _grads(lambda *a: res_block.Conv3x3InStats.apply(
+        *a, *([None] * (6 - len(a))), res_block.conv3x3_in_stats_plain),
+        args64, cot)
+    for i, (a, r) in enumerate(zip(ours, ref)):
+        assert (a - r).abs().max() <= tol * r.abs().max(), i
+
+
+@pytest.mark.parametrize("n,hp,wp,c,co", [(2, 11, 14, 48, 768),
+                                          (1, 7, 9, 768, 48),
+                                          (2, 5, 19, 24, 16)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_k2_function_grad_ragged(cuda, n, hp, wp, c, co, dtype, tol):
+    """K2's Function on the card against its plain route in float64."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(n, hp, wp, c, device=cuda, generator=g)
+    w = torch.randn(3, 3, c, co, device=cuda, generator=g) / (3 * c ** 0.5)
+    cot = torch.randn(n, hp - 2, wp - 2, co, device=cuda, generator=g)
+    x, w = x.to(dtype), w.to(dtype)
+    ours = _grads(head_conv.conv3x3_valid, [x, w], (cot,))
+    ref = _grads(lambda a, b: head_conv.Conv3x3Valid.apply(
+        a, b, head_conv.conv3x3_valid_plain), [x.double(), w.double()],
+        (cot,))
+    for i, (a, r) in enumerate(zip(ours, ref)):
+        assert (a - r).abs().max() <= tol * r.abs().max(), i
 
 
 K3_SHAPES = [(256, 256, 64, 32),     # tile multiples

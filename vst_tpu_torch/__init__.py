@@ -10,6 +10,8 @@ streaming stylization through ``kernels/res_block.py`` (K1, the residual
 stack) and ``kernels/head_conv.py`` (K2, the packed 9×9 stem and head),
 and AdaAttN arbitrary-style image, cached-style and video serving through
 ``kernels/adaattn_attention.py`` (K3, the softmax attention moments).
-AdaAttN trains through K3 forward and K4/K5 backward, end to end from the
-training CLI (``cli/train.py``, ``train/loop.py``).
+AdaAttN trains through K3 forward and K4/K5 backward, and ReCoNet (with
+its SD1/SD2 students) through K1 and K2 forward and their library
+conv-gradient backward, end to end from the training CLI
+(``cli/train.py``, ``train/loop.py``).
 """

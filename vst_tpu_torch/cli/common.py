@@ -31,15 +31,21 @@ def check_weights_match(state: dict, model: str, path: str,
             f"(missing keys e.g. {missing[:3]}); pass the matching --model")
 
 
+_VGG = {"vgg19_adaattn": (vgg.init_vgg19_adaattn, vgg.build_vgg19_adaattn),
+        "vgg16": (vgg.init_vgg16_reconet, vgg.build_vgg16_reconet)}
+
+
 def load_vgg_weights(path: str | None, device="cuda",
-                     dtype: torch.dtype = torch.float32,
-                     seed: int = 0) -> torch.nn.Module:
-    """AdaAttN's VGG19 trunk from a ``.pth``/``.npz`` (a torchvision
-    state_dict works), or, without a path, the JAX package's seeded init
-    (smoke runs: the repository holds no pretrained weights)."""
+                     dtype: torch.dtype = torch.float32, seed: int = 0,
+                     flavor: str = "vgg19_adaattn") -> torch.nn.Module:
+    """A VGG trunk, ``flavor`` "vgg19_adaattn" (AdaAttN's) or "vgg16"
+    (ReCoNet's), from a ``.pth``/``.npz`` (a torchvision state_dict
+    works), or, without a path, the JAX package's seeded init (smoke runs:
+    the repository holds no pretrained weights)."""
+    init, build = _VGG[flavor]
     if path is None:
-        return vgg.init_vgg19_adaattn(seed, device, dtype)
-    return vgg.build_vgg19_adaattn(load_weights(path), device, dtype)
+        return init(seed, device, dtype)
+    return build(load_weights(path), device, dtype)
 
 
 def load_image_255(path, size_wh=None) -> np.ndarray:

@@ -1,10 +1,14 @@
-"""Training CLI on the card: the AdaAttN image and video trainers.
+"""Training CLI on the card: the seven ReCoNet trainers and the AdaAttN
+image and video trainers.
 
-Counterpart of ``vst_tpu/cli/train.py`` (AdaAttN/train_image.py,
-train_video.py), with the same trainer names and flags; ``--device``
-takes the place of ``--platform``.  The other trainers come with their
-slices and are refused here.
+Counterpart of ``vst_tpu/cli/train.py`` (ReCoNet/train_single/train_
+{candy,starry-night,Flow_noFTL,coco2014,Flow_SD1,Flow_SD2}.py,
+train_multiple/train_Flow.py, AdaAttN/train_image.py, train_video.py),
+with the same trainer names and flags; ``--device`` takes the place of
+``--platform``.  RTNSTV comes with its slice and is refused here.
 
+    python -m vst_tpu_torch.cli.train --trainer reconet-candy \\
+        --data sceneflow --style candy.jpg --out-dir models --resume auto
     python -m vst_tpu_torch.cli.train --trainer adaattn-image \\
         --data coco/train2014,wikiart --out-dir models --resume auto
 """
@@ -13,12 +17,14 @@ import argparse
 import dataclasses
 import os
 
-from vst_tpu_torch.cli.common import load_vgg_weights
+from vst_tpu_torch.cli.common import (load_image_255, load_vgg_weights,
+                                      load_weights)
+from vst_tpu_torch.compat import params_from_jax
 from vst_tpu_torch.device import resolve_device
-from vst_tpu_torch.models import adaattn
+from vst_tpu_torch.models import adaattn, reconet
 from vst_tpu_torch.train import config as C
 from vst_tpu_torch.train import steps
-from vst_tpu_torch.train.checkpoint import load_state
+from vst_tpu_torch.train.checkpoint import load_state, partial_init_from
 from vst_tpu_torch.train.loop import TrainingPreempted, run_training
 from vst_tpu_torch.train.state import create
 
@@ -29,22 +35,33 @@ TRAINERS = (
 )
 
 # trainers of later slices: the ROADMAP item that brings each
-_NOT_PORTED = {**{t: "items 12-15 (ReCoNet training)"
-                  for t in TRAINERS if t.startswith("reconet")},
-               "rtnstv": "item 17 (RTNSTV)"}
+_NOT_PORTED = {"rtnstv": "item 17 (RTNSTV)"}
+PER_STYLE = tuple(t for t in TRAINERS if not t.startswith("adaattn"))
+RECONET_FLOW = {
+    "reconet-candy": C.RECONET_CANDY,
+    "reconet-starry-night": C.RECONET_STARRY_NIGHT,
+    "reconet-noftl": C.RECONET_NOFTL,
+    "reconet-multiframe": C.RECONET_MULTIFRAME,
+    "reconet-sd1": C.DISTILL_SD1,
+    "reconet-sd2": C.DISTILL_SD2,
+}
 
 
 def build_parser():
     p = argparse.ArgumentParser(prog="vst_tpu_torch.cli.train")
     p.add_argument("--trainer", choices=TRAINERS, required=True)
     p.add_argument("--data", required=True,
-                   help="dataset root: 'content_dir,style_dir' (COCO and "
+                   help="dataset root: SceneFlow (holding monkaa and "
+                        "flyingthings3d) for the ReCoNet flow and SD "
+                        "trainers, COCO (holding train2014) for "
+                        "reconet-coco, 'content_dir,style_dir' (COCO and "
                         "WikiArt) for adaattn-image, 'videvo_dir,style_dir' "
                         "for adaattn-video")
     p.add_argument("--style", help="style image path (per-style trainers)")
     p.add_argument("--vgg-weights", help=".npz/.pth VGG weights "
                                          "(seeded init if omitted)")
-    p.add_argument("--teacher-weights", help="teacher ckpt for sd1/sd2")
+    p.add_argument("--teacher-weights", help="teacher ckpt for sd1/sd2 "
+                                             "(.pth/.npz; required there)")
     p.add_argument("--init-weights", help="student init ckpt (strict=False)")
     p.add_argument("--out-dir", default="./models")
     p.add_argument("--name", help="checkpoint base name (default: trainer)")
@@ -61,6 +78,10 @@ def build_parser():
                         "and batch derived from the saved step), start "
                         "fresh otherwise — an idempotent restart-after-"
                         "crash entry point")
+    p.add_argument("--dtype", choices=list(steps.DTYPES),
+                   help="compute dtype inside the loss (default: the "
+                        "trainer's config, float32); the master parameters "
+                        "stay float32")
     p.add_argument("--remat", action="store_true",
                    help="recompute the stylizer and VGG forwards in the "
                         "backward (torch.utils.checkpoint): trades FLOPs "
@@ -105,8 +126,11 @@ def _override(cfg, args):
     if args.lr is not None:
         kw["lr"] = args.lr
     if args.img_size is not None:
-        field = "crop_size" if hasattr(cfg, "crop_size") else "frame_size"
+        field = ("img_size" if hasattr(cfg, "img_size") else
+                 "crop_size" if hasattr(cfg, "crop_size") else "frame_size")
         kw[field] = tuple(args.img_size)
+    if args.dtype is not None:
+        kw["dtype"] = args.dtype
     if args.remat:
         kw["remat"] = True
     return dataclasses.replace(cfg, **kw) if kw else cfg
@@ -139,10 +163,70 @@ def resume_position(state, resume: str, out_dir: str, name: str,
     return epoch_start, start_batch
 
 
+def _style_tensor(args, size_hw=None):
+    """The style image as a (1, H, W, 3) 0–255 array, resized to
+    ``size_hw`` when given."""
+    size_wh = (size_hw[1], size_hw[0]) if size_hw else None
+    return load_image_255(args.style, size_wh)[None]
+
+
+def _seeded_model(family, seed, input_frame_num, device, donor=None):
+    """A ReCoNet-family model seeded as the JAX package seeds it, with the
+    name- and shape-matching entries of ``donor`` (a state_dict) copied
+    in (torch's ``strict=False``)."""
+    state = params_from_jax(reconet.init_params(family, seed,
+                                                input_frame_num))
+    if donor is not None:
+        state = partial_init_from(state, donor)
+    return reconet.build(family, state, input_frame_num, device)
+
+
+def _build_reconet(args, device):
+    """(config, dataset, state, step) of a ReCoNet trainer, seeded as JAX
+    seeds it: ``init_reconet(seed, input_frame_num)`` (or the student's
+    init with the teacher's matching weights copied in) and the VGG16 of
+    ``load_vgg_weights(path, "vgg16", seed)``."""
+    from vst_tpu_torch.data.datasets import Coco2014, SceneFlowCombined
+
+    t = args.trainer
+    coco = t == "reconet-coco"
+    cfg = _override(C.ReCoNetCocoConfig() if coco else RECONET_FLOW[t], args)
+    vgg = load_vgg_weights(args.vgg_weights, device, seed=args.seed,
+                           flavor="vgg16")
+    # candy and starry-night resize the style image to img_size; the
+    # others take it as it is
+    style = _style_tensor(args, cfg.img_size if "candy" in t or "starry" in t
+                          else None)
+    grams = steps.reconet_style_grams(vgg, style)
+    if coco:
+        dataset = Coco2014(args.data, cfg.img_size)
+        model = _seeded_model("reconet", args.seed, 1, device)
+        step = steps.make_reconet_coco_step(cfg, vgg, grams)
+    elif t in ("reconet-sd1", "reconet-sd2"):
+        dataset = SceneFlowCombined(args.data, cfg.img_size,
+                                    cfg.input_frame_num)
+        donor = load_weights(args.teacher_weights)
+        teacher = reconet.build(cfg.teacher, donor, cfg.input_frame_num,
+                                device)
+        model = _seeded_model(cfg.student, args.seed, cfg.input_frame_num,
+                              device, donor)
+        step = steps.make_reconet_distill_step(cfg, vgg, grams, teacher)
+    else:
+        dataset = SceneFlowCombined(args.data, cfg.img_size,
+                                    cfg.input_frame_num)
+        donor = load_weights(args.init_weights) if args.init_weights else None
+        model = _seeded_model("reconet", args.seed, cfg.input_frame_num,
+                              device, donor)
+        step = steps.make_reconet_flow_step(cfg, vgg, grams)
+    return cfg, dataset, create(model, cfg.lr), step
+
+
 def build_trainer(args, device):
-    """(config, dataset, state, step) of an AdaAttN trainer, seeded as JAX
-    seeds it: ``init_stylizing_network(seed)`` and the VGG19 of
-    ``load_vgg_weights(path, seed=seed)``."""
+    """(config, dataset, state, step) of a trainer.  An AdaAttN trainer is
+    seeded as JAX seeds it: ``init_stylizing_network(seed)`` and the VGG19
+    of ``load_vgg_weights(path, seed=seed)``."""
+    if args.trainer.startswith("reconet"):
+        return _build_reconet(args, device)
     from vst_tpu_torch.data.datasets import CocoWikiArt, VidevoWikiArt
 
     image = args.trainer == "adaattn-image"
@@ -169,6 +253,13 @@ def main(argv=None):
             f"error: --trainer {args.trainer} is not ported to vst_tpu_torch "
             f"yet (ROADMAP {_NOT_PORTED[args.trainer]}); use python -m "
             f"vst_tpu.cli.train")
+    if args.trainer in PER_STYLE and not args.style:
+        raise SystemExit(f"error: --style is required for trainer "
+                         f"'{args.trainer}'")
+    if args.trainer in ("reconet-sd1", "reconet-sd2") and (
+            not args.teacher_weights):
+        raise SystemExit(f"error: --teacher-weights is required for "
+                         f"trainer '{args.trainer}'")
     if args.data_parallel or args.multihost:
         raise SystemExit("error: --data-parallel and --multihost are not "
                          "ported to vst_tpu_torch yet (ROADMAP item 20)")

@@ -1,19 +1,28 @@
-"""AdaAttN datasets: plain-Python indexers returning HWC float32 0–255
-numpy arrays.  Counterpart of the AdaAttN part of
-``vst_tpu/data/datasets.py``, sample for sample the same bits:
+"""ReCoNet and AdaAttN datasets: plain-Python indexers returning HWC
+float32 0–255 numpy arrays.  Counterpart of the ReCoNet and AdaAttN parts
+of ``vst_tpu/data/datasets.py``, sample for sample the same bits:
 
+- ``Coco2014``      — ReCoNet/datasets.py:16-39
+- ``FlyingThings3D`` — ReCoNet/datasets.py:42-146 (A/B/C shards)
+- ``Monkaa``        — ReCoNet/datasets.py:149-253 (scene folders)
+- ``SceneFlowCombined`` — ReCoNet/datasets.py:256-283 (Monkaa first)
 - ``VidevoFrames``  — AdaAttN/datasets.py:136-170 (frame pairs, no flow)
 - ``ImageFolderCrop`` — AdaAttN's resize → random crop (utilities.py:31-43)
 - ``CocoWikiArt`` / ``VidevoWikiArt`` — AdaAttN/datasets.py:32-44, 173-185
 
 Images load through PIL with a BILINEAR (antialiased) resize, imported
 where an image is loaded: a machine without PIL can import this module.
-The ReCoNet and RTNSTV datasets come with their trainers.
+A SceneFlow sample is (img1, img2, backward flow, mask), the flows read
+by ``data/native.py``.  RTNSTV's Videvo flow dataset comes with its
+trainer.
 """
 
 import os
 
 import numpy as np
+
+from vst_tpu_torch.data import native
+from vst_tpu_torch.data.flow_np import flow_warp_mask_np, resize_bilinear_np
 
 
 def list_files(directory):
@@ -35,6 +44,161 @@ def load_image(path, size_wh=None, mode="RGB"):
     if arr.ndim == 2:
         arr = arr[..., None]
     return arr
+
+
+def _load_flow_file(path):
+    """(H, W, 2) float32 from .flo/.pfm (the native reader when built)/.npy
+    /.pt (a (2, H, W) tensor)."""
+    if path.endswith(".npy"):
+        return np.load(path).astype(np.float32)
+    if path.endswith(".pt"):
+        import torch
+
+        t = torch.load(path, map_location="cpu", weights_only=True)
+        return np.asarray(t).transpose(1, 2, 0).astype(np.float32)
+    if path.endswith(".pfm"):
+        return native.read_pfm(path)[:, :, 0:2].astype(np.float32)
+    return native.read_flo(path).astype(np.float32)
+
+
+class Coco2014:
+    """Single images of ``<path>/train2014`` (ReCoNet/datasets.py:16-39)."""
+
+    def __init__(self, path: str, img_size=(256, 256)):
+        self.paths = list_files(os.path.join(path, "train2014"))
+        self.img_size = img_size  # (H, W)
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, idx):
+        h, w = self.img_size
+        return load_image(self.paths[idx], (w, h))
+
+
+class _SceneFlowBase:
+    """The frame window + flow + motion-boundary sample both SceneFlow
+    layouts share."""
+
+    img_size: tuple
+    frame_num: int
+    frame: list
+    flow: list
+    motion: list
+
+    def __len__(self):
+        return len(self.frame)
+
+    def __getitem__(self, idx):
+        h, w = self.img_size
+        imgs = [load_image(p, (w, h)) for p in self.frame[idx]]
+        img1 = np.concatenate(imgs[0:self.frame_num], axis=-1)
+        img2 = np.concatenate(imgs[1:self.frame_num + 1], axis=-1)
+
+        fwd = _load_flow_file(self.flow[idx][0])
+        bwd = _load_flow_file(self.flow[idx][1])
+        oh, ow = fwd.shape[:2]
+        fwd = resize_bilinear_np(fwd, (h, w))
+        bwd = resize_bilinear_np(bwd, (h, w))
+        # the displacement rescale as the reference writes it
+        # (ReCoNet/datasets.py:130-134): channel 0 by the H ratio, channel
+        # 1 by the W ratio, the same as per-axis at SceneFlow's uniform 2/3
+        for f in (fwd, bwd):
+            f[..., 0] *= h / oh
+            f[..., 1] *= w / ow
+
+        # motion boundaries: nonzero → 0, zero → 1 (datasets.py:137-140),
+        # through PIL's BILINEAR resize, /255 (torchvision's toTensor)
+        motion = load_image(self.motion[idx], (w, h), mode=None) / 255.0
+        motion = (motion[..., 0] == 0).astype(np.float32)
+
+        mask = flow_warp_mask_np(fwd, bwd) * motion
+        return img1, img2, bwd, mask
+
+
+def _index_windows(files, frame_num):
+    return [files[i:i + frame_num + 1] for i in range(len(files) - frame_num)]
+
+
+class FlyingThings3D(_SceneFlowBase):
+    """The A/B/C shard layout (ReCoNet/datasets.py:42-146)."""
+
+    def __init__(self, path, img_size=(360, 640), frame_num=1):
+        if not 1 <= frame_num <= 9:
+            raise ValueError(f"frame_num must be in [1, 9], got {frame_num}")
+        self.img_size = img_size
+        self.frame_num = frame_num
+        self.frame, self.flow, self.motion = [], [], []
+        fdir = os.path.join(path, "frames_finalpass/TRAIN")
+        odir = os.path.join(path, "optical_flow/TRAIN")
+        mdir = os.path.join(path, "motion_boundaries/TRAIN")
+        for shard in ("A", "B", "C"):
+            for folder in sorted(os.listdir(os.path.join(fdir, shard))):
+                files = list_files(os.path.join(fdir, shard, folder, "left"))
+                self.frame += _index_windows(files, frame_num)
+            for folder in sorted(os.listdir(os.path.join(odir, shard))):
+                fut = list_files(os.path.join(odir, shard, folder,
+                                              "into_future", "left"))
+                pst = list_files(os.path.join(odir, shard, folder,
+                                              "into_past", "left"))
+                for i in range(len(fut) - frame_num):
+                    self.flow.append((fut[i + frame_num - 1],
+                                      pst[i + frame_num]))
+            for folder in sorted(os.listdir(os.path.join(mdir, shard))):
+                files = list_files(os.path.join(mdir, shard, folder,
+                                                "into_future", "left"))
+                for i in range(len(files) - frame_num):
+                    self.motion.append(files[i + frame_num])
+
+
+class Monkaa(_SceneFlowBase):
+    """The scene-folder layout (ReCoNet/datasets.py:149-253)."""
+
+    def __init__(self, path, img_size=(360, 640), frame_num=1):
+        if not 1 <= frame_num <= 9:
+            raise ValueError(f"frame_num must be in [1, 9], got {frame_num}")
+        self.img_size = img_size
+        self.frame_num = frame_num
+        self.frame, self.flow, self.motion = [], [], []
+        fdir = os.path.join(path, "frames_finalpass")
+        odir = os.path.join(path, "optical_flow")
+        mdir = os.path.join(path, "motion_boundaries")
+        for folder in sorted(os.listdir(fdir)):
+            files = list_files(os.path.join(fdir, folder, "left"))
+            self.frame += _index_windows(files, frame_num)
+        for folder in sorted(os.listdir(odir)):
+            fut = list_files(os.path.join(odir, folder, "into_future", "left"))
+            pst = list_files(os.path.join(odir, folder, "into_past", "left"))
+            for i in range(len(fut) - frame_num):
+                self.flow.append((fut[i + frame_num - 1], pst[i + frame_num]))
+        for folder in sorted(os.listdir(mdir)):
+            files = list_files(os.path.join(mdir, folder, "into_future",
+                                            "left"))
+            for i in range(len(files) - frame_num):
+                self.motion.append(files[i + frame_num])
+
+
+class SceneFlowCombined:
+    """Monkaa ++ FlyingThings3D (ReCoNet/datasets.py:256-283): ``path`` is
+    a root holding ``monkaa`` and ``flyingthings3d``, or the pair of their
+    paths."""
+
+    def __init__(self, path, img_size=(360, 640), frame_num=1):
+        if isinstance(path, (list, tuple)):
+            monkaa_path, ft3d_path = path
+        else:
+            monkaa_path = os.path.join(path, "monkaa")
+            ft3d_path = os.path.join(path, "flyingthings3d")
+        self.monkaa = Monkaa(monkaa_path, img_size, frame_num)
+        self.ft3d = FlyingThings3D(ft3d_path, img_size, frame_num)
+
+    def __len__(self):
+        return len(self.monkaa) + len(self.ft3d)
+
+    def __getitem__(self, idx):
+        if idx < len(self.monkaa):
+            return self.monkaa[idx]
+        return self.ft3d[idx - len(self.monkaa)]
 
 
 class VidevoFrames:

@@ -14,6 +14,8 @@
   (replace ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` there).
 
 Each wrapper counts its launches in ``<wrapper>.launches``.  K1 and K2
-have no backward yet: on the card a forward that needs a gradient raises
-(``_grad.refuse_grad``).
+are autograd Functions too (``res_block.Conv3x3InStats``,
+``head_conv.Conv3x3Valid``): the kernel forward on the card, and a
+backward of library conv-gradient calls on both devices, as the JAX
+package differentiates these convs with XLA's.
 """

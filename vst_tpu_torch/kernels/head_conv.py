@@ -7,9 +7,12 @@ ReCoNet forward after f=4 polyphase packing
 (``ops/conv.py::conv2d_polyphase_reflect``).  The kernel source is
 ``csrc/head_conv.cu``.
 
-``conv3x3_valid`` launches the kernel for CUDA tensors (or raises) and
-takes the plain version only for CPU tensors.  The kernel has no backward
-yet: on the card a forward that needs a gradient raises (``_grad.py``).
+``conv3x3_valid`` is the autograd Function ``Conv3x3Valid``: its forward
+launches the kernel for CUDA tensors (or raises) and takes the plain
+version only for CPU tensors; its backward is the same on both devices,
+the library's conv gradients (``torch.nn.grad.conv2d_input`` /
+``conv2d_weight``) in float32, as the JAX package's backward of this conv
+is XLA's: the TPU has no backward kernel here to port.
 """
 
 import ctypes
@@ -17,9 +20,10 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
+from vst_tpu_torch.device import apply_precision
 from vst_tpu_torch.kernels import _build
-from vst_tpu_torch.kernels._grad import refuse_grad
 
 
 @functools.cache
@@ -50,14 +54,8 @@ def conv3x3_valid_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
-def conv3x3_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """3×3 VALID convolution, NHWC × HWIO → NHWC, float32 accumulation.
-
-    x: (N, Ho+2, Wo+2, C); w: (3, 3, C, Co), same dtype (float32 as 3xTF32
-    on the tensor cores, any C and Co; or bfloat16 with C and Co multiples
-    of 8); output (N, Ho, Wo, Co) in x.dtype."""
-    if x.device.type == "cpu":
-        return conv3x3_valid_plain(x, w)
+def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors (the forward of ``Conv3x3Valid``)."""
     n, hp, wp, c = x.shape
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"conv3x3_valid: x on {x.device}, w on {w.device}")
@@ -75,7 +73,6 @@ def conv3x3_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("conv3x3_valid: bf16 x and w must start on 16 bytes "
                          "(the kernel reads them as 16-byte vectors)")
-    refuse_grad("K2 conv3x3_valid", x, w)
     bf16 = x.dtype == torch.bfloat16
     y = torch.empty((n, hp - 2, wp - 2, co), dtype=x.dtype, device=x.device)
     wsplit = None if bf16 else torch.empty(
@@ -90,6 +87,58 @@ def conv3x3_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"K2 conv3x3_valid launch failed: CUDA error {rc}")
     conv3x3_valid.launches += 1
     return y
+
+
+def conv3x3_valid_vjp(x, w, gy, need=(True, True)):
+    """(dx, dw) of the 3×3 VALID conv from its inputs and the output
+    gradient gy, each None where ``need`` says it is not wanted: library
+    convolutions in float32 (float64 for float64 inputs), cast back to the
+    inputs' dtypes.  TF32 is off for float32 inputs (JAX differentiates
+    at HIGHEST precision)."""
+    apply_precision(x.dtype)
+    acc_t = torch.float64 if x.dtype == torch.float64 else torch.float32
+    g = gy.to(acc_t).permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1).to(acc_t)
+    dx = dw = None
+    if need[0]:
+        dx = torch.nn.grad.conv2d_input(
+            (x.shape[0], x.shape[3], x.shape[1], x.shape[2]), w_oihw, g)
+        dx = dx.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+    if need[1]:
+        dw = torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2).to(acc_t),
+                                         w_oihw.shape, g)
+        dw = dw.permute(2, 3, 1, 0).to(w.dtype).contiguous()
+    return dx, dw
+
+
+class Conv3x3Valid(torch.autograd.Function):
+    """K2 with a gradient.  ``fwd`` computes the forward: ``_launch`` (the
+    kernel) on the card, ``conv3x3_valid_plain`` on the CPU or as the plain
+    route a card check compares against.  The backward is
+    ``conv3x3_valid_vjp`` whatever the forward."""
+
+    @staticmethod
+    def forward(ctx, x, w, fwd):
+        ctx.save_for_backward(x, w)
+        return fwd(x, w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        return (*conv3x3_valid_vjp(*ctx.saved_tensors, gy,
+                                   ctx.needs_input_grad[:2]), None)
+
+
+def conv3x3_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """3×3 VALID convolution, NHWC × HWIO → NHWC, float32 accumulation,
+    differentiable in x and w.
+
+    x: (N, Ho+2, Wo+2, C); w: (3, 3, C, Co), same dtype (float32 as 3xTF32
+    on the tensor cores, any C and Co; or bfloat16 with C and Co multiples
+    of 8); output (N, Ho, Wo, Co) in x.dtype.  CPU tensors (float64 too)
+    take the plain version."""
+    fwd = conv3x3_valid_plain if x.device.type == "cpu" else _launch
+    return Conv3x3Valid.apply(x, w, fwd)
 
 
 conv3x3_valid.launches = 0

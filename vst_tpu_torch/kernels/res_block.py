@@ -7,9 +7,13 @@ Counterpart of ``vst_tpu/kernels/res_block.py`` (``conv3x3_in_stats``,
 plus an elementwise tail in torch; the port's models run every residual
 block this way.  The kernel source is ``csrc/res_block.cu``.
 
-``conv3x3_in_stats`` launches the kernel for CUDA tensors (or raises) and
-takes the plain version only for CPU tensors.  The kernel has no backward
-yet: on the card a forward that needs a gradient raises (``_grad.py``).
+``conv3x3_in_stats`` is the autograd Function ``Conv3x3InStats``: its
+forward launches the kernel for CUDA tensors (or raises) and takes the
+plain version only for CPU tensors; its backward is one explicit VJP on
+both devices (``conv3x3_in_stats_vjp``), whose convolutions are library
+calls (``torch.nn.grad.conv2d_input`` / ``conv2d_weight``), as the JAX
+package's backward of this conv is XLA's conv transpose: the TPU has no
+backward kernel here to port.
 """
 
 import ctypes
@@ -17,9 +21,10 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
+from vst_tpu_torch.device import apply_precision
 from vst_tpu_torch.kernels import _build
-from vst_tpu_torch.kernels._grad import refuse_grad
 from vst_tpu_torch.ops.pad import reflection_pad2d
 
 EPS = 1e-5   # torch InstanceNorm2d default
@@ -126,22 +131,9 @@ def _check(x, w, b, stats_in, gamma, beta):
                          "bytes (the kernel reads them as 16-byte vectors)")
 
 
-def conv3x3_in_stats(x, w, b, stats_in=None, gamma=None, beta=None):
-    """(B, H, W, C) → (conv output (B, H, W, Co) in x.dtype, per-image
-    channel (mean, biased var) (B, 2, Co) float32).
-
-    3×3 conv of the reflect-padded input with HWIO weights w (3, 3, C, Co)
-    and bias b (Co,), all float32 (3xTF32 on the tensor cores; any C and
-    Co) or all bfloat16 (C and Co multiples of 8).  With ``stats_in`` (B,
-    2, C) and ``gamma``, ``beta`` (C,) (float32 or bfloat16) the input is
-    first normalized with those per-image statistics and relu'd (the res
-    block's middle normalize+relu, fused into the second conv); the
-    library derives the scale = γ·rsqrt(var + eps) itself, in one
-    launch."""
-    if x.device.type == "cpu":
-        return conv3x3_in_stats_plain(x, w, b, stats_in, gamma, beta)
+def _launch(x, w, b, stats_in=None, gamma=None, beta=None):
+    """The kernel on CUDA tensors (the forward of ``Conv3x3InStats``)."""
     _check(x, w, b, stats_in, gamma, beta)
-    refuse_grad("K1 conv3x3_in_stats", x, w, b, stats_in, gamma, beta)
     n, h, wd, c = x.shape
     co = w.shape[3]
     bf16 = x.dtype == torch.bfloat16
@@ -168,17 +160,114 @@ def conv3x3_in_stats(x, w, b, stats_in=None, gamma=None, beta=None):
     return y, stats
 
 
+def conv3x3_in_stats_vjp(x, w, b, stats_in, gamma, beta, y, stats, gy,
+                         gstats, need=(True,) * 6):
+    """Gradients of ``conv3x3_in_stats`` for (x, w, b, stats_in, gamma,
+    beta), each None where ``need`` says it is not wanted, from the saved
+    inputs and outputs (y, stats) and the output gradients gy (B, H, W, Co)
+    and gstats (B, 2, Co).
+
+    The statistics fold into the conv output's gradient,
+    g = gy + gmean/HW + gvar·2(y − mean)/HW, with y the saved output: in
+    bfloat16 it is rounded (relative 2⁻⁹) while the kernel's statistics
+    come from its float32 accumulator, so the gvar term carries that
+    rounding, an error of about 2⁻⁸·|gvar|·|y − mean|/HW per element
+    beside the bf16 forward's own.  dw and db come from g and the
+    recomputed padded prologue output, dv_pad from g and w, all in float32
+    (float64 for float64 inputs; TF32 off for float32 inputs, as JAX
+    differentiates at HIGHEST precision) through library convolutions;
+    dv_pad goes
+    back through the recomputed pad and prologue (elementwise) by
+    autograd, which gives x, stats_in, gamma and beta theirs."""
+    need_x, need_w, need_b, need_s, need_g, need_bt = need
+    apply_precision(x.dtype)   # float32: the library convs without TF32
+    n, h, wd, _ = x.shape
+    acc_t = torch.float64 if x.dtype == torch.float64 else torch.float32
+    hw = float(h * wd)
+    mean = stats[:, 0].to(acc_t)[:, None, None, :]
+    g = (gy.to(acc_t) + gstats[:, 0].to(acc_t)[:, None, None, :] / hw
+         + gstats[:, 1].to(acc_t)[:, None, None, :] * (2.0 / hw)
+         * (y.to(acc_t) - mean)).permute(0, 3, 1, 2)
+    prologue = stats_in is not None
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(nd) if t is not None else None
+                  for t, nd in ((x, need_x), (stats_in, need_s),
+                                (gamma, need_g), (beta, need_bt))]
+        v = leaves[0]
+        if prologue:
+            m_in, scale, bt = _prologue(*leaves[1:], acc_t)
+            v = torch.relu((v.to(acc_t) - m_in[:, None, None, :])
+                           * scale[:, None, None, :] + bt).to(x.dtype)
+        vp = reflection_pad2d(v, 1)
+    vp_nchw = vp.detach().permute(0, 3, 1, 2).to(acc_t)
+    w_oihw = w.detach().permute(3, 2, 0, 1).to(acc_t)
+    dw = db = None
+    if need_w:
+        dw = torch.nn.grad.conv2d_weight(vp_nchw, w_oihw.shape, g)
+        dw = dw.permute(2, 3, 1, 0).to(w.dtype).contiguous()
+    if need_b:
+        db = g.sum(dim=(0, 2, 3)).to(b.dtype)
+    wanted = [t for t in leaves if t is not None and t.requires_grad]
+    found = {}
+    if wanted:
+        dvp = torch.nn.grad.conv2d_input(vp_nchw.shape, w_oihw, g)
+        found = dict(zip(map(id, wanted), torch.autograd.grad(
+            vp, wanted, dvp.permute(0, 2, 3, 1).to(vp.dtype))))
+    dx, ds, dg, dbt = (None if t is None else found.get(id(t))
+                       for t in leaves)
+    return dx, dw, db, ds, dg, dbt
+
+
+class Conv3x3InStats(torch.autograd.Function):
+    """K1 with a gradient.  ``fwd`` computes the forward: ``_launch`` (the
+    kernel) on the card, ``conv3x3_in_stats_plain`` on the CPU or as the
+    plain route a card check compares against.  The backward is
+    ``conv3x3_in_stats_vjp`` whatever the forward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stats_in, gamma, beta, fwd):
+        y, stats = fwd(x, w, b, stats_in, gamma, beta)
+        ctx.save_for_backward(x, w, b, stats_in, gamma, beta, y, stats)
+        return y, stats
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, gstats):
+        grads = conv3x3_in_stats_vjp(*ctx.saved_tensors, gy, gstats,
+                                     ctx.needs_input_grad[:6])
+        return (*grads, None)
+
+
+def conv3x3_in_stats(x, w, b, stats_in=None, gamma=None, beta=None):
+    """(B, H, W, C) → (conv output (B, H, W, Co) in x.dtype, per-image
+    channel (mean, biased var) (B, 2, Co) float32), differentiable in every
+    tensor argument.
+
+    3×3 conv of the reflect-padded input with HWIO weights w (3, 3, C, Co)
+    and bias b (Co,), all float32 (3xTF32 on the tensor cores; any C and
+    Co) or all bfloat16 (C and Co multiples of 8).  With ``stats_in`` (B,
+    2, C) and ``gamma``, ``beta`` (C,) (float32 or bfloat16) the input is
+    first normalized with those per-image statistics and relu'd (the res
+    block's middle normalize+relu, fused into the second conv); the
+    library derives the scale = γ·rsqrt(var + eps) itself, in one
+    launch.  CPU tensors (float64 too) take the plain version."""
+    fwd = conv3x3_in_stats_plain if x.device.type == "cpu" else _launch
+    return Conv3x3InStats.apply(x, w, b, stats_in, gamma, beta, fwd)
+
+
 conv3x3_in_stats.launches = 0
 
 
 def residual_block_fused(x, w1, b1, g1, bt1, w2, b2, g2, bt2):
     """One ReCoNet residual block (conv→IN→relu→conv→IN, + x) as two K1
-    launches and a float32 elementwise tail (normalize₂ + residual add).
+    launches and a float32 (float64 for float64 input) elementwise tail
+    (normalize₂ + residual add).
     Weights HWIO; g/bt are the two instance norms' weight and bias."""
     y1, s1 = conv3x3_in_stats(x, w1, b1)
     y2, s2 = conv3x3_in_stats(y1, w2, b2, stats_in=s1, gamma=g1, beta=bt1)
+    acc_t = torch.float64 if x.dtype == torch.float64 else torch.float32
     mean = s2[:, 0][:, None, None, :]
     var = s2[:, 1][:, None, None, :]
-    out = (y2.float() - mean) * torch.rsqrt(var + EPS)
-    out = out * g2.float() + bt2.float() + x.float()
+    out = (y2.to(acc_t) - mean) * torch.rsqrt(var + EPS)
+    out = out * g2.to(acc_t) + bt2.to(acc_t) + x.to(acc_t)
     return out.to(x.dtype)

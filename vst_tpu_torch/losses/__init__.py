@@ -1,6 +1,6 @@
 """Loss functions of the port (counterparts of ``vst_tpu/losses``): the
-AdaAttN trainers' losses and ``mse``.  ReCoNet's and RTNSTV's come with
-their slices."""
+AdaAttN trainers' losses, and ReCoNet's perceptual and temporal losses.
+RTNSTV's come with its slice."""
 
 from vst_tpu_torch.losses.adaattn import (
     cosine_distance,
@@ -8,7 +8,16 @@ from vst_tpu_torch.losses.adaattn import (
     image_similarity_loss,
     local_feature_loss,
 )
-from vst_tpu_torch.losses.perceptual import mse
+from vst_tpu_torch.losses.perceptual import (
+    mse,
+    reconet_content_loss,
+    reconet_reg_loss,
+    reconet_style_loss,
+)
+from vst_tpu_torch.losses.temporal import (
+    reconet_feature_temporal_loss,
+    reconet_output_temporal_loss,
+)
 
 __all__ = [
     "cosine_distance",
@@ -16,4 +25,9 @@ __all__ = [
     "image_similarity_loss",
     "local_feature_loss",
     "mse",
+    "reconet_content_loss",
+    "reconet_feature_temporal_loss",
+    "reconet_output_temporal_loss",
+    "reconet_reg_loss",
+    "reconet_style_loss",
 ]

@@ -1,12 +1,15 @@
-"""Frozen VGG19 feature extractor of AdaAttN (relu1_1 … relu5_1).
+"""Frozen VGG feature extractors: AdaAttN's VGG19 (relu1_1 … relu5_1)
+and ReCoNet's VGG16 (relu1_2, relu2_2, relu3_3, relu4_3).
 
-Counterpart of ``vst_tpu/models/vgg.py`` (``vgg19_adaattn_features``;
-parity: AdaAttN/vgg19.py:8-63).  The module holds torchvision's
-``features`` Sequential up to relu5_1, so its ``state_dict`` keys are
-``features.<i>.weight``/``.bias`` (OIHW) and a torchvision VGG19
-state_dict loads once its other keys are dropped (``build_vgg19_adaattn``).
-ImageNet normalization happens inside; input and taps are NHWC.  The VGG16
-and RTNSTV tap sets come with their slices.
+Counterpart of ``vst_tpu/models/vgg.py`` (``vgg19_adaattn_features``,
+``vgg16_features``; parity: AdaAttN/vgg19.py:8-63, ReCoNet/network.py:
+9-40).  Each module holds torchvision's ``features`` Sequential up to its
+last tap, so its ``state_dict`` keys are ``features.<i>.weight``/``.bias``
+(OIHW) and a torchvision state_dict loads once its other keys are dropped
+(``build_vgg19_adaattn``, ``build_vgg16_reconet``).  AdaAttN's VGG19
+normalizes its input inside; ReCoNet's VGG16 takes input the caller has
+normalized (the ReCoNet trainers call ``vgg_normalize`` themselves).  Input
+and taps are NHWC.  RTNSTV's tap set comes with its slice.
 """
 
 import numpy as np
@@ -20,10 +23,13 @@ from vst_tpu_torch.models.remat import segment
 from vst_tpu_torch.ops.conv import conv2d, max_pool2d
 from vst_tpu_torch.ops.image import vgg_normalize
 
-# torchvision VGG "features" layout: channel counts, "M" = MaxPool2d(2, 2).
+# torchvision VGG "features" layouts: channel counts, "M" = MaxPool2d(2, 2).
+VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+             512, 512, 512, "M", 512, 512, 512, "M"]
 VGG19_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
              512, 512, 512, 512, "M", 512, 512, 512, 512, "M"]
 # Tap name → features index of the ReLU producing it.
+VGG16_TAPS_RECONET = {"relu1_2": 3, "relu2_2": 8, "relu3_3": 15, "relu4_3": 22}
 VGG19_TAPS_ADAATTN = {"relu1_1": 1, "relu2_1": 6, "relu3_1": 11,
                       "relu4_1": 20, "relu5_1": 29}
 
@@ -60,16 +66,18 @@ def init_params(key, cfg, max_index: int, dtype=np.float32) -> dict:
     return params
 
 
-class VGG19AdaAttN(nn.Module):
-    """VGG19 ``features`` up to relu5_1; ``forward`` maps a 0–255 NHWC RGB
-    batch to the ordered tap dict relu1_1 … relu5_1."""
+class _VGGTaps(nn.Module):
+    """torchvision's ``features`` up to the last of ``TAPS``; ``forward``
+    maps an NHWC batch to the ordered tap dict."""
 
-    TAPS = VGG19_TAPS_ADAATTN
+    CFG: list = VGG19_CFG
+    TAPS: dict = VGG19_TAPS_ADAATTN
+    NORMALIZE = True    # ImageNet-normalize a 0–255 input first
 
     def __init__(self):
         super().__init__()
         layers = []
-        for idx, kind, in_ch, out_ch in _layer_table(VGG19_CFG):
+        for idx, kind, in_ch, out_ch in _layer_table(self.CFG):
             if idx > max(self.TAPS.values()):
                 break
             if kind == "conv":
@@ -85,7 +93,8 @@ class VGG19AdaAttN(nn.Module):
         package's ``_run`` does: only the taps survive the forward, and
         backward recomputes one segment's internals at a time."""
         apply_precision(x.dtype)
-        x = vgg_normalize(x)
+        if self.NORMALIZE:
+            x = vgg_normalize(x)
         out = {}
         start = 0
         for name, idx in self.TAPS.items():
@@ -105,10 +114,47 @@ class VGG19AdaAttN(nn.Module):
         return x
 
 
+class VGG19AdaAttN(_VGGTaps):
+    """VGG19 ``features`` up to relu5_1: a 0–255 NHWC RGB batch → the taps
+    relu1_1 … relu5_1."""
+
+
+class VGG16ReCoNet(_VGGTaps):
+    """VGG16 ``features`` up to relu4_3: an ImageNet-normalized NHWC batch
+    → the taps relu1_2, relu2_2, relu3_3, relu4_3."""
+
+    CFG = VGG16_CFG
+    TAPS = VGG16_TAPS_RECONET
+    NORMALIZE = False
+
+
 def vgg19_adaattn_features(vgg: VGG19AdaAttN, x: torch.Tensor,
                            remat: bool = False) -> dict:
     """AdaAttN tap set of a 0–255 NHWC RGB batch (normalized here)."""
     return vgg(x, remat=remat)
+
+
+def vgg16_features(vgg: VGG16ReCoNet, x: torch.Tensor,
+                   remat: bool = False) -> dict:
+    """ReCoNet tap set of an already ``vgg_normalize``d NHWC batch."""
+    return vgg(x, remat=remat)
+
+
+def _build(cls, state: dict, device, dtype):
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = cls()
+    keys = model.state_dict().keys()
+    model.load_state_dict({k: state[k] for k in keys if k in state},
+                          strict=True, assign=True)
+    return model.to(device=dev, dtype=dtype).eval()
+
+
+def _seeded(cls, seed, device, dtype):
+    dev = resolve_device(device)
+    state = params_from_jax(init_params(seed, cls.CFG,
+                                        max(cls.TAPS.values())))
+    return _build(cls, state, dev, dtype)
 
 
 def build_vgg19_adaattn(state: dict, device="cuda",
@@ -116,19 +162,23 @@ def build_vgg19_adaattn(state: dict, device="cuda",
     """A VGG19AdaAttN holding ``state`` (torch layout; keys it does not use,
     such as a torchvision checkpoint's later layers and classifier, are
     dropped), on ``device`` at ``dtype``."""
-    dev = resolve_device(device)
-    with torch.device("meta"):
-        model = VGG19AdaAttN()
-    keys = model.state_dict().keys()
-    model.load_state_dict({k: state[k] for k in keys if k in state},
-                          strict=True, assign=True)
-    return model.to(device=dev, dtype=dtype).eval()
+    return _build(VGG19AdaAttN, state, device, dtype)
+
+
+def build_vgg16_reconet(state: dict, device="cuda",
+                        dtype: torch.dtype = torch.float32) -> VGG16ReCoNet:
+    """A VGG16ReCoNet holding ``state`` (torch layout, keys it does not use
+    dropped), on ``device`` at ``dtype``."""
+    return _build(VGG16ReCoNet, state, device, dtype)
 
 
 def init_vgg19_adaattn(seed, device="cuda",
                        dtype: torch.dtype = torch.float32) -> VGG19AdaAttN:
     """A VGG19AdaAttN holding the JAX package's ``init_vgg19_adaattn(seed)``."""
-    dev = resolve_device(device)
-    state = params_from_jax(init_params(seed, VGG19_CFG,
-                                        max(VGG19_TAPS_ADAATTN.values())))
-    return build_vgg19_adaattn(state, dev, dtype)
+    return _seeded(VGG19AdaAttN, seed, device, dtype)
+
+
+def init_vgg16_reconet(seed, device="cuda",
+                       dtype: torch.dtype = torch.float32) -> VGG16ReCoNet:
+    """A VGG16ReCoNet holding the JAX package's ``init_vgg16_reconet(seed)``."""
+    return _seeded(VGG16ReCoNet, seed, device, dtype)

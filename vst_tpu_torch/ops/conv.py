@@ -60,7 +60,7 @@ def polyphase_weights(w: torch.Tensor, f: int) -> torch.Tensor:
     cout, cin, k, _ = w.shape
     t = (k + f - 2) // f + 1
     pad = f - 1
-    hwio = w.permute(2, 3, 1, 0).float()
+    hwio = w.permute(2, 3, 1, 0)
     w_pad = F.pad(hwio, (0, 0, 0, 0, pad, pad, pad, pad))
     di = torch.arange(t)[:, None, None]
     p = torch.arange(f)[None, :, None]
@@ -70,7 +70,7 @@ def polyphase_weights(w: torch.Tensor, f: int) -> torch.Tensor:
     g = g[:, :, :, idx].reshape(t, f, f, t, f, f, cin, cout)
     # [di, p, a, dj, q, b, c, o] → [di, dj, (p, q, c), (a, b, o)]
     return g.permute(0, 3, 1, 4, 6, 2, 5, 7).reshape(
-        t, t, f * f * cin, f * f * cout).to(w.dtype).contiguous()
+        t, t, f * f * cin, f * f * cout).contiguous()
 
 
 def conv2d_polyphase_reflect(x: torch.Tensor, w: torch.Tensor,

@@ -1,30 +1,45 @@
-"""AdaAttN train steps.  Counterpart of the AdaAttN part of
+"""ReCoNet and AdaAttN train steps.  Counterpart of
 ``vst_tpu/train/steps.py`` (``_cast_tree``, ``_maybe_remat``,
+``reconet_style_grams``, ``_reconet_losses``, ``make_reconet_flow_step``,
+``make_reconet_coco_step``, ``make_reconet_distill_step``,
 ``_adaattn_fwds``, ``_adaattn_gs_lf``, ``make_adaattn_image_step``,
-``make_adaattn_video_step``; parity: AdaAttN/train_image.py:25-125,
-train_video.py:26-138).
+``make_adaattn_video_step``; parity: ReCoNet/train_single/
+train_candy.py:32-170, train_coco2014.py:28-105, train_Flow_SD1.py:33-185,
+AdaAttN/train_image.py:25-125, train_video.py:26-138).
 
-Each ``make_*_step`` closes over the frozen VGG19 (converted once to
-``cfg.dtype``) and the config, and returns ``step(state, batch) ->
-(state, metrics)``: the metrics are the JAX step's keys as device tensors
-(no synchronization inside the step), and the state is updated in place.
-Batches are 0–255 NHWC RGB tensors (or arrays), moved to the model's
-device.
+Each ``make_*_step`` closes over the frozen VGG (converted once to
+``cfg.dtype``), the config and what else is frozen (style grams, the
+teacher), and returns ``step(state, batch) -> (state, metrics)``: the
+metrics are the JAX step's keys as device tensors (no synchronization
+inside the step), and the state is updated in place.  Batches are 0–255
+NHWC RGB tensors (or arrays), moved to the model's device; a ReCoNet flow
+batch also holds the flow (N, H, W, 2) and the occlusion mask (N, H, W).
 
 Mixed precision as in JAX: with ``cfg.dtype`` bfloat16 the float32 master
 parameters are cast inside the loss (gradients flow through the cast back
-to the masters) and so is the batch.  On the card the softmax attention
-trains through K3 forward and K4/K5 backward (``models/adaattn.py``).
+to the masters) and so are the images (flow and mask stay float32).  On
+the card every ReCoNet forward, the teacher's too, runs its residual
+blocks through K1 and its 9×9 layers through K2, whose backward is the
+library's conv gradients (``kernels/res_block.py``,
+``kernels/head_conv.py``); the softmax attention trains through K3 forward
+and K4/K5 backward (``models/adaattn.py``).
 """
+
+import copy
 
 import torch
 
 from vst_tpu_torch import losses
 from vst_tpu_torch.models import adaattn as adaattn_m
+from vst_tpu_torch.models import reconet as reconet_m
 from vst_tpu_torch.models import vgg as vgg_m
 from vst_tpu_torch.models.remat import segment
 from vst_tpu_torch.ops.features import feature_down_sample
+from vst_tpu_torch.ops.image import gram_matrix, vgg_normalize
 from vst_tpu_torch.train.state import TrainState, apply_gradients
+
+# family name → model class (in JAX: → forward function)
+RECONET_FORWARD = reconet_m.FAMILIES
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -49,8 +64,10 @@ class _CastModel:
         self.dtype = dtype
         self.shadow = None
         if dtype != torch.float32:
-            with torch.device("meta"):
-                self.shadow = type(model)()
+            # a copy, so that the structure follows the model's own
+            # constructor arguments (a 4-frame ReCoNet's stem, an SD
+            # student's widths)
+            self.shadow = copy.deepcopy(model).to("meta")
             for mod in self.shadow.modules():
                 for name in list(mod._parameters):
                     del mod._parameters[name]
@@ -64,13 +81,155 @@ class _CastModel:
         return self.shadow
 
 
-def _frozen_vgg(vgg: vgg_m.VGG19AdaAttN, dtype: torch.dtype):
-    """The VGG19 encoder converted once to ``dtype``, without gradients."""
-    state = {k: v.detach() for k, v in vgg.state_dict().items()}
-    frozen = vgg_m.build_vgg19_adaattn(state, next(vgg.parameters()).device,
-                                       dtype)
-    return frozen.requires_grad_(False)
+def _frozen(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
+    """A copy of ``model`` (the VGG, a distillation teacher) converted once
+    to ``dtype``, without gradients."""
+    return copy.deepcopy(model).to(dtype).requires_grad_(False).eval()
 
+
+# ------------------------------------------------------------ ReCoNet
+
+@torch.no_grad()
+def reconet_style_grams(vgg: vgg_m.VGG16ReCoNet, style_255) -> list:
+    """Per-tap (1, C, C) Gram matrices of the style image (1, H, W, 3),
+    / (C·H·W) (ReCoNet/train_single/train_candy.py:55-56), in float32 on
+    the VGG's device."""
+    p = next(vgg.parameters())
+    style = torch.as_tensor(style_255).to(device=p.device, dtype=p.dtype)
+    feats = vgg_m.vgg16_features(vgg, vgg_normalize(style))
+    return [gram_matrix(f).float() for f in feats.values()]
+
+
+def _reconet_losses(cfg, vgg, style_grams, outs1, outs2, img1, img2, flow,
+                    mask):
+    """The candy-style loss block (train_candy.py:77-148).  outs1/outs2:
+    the stylizer's (feature map, styled) per frame; img1/img2: the 0–255
+    inputs (the whole multi-frame channel stack)."""
+    fmap1, styled1 = outs1
+    fmap2, styled2 = outs2
+    idx = (cfg.input_frame_num - 1) * 3   # the last frame's RGB (:59-61)
+    s1n, s2n = vgg_normalize(styled1), vgg_normalize(styled2)
+    i1n = vgg_normalize(img1[..., idx:idx + 3])
+    i2n = vgg_normalize(img2[..., idx:idx + 3])
+    # one batched VGG pass over [s1, s2, i1, i2] (VGG has no cross-batch op)
+    n = s1n.shape[0]
+    feats = vgg_m.vgg16_features(vgg, torch.cat([s1n, s2n, i1n, i2n]),
+                                 remat=cfg.remat).values()
+    sf1, sf2, cf1, cf2 = ([f[i * n:(i + 1) * n] for f in feats]
+                          for i in range(4))
+    metrics = {}
+    total = 0.0
+    if getattr(cfg, "use_ftl", True):
+        ftl = losses.reconet_feature_temporal_loss(fmap1, fmap2, flow,
+                                                   mask) * cfg.lambda_f
+        total = total + ftl
+        metrics["FTL"] = ftl
+    otl = losses.reconet_output_temporal_loss(i1n, i2n, s1n, s2n, flow,
+                                              mask) * cfg.lambda_o
+    content = (losses.reconet_content_loss(sf1, cf1)
+               + losses.reconet_content_loss(sf2, cf2)) * cfg.alpha
+    style = (losses.reconet_style_loss(sf1, style_grams)
+             + losses.reconet_style_loss(sf2, style_grams)) * cfg.beta
+    # TV on the vgg-NORMALIZED styled images, as the reference computes it
+    # (styled_img is reassigned at train_candy.py:82 before :140-145)
+    reg = (losses.reconet_reg_loss(s1n)
+           + losses.reconet_reg_loss(s2n)) * cfg.gamma
+    total = total + otl + content + style + reg
+    metrics.update(OTL=otl, CL=content, SL=style, RL=reg, loss=total)
+    return total, metrics
+
+
+def _grams_on(style_grams, vgg):
+    dev = next(vgg.parameters()).device
+    return [torch.as_tensor(g).to(dev) for g in style_grams]
+
+
+def _stylizer(cfg):
+    """The stylizer's forward, checkpointed whole under ``cfg.remat`` (the
+    JAX step's ``jax.checkpoint`` of the forward)."""
+    return segment(lambda net, x: net(x), cfg.remat)
+
+
+def make_reconet_flow_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams):
+    """ReCoNet single- and multi-frame flow trainer (train_candy.py:32-170);
+    batch (img1, img2, flow, mask)."""
+    grams = _grams_on(style_grams, vgg)
+    fwd = _stylizer(cfg)
+
+    def loss_fn(net, vgg, img1, img2, flow, mask):
+        # one stylizer pass over both frames (instance norm is per sample)
+        n = img1.shape[0]
+        _, fmap, styled = fwd(net, torch.cat([img1, img2]))
+        return _reconet_losses(cfg, vgg, grams, (fmap[:n], styled[:n]),
+                               (fmap[n:], styled[n:]), img1, img2, flow,
+                               mask)
+
+    return _make_step(cfg, vgg, loss_fn, n_images=2)
+
+
+def make_reconet_coco_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams):
+    """Image-only content + style trainer (train_coco2014.py:28-105);
+    batch: the images."""
+    grams = _grams_on(style_grams, vgg)
+    fwd = _stylizer(cfg)
+
+    def loss_fn(net, vgg, img):
+        styled = fwd(net, img)[-1]
+        sn, inorm = vgg_normalize(styled), vgg_normalize(img)
+        # one batched VGG pass over [styled, content]
+        n = sn.shape[0]
+        feats = vgg_m.vgg16_features(vgg, torch.cat([sn, inorm]),
+                                     remat=cfg.remat).values()
+        sf = [f[:n] for f in feats]
+        cf = [f[n:] for f in feats]
+        content = losses.reconet_content_loss(sf, cf) * cfg.alpha
+        style = losses.reconet_style_loss(sf, grams) * cfg.beta
+        total = content + style
+        return total, {"CL": content, "SL": style, "loss": total}
+
+    return _make_step(cfg, vgg, loss_fn)
+
+
+def make_reconet_distill_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
+                              teacher: torch.nn.Module):
+    """SD1/SD2 distillation trainer (train_Flow_SD1.py:33-185); batch
+    (img1, img2, flow, mask).
+
+    The teacher (converted once to ``cfg.dtype``) runs without gradients.
+    The symmetric distillation loss, scaled by sd_weight_scale·beta, is
+    logged as ``SDL`` and left out of the total unless
+    ``cfg.include_sd_in_total``; where the taps' shapes differ (the SD1
+    stage) it is NaN."""
+    grams = _grams_on(style_grams, vgg)
+    frozen_teacher = _frozen(teacher, DTYPES[cfg.dtype])
+    fwd = _stylizer(cfg)
+
+    def loss_fn(net, vgg, img1, img2, flow, mask):
+        # frame-pair forwards in one batch (instance norm is per sample)
+        n = img1.shape[0]
+        pair = torch.cat([img1, img2])
+        with torch.no_grad():
+            t = frozen_teacher(pair)[cfg.teacher_tap]
+        s = fwd(net, pair)
+        total, metrics = _reconet_losses(
+            cfg, vgg, grams, (s[-2][:n], s[-1][:n]), (s[-2][n:], s[-1][n:]),
+            img1, img2, flow, mask)
+        feat_s = s[cfg.student_tap]
+        if t.shape == feat_s.shape:
+            sd = (losses.mse(t[:n], feat_s[:n]) + losses.mse(t[n:], feat_s[n:]))
+            sd = sd * (cfg.sd_weight_scale * cfg.beta)
+            if cfg.include_sd_in_total:
+                total = total + sd
+                metrics["loss"] = total
+        else:
+            sd = torch.full((), float("nan"), device=pair.device)
+        metrics["SDL"] = sd
+        return total, metrics
+
+    return _make_step(cfg, vgg, loss_fn, n_images=2)
+
+
+# ------------------------------------------------------------ AdaAttN
 
 def _adaattn_fwds(cfg):
     """The step's memory-heavy forwards, optionally rematerialized
@@ -122,9 +281,13 @@ def _split(f, *bounds):
     return [{k: v[a:b] for k, v in f.items()} for a, b in bounds]
 
 
-def _make_step(cfg, vgg, loss_fn):
+def _make_step(cfg, vgg, loss_fn, n_images=None):
+    """``step(state, batch)`` around ``loss_fn(net, vgg, *batch)``; the
+    first ``n_images`` batch entries (all by default) are cast to
+    ``cfg.dtype``, the others only moved to the device.  A batch that is
+    one array is a batch of one entry."""
     dtype = DTYPES[cfg.dtype]
-    frozen = _frozen_vgg(vgg, dtype)
+    frozen = _frozen(vgg, dtype)
     cast = None
 
     def step(state: TrainState, batch):
@@ -132,7 +295,11 @@ def _make_step(cfg, vgg, loss_fn):
         if cast is None:
             cast = _CastModel(state.model, dtype)
         dev = next(state.model.parameters()).device
-        batch = [_cast_tree(x, dtype).to(dev) for x in batch]
+        if not isinstance(batch, (tuple, list)):
+            batch = (batch,)
+        k = len(batch) if n_images is None else n_images
+        batch = ([_cast_tree(x, dtype).to(dev) for x in batch[:k]]
+                 + [torch.as_tensor(x).to(dev) for x in batch[k:]])
         state.optimizer.zero_grad(set_to_none=True)
         total, metrics = loss_fn(cast(state.model), frozen, *batch)
         total.backward()
