@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of vst_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version, drives the four paths of
+holds each against its plain PyTorch version, drives the six paths of
 the port (ReCoNet streaming stylization, AdaAttN arbitrary-style serving,
-AdaAttN training, ReCoNet training) and checks what comes out.
+AdaAttN training, ReCoNet training, RTNSTV serving, RTNSTV training) and
+checks what comes out.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,9 @@ result line):
    at every shape phase 3 runs, and the same for the bf16 K3 and K4/K5
    and the f32 (3xTF32) K3, K4 and K5;
 3. kernels: K1 (without and with its prologue) at (8,128,128,192), the
-   SD1/SD2 width (8,128,128,64) and the 640×360 stream's (8,90,160,192),
+   SD1/SD2 width (8,128,128,64), the 640×360 stream's (8,90,160,192) and
+   RTNSTV's 640×360 residual stack (8,90,160,48) (in f32 also against the
+   float64 evaluation),
    K2 at the ReCoNet, SD1 and SD2 packed stems and heads and the stream's
    packed (8,92,162,·), in bf16 and f32, in f32 also at C = 6, Co = 10,
    and two launches of each giving the same bits; K3 in bf16 at the
@@ -40,12 +43,12 @@ result line):
    the same bits; with ``--parent DIR`` the f32 K5 also gives the bits of
    DIR's (a checkout of the parent commit, built here) at the three level
    shapes;
-4. model: the f32 ReCoNet forward through the kernels against the same
-   forward through the plain versions at 1×256×256 (and, with grad mode
-   on, the same kernels' outputs bit for bit), the f32 AdaAttN
+4. model: the f32 ReCoNet and RTNSTV forwards through the kernels against
+   the same forwards through the plain versions at 1×256×256 (and, with
+   grad mode on, the same kernels' outputs bit for bit), the f32 AdaAttN
    forward (softmax through K3 against the plain version, cosine against
-   the materialized oracle) at 1×256², the ReCoNet, SD1, SD2 and both
-   AdaAttN forwards against the reference goldens
+   the materialized oracle) at 1×256², the ReCoNet, SD1, SD2, RTNSTV and
+   both AdaAttN forwards against the reference goldens
    (tests/goldens/reference_numerics.npz), and one f32 AdaAttN image
    train step at 1×64² through K3-K5 against their plain versions
    (metrics and every parameter gradient);
@@ -88,6 +91,15 @@ result line):
    with the teacher; SD1's SD loss NaN); K1's and K2's forward and
    backward ms per flow step; the flow trainer through ``run_training``
    on 8 synthetic items, uninterrupted and preempted + resumed;
+5. (again) main path, RTNSTV serving from the port's seeded init
+   (16/32/48, five 48-channel blocks): ``stylize_rtnstv`` at 640×360
+   batch 8 in bf16 and f32 (uint8 and I420 wires), ``StreamingStylizer``
+   over 96 synthetic 640×360 frames, K1 10 launches a forward;
+5d. main path, RTNSTV training at ``RTNSTVConfig()`` (360×640 b2 f32,
+   RTNSTV seed 1, VGG19 seed 0): one step through K1 and one through the
+   plain versions against the plain float64 step (as [5c]), the step
+   timed (2 warmup, 6 timed: K1 10 a step) and under remat (K1 20), the
+   trainer through ``run_training`` on 8 synthetic items;
 6. timing: each kernel, its plain version and a library yardstick the
    port never calls (cuDNN ``F.conv2d`` of the same conv for K1/K2,
    ``F.scaled_dot_product_attention`` for K3 and its backward for K4/K5)
@@ -102,10 +114,12 @@ result line):
    TF32 off, in benchmark mode and the faster of NCHW and channels_last);
    K3's (bf16 and
    f32) and K4/K5's executed-work factor per level is logged, from the
-   slice widths the built library reports;
+   slice widths the built library reports; K1 also at RTNSTV's
+   (8,90,160,48) in bf16 and f32 beside cuDNN (benchmark mode);
 7. profile: device time by kernel over two forwards (train steps) of each
-   main path, ReCoNet in bf16 and f32, the f32 ReCoNet flow step
-   (torch.profiler), and the device's busy share of that window.
+   main path, ReCoNet in bf16 and f32, the f32 ReCoNet flow step and the
+   f32 RTNSTV step (torch.profiler), and the device's busy share of that
+   window.
 
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card and
 the CUDA toolkit (nvcc); no network, no cv2, no PIL.
@@ -133,6 +147,12 @@ wrappers, whose interfaces date from the port's first slice.
     python3 chip_smoke.py --reconet-train
 
 builds the kernels and runs [5c] alone, then profiles the f32 flow step.
+
+    python3 chip_smoke.py --rtnstv
+
+builds the kernels and runs RTNSTV's part alone: K1 at (8,90,160,48),
+the RTNSTV forward and golden, serving, training ([5d]), K1's times at
+that shape and the f32 step's profile.
 """
 
 import contextlib
@@ -157,21 +177,25 @@ from vst_tpu_torch.compat import load_weights
 from vst_tpu_torch.data.pipeline import BatchLoader, device_prefetch
 from vst_tpu_torch.device import apply_precision
 from vst_tpu_torch.infer.image import (adaattn_style_state, stylize_adaattn,
-                                       stylize_adaattn_cached, stylize_reconet)
+                                       stylize_adaattn_cached, stylize_reconet,
+                                       stylize_rtnstv)
 from vst_tpu_torch.infer.video import AdaAttNVideoStylizer, StreamingStylizer
 from vst_tpu_torch.kernels import (_build, adaattn_attention, head_conv,
                                    res_block)
 from vst_tpu_torch.models.adaattn import (init_stylizing_network,
                                           stylizing_network_cached)
+from vst_tpu_torch.models import rtnstv as rtnstv_m
 from vst_tpu_torch.models.reconet import (init_reconet, init_reconet_sd1,
                                           init_reconet_sd2)
-from vst_tpu_torch.models.vgg import init_vgg16_reconet, init_vgg19_adaattn
+from vst_tpu_torch.models.vgg import (init_vgg16_reconet, init_vgg19_adaattn,
+                                      init_vgg19_rtnstv)
 from vst_tpu_torch.ops import conv as ops_conv
 from vst_tpu_torch.ops.yuv import rgb_to_i420
 from vst_tpu_torch.train import checkpoint as ckpt
 from vst_tpu_torch.train.config import (DISTILL_SD1, DISTILL_SD2,
                                         RECONET_CANDY, AdaAttNImageConfig,
-                                        AdaAttNVideoConfig, ReCoNetCocoConfig)
+                                        AdaAttNVideoConfig, ReCoNetCocoConfig,
+                                        RTNSTVConfig)
 from vst_tpu_torch.train.loop import TrainingPreempted, run_training
 from vst_tpu_torch.train.state import create
 from vst_tpu_torch.train import steps as steps_m
@@ -180,7 +204,8 @@ from vst_tpu_torch.train.steps import (make_adaattn_image_step,
                                        make_reconet_coco_step,
                                        make_reconet_distill_step,
                                        make_reconet_flow_step,
-                                       reconet_style_grams)
+                                       make_rtnstv_step, reconet_style_grams,
+                                       rtnstv_style_grams)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM data sheet, dense: bf16 tensor-core peak, float32 outside the
@@ -373,8 +398,10 @@ K2_SHAPES = {"stem": (48, 768), "head": (768, 48)}   # packed (C, Co)
 # bf16 shapes of phase 3: (N, H, W, C) with Co = C for K1; (N, Hp, Wp, C,
 # Co) packed for K2.  The 640×360 stream runs the residual stack at 90×160
 # and the 9×9 layers on a 92×162 packed input.
+# RTNSTV's residual stack at 640×360 batch 8: a quarter of the frame by 48
+K1_RTNSTV = (8, 90, 160, 48)
 K1_BF16 = {"ReCoNet": K1_SHAPE, "SD1/SD2": (8, 128, 128, 64),
-           "stream": (8, 90, 160, 192)}
+           "stream": (8, 90, 160, 192), "RTNSTV": K1_RTNSTV}
 K2_BF16 = {"ReCoNet stem": (8, 130, 130, 48, 768),
            "ReCoNet head": (8, 130, 130, 768, 48),
            "SD1 stem": (8, 130, 130, 48, 512), "SD1 head": (8, 130, 130, 512, 48),
@@ -462,6 +489,8 @@ def phase_kernels(g):
                for label, shape in K2_BF16.items()))
     log("  f32 and bf16 K1 and K2: a second launch gives the same bits at "
         "every shape")
+    errs["K1 f32 RTNSTV vs f64"] = _k1_f64_check(
+        torch.Generator(device="cuda").manual_seed(14), K1_RTNSTV)
     torch.cuda.synchronize()
     return errs
 
@@ -790,6 +819,7 @@ def phase_model():
         log(f"  golden {key}: max_abs_err {err:.3e} tol 2e-3")
         if not err <= 2e-3:
             raise AssertionError(f"{key}: {err}")
+    phase_model_rtnstv(gold)
     phase_model_adaattn(gold)
     phase_model_train()
 
@@ -1525,11 +1555,11 @@ def _k1_k2_step_times(g):
 
 def _flow_batch(rng, cfg, b=None):
     """A synthetic flow batch at ``cfg``'s size: two 0-255 integer frames
-    (stacks of input_frame_num), a flow of std 2 pixels, a mask of ones at
+    (stacks of input_frame_num, one where the config has none), a flow of std 2 pixels, a mask of ones at
     80% of the pixels."""
     b = b or cfg.batch_size
     h, w = cfg.img_size
-    c = 3 * cfg.input_frame_num
+    c = 3 * getattr(cfg, "input_frame_num", 1)
     img = [torch.from_numpy(rng.integers(0, 256, (b, h, w, c))
                             .astype(np.float32)).cuda() for _ in range(2)]
     flow = torch.from_numpy((rng.standard_normal((b, h, w, 2)) * 2)
@@ -1568,30 +1598,40 @@ def _flow_step_against_plain(vgg, grams, batch):
     differences of large terms).  The biases before an instance norm,
     whose true gradient is 0, are measured against the model's largest
     gradient."""
-    cfg = RECONET_CANDY
+    return _step_against_float64(
+        "flow step 360×640 b2", RECONET_CANDY,
+        lambda: init_reconet(1, device="cuda"),
+        lambda c: make_reconet_flow_step(c, vgg, grams), batch, _before_norm)
+
+
+def _step_against_float64(label, cfg, new_model, build, batch, before_norm):
+    """One step of ``build(cfg)`` from ``new_model()`` three ways (f32
+    through the kernels, f32 and float64 through their plain versions),
+    held as ``_flow_step_against_plain`` says; ``before_norm(key)`` names
+    the biases whose true gradient is 0.  Returns the worst metric and
+    gradient errors of the kernel route."""
     runs = {}
     for name, dtype, plain in (("kernels", "float32", False),
                                ("plain", "float32", True),
                                ("float64", "float64", True)):
-        state = create(init_reconet(1, device="cuda"), cfg.lr)
+        state = create(new_model(), cfg.lr)
         with _float64_steps(), (plain_kernels() if plain
                                 else contextlib.nullcontext()):
-            step = make_reconet_flow_step(
-                dataclasses.replace(cfg, dtype=dtype), vgg, grams)
+            step = build(dataclasses.replace(cfg, dtype=dtype))
             _, m = step(state, batch)
         runs[name] = ({k: float(v) for k, v in m.items()},
                       {k: p.grad for k, p in state.model.named_parameters()})
     (mk, gk), (mp, gp), (m64, g64) = (runs[k] for k in ("kernels", "plain",
                                                         "float64"))
     merr = {k: abs(mk[k] - m64[k]) / abs(m64[k]) for k in m64}
-    log("  flow step 360×640 b2, f32 through the kernels against float64: "
+    log(f"  {label}, f32 through the kernels against float64: "
         "metrics " + ", ".join(f"{k} {mk[k]:.6e} ({merr[k]:.1e}; plain f32 "
                                f"{abs(mp[k] - m64[k]) / abs(m64[k]):.1e})"
                                for k in m64) + " tol 1e-4")
     top = max(g.abs().max().item() for g in g64.values())
     bad, worst = [], (0.0, "", 0.0)
     for k, g in g64.items():
-        scale = top if _before_norm(k) else g.abs().max().item()
+        scale = top if before_norm(k) else g.abs().max().item()
         ek, ep = max_err(gk[k], g) / scale, max_err(gp[k], g) / scale
         if ek > max(1e-3, 2 * ep):
             bad.append((k, ek, ep))
@@ -1602,7 +1642,7 @@ def _flow_step_against_plain(vgg, grams, batch):
         f"before an instance norm against the largest gradient {top:.3e}")
     if bad or max(merr.values()) > 1e-4 or not all(
             torch.isfinite(g).all() for g in gk.values()):
-        raise AssertionError(f"flow step against float64: {merr}, {bad}")
+        raise AssertionError(f"{label} against float64: {merr}, {bad}")
     return max(merr.values()), worst[0]
 
 
@@ -1849,6 +1889,348 @@ def phase_main_reconet_train(g):
     log(f"  [5c] launches over the phase's main-path runs: K1 {total[0]}, "
         f"K2 {total[1]}; wall {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# ------------------------------------------------------------------ RTNSTV
+
+RTNSTV_OUT = os.path.join(ROOT, "build", "chip_smoke_rtnstv")
+RTNSTV_SIZE = (360, 640)   # serving and training frames, H × W
+
+
+def _rtnstv_before_norm(key):
+    """Every RTNSTV conv and transposed conv feeds an instance norm, so
+    their biases' true gradient is 0."""
+    return key.endswith("conv.bias")
+
+
+def _k1_f64_check(g, shape):
+    """The f32 (3xTF32) K1 without and with its prologue against the
+    float64 evaluation of the same inputs (``conv3x3_in_stats_plain`` on
+    float64), the card reference of the f32 kernels: y and the stats
+    within 1e-4 of their scale (3xTF32 products and float32 sums over 432
+    terms sit near 1e-6).  Returns the worst y error."""
+    apply_precision(torch.float32)
+    x, wt, b, gamma, beta = k1_inputs(g, torch.float32, shape)
+    errs = []
+    for pro in (False, True):
+        y, s = res_block.conv3x3_in_stats(x, wt, b)
+        args = (x, wt, b) if not pro else (y, wt, b, s, gamma, beta)
+        yk, sk = res_block.conv3x3_in_stats(*args)
+        y64, s64 = res_block.conv3x3_in_stats_plain(
+            *(a.double() for a in args))
+        tag = f"K1 f32 RTNSTV {shape}{' prologue' if pro else ''} "
+        errs.append(check(tag + "y against float64", yk, y64, 1e-4))
+        check(tag + "stats against float64", sk, s64, 1e-4)
+    return max(errs)
+
+
+def phase_kernels_rtnstv(g):
+    """``--rtnstv``: [3] at RTNSTV's shape alone: K1 (8, 90, 160, 48) → 48
+    in f32 and bf16 against the plain version (and f32 against float64),
+    two launches the same bits."""
+    log("[3] K1 at RTNSTV's residual width")
+    apply_precision(torch.float32)
+    errs = {"K1 f32": _k1_check(g, torch.float32, "f32 RTNSTV", K1_RTNSTV,
+                                1e-4)}
+    errs["K1 f32 vs f64"] = _k1_f64_check(g, K1_RTNSTV)
+    apply_precision(torch.bfloat16)
+    errs["K1"] = _k1_check(g, torch.bfloat16, "bf16 RTNSTV", K1_RTNSTV,
+                           BF16_ULP)
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_model_rtnstv(gold):
+    """[4] RTNSTV: the f32 forward at 1×256² through K1 against the same
+    forward through K1's plain version (2e-3 of the 0–255 output, the
+    model tolerance), 10 launches, and with grad mode on (K1 as its
+    autograd Function) the same bits; cuDNN runs deterministic for that
+    comparison, since its transposed convolution (a data-gradient
+    algorithm) may sum in another order from call to call.  Then the
+    golden ``rtnstv_styled`` (``init_stylizing_network(7)`` on
+    ``input_x``, 2e-3 as tests/test_goldens.py)."""
+    apply_precision(torch.float32)
+    model = rtnstv_m.init_stylizing_network(0, device="cuda")
+    x = torch.from_numpy((np.random.default_rng(1).random((1, 256, 256, 3))
+                          * 255).astype(np.float32)).cuda()
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.inference_mode():
+            reset_counts()
+            ours = model(x)
+            launches = counts()
+            with plain_kernels():
+                ref = model(x)
+        graded = model(x)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = torch.equal(graded.detach(), ours)
+    err = max_err(ours, ref)
+    log(f"  RTNSTV f32 256²: K1-K5 launches {launches}; max_abs_err against "
+        f"the plain route {err:.3e} tol 2e-3; grad mode on: the same bits "
+        f"{same} (max |diff| {max_err(graded.detach(), ours):.3e})")
+    if launches != (10, 0, 0, 0, 0) or not err <= 2e-3 or not same:
+        raise AssertionError(f"RTNSTV forward: {launches}, {err}, {same}")
+    with torch.inference_mode():
+        out = rtnstv_m.init_stylizing_network(7, device="cuda")(
+            torch.from_numpy(gold["input_x"]).cuda()).cpu().numpy()
+    gerr = float(np.abs(out - gold["rtnstv_styled"]).max())
+    log(f"  golden rtnstv_styled: max_abs_err {gerr:.3e} tol 2e-3")
+    if not gerr <= 2e-3:
+        raise AssertionError(f"rtnstv_styled: {gerr}")
+    return err
+
+
+def _rtnstv_batch(model, x, wire="rgb"):
+    return stylize_rtnstv(model, x, uint8_out=True, wire=wire)
+
+
+def phase_main_rtnstv():
+    """[5] RTNSTV serving from the port's seeded ``init_stylizing_network
+    (0)``: 640×360 batch 8 through ``stylize_rtnstv`` in bf16 and f32
+    (the uint8 and I420 wires, 5 timed batches after one), then
+    ``StreamingStylizer`` over 96 synthetic 640×360 uint8 frames (batch 8,
+    depth 3) in each dtype; K1 10 launches a forward, nothing else.
+    Returns the K1 launches per dtype and the ms."""
+    log("[5] main path: RTNSTV 16/32/48, 640×360 b8, bf16 and f32")
+    rng = np.random.default_rng(9)
+    h, w = RTNSTV_SIZE
+    x = rng.integers(0, 256, (8, h, w, 3)).astype(np.uint8)
+    clip = list(rng.integers(0, 256, (96, h, w, 3)).astype(np.uint8))
+    out, outs = {}, {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        apply_precision(dtype)
+        model = rtnstv_m.init_stylizing_network(0, device="cuda", dtype=dtype)
+        reset_counts()
+        outs[tag] = _rtnstv_batch(model, x)
+        i420 = _rtnstv_batch(model, x, "i420")
+        raw = stylize_rtnstv(model, x)
+        forwards = 3
+        if not (torch.isfinite(raw).all() and raw.min() >= 0
+                and raw.max() <= 255):
+            raise AssertionError(f"RTNSTV {tag}: frames not finite or "
+                                 f"outside 0..255")
+        # two forwards: cuDNN's transposed convolution may sum in another
+        # order from call to call, and the truncating cast then moves a
+        # value by one step
+        wire_diff = (i420.int() - rgb_to_i420(outs[tag]).int()).abs()
+        log(f"  {tag}: the I420 wire against rgb_to_i420 of the uint8 wire's"
+            f" frames: {int((wire_diff > 0).sum())} of {wire_diff.numel()} "
+            f"bytes differ, by at most {int(wire_diff.max())} (tol 1)")
+        if (outs[tag].shape != (8, h, w, 3) or outs[tag].dtype != torch.uint8
+                or wire_diff.max() > 1):
+            raise AssertionError(f"RTNSTV {tag}: uint8 / I420 wire")
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            _rtnstv_batch(model, x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            forwards += 1
+        stream = StreamingStylizer(lambda b: _rtnstv_batch(model, b),
+                                   iter(clip), batch_size=8,
+                                   pipeline_depth=3)
+        t0 = time.perf_counter()
+        styled = list(stream)
+        stream_s = time.perf_counter() - t0
+        forwards += 96 // 8
+        launches = counts()
+        first = _rtnstv_batch(model, np.stack(clip[:8])).cpu().numpy()
+        diff = np.abs(first.astype(int) - np.stack(styled[:8]).astype(int))
+        log(f"  {tag}: launches K1-K5 {launches} over {forwards} forwards "
+            f"({launches[0] / forwards:g} K1 a forward)")
+        if launches != (10 * forwards, 0, 0, 0, 0):
+            raise AssertionError(f"RTNSTV {tag}: expected K1 "
+                                 f"{10 * forwards}, K2-K5 0, got {launches}")
+        if len(styled) != 96 or diff.max() > 1:
+            raise AssertionError(f"RTNSTV {tag}: streamed frames")
+        ms = float(np.median(times))
+        log(f"  640×360 b8 {tag} stylize_rtnstv: {ms:.3f} ms/batch (median "
+            f"of 5) → {8e3 / ms:.1f} frames/s; runs "
+            f"{[round(t, 3) for t in times]}")
+        log(f"  StreamingStylizer 96×640×360 {tag}, batch 8, depth 3: "
+            f"{stream_s:.3f} s → {96 / stream_s:.1f} frames/s")
+        out[tag] = {"K1": launches[0], "ms": ms, "stream_fps": 96 / stream_s}
+        del model
+    diff = (outs["bf16"].int() - outs["f32"].int()).abs().float()
+    log(f"  bf16 against f32, uint8 frames: max |diff| {diff.max().item():g}"
+        f", mean {diff.mean().item():.3f} (bf16 through ten instance norms; "
+        f"not held)")
+    apply_precision(torch.bfloat16)
+    return out
+
+
+def _rtnstv_grams(vgg, rng):
+    h, w = RTNSTV_SIZE
+    style = rng.integers(0, 256, (1, h, w, 3)).astype(np.float32)
+    return rtnstv_style_grams(vgg, style)
+
+
+def _rtnstv_loop(vgg, grams):
+    """The RTNSTV trainer (``RTNSTVConfig()``) through ``run_training`` on
+    8 synthetic flow pairs (one epoch of 4 steps): K1 40 launches, finite
+    losses at every step, the epoch ``.npz`` / ``.pth`` and
+    ``rtnstv_last_state`` written, and the ``.npz`` (JAX layout, the
+    decoders' weights flipped) reloading to the model's tensors."""
+    cfg = RTNSTVConfig()
+    ds = SyntheticFlowPairs(8, cfg.img_size, seed=31)
+    steps = len(ds) // cfg.batch_size
+    shutil.rmtree(RTNSTV_OUT, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    state = run_training(
+        make_rtnstv_step(cfg, vgg, grams),
+        create(rtnstv_m.init_stylizing_network(1, device="cuda"), cfg.lr),
+        ds, batch_size=cfg.batch_size, epochs=1, out_dir=RTNSTV_OUT,
+        model_name="rtnstv", seed=32, num_workers=4, log_every=1,
+        log_fn=lambda msg: log(f"    {msg}"), metrics_jsonl=os.path.join(
+            RTNSTV_OUT, "metrics.jsonl"))
+    torch.cuda.synchronize()
+    launches = counts()
+    rec = _jsonl(os.path.join(RTNSTV_OUT, "metrics.jsonl"))
+    finite = all(v is not None and math.isfinite(v) for r in rec.values()
+                 for v in r.values())
+    files = sorted(os.listdir(RTNSTV_OUT))
+    name = f"rtnstv_epoch_1_batchSize_{cfg.batch_size}"
+    saved = ckpt.load_params(os.path.join(RTNSTV_OUT, f"{name}.npz"))
+    live = state.model.state_dict()
+    same = saved.keys() == live.keys() and all(
+        torch.equal(saved[k], live[k].cpu()) for k in live)
+    log(f"  RTNSTV trainer through the loop: launches K1-K5 {launches} over "
+        f"{steps} steps; {len(rec)} logged steps, losses finite: {finite}; "
+        f"files {files}; the .npz reloads to the model's tensors: {same}")
+    want = {f"{name}.npz", f"{name}.pth", "rtnstv_last_state"}
+    if (launches != (10 * steps, 0, 0, 0, 0) or not finite or not same
+            or sorted(rec) != list(range(1, steps + 1))
+            or not want <= set(files)):
+        raise AssertionError("RTNSTV loop run")
+    shutil.rmtree(RTNSTV_OUT, ignore_errors=True)
+    return launches[0]
+
+
+def phase_main_rtnstv_train():
+    """[5d] RTNSTV training at ``RTNSTVConfig()``, nothing cut (360×640
+    frame pairs, batch 2, f32; RTNSTV seed 1, VGG19 seed 0; synthetic
+    frames, flow of std 2 px, mask): one step through K1 and one through
+    the plain versions against the plain float64 step (metrics 1e-4
+    relative; gradients within max(1e-3, 2 × the plain f32 route's
+    distance) of their scale, the biases before an instance norm against
+    the largest gradient); the step timed (2 warmup, 6 timed; K1 10 a
+    step) and under remat (K1 20); the trainer through the loop."""
+    log("[5d] main path: RTNSTV training (360×640 b2 f32, RTNSTVConfig)")
+    t_phase = time.perf_counter()
+    apply_precision(torch.float32)
+    rng = np.random.default_rng(30)
+    cfg = RTNSTVConfig()
+    vgg = init_vgg19_rtnstv(0, device="cuda")
+    grams = _rtnstv_grams(vgg, rng)
+    batch = _flow_batch(rng, cfg)
+    m_err, g_err = _step_against_float64(
+        "RTNSTV step 360×640 b2", cfg,
+        lambda: rtnstv_m.init_stylizing_network(1, device="cuda"),
+        lambda c: make_rtnstv_step(c, vgg, grams), batch,
+        _rtnstv_before_norm)
+    out = {"metric_err": m_err, "grad_err": g_err, "K1": 0}
+    for remat, (steps, warmup) in ((False, (6, 2)), (True, (2, 1))):
+        c = dataclasses.replace(cfg, remat=remat)
+        launches, ms, peak = _reconet_run(
+            f"RTNSTV step f32{' remat' if remat else ''}",
+            create(rtnstv_m.init_stylizing_network(1, device="cuda"), c.lr),
+            make_rtnstv_step(c, vgg, grams), batch, steps, warmup,
+            (20, 0) if remat else (10, 0))
+        out["K1"] += launches[0]
+        out["remat_ms" if remat else "ms"] = ms
+        out["remat_peak_gib" if remat else "peak_gib"] = peak
+    out["K1"] += _rtnstv_loop(vgg, grams)
+    log(f"  [5d] K1 launches over the phase's main-path runs: {out['K1']}; "
+        f"wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _profile_rtnstv_step(rng):
+    """Device time by kernel of the f32 RTNSTV step (``RTNSTVConfig()``)."""
+    apply_precision(torch.float32)
+    cfg = RTNSTVConfig()
+    vgg = init_vgg19_rtnstv(0, device="cuda")
+    state = create(rtnstv_m.init_stylizing_network(1, device="cuda"), cfg.lr)
+    step = make_rtnstv_step(cfg, vgg, _rtnstv_grams(vgg, rng))
+    batch = _flow_batch(rng, cfg)
+    _profile("RTNSTV train 360×640 b2 f32 step", lambda: step(state, batch),
+             top=24)
+
+
+def timing_k1_rtnstv(g):
+    """K1 at RTNSTV's serving shape (8, 90, 160, 48) → 48, per launch
+    without and with its prologue, in bf16 and f32 (3xTF32), beside its
+    plain version and cuDNN's ``F.conv2d`` of the same conv in benchmark
+    mode (f32 with TF32 off), the faster of NCHW and channels_last; bound
+    in the convention of the other K1 rows.  Per forward: 5 launches
+    without and 5 with the prologue."""
+    n, h, w, c = K1_RTNSTV
+    flops = 2 * 9 * c * c * n * h * w
+    row = {"shape": "(8,90,160,48)->48, RTNSTV 640x360 b8 serving",
+           "per": "one 640x360 batch-8 forward: 5 launches without and 5 "
+                  "with the prologue"}
+    for dt, tag, peak, nb in ((torch.bfloat16, "", torch.bfloat16, 2),
+                              (torch.float32, "_f32", "tf32x3", 4)):
+        apply_precision(dt)
+        x, wt, b, gamma, beta = k1_inputs(g, dt, K1_RTNSTV)
+        y, s = res_block.conv3x3_in_stats(x, wt, b)
+        t = [event_ms(lambda: res_block.conv3x3_in_stats(x, wt, b), 20, 3),
+             event_ms(lambda: res_block.conv3x3_in_stats(
+                 y, wt, b, s, gamma, beta), 20, 3)]
+        tp = [event_ms(lambda: res_block.conv3x3_in_stats_plain(x, wt, b),
+                       5, 1),
+              event_ms(lambda: res_block.conv3x3_in_stats_plain(
+                  y, wt, b, s, gamma, beta), 5, 1)]
+        xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+        tl, layout, both = cudnn_f32_ms(xp, wt.permute(3, 2, 0, 1), b)
+        nbytes = (2 * n * h * w * c + 9 * c * c + c) * nb + n * 2 * c * 4
+        b1, by = bound(flops, nbytes, peak)
+        b1_pro, _ = bound(flops, nbytes + (n * 2 * c + 2 * c) * 4, peak)
+        row.update({f"ms{tag}": 5 * (t[0] + t[1]),
+                    f"ms{tag}_per_launch": t,
+                    f"plain_ms{tag}": 5 * (tp[0] + tp[1]),
+                    f"bound_ms{tag}": 5 * (b1 + b1_pro),
+                    f"bound_by{tag}": by,
+                    f"library_ms{tag}": 10 * tl,
+                    f"library_ms{tag}_per_launch": tl,
+                    f"library{tag}": f"F.conv2d (cuDNN, benchmark mode, "
+                                     f"{layout}; NCHW {both['NCHW']:.4f}, "
+                                     f"channels_last "
+                                     f"{both['channels_last']:.4f} ms)"})
+        log(f"  K1{tag or ' bf16'} RTNSTV {K1_RTNSTV}->48 ms per launch: "
+            f"kernel {t[0]:.4f}, with prologue {t[1]:.4f} "
+            f"({flops / t[0] / 1e9:.1f} / {flops / t[1] / 1e9:.1f} TFLOP/s; "
+            f"bound {b1:.4f} / {b1_pro:.4f} ({by}), share "
+            f"{b1 / t[0]:.3f} / {b1_pro / t[1]:.3f}); plain {tp[0]:.4f} / "
+            f"{tp[1]:.4f}; cuDNN {tl:.4f} ({layout}; NCHW {both['NCHW']:.4f}"
+            f", channels_last {both['channels_last']:.4f})")
+        del x, y, xp
+    apply_precision(torch.bfloat16)
+    return row
+
+
+def phase_rtnstv_alone():
+    """``--rtnstv``: the kernels' build ([2]), K1 at RTNSTV's shape ([3]),
+    the RTNSTV forward and golden ([4]), serving ([5]), training ([5d]),
+    K1's times at its serving shape ([6]) and the f32 step's profile."""
+    phase_build()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    errs = phase_kernels_rtnstv(g)
+    log("[4] model: RTNSTV")
+    with np.load(os.path.join(ROOT, "tests", "goldens",
+                              "reference_numerics.npz")) as z:
+        phase_model_rtnstv({k: z[k] for k in z.files})
+    serving = phase_main_rtnstv()
+    train = phase_main_rtnstv_train()
+    log("[6] timing: K1 at RTNSTV's shape")
+    row = timing_k1_rtnstv(g)
+    row.update(errs=errs, serving=serving, train=train)
+    log(json.dumps({"K1 RTNSTV": row}))
+    log("[7] profile")
+    _profile_rtnstv_step(np.random.default_rng(4))
 
 
 def phase_timing(launches, errs, slice_v):
@@ -2368,6 +2750,7 @@ def phase_profile():
              lambda: step(state, batch))
     del state, step, batch
     _profile_flow_step(rng)
+    _profile_rtnstv_step(rng)
 
 
 def _profile_flow_step(rng):
@@ -2464,11 +2847,13 @@ def main(argv):
         return 1
     parent = argv[1] if len(argv) == 2 and argv[0] == "--parent" else None
     alone = {"--f32-step": phase_f32_step, "--f32-reconet": phase_f32_reconet,
-             "--reconet-train": phase_reconet_train_alone}
+             "--reconet-train": phase_reconet_train_alone,
+             "--rtnstv": phase_rtnstv_alone}
     if not (argv == [] or (len(argv) == 1 and argv[0] in alone)
             or parent is not None):
         print(f"usage: chip_smoke.py [--f32-step | --f32-reconet | "
-              f"--reconet-train | --parent DIR]; got {argv}", file=sys.stderr)
+              f"--reconet-train | --rtnstv | --parent DIR]; got {argv}",
+              file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     smi = phase_card()
@@ -2496,6 +2881,12 @@ def main(argv):
     for k in ("K1", "K2"):
         launches[k] += rtrain[k]
         launches[f"{k} by path"]["ReCoNet training"] = rtrain[k]
+    rt_serving, rt_train = phase_main_rtnstv(), phase_main_rtnstv_train()
+    for path, n in (("RTNSTV bf16", rt_serving["bf16"]["K1"]),
+                    ("RTNSTV f32", rt_serving["f32"]["K1"]),
+                    ("RTNSTV training", rt_train["K1"])):
+        launches["K1"] += n
+        launches["K1 by path"][path] = n
     by_path = {"serving": launches["K3"], "training": train["K3"],
                "training loop": loop["K3"]}
     launches["K3"] += train["K3"] + loop["K3"]
@@ -2525,6 +2916,13 @@ def main(argv):
         row["train_grad_err"] = {e: v for e, v in rtrain["errs"].items()
                                  if e.startswith(k)}
     kernels[0]["train_step_ms"] = rtrain["ms"]
+    log("[6] timing: K1 at RTNSTV's shape (bf16, f32)")
+    kernels[0]["rtnstv"] = timing_k1_rtnstv(
+        torch.Generator(device="cuda").manual_seed(15))
+    kernels[0]["rtnstv"].update(
+        max_abs_err_f32_vs_f64=errs["K1 f32 RTNSTV vs f64"],
+        serving_ms={k: v["ms"] for k, v in rt_serving.items()},
+        train_step_ms=rt_train["ms"], train_remat_ms=rt_train["remat_ms"])
     phase_profile()
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB; wall {time.perf_counter() - t0:.1f} s")

@@ -173,11 +173,29 @@ def test_preempted_run_resumes_bitwise(uninterrupted, folders, tmp_path,
     (["--trainer", "reconet-candy"], "--style is required"),
     (["--trainer", "reconet-sd1", "--style", "s.png"],
      "--teacher-weights is required"),
-    (["--trainer", "rtnstv"], "item 17"),
+    # RTNSTV trains since its slice: a step on a two-frame Videvo tree
+    (["--trainer", "rtnstv", "--data-format", "videvo"], None),
     (["--trainer", "adaattn-image", "--data-parallel", "2"], "item 20"),
     (["--trainer", "adaattn-video", "--multihost"], "item 20"),
 ])
-def test_unported_options_exit_cleanly(argv, match):
+def test_unported_options_exit_cleanly(argv, match, tmp_path):
+    if match is None:
+        rng = np.random.default_rng(0)
+        frames = tmp_path / "videvo" / "frames" / "00000"
+        frames.mkdir(parents=True)
+        for i in range(2):
+            _write(str(frames / f"{i:05d}.png"), rng, (32, 24))
+        for sub, name in (("front", "00000_01"), ("back", "00001_10")):
+            (tmp_path / "videvo" / "flow" / "00000" / sub).mkdir(parents=True)
+            np.save(tmp_path / "videvo" / "flow" / "00000" / sub / name,
+                    rng.standard_normal((24, 32, 2)).astype(np.float32))
+        _write(str(tmp_path / "style.png"), rng, (32, 24))
+        cli.main(argv + ["--data", str(tmp_path / "videvo"), "--style",
+                         str(tmp_path / "style.png"), "--out-dir",
+                         str(tmp_path / "out"), "--epochs", "1",
+                         "--batch-size", "1", "--device", "cpu"])
+        assert (tmp_path / "out" / "rtnstv_epoch_1_batchSize_1.npz").exists()
+        return
     with pytest.raises(SystemExit, match=match):
         cli.main(argv + ["--data", "x,y", "--device", "cpu"])
 

@@ -240,6 +240,46 @@ def test_model_routes_through_the_kernels(cuda):
         torch.testing.assert_close(o.cpu(), r.detach(), rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_k1_rtnstv_width(cuda, dtype, tol, prologue):
+    """K1 at RTNSTV's residual width, C = Co = 48, at the 640x360 frame's
+    quarter size: one 48-wide output tile, with statistics; in bf16 one
+    partial 64-channel chunk of three k16 steps, in f32 a full and a
+    ragged 32-channel chunk.  y within ``tol`` of its scale, the stats
+    within 1e-4 of theirs, and a second launch gives the same bits."""
+    x, w, b, pro = _k1_inputs(cuda, 2, 90, 160, 48, 48, dtype)
+    kw = dict(zip(("stats_in", "gamma", "beta"), pro)) if prologue else {}
+    y, s = res_block.conv3x3_in_stats(x, w, b, **kw)
+    yp, sp = res_block.conv3x3_in_stats_plain(x, w, b, **kw)
+    _close(y, yp, tol)
+    _close(s, sp, 1e-4)
+    y2, s2 = res_block.conv3x3_in_stats(x, w, b, **kw)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+def test_rtnstv_routes_through_k1(cuda, monkeypatch):
+    """An f32 RTNSTV forward launches K1 ten times and matches the same
+    forward through K1's plain version on the card and the CPU forward
+    (2e-3, the model tolerance)."""
+    from vst_tpu_torch.models.rtnstv import init_stylizing_network
+
+    x = torch.rand(2, 48, 64, 3, generator=torch.Generator().manual_seed(0))
+    x = x * 255
+    ref = init_stylizing_network(0, device="cpu")(x).detach()
+    model = init_stylizing_network(0, device=cuda)
+    before = res_block.conv3x3_in_stats.launches
+    with torch.inference_mode():
+        ours = model(x.to(cuda))
+        assert res_block.conv3x3_in_stats.launches == before + 10
+        monkeypatch.setattr(res_block, "conv3x3_in_stats",
+                            res_block.conv3x3_in_stats_plain)
+        plain = model(x.to(cuda))
+    torch.testing.assert_close(ours, plain, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(ours.cpu(), ref, rtol=2e-3, atol=2e-3)
+
+
 def test_k1_k2_carry_a_gradient(cuda):
     """A small f32 ReCoNet forward and backward on the card launches K1 ten
     times and K2 twice (the backward launches neither) and gives every

@@ -99,14 +99,26 @@ class TestNoCard:
                               "--video", str(tmp_path / "missing.avi")])
 
 
-def test_cli_rejects_unported(tmp_path):
+def test_cli_rejects_unported(tmp_path, capsys):
+    """--data-parallel is refused; --model rtnstv runs since RTNSTV's
+    slice and writes its frames."""
     from vst_tpu_torch.cli import infer_video
 
-    for argv in (["--model", "rtnstv"], ["--model", "reconet",
-                                         "--data-parallel", "2"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            infer_video.main(argv + ["--weights", "w.pth", "--video", "v.avi",
-                                     "--device", "cpu"])
+    with pytest.raises(SystemExit, match="not ported"):
+        infer_video.main(["--model", "reconet", "--data-parallel", "2",
+                          "--weights", "w.pth", "--video", "v.avi",
+                          "--device", "cpu"])
+    from vst_tpu.models.rtnstv import init_stylizing_network
+    from vst_tpu.train.checkpoint import save_params
+
+    weights = str(tmp_path / "rtnstv.npz")
+    save_params(init_stylizing_network(0), weights)
+    infer_video.main(["--model", "rtnstv", "--weights", weights, "--video",
+                      _mjpg(tmp_path / "in.avi", n=2), "--size", "32", "24",
+                      "--frames-dir", str(tmp_path / "frames"),
+                      "--device", "cpu"])
+    assert "2 frames" in capsys.readouterr().out
+    assert len(list((tmp_path / "frames").glob("*.jpg"))) == 2
 
 
 def _mjpg(path, n=5, w=32, h=24):

@@ -68,21 +68,23 @@ class TestResBlockPlain:
         np.testing.assert_allclose(st[:, 1].numpy(), np.asarray(sj[:, 1]),
                                    rtol=1e-3, atol=1e-5)
 
+    @pytest.mark.parametrize("c", [64, 48])
     @pytest.mark.parametrize("prologue", [False, True])
-    def test_conv3x3_in_stats_sd_width(self, rng, prologue):
+    def test_conv3x3_in_stats_sd_width(self, rng, prologue, c):
         """C = Co = 64, SD1/SD2's residual width (one 64-wide tile of the
-        card's kernel), on a size that is not a multiple of its 8 x 16
-        tile."""
-        x = (rng.standard_normal((2, 10, 20, 64)) * 3).astype(np.float32)
-        w = (rng.standard_normal((3, 3, 64, 64)) * 0.05).astype(np.float32)
-        b = (rng.standard_normal(64) * 0.05).astype(np.float32)
+        card's kernel), and C = Co = 48, RTNSTV's (one 48-wide tile; a
+        partial channel chunk in both of the card's bodies), on a size
+        that is not a multiple of its 8 x 16 tile."""
+        x = (rng.standard_normal((2, 10, 20, c)) * 3).astype(np.float32)
+        w = (rng.standard_normal((3, 3, c, c)) * 0.05).astype(np.float32)
+        b = (rng.standard_normal(c) * 0.05).astype(np.float32)
         kw = {}
         if prologue:
-            stats = np.stack([rng.standard_normal((2, 64)),
-                              rng.random((2, 64)) + 0.5], 1).astype(np.float32)
+            stats = np.stack([rng.standard_normal((2, c)),
+                              rng.random((2, c)) + 0.5], 1).astype(np.float32)
             kw = dict(stats_in=stats,
-                      gamma=(rng.random(64) + 0.5).astype(np.float32),
-                      beta=(rng.standard_normal(64) * 0.1).astype(np.float32))
+                      gamma=(rng.random(c) + 0.5).astype(np.float32),
+                      beta=(rng.standard_normal(c) * 0.1).astype(np.float32))
         yj, sj = jrb.conv3x3_in_stats(
             jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
             **{k: jnp.asarray(v) for k, v in kw.items()}, interpret=True)

@@ -6,7 +6,7 @@ import torch
 
 from vst_tpu_torch.compat import load_weights
 from vst_tpu_torch.data.datasets import list_files, load_image
-from vst_tpu_torch.models import adaattn, vgg
+from vst_tpu_torch.models import adaattn, rtnstv, vgg
 from vst_tpu_torch.models.reconet import FAMILIES
 
 __all__ = ["check_weights_match", "list_files", "load_image_255",
@@ -17,6 +17,8 @@ def _expected_keys(model: str, input_frame_num: int) -> set:
     with torch.device("meta"):   # the keys, without allocating the weights
         if model == "adaattn":
             return set(adaattn.StylizingNetwork().state_dict())
+        if model == "rtnstv":
+            return set(rtnstv.StylizingNetwork().state_dict())
         return set(FAMILIES[model](input_frame_num).state_dict())
 
 
@@ -32,16 +34,17 @@ def check_weights_match(state: dict, model: str, path: str,
 
 
 _VGG = {"vgg19_adaattn": (vgg.init_vgg19_adaattn, vgg.build_vgg19_adaattn),
+        "vgg19_rtnstv": (vgg.init_vgg19_rtnstv, vgg.build_vgg19_rtnstv),
         "vgg16": (vgg.init_vgg16_reconet, vgg.build_vgg16_reconet)}
 
 
 def load_vgg_weights(path: str | None, device="cuda",
                      dtype: torch.dtype = torch.float32, seed: int = 0,
                      flavor: str = "vgg19_adaattn") -> torch.nn.Module:
-    """A VGG trunk, ``flavor`` "vgg19_adaattn" (AdaAttN's) or "vgg16"
-    (ReCoNet's), from a ``.pth``/``.npz`` (a torchvision state_dict
-    works), or, without a path, the JAX package's seeded init (smoke runs:
-    the repository holds no pretrained weights)."""
+    """A VGG trunk, ``flavor`` "vgg19_adaattn" (AdaAttN's), "vgg19_rtnstv"
+    (RTNSTV's) or "vgg16" (ReCoNet's), from a ``.pth``/``.npz`` (a
+    torchvision state_dict works), or, without a path, the JAX package's
+    seeded init (smoke runs: the repository holds no pretrained weights)."""
     init, build = _VGG[flavor]
     if path is None:
         return init(seed, device, dtype)

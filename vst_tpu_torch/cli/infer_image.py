@@ -1,4 +1,5 @@
-"""Image inference CLI on the card: the ReCoNet family and AdaAttN.
+"""Image inference CLI on the card: the ReCoNet family, RTNSTV and
+AdaAttN.
 
 Counterpart of ``vst_tpu/cli/infer_image.py`` (mirrors
 AdaAttN/infer_image.py and AdaAttN/infer_image_all.py):
@@ -19,8 +20,8 @@ from vst_tpu_torch.cli.common import (check_weights_match, list_files,
 from vst_tpu_torch.device import resolve_device
 from vst_tpu_torch.infer.image import (adaattn_style_state, stylize_adaattn,
                                        stylize_adaattn_cached,
-                                       stylize_reconet)
-from vst_tpu_torch.models import adaattn
+                                       stylize_reconet, stylize_rtnstv)
+from vst_tpu_torch.models import adaattn, rtnstv
 from vst_tpu_torch.models.reconet import build
 
 
@@ -60,10 +61,6 @@ def _save(out, dst):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.model == "rtnstv":
-        raise SystemExit("error: --model rtnstv is not ported to "
-                         "vst_tpu_torch yet; use python -m "
-                         "vst_tpu.cli.infer_image")
     if args.sample_from:
         raise SystemExit("error: --sample-from is not ported to "
                          "vst_tpu_torch yet; pass --content and --style")
@@ -76,9 +73,13 @@ def main(argv=None):
     if args.model != "adaattn":
         if not args.content:
             raise SystemExit("error: --content is required")
-        model = build(args.model, state, device=device, dtype=dtype)
-        _save(stylize_reconet(model, _load(args.content, args.size)),
-              os.path.join(args.out, "stylized.png"))
+        content = _load(args.content, args.size)
+        if args.model == "rtnstv":
+            out = stylize_rtnstv(rtnstv.build(state, device, dtype), content)
+        else:
+            out = stylize_reconet(build(args.model, state, device=device,
+                                        dtype=dtype), content)
+        _save(out, os.path.join(args.out, "stylized.png"))
         return
 
     if not args.content or not args.style:

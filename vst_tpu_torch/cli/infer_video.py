@@ -1,10 +1,11 @@
-"""Streaming video inference CLI on the card: the ReCoNet family and
-AdaAttN.
+"""Streaming video inference CLI on the card: the ReCoNet family, RTNSTV
+and AdaAttN.
 
 Counterpart of ``vst_tpu/cli/infer_video.py`` (mirrors
-ReCoNet/inference/infer.py, ReCoNet/inference_two_model/infer.py and
-AdaAttN/infer_video.py): decode, stylize in batches with several in
-flight, and encode an output video, dump frames or show a live window.
+ReCoNet/inference/infer.py, ReCoNet/inference_two_model/infer.py,
+RTNSTV/infer.py and AdaAttN/infer_video.py): decode, stylize in batches
+with several in flight, and encode an output video, dump frames or show
+a live window.
 
     python -m vst_tpu_torch.cli.infer_video --model reconet \\
         --weights reconet.pth --video in.avi --out styled.mp4
@@ -24,15 +25,13 @@ from vst_tpu_torch.cli.common import (check_weights_match, load_image_255,
                                       load_vgg_weights, load_weights,
                                       save_image_255)
 from vst_tpu_torch.device import resolve_device
-from vst_tpu_torch.infer.image import stylize_reconet
+from vst_tpu_torch.infer.image import stylize_reconet, stylize_rtnstv
 from vst_tpu_torch.infer.video import (AdaAttNVideoStylizer,
                                        StreamingStylizer,
                                        StreamingVideoWriter,
                                        frames_from_source, video_fps)
-from vst_tpu_torch.models import adaattn
+from vst_tpu_torch.models import adaattn, rtnstv
 from vst_tpu_torch.models.reconet import build
-
-_NOT_PORTED = ("rtnstv",)
 
 
 def _validated_wire(wire, size, weights2=None):
@@ -52,7 +51,7 @@ def _validated_wire(wire, size, weights2=None):
 def build_parser():
     p = argparse.ArgumentParser(prog="vst_tpu_torch.cli.infer_video")
     p.add_argument("--model", required=True,
-                   choices=["reconet", "sd1", "sd2", "adaattn", *_NOT_PORTED])
+                   choices=["reconet", "sd1", "sd2", "rtnstv", "adaattn"])
     p.add_argument("--weights", required=True, help=".pth or JAX .npz")
     p.add_argument("--weights2",
                    help="second checkpoint: side-by-side comparison output "
@@ -93,8 +92,19 @@ def build_parser():
 def _load_model(family, path, input_frame_num, device):
     state = load_weights(path)
     check_weights_match(state, family, path, input_frame_num)
-    return build(family, state, input_frame_num, device,
-                 next(iter(state.values())).dtype)
+    dtype = next(iter(state.values())).dtype
+    if family == "rtnstv":
+        return rtnstv.build(state, device, dtype)
+    return build(family, state, input_frame_num, device, dtype)
+
+
+def _stylizer(family, path, input_frame_num, device):
+    """``(batch, wire) -> styled uint8 frames`` of the ``family``
+    checkpoint at ``path``."""
+    model = _load_model(family, path, input_frame_num, device)
+    stylize = stylize_rtnstv if family == "rtnstv" else stylize_reconet
+    return lambda batch, wire="rgb": stylize(model, batch, uint8_out=True,
+                                             wire=wire)
 
 
 def _adaattn_frames(args, device):
@@ -103,7 +113,8 @@ def _adaattn_frames(args, device):
     if not args.style:
         raise SystemExit("error: --style is required for adaattn")
     if args.weights2:
-        raise SystemExit("error: --weights2 compares ReCoNet-family models")
+        raise SystemExit("error: --weights2 compares ReCoNet-family and "
+                         "RTNSTV models")
     state = load_weights(args.weights)
     check_weights_match(state, "adaattn", args.weights)
     dtype = next(iter(state.values())).dtype
@@ -118,23 +129,23 @@ def _adaattn_frames(args, device):
         frames_from_source(args.video, size, "area", dtype="uint8"))
 
 
-def _reconet_frames(args, device):
-    model = _load_model(args.model, args.weights, args.input_frame_num,
+def _feed_forward_frames(args, device):
+    """The ReCoNet family and RTNSTV: frames resized linearly, optionally
+    beside a second checkpoint's (``--weights2``)."""
+    stylize = _stylizer(args.model, args.weights, args.input_frame_num,
                         device)
     size = tuple(args.size or (640, 360))
     wire = _validated_wire(args.wire, size, args.weights2)
 
     def model_fn(batch):
-        return stylize_reconet(model, batch, uint8_out=True, wire=wire)
+        return stylize(batch, wire)
 
     if args.weights2:
-        model2 = _load_model(args.model2 or args.model, args.weights2,
+        stylize2 = _stylizer(args.model2 or args.model, args.weights2,
                              args.input_frame_num, device)
-        base_fn = model_fn
 
         def model_fn(batch):  # noqa: F811 — side-by-side comparison
-            b = stylize_reconet(model2, batch, uint8_out=True)
-            return torch.cat([base_fn(batch), b], dim=2)
+            return torch.cat([stylize(batch), stylize2(batch)], dim=2)
 
     frames = frames_from_source(args.video, size, "linear", dtype="uint8")
     return iter(StreamingStylizer(
@@ -145,11 +156,6 @@ def _reconet_frames(args, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for fam in (args.model, args.model2):
-        if fam in _NOT_PORTED:
-            raise SystemExit(
-                f"error: --model {fam} is not ported to vst_tpu_torch yet; "
-                "use python -m vst_tpu.cli.infer_video")
     if args.data_parallel is not None:
         raise SystemExit("error: --data-parallel is not ported to "
                          "vst_tpu_torch yet")
@@ -157,7 +163,7 @@ def main(argv=None):
     if args.model == "adaattn":
         out_iter = _adaattn_frames(args, device)
     else:
-        out_iter = _reconet_frames(args, device)
+        out_iter = _feed_forward_frames(args, device)
 
     show = args.show
     if show:

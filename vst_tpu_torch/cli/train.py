@@ -1,14 +1,16 @@
-"""Training CLI on the card: the seven ReCoNet trainers and the AdaAttN
-image and video trainers.
+"""Training CLI on the card: the seven ReCoNet trainers, RTNSTV's and the
+AdaAttN image and video trainers.
 
 Counterpart of ``vst_tpu/cli/train.py`` (ReCoNet/train_single/train_
 {candy,starry-night,Flow_noFTL,coco2014,Flow_SD1,Flow_SD2}.py,
-train_multiple/train_Flow.py, AdaAttN/train_image.py, train_video.py),
-with the same trainer names and flags; ``--device`` takes the place of
-``--platform``.  RTNSTV comes with its slice and is refused here.
+train_multiple/train_Flow.py, RTNSTV/train.py, AdaAttN/train_image.py,
+train_video.py), with the same trainer names and flags; ``--device``
+takes the place of ``--platform``.
 
     python -m vst_tpu_torch.cli.train --trainer reconet-candy \\
         --data sceneflow --style candy.jpg --out-dir models --resume auto
+    python -m vst_tpu_torch.cli.train --trainer rtnstv --data videvo \\
+        --data-format videvo --style candy.jpg --out-dir models
     python -m vst_tpu_torch.cli.train --trainer adaattn-image \\
         --data coco/train2014,wikiart --out-dir models --resume auto
 """
@@ -21,7 +23,7 @@ from vst_tpu_torch.cli.common import (load_image_255, load_vgg_weights,
                                       load_weights)
 from vst_tpu_torch.compat import params_from_jax
 from vst_tpu_torch.device import resolve_device
-from vst_tpu_torch.models import adaattn, reconet
+from vst_tpu_torch.models import adaattn, reconet, rtnstv
 from vst_tpu_torch.train import config as C
 from vst_tpu_torch.train import steps
 from vst_tpu_torch.train.checkpoint import load_state, partial_init_from
@@ -33,9 +35,6 @@ TRAINERS = (
     "reconet-multiframe", "reconet-coco", "reconet-sd1", "reconet-sd2",
     "rtnstv", "adaattn-image", "adaattn-video",
 )
-
-# trainers of later slices: the ROADMAP item that brings each
-_NOT_PORTED = {"rtnstv": "item 17 (RTNSTV)"}
 PER_STYLE = tuple(t for t in TRAINERS if not t.startswith("adaattn"))
 RECONET_FLOW = {
     "reconet-candy": C.RECONET_CANDY,
@@ -53,7 +52,10 @@ def build_parser():
     p.add_argument("--data", required=True,
                    help="dataset root: SceneFlow (holding monkaa and "
                         "flyingthings3d) for the ReCoNet flow and SD "
-                        "trainers, COCO (holding train2014) for "
+                        "trainers and rtnstv, or for rtnstv with "
+                        "--data-format videvo a Videvo root (frames/ and "
+                        "flow/ of cli.preprocess), COCO (holding "
+                        "train2014) for "
                         "reconet-coco, 'content_dir,style_dir' (COCO and "
                         "WikiArt) for adaattn-image, 'videvo_dir,style_dir' "
                         "for adaattn-video")
@@ -221,12 +223,31 @@ def _build_reconet(args, device):
     return cfg, dataset, create(model, cfg.lr), step
 
 
+def _build_rtnstv(args, device):
+    """(config, dataset, state, step) of the RTNSTV trainer, seeded as JAX
+    seeds it: ``rtnstv.init_stylizing_network(seed)`` and the VGG19 of
+    ``load_vgg_weights(path, "vgg19_rtnstv", seed)``; the style image as
+    it is, SceneFlow at ``img_size`` or Videvo frames at their own size."""
+    from vst_tpu_torch.data.datasets import SceneFlowCombined, VidevoFlow
+
+    cfg = _override(C.RTNSTVConfig(), args)
+    vgg = load_vgg_weights(args.vgg_weights, device, seed=args.seed,
+                           flavor="vgg19_rtnstv")
+    grams = steps.rtnstv_style_grams(vgg, _style_tensor(args))
+    dataset = (VidevoFlow(args.data) if args.data_format == "videvo"
+               else SceneFlowCombined(args.data, cfg.img_size))
+    state = create(rtnstv.init_stylizing_network(args.seed, device), cfg.lr)
+    return cfg, dataset, state, steps.make_rtnstv_step(cfg, vgg, grams)
+
+
 def build_trainer(args, device):
     """(config, dataset, state, step) of a trainer.  An AdaAttN trainer is
     seeded as JAX seeds it: ``init_stylizing_network(seed)`` and the VGG19
     of ``load_vgg_weights(path, seed=seed)``."""
     if args.trainer.startswith("reconet"):
         return _build_reconet(args, device)
+    if args.trainer == "rtnstv":
+        return _build_rtnstv(args, device)
     from vst_tpu_torch.data.datasets import CocoWikiArt, VidevoWikiArt
 
     image = args.trainer == "adaattn-image"
@@ -248,11 +269,6 @@ def build_trainer(args, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.trainer in _NOT_PORTED:
-        raise SystemExit(
-            f"error: --trainer {args.trainer} is not ported to vst_tpu_torch "
-            f"yet (ROADMAP {_NOT_PORTED[args.trainer]}); use python -m "
-            f"vst_tpu.cli.train")
     if args.trainer in PER_STYLE and not args.style:
         raise SystemExit(f"error: --style is required for trainer "
                          f"'{args.trainer}'")

@@ -5,35 +5,48 @@ count) for a port run that continues it.
 Counterpart of ``vst_tpu/compat/torch_params.py`` and
 ``vst_tpu/train/checkpoint.py::load_params``.  Both packages key their
 parameters by the reference's torch ``state_dict`` names; only the conv
-weight layout differs (JAX HWIO, torch OIHW).  Neither the ReCoNet family
-nor AdaAttN and its VGG19 has a transposed convolution, so every 4-D array
-(1×1 convs included) is a Conv2d weight.
+weight layout differs:
+
+- Conv2d weights (every 4-D array but the ones below, 1×1 convs
+  included): JAX HWIO, torch OIHW;
+- ConvTranspose2d weights, the keys holding ``.deconv.`` (RTNSTV's two
+  Deconv blocks, RTNSTV/network.py:48-60, the only transposed convs of
+  the suite): JAX HWIO spatially flipped (the input-dilated conv form of
+  ``vst_tpu/ops/conv.py::conv_transpose2d``), torch (I, O, kh, kw).
 """
 
 import numpy as np
 import torch
 
 
+def _is_transpose(key: str) -> bool:
+    return ".deconv." in key
+
+
 def params_from_jax(params: dict) -> dict:
     """JAX-layout parameters (name → array, conv weights HWIO) → torch
-    ``state_dict`` layout (name → CPU tensor, conv weights OIHW)."""
+    ``state_dict`` layout (name → CPU tensor, conv weights OIHW,
+    transposed-conv weights (I, O, kh, kw) unflipped)."""
     out = {}
     for key, val in params.items():
         arr = np.asarray(val)
         if arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)
+            arr = (arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+                   if _is_transpose(key) else arr.transpose(3, 2, 0, 1))
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
 
 
 def params_to_jax(state_dict: dict) -> dict:
     """The inverse of ``params_from_jax``: a torch ``state_dict`` →
-    JAX-layout numpy arrays (conv weights HWIO), in the state's dtype."""
+    JAX-layout numpy arrays (conv weights HWIO, transposed-conv weights
+    HWIO flipped), in the state's dtype."""
     out = {}
     for key, val in state_dict.items():
         arr = val.detach().cpu().numpy()
         if arr.ndim == 4:
-            arr = arr.transpose(2, 3, 1, 0)
+            arr = (arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+                   if _is_transpose(key) else arr.transpose(2, 3, 1, 0))
         out[key] = np.ascontiguousarray(arr)
     return out
 

@@ -1,20 +1,24 @@
-"""ReCoNet and AdaAttN datasets: plain-Python indexers returning HWC
-float32 0–255 numpy arrays.  Counterpart of the ReCoNet and AdaAttN parts
-of ``vst_tpu/data/datasets.py``, sample for sample the same bits:
+"""ReCoNet, RTNSTV and AdaAttN datasets: plain-Python indexers returning
+HWC float32 0–255 numpy arrays, and the offline preprocessing that makes
+RTNSTV's.  Counterpart of ``vst_tpu/data/datasets.py``, sample for sample
+(and file for file) the same bits:
 
 - ``Coco2014``      — ReCoNet/datasets.py:16-39
 - ``FlyingThings3D`` — ReCoNet/datasets.py:42-146 (A/B/C shards)
 - ``Monkaa``        — ReCoNet/datasets.py:149-253 (scene folders)
 - ``SceneFlowCombined`` — ReCoNet/datasets.py:256-283 (Monkaa first)
+- ``VidevoFlow``    — RTNSTV/datasets.py:162-215 (frame pairs with
+  precomputed flow)
 - ``VidevoFrames``  — AdaAttN/datasets.py:136-170 (frame pairs, no flow)
 - ``ImageFolderCrop`` — AdaAttN's resize → random crop (utilities.py:31-43)
 - ``CocoWikiArt`` / ``VidevoWikiArt`` — AdaAttN/datasets.py:32-44, 173-185
 
 Images load through PIL with a BILINEAR (antialiased) resize, imported
 where an image is loaded: a machine without PIL can import this module.
-A SceneFlow sample is (img1, img2, backward flow, mask), the flows read
-by ``data/native.py``.  RTNSTV's Videvo flow dataset comes with its
-trainer.
+A SceneFlow or VidevoFlow sample is (img1, img2, backward flow, mask),
+the flows read by ``data/native.py``.  ``get_frames`` and
+``calculate_optical_flow`` (RTNSTV/datasets.py:16-85) write what
+VidevoFlow reads; they need cv2, imported where they run.
 """
 
 import os
@@ -201,6 +205,39 @@ class SceneFlowCombined:
         return self.ft3d[idx - len(self.monkaa)]
 
 
+class VidevoFlow:
+    """Frame windows + precomputed forward/backward flow
+    (RTNSTV/datasets.py:162-215): ``<path>/frames/<video>/*`` and
+    ``<path>/flow/<video>/{front,back}/*``, as ``get_frames`` and
+    ``calculate_optical_flow`` write them.  Frames load at their own
+    size; the mask is the forward-backward consistency of the pair."""
+
+    def __init__(self, path, frame_num=1):
+        self.frame_num = frame_num
+        self.frames, self.flow = [], []
+        for folder in list_folders(os.path.join(path, "frames")):
+            files = list_files(folder)
+            self.frames += [files[i:i + frame_num + 1]
+                            for i in range(len(files) - frame_num)]
+        for folder in list_folders(os.path.join(path, "flow")):
+            front = list_files(os.path.join(folder, "front"))
+            back = list_files(os.path.join(folder, "back"))
+            for i in range(len(front) - frame_num + 1):
+                self.flow.append((front[i + frame_num - 1],
+                                  back[i + frame_num - 1]))
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, idx):
+        imgs = [load_image(p) for p in self.frames[idx]]
+        img1 = np.concatenate(imgs[0:self.frame_num], axis=-1)
+        img2 = np.concatenate(imgs[1:self.frame_num + 1], axis=-1)
+        fwd = _load_flow_file(self.flow[idx][0])
+        bwd = _load_flow_file(self.flow[idx][1])
+        return img1, img2, bwd, flow_warp_mask_np(fwd, bwd)
+
+
 class VidevoFrames:
     """Adjacent-frame windows, no flow (AdaAttN/datasets.py:136-170)."""
 
@@ -314,3 +351,63 @@ class VidevoWikiArt:
         widx = int(rng.integers(0, len(self.wikiart)))
         img1, img2 = self.videvo[idx]
         return img1, img2, self.wikiart[widx]
+
+
+# ------------------------------------------------- offline preprocessing
+
+def get_frames(video_dir, out_dir, img_size_wh=(640, 360), ext=".jpg"):
+    """Every video of ``video_dir`` (sorted) as resized frames in
+    ``<out_dir>/frames/<video index>/<frame index><ext>``
+    (RTNSTV/datasets.py:16-50 at 640×360; AdaAttN's variant at 512×256),
+    cv2's INTER_AREA resize.  Host only; needs cv2."""
+    import cv2
+
+    for vid_idx, path in enumerate(list_files(video_dir)):
+        save_dir = os.path.join(out_dir, "frames", f"{vid_idx:05d}")
+        os.makedirs(save_dir, exist_ok=True)
+        cap = cv2.VideoCapture(path)
+        frame_idx = 0
+        while True:
+            ret, frame = cap.read()
+            if not ret:
+                break
+            frame = cv2.resize(frame, img_size_wh,
+                               interpolation=cv2.INTER_AREA)
+            cv2.imwrite(os.path.join(save_dir, f"{frame_idx:05d}{ext}"),
+                        frame)
+            frame_idx += 1
+        cap.release()
+
+
+def calculate_optical_flow(frames_root, flow_root, engine="auto"):
+    """Forward and backward flow of every adjacent pair of grayscale
+    frames under ``frames_root/<video>/``, saved as ``.npy`` in
+    ``flow_root/<video>/front/<i>_01.npy`` and ``back/<i+1>_10.npy``
+    (RTNSTV/datasets.py:53-85 saved torch tensors; ``_load_flow_file``
+    reads both).  ``engine``: "deepflow" (cv2.optflow, opencv-contrib, the
+    reference's), "farneback" (plain cv2) or "auto" (deepflow where cv2
+    has it).  Host only; needs cv2."""
+    import cv2
+
+    if engine == "auto":
+        engine = "deepflow" if hasattr(cv2, "optflow") else "farneback"
+
+    def calc(a, b):
+        if engine == "deepflow":
+            return cv2.optflow.createOptFlow_DeepFlow().calc(a, b, None)
+        return cv2.calcOpticalFlowFarneback(
+            a, b, None, pyr_scale=0.5, levels=5, winsize=15, iterations=3,
+            poly_n=5, poly_sigma=1.2, flags=0)
+
+    for folder in list_folders(frames_root):
+        name = os.path.basename(folder)
+        front = os.path.join(flow_root, name, "front")
+        back = os.path.join(flow_root, name, "back")
+        os.makedirs(front, exist_ok=True)
+        os.makedirs(back, exist_ok=True)
+        files = list_files(folder)
+        for i in range(len(files) - 1):
+            a = cv2.cvtColor(cv2.imread(files[i]), cv2.COLOR_BGR2GRAY)
+            b = cv2.cvtColor(cv2.imread(files[i + 1]), cv2.COLOR_BGR2GRAY)
+            np.save(os.path.join(front, f"{i:05d}_01.npy"), calc(a, b))
+            np.save(os.path.join(back, f"{i + 1:05d}_10.npy"), calc(b, a))

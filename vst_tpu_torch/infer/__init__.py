@@ -1,1 +1,2 @@
-"""Inference entry points of the port (the ReCoNet family and AdaAttN)."""
+"""Inference entry points of the port (the ReCoNet family, RTNSTV and
+AdaAttN)."""

@@ -1,9 +1,10 @@
-"""Batch stylization: the ReCoNet family and AdaAttN.
+"""Batch stylization: the ReCoNet family, RTNSTV and AdaAttN.
 
 Counterpart of ``vst_tpu/infer/image.py`` (``stylize_reconet``,
-``_finish``, ``stylize_adaattn``, ``adaattn_style_state``,
-``stylize_adaattn_cached``; parity: ReCoNet/inference/infer.py,
-AdaAttN/infer_image.py, AdaAttN/infer_image_all.py).  Inputs may be
+``stylize_rtnstv``, ``_finish``, ``stylize_adaattn``,
+``adaattn_style_state``, ``stylize_adaattn_cached``; parity:
+ReCoNet/inference/infer.py, RTNSTV/infer.py, AdaAttN/infer_image.py,
+AdaAttN/infer_image_all.py).  Inputs may be
 numpy arrays or tensors, uint8 or float 0–255; they are copied to the
 model's device (without blocking from pinned host memory) and cast there
 to the parameters' dtype.
@@ -34,9 +35,23 @@ def stylize_reconet(model, x, uint8_out: bool = False, wire: str = "rgb"):
     The input is copied to the model's device (without blocking when it
     is pinned host memory) and cast there to the parameters' dtype, so a
     host can ship raw uint8 frames."""
+    _check_wire(wire)
+    return _finish(model(_on_model(model, x))[-1], uint8_out, wire)
+
+
+@torch.inference_mode()
+def stylize_rtnstv(model, x, uint8_out: bool = False, wire: str = "rgb"):
+    """``stylize_reconet`` for an RTNSTV ``StylizingNetwork``, whose
+    forward returns the styled frames alone: x (N, H, W, 3) 0–255 →
+    clamped styled frames (uint8, or I420 with ``wire="i420"``) on the
+    model's device."""
+    _check_wire(wire)
+    return _finish(model(_on_model(model, x)), uint8_out, wire)
+
+
+def _check_wire(wire):
     if wire not in ("rgb", "i420"):
         raise ValueError(f"wire must be 'rgb' or 'i420', got {wire!r}")
-    return _finish(model(_on_model(model, x))[-1], uint8_out, wire)
 
 
 def _on_model(model, x):

@@ -3,9 +3,10 @@ and an optional normalize+relu prologue — hand-written CUDA kernel + its
 plain PyTorch version.
 
 Counterpart of ``vst_tpu/kernels/res_block.py`` (``conv3x3_in_stats``,
-``residual_block_fused``).  One ReCoNet residual block is two launches
-plus an elementwise tail in torch; the port's models run every residual
-block this way.  The kernel source is ``csrc/res_block.cu``.
+``residual_block_fused``).  One residual block (ReCoNet's at 192 or 64
+channels, RTNSTV's at 48) is two launches plus an elementwise tail in
+torch; the port's models run every residual block this way.  The kernel
+source is ``csrc/res_block.cu``.
 
 ``conv3x3_in_stats`` is the autograd Function ``Conv3x3InStats``: its
 forward launches the kernel for CUDA tensors (or raises) and takes the
@@ -259,9 +260,10 @@ conv3x3_in_stats.launches = 0
 
 
 def residual_block_fused(x, w1, b1, g1, bt1, w2, b2, g2, bt2):
-    """One ReCoNet residual block (conv→IN→relu→conv→IN, + x) as two K1
-    launches and a float32 (float64 for float64 input) elementwise tail
-    (normalize₂ + residual add).
+    """One residual block (conv→IN→relu→conv→IN, + x) of ReCoNet or RTNSTV
+    as two K1 launches and a float32 (float64 for float64 input)
+    elementwise tail (normalize₂ + residual add).  Where the block widens
+    the channels, x is zero-padded to them (RTNSTV/network.py:40-43).
     Weights HWIO; g/bt are the two instance norms' weight and bias."""
     y1, s1 = conv3x3_in_stats(x, w1, b1)
     y2, s2 = conv3x3_in_stats(y1, w2, b2, stats_in=s1, gamma=g1, beta=bt1)
@@ -269,5 +271,8 @@ def residual_block_fused(x, w1, b1, g1, bt1, w2, b2, g2, bt2):
     mean = s2[:, 0][:, None, None, :]
     var = s2[:, 1][:, None, None, :]
     out = (y2.to(acc_t) - mean) * torch.rsqrt(var + EPS)
-    out = out * g2.to(acc_t) + bt2.to(acc_t) + x.to(acc_t)
+    residual = x.to(acc_t)
+    if x.shape[-1] != y2.shape[-1]:
+        residual = F.pad(residual, (0, y2.shape[-1] - x.shape[-1]))
+    out = out * g2.to(acc_t) + bt2.to(acc_t) + residual
     return out.to(x.dtype)

@@ -1,6 +1,6 @@
 """Loss functions of the port (counterparts of ``vst_tpu/losses``): the
-AdaAttN trainers' losses, and ReCoNet's perceptual and temporal losses.
-RTNSTV's come with its slice."""
+AdaAttN trainers' losses, and ReCoNet's and RTNSTV's perceptual and
+temporal losses."""
 
 from vst_tpu_torch.losses.adaattn import (
     cosine_distance,
@@ -13,10 +13,12 @@ from vst_tpu_torch.losses.perceptual import (
     reconet_content_loss,
     reconet_reg_loss,
     reconet_style_loss,
+    rtnstv_spatial_loss,
 )
 from vst_tpu_torch.losses.temporal import (
     reconet_feature_temporal_loss,
     reconet_output_temporal_loss,
+    rtnstv_temporal_loss,
 )
 
 __all__ = [
@@ -30,4 +32,6 @@ __all__ = [
     "reconet_output_temporal_loss",
     "reconet_reg_loss",
     "reconet_style_loss",
+    "rtnstv_spatial_loss",
+    "rtnstv_temporal_loss",
 ]

@@ -1,13 +1,18 @@
 """Content, style and regularization losses.  Counterpart of
-``vst_tpu/losses/perceptual.py`` (parity: ReCoNet/train_single/
-train_candy.py:125-145): content on relu3_3, style Grams over the four
-taps normalized by C·H·W, total variation as a raw sum.  Weight-free
-(the trainers scale), NHWC, taken in float32 (float64 for float64
-inputs).  RTNSTV's spatial loss comes with its slice."""
+``vst_tpu/losses/perceptual.py``:
+
+- ReCoNet's (ReCoNet/train_single/train_candy.py:125-145): content on
+  relu3_3, style Grams over the four taps normalized by C·H·W, total
+  variation as a raw sum; weight-free (the trainers scale);
+- RTNSTV's ``rtnstv_spatial_loss`` (RTNSTV/train.py:36-60): content on
+  relu4_2, style Grams normalized by H·W, the mean of a square-rooted
+  total variation; scaled by its weights here, as JAX's.
+
+NHWC, taken in float32 (float64 for float64 inputs)."""
 
 import torch
 
-from vst_tpu_torch.ops.image import gram_matrix
+from vst_tpu_torch.ops.image import gram_matrix, gram_matrix_hw
 
 
 def _acc(x):
@@ -45,3 +50,22 @@ def reconet_reg_loss(styled):
     reg1 = torch.square(x[:, :-1, 1:, :] - x[:, :-1, :-1, :])
     reg2 = torch.square(x[:, 1:, :-1, :] - x[:, :-1, :-1, :])
     return torch.sum(reg1 + reg2)
+
+
+def rtnstv_spatial_loss(content_feats, styled_feats, style_grams, styled,
+                        alpha, beta, gamma):
+    """(content, style, reg) of one frame, scaled by alpha, beta, gamma.
+    ``content_feats`` / ``styled_feats``: ``vgg19_rtnstv_features`` tap
+    dicts; ``style_grams``: (1, C, C) H·W-normalized grams in tap order,
+    broadcast over the batch; ``styled``: the 0–255 frames, whose TV is
+    the mean of sqrt(max(dx² + dy², 1e-8))."""
+    content = mse(content_feats["relu4_2"], styled_feats["relu4_2"]) * alpha
+    style = 0.0
+    for gs, feat in zip(style_grams, styled_feats.values()):
+        gf = gram_matrix_hw(feat)
+        style = style + mse(gf, gs.expand_as(gf))
+    x = _acc(styled)
+    reg1 = torch.square(x[:, :-1, 1:, :] - x[:, :-1, :-1, :])
+    reg2 = torch.square(x[:, 1:, :-1, :] - x[:, :-1, :-1, :])
+    reg = torch.mean(torch.sqrt(torch.clamp(reg1 + reg2, min=1e-8))) * gamma
+    return content, style * beta, reg

@@ -7,10 +7,12 @@ train_candy.py:91-123):
   warped, the occlusion mask resized and re-binarized (> 0), the masked
   squared error divided by the COUNT of nonzero mask elements;
 - ``reconet_output_temporal_loss`` (OTL): on vgg-normalized images, the
-  input term relaxed to Rec.709 luminance, divided by the same count.
+  input term relaxed to Rec.709 luminance, divided by the same count;
+- ``rtnstv_temporal_loss``: RTNSTV's masked output loss on 0–255 frames
+  (RTNSTV/train.py:117-133), divided by the SUM of the channel-expanded
+  mask + 1e-8.
 
-Computed in float32 (float64 for float64 inputs).  RTNSTV's temporal loss
-comes with its slice.
+Computed in float32 (float64 for float64 inputs).
 """
 
 import torch
@@ -51,3 +53,12 @@ def reconet_output_temporal_loss(img1n, img2n, styled1n, styled2n, flow,
     cmask = _acc(mask)[..., None].expand(output_term.shape)
     loss = torch.sum(cmask * torch.square(output_term - luma))
     return loss / torch.count_nonzero(cmask).to(loss.dtype)
+
+
+def rtnstv_temporal_loss(styled1, styled2, flow, mask):
+    """The first styled frame warped by ``flow`` against the second, on
+    0–255 frames (N, H, W, 3), masked by ``mask`` (N, H, W).  Unweighted:
+    the caller scales by lam."""
+    cmask = _acc(mask)[..., None].expand(styled2.shape)
+    err = torch.square(_acc(styled2) - _acc(warp(styled1, flow)))
+    return torch.sum(cmask * err) / (torch.sum(cmask) + 1e-8)

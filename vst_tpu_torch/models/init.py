@@ -30,5 +30,17 @@ def conv_init(key, k: int, in_ch: int, out_ch: int, dtype=np.float32):
     return w, b
 
 
+def conv_transpose_init(key, k: int, in_ch: int, out_ch: int,
+                        dtype=np.float32):
+    """HWIO (flipped) transposed-conv weight + bias with torch
+    ConvTranspose2d's default init, whose fan_in comes from dim 1 of its
+    (in, out, kh, kw) weight: out_ch·k·k."""
+    rng = as_rng(key)
+    bound = 1.0 / math.sqrt(out_ch * k * k)
+    w = rng.uniform(-bound, bound, (k, k, in_ch, out_ch)).astype(dtype)
+    b = rng.uniform(-bound, bound, (out_ch,)).astype(dtype)
+    return w, b
+
+
 def instance_norm_init(ch: int, dtype=np.float32):
     return np.ones((ch,), dtype), np.zeros((ch,), dtype)

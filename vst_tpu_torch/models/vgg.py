@@ -1,15 +1,17 @@
-"""Frozen VGG feature extractors: AdaAttN's VGG19 (relu1_1 … relu5_1)
-and ReCoNet's VGG16 (relu1_2, relu2_2, relu3_3, relu4_3).
+"""Frozen VGG feature extractors: AdaAttN's VGG19 (relu1_1 … relu5_1),
+RTNSTV's VGG19 (relu1_2, relu2_2, relu3_2, relu4_2) and ReCoNet's VGG16
+(relu1_2, relu2_2, relu3_3, relu4_3).
 
 Counterpart of ``vst_tpu/models/vgg.py`` (``vgg19_adaattn_features``,
-``vgg16_features``; parity: AdaAttN/vgg19.py:8-63, ReCoNet/network.py:
-9-40).  Each module holds torchvision's ``features`` Sequential up to its
-last tap, so its ``state_dict`` keys are ``features.<i>.weight``/``.bias``
-(OIHW) and a torchvision state_dict loads once its other keys are dropped
-(``build_vgg19_adaattn``, ``build_vgg16_reconet``).  AdaAttN's VGG19
-normalizes its input inside; ReCoNet's VGG16 takes input the caller has
-normalized (the ReCoNet trainers call ``vgg_normalize`` themselves).  Input
-and taps are NHWC.  RTNSTV's tap set comes with its slice.
+``vgg19_rtnstv_features``, ``vgg16_features``; parity: AdaAttN/vgg19.py:
+8-63, RTNSTV/vgg19.py:8-55, ReCoNet/network.py:9-40).  Each module holds
+torchvision's ``features`` Sequential up to its last tap, so its
+``state_dict`` keys are ``features.<i>.weight``/``.bias`` (OIHW) and a
+torchvision state_dict loads once its other keys are dropped
+(``build_vgg19_adaattn``, ``build_vgg19_rtnstv``, ``build_vgg16_reconet``).
+Both VGG19s normalize their input inside (RTNSTV/vgg19.py:39); ReCoNet's
+VGG16 takes input the caller has normalized (the ReCoNet trainers call
+``vgg_normalize`` themselves).  Input and taps are NHWC.
 """
 
 import numpy as np
@@ -30,6 +32,7 @@ VGG19_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
              512, 512, 512, 512, "M", 512, 512, 512, 512, "M"]
 # Tap name → features index of the ReLU producing it.
 VGG16_TAPS_RECONET = {"relu1_2": 3, "relu2_2": 8, "relu3_3": 15, "relu4_3": 22}
+VGG19_TAPS_RTNSTV = {"relu1_2": 3, "relu2_2": 8, "relu3_2": 13, "relu4_2": 22}
 VGG19_TAPS_ADAATTN = {"relu1_1": 1, "relu2_1": 6, "relu3_1": 11,
                       "relu4_1": 20, "relu5_1": 29}
 
@@ -119,6 +122,13 @@ class VGG19AdaAttN(_VGGTaps):
     relu1_1 … relu5_1."""
 
 
+class VGG19RTNSTV(_VGGTaps):
+    """VGG19 ``features`` up to relu4_2: a 0–255 NHWC RGB batch → the taps
+    relu1_2, relu2_2, relu3_2, relu4_2."""
+
+    TAPS = VGG19_TAPS_RTNSTV
+
+
 class VGG16ReCoNet(_VGGTaps):
     """VGG16 ``features`` up to relu4_3: an ImageNet-normalized NHWC batch
     → the taps relu1_2, relu2_2, relu3_3, relu4_3."""
@@ -131,6 +141,12 @@ class VGG16ReCoNet(_VGGTaps):
 def vgg19_adaattn_features(vgg: VGG19AdaAttN, x: torch.Tensor,
                            remat: bool = False) -> dict:
     """AdaAttN tap set of a 0–255 NHWC RGB batch (normalized here)."""
+    return vgg(x, remat=remat)
+
+
+def vgg19_rtnstv_features(vgg: VGG19RTNSTV, x: torch.Tensor,
+                          remat: bool = False) -> dict:
+    """RTNSTV tap set of a 0–255 NHWC RGB batch (normalized here)."""
     return vgg(x, remat=remat)
 
 
@@ -165,6 +181,13 @@ def build_vgg19_adaattn(state: dict, device="cuda",
     return _build(VGG19AdaAttN, state, device, dtype)
 
 
+def build_vgg19_rtnstv(state: dict, device="cuda",
+                       dtype: torch.dtype = torch.float32) -> VGG19RTNSTV:
+    """A VGG19RTNSTV holding ``state`` (torch layout, keys it does not use
+    dropped), on ``device`` at ``dtype``."""
+    return _build(VGG19RTNSTV, state, device, dtype)
+
+
 def build_vgg16_reconet(state: dict, device="cuda",
                         dtype: torch.dtype = torch.float32) -> VGG16ReCoNet:
     """A VGG16ReCoNet holding ``state`` (torch layout, keys it does not use
@@ -176,6 +199,12 @@ def init_vgg19_adaattn(seed, device="cuda",
                        dtype: torch.dtype = torch.float32) -> VGG19AdaAttN:
     """A VGG19AdaAttN holding the JAX package's ``init_vgg19_adaattn(seed)``."""
     return _seeded(VGG19AdaAttN, seed, device, dtype)
+
+
+def init_vgg19_rtnstv(seed, device="cuda",
+                      dtype: torch.dtype = torch.float32) -> VGG19RTNSTV:
+    """A VGG19RTNSTV holding the JAX package's ``init_vgg19_rtnstv(seed)``."""
+    return _seeded(VGG19RTNSTV, seed, device, dtype)
 
 
 def init_vgg16_reconet(seed, device="cuda",

@@ -5,6 +5,7 @@ from vst_tpu_torch.ops.conv import (
     conv2d_nearest_up2,
     conv2d_polyphase_reflect,
     conv2d_reflect,
+    conv_transpose2d,
     max_pool2d,
     polyphase_weights,
 )
@@ -20,6 +21,7 @@ __all__ = [
     "conv2d_nearest_up2",
     "conv2d_polyphase_reflect",
     "conv2d_reflect",
+    "conv_transpose2d",
     "feature_down_sample",
     "i420_to_rgb",
     "instance_norm",

@@ -32,6 +32,19 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     return _nhwc(F.conv2d(_nchw(x), w, b, stride=stride, padding=padding))
 
 
+def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor | None = None, stride: int = 2,
+                     padding: int = 1,
+                     output_padding: int = 1) -> torch.Tensor:
+    """``torch.nn.ConvTranspose2d`` on NHWC input with torch's (I, O, kh,
+    kw) weights → NHWC; output size (in − 1)·stride − 2·padding + k +
+    output_padding (RTNSTV's Deconv, k 3, s 2, p 1, op 1: 2× upsampling).
+    The JAX package leaves it to XLA (``vst_tpu/ops/conv.py:57-90``)."""
+    return _nhwc(F.conv_transpose2d(_nchw(x), w, b, stride=stride,
+                                    padding=padding,
+                                    output_padding=output_padding))
+
+
 def max_pool2d(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
     """``torch.nn.MaxPool2d(window, stride)`` (VALID) on NHWC."""
     return _nhwc(F.max_pool2d(_nchw(x), window, stride))

@@ -1,8 +1,8 @@
 """Trainer configurations.  Counterpart of ``vst_tpu/train/config.py``:
-the ReCoNet and AdaAttN configs, with the same fields and defaults
+the ReCoNet, RTNSTV and AdaAttN configs, with the same fields and defaults
 (parity: ReCoNet/train_single/train_candy.py:19-29, train_coco2014.py:
 19-25, train_Flow_SD1.py:19-30, train_multiple/train_Flow.py:22;
-AdaAttN/train_image.py, train_video.py).  RTNSTV's comes with its slice.
+RTNSTV/train.py:21-33; AdaAttN/train_image.py, train_video.py).
 ``img_size`` is (H, W).
 """
 
@@ -81,6 +81,20 @@ class ReCoNetDistillConfig:
 DISTILL_SD1 = ReCoNetDistillConfig()
 DISTILL_SD2 = ReCoNetDistillConfig(
     teacher="sd1", student="sd2", teacher_tap=0, student_tap=0, epochs=10)
+
+
+@dataclasses.dataclass(frozen=True)
+class RTNSTVConfig:
+    lr: float = 1e-3
+    alpha: float = 1e7          # content
+    beta: float = 5e7           # style
+    gamma: float = 5e-1         # sqrt-TV
+    lam: float = 1e6            # temporal
+    batch_size: int = 2
+    epochs: int = 10
+    img_size: tuple[int, int] = (360, 640)
+    dtype: str = "float32"
+    remat: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,26 +1,30 @@
-"""ReCoNet and AdaAttN train steps.  Counterpart of
+"""ReCoNet, RTNSTV and AdaAttN train steps.  Counterpart of
 ``vst_tpu/train/steps.py`` (``_cast_tree``, ``_maybe_remat``,
-``reconet_style_grams``, ``_reconet_losses``, ``make_reconet_flow_step``,
-``make_reconet_coco_step``, ``make_reconet_distill_step``,
-``_adaattn_fwds``, ``_adaattn_gs_lf``, ``make_adaattn_image_step``,
+``reconet_style_grams``, ``rtnstv_style_grams``, ``_reconet_losses``,
+``make_reconet_flow_step``, ``make_reconet_coco_step``,
+``make_reconet_distill_step``, ``make_rtnstv_step``, ``_adaattn_fwds``,
+``_adaattn_gs_lf``, ``make_adaattn_image_step``,
 ``make_adaattn_video_step``; parity: ReCoNet/train_single/
 train_candy.py:32-170, train_coco2014.py:28-105, train_Flow_SD1.py:33-185,
-AdaAttN/train_image.py:25-125, train_video.py:26-138).
+RTNSTV/train.py:63-158, AdaAttN/train_image.py:25-125,
+train_video.py:26-138).
 
 Each ``make_*_step`` closes over the frozen VGG (converted once to
 ``cfg.dtype``), the config and what else is frozen (style grams, the
 teacher), and returns ``step(state, batch) -> (state, metrics)``: the
 metrics are the JAX step's keys as device tensors (no synchronization
 inside the step), and the state is updated in place.  Batches are 0–255
-NHWC RGB tensors (or arrays), moved to the model's device; a ReCoNet flow
-batch also holds the flow (N, H, W, 2) and the occlusion mask (N, H, W).
+NHWC RGB tensors (or arrays), moved to the model's device; a ReCoNet or
+RTNSTV flow batch also holds the flow (N, H, W, 2) and the occlusion mask
+(N, H, W).
 
 Mixed precision as in JAX: with ``cfg.dtype`` bfloat16 the float32 master
 parameters are cast inside the loss (gradients flow through the cast back
 to the masters) and so are the images (flow and mask stay float32).  On
 the card every ReCoNet forward, the teacher's too, runs its residual
-blocks through K1 and its 9×9 layers through K2, whose backward is the
-library's conv gradients (``kernels/res_block.py``,
+blocks through K1 and its 9×9 layers through K2, and every RTNSTV forward
+its residual blocks through K1; their backward is the library's conv
+gradients (``kernels/res_block.py``,
 ``kernels/head_conv.py``); the softmax attention trains through K3 forward
 and K4/K5 backward (``models/adaattn.py``).
 """
@@ -35,7 +39,7 @@ from vst_tpu_torch.models import reconet as reconet_m
 from vst_tpu_torch.models import vgg as vgg_m
 from vst_tpu_torch.models.remat import segment
 from vst_tpu_torch.ops.features import feature_down_sample
-from vst_tpu_torch.ops.image import gram_matrix, vgg_normalize
+from vst_tpu_torch.ops.image import gram_matrix, gram_matrix_hw, vgg_normalize
 from vst_tpu_torch.train.state import TrainState, apply_gradients
 
 # family name → model class (in JAX: → forward function)
@@ -225,6 +229,49 @@ def make_reconet_distill_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
             sd = torch.full((), float("nan"), device=pair.device)
         metrics["SDL"] = sd
         return total, metrics
+
+    return _make_step(cfg, vgg, loss_fn, n_images=2)
+
+
+# ------------------------------------------------------------ RTNSTV
+
+@torch.no_grad()
+def rtnstv_style_grams(vgg: vgg_m.VGG19RTNSTV, style_255) -> list:
+    """Per-tap (1, C, C) Gram matrices of the style image (1, H, W, 3),
+    / (H·W) (RTNSTV/train.py:91-93), in float32 on the VGG's device."""
+    p = next(vgg.parameters())
+    style = torch.as_tensor(style_255).to(device=p.device, dtype=p.dtype)
+    feats = vgg_m.vgg19_rtnstv_features(vgg, style)
+    return [gram_matrix_hw(f).float() for f in feats.values()]
+
+
+def make_rtnstv_step(cfg, vgg: vgg_m.VGG19RTNSTV, style_grams):
+    """RTNSTV trainer (RTNSTV/train.py:63-158); batch (img1, img2, flow,
+    mask).  One stylizer pass over both frames and one VGG19 pass over
+    [img1, img2, styled1, styled2] (instance norm is per sample, VGG has
+    no cross-batch op); each frame's spatial loss, the temporal loss on
+    the 0–255 styled pair."""
+    grams = _grams_on(style_grams, vgg)
+    fwd = _stylizer(cfg)
+
+    def loss_fn(net, vgg, img1, img2, flow, mask):
+        n = img1.shape[0]
+        styled = fwd(net, torch.cat([img1, img2]))
+        styled1, styled2 = styled[:n], styled[n:]
+        feats = vgg_m.vgg19_rtnstv_features(
+            vgg, torch.cat([img1, img2, styled1, styled2]), remat=cfg.remat)
+        cf1, cf2, sf1, sf2 = _split(feats, *((i * n, (i + 1) * n)
+                                             for i in range(4)))
+        cl1, sl1, rl1 = losses.rtnstv_spatial_loss(
+            cf1, sf1, grams, styled1, cfg.alpha, cfg.beta, cfg.gamma)
+        cl2, sl2, rl2 = losses.rtnstv_spatial_loss(
+            cf2, sf2, grams, styled2, cfg.alpha, cfg.beta, cfg.gamma)
+        tl = losses.rtnstv_temporal_loss(styled1, styled2, flow,
+                                         mask) * cfg.lam
+        content, style, reg = cl1 + cl2, sl1 + sl2, rl1 + rl2
+        total = content + style + reg + tl
+        return total, {"CL": content, "SL": style, "RL": reg, "TL": tl,
+                       "loss": total}
 
     return _make_step(cfg, vgg, loss_fn, n_images=2)
 
