@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of vst_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version, drives the six paths of
+holds each against its plain PyTorch version, drives the seven paths of
 the port (ReCoNet streaming stylization, AdaAttN arbitrary-style serving,
-AdaAttN training, ReCoNet training, RTNSTV serving, RTNSTV training) and
-checks what comes out.
+AdaAttN training, ReCoNet training, RTNSTV serving, RTNSTV training,
+evaluation) and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -100,6 +100,17 @@ result line):
    plain versions against the plain float64 step (as [5c]), the step
    timed (2 warmup, 6 timed: K1 10 a step) and under remat (K1 20), the
    trainer through ``run_training`` on 8 synthetic items;
+5e. main path, evaluation from seeded weights on synthetic data, the
+   counts reset before each item and read after it: the ``image`` loop
+   of ``cli/experiments.py`` (2 contents × 2 styles at 512², AdaAttN
+   softmax bf16, SSIM, histograms, f32 Gram and LPIPS-vgg; K3 12), Sintel
+   Et (``temporal_error_sintel``, RTNSTV f32, 17 frames 640×360, flow of
+   std 2 px and masks; K1 30), temporal MSE (``temporal_mse``, ReCoNet
+   f32, 9 frames; K1 90, K2 18), the ``sintel-ada`` loop (256×512, batch
+   8, 9 frames, AdaAttN f32, RAFT flows; cosine none, softmax K3 6), RAFT
+   at 1×256×512 ×12 against the port's RAFT on the CPU, and SSIM, Gram,
+   LPIPS (vgg, alex, squeeze) and SIFID's statistics and distance at dims
+   64/192/768/2048 on one 512² pair against the CPU; ms of each;
 6. timing: each kernel, its plain version and a library yardstick the
    port never calls (cuDNN ``F.conv2d`` of the same conv for K1/K2,
    ``F.scaled_dot_product_attention`` for K3 and its backward for K4/K5)
@@ -153,12 +164,17 @@ builds the kernels and runs [5c] alone, then profiles the f32 flow step.
 builds the kernels and runs RTNSTV's part alone: K1 at (8,90,160,48),
 the RTNSTV forward and golden, serving, training ([5d]), K1's times at
 that shape and the f32 step's profile.
+
+    python3 chip_smoke.py --eval
+
+builds the kernels and runs [5e] alone.
 """
 
 import contextlib
 import copy
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -172,10 +188,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vst_tpu_torch.cli.experiments import (estimated_pairs, image_rows,
+                                           lpips_metric, raft_flow_fn,
+                                           sintel_ada_loss,
+                                           sintel_ada_stylizer)
 from vst_tpu_torch.cli.train import resume_position
-from vst_tpu_torch.compat import load_weights
+from vst_tpu_torch.compat import load_weights, params_from_jax
 from vst_tpu_torch.data.pipeline import BatchLoader, device_prefetch
 from vst_tpu_torch.device import apply_precision
+from vst_tpu_torch.eval import (gram_loss_5tap, lpips_distance, ssim,
+                                temporal_error_sintel, temporal_mse)
+from vst_tpu_torch.eval.inception import (BLOCK_INDEX_BY_DIM,
+                                          inception_blocks, init_inception)
+from vst_tpu_torch.eval.lpips import random_lpips_params
+from vst_tpu_torch.eval.sifid import (activation_statistics,
+                                      frechet_distance_branch)
 from vst_tpu_torch.infer.image import (adaattn_style_state, stylize_adaattn,
                                        stylize_adaattn_cached, stylize_reconet,
                                        stylize_rtnstv)
@@ -185,6 +212,7 @@ from vst_tpu_torch.kernels import (_build, adaattn_attention, head_conv,
 from vst_tpu_torch.models.adaattn import (init_stylizing_network,
                                           stylizing_network_cached)
 from vst_tpu_torch.models import rtnstv as rtnstv_m
+from vst_tpu_torch.models.raft import init_raft, raft_flow
 from vst_tpu_torch.models.reconet import (init_reconet, init_reconet_sd1,
                                           init_reconet_sd2)
 from vst_tpu_torch.models.vgg import (init_vgg16_reconet, init_vgg19_adaattn,
@@ -412,6 +440,50 @@ K2_BF16 = {"ReCoNet stem": (8, 130, 130, 48, 768),
 # takes multiples of 8); K1's shape is (N, H, W, C, Co).
 K1_F32_ODD = {"C6 Co10": (2, 11, 19, 6, 10)}
 K2_F32_ODD = {"C6 Co10": (2, 12, 21, 6, 10)}
+# [5e]'s temporal MSE: ReCoNet f32 one 640×360 frame at a time
+K1_EVAL_F32 = {"temporal MSE": (1, 90, 160, 192)}
+K2_EVAL_F32 = {"temporal MSE stem": (1, 92, 162, 48, 768),
+               "temporal MSE head": (1, 92, 162, 768, 48)}
+
+# The shapes [3] held against the plain versions: ("K1" | "K2" | "K3",
+# dtype, shape, batch-stride-0 operands); [5e] fails on a launch outside.
+CHECKED = set()
+
+
+def _k3_key(q, k, v):
+    b = q.shape[0]
+    bcast = "".join(t for t, x in (("q", q), ("kv", k))
+                    if b > 1 and x.stride(0) == 0)
+    return ("K3", q.dtype, (b, q.shape[1], k.shape[1], q.shape[2],
+                            v.shape[2]), bcast)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Record the key of every K1, K2 and K3 launch in the block (the
+    wrappers' ``_launch`` / ``_moments_fwd``, which run only on the
+    card); yields the set."""
+    seen = set()
+    att = adaattn_attention
+    saved = res_block._launch, head_conv._launch, att._moments_fwd
+
+    def k1(x, w, *a, **kw):
+        seen.add(("K1", x.dtype, tuple(x.shape), w.shape[3]))
+        return saved[0](x, w, *a, **kw)
+
+    def k2(x, w):
+        seen.add(("K2", x.dtype, tuple(x.shape), w.shape[3]))
+        return saved[1](x, w)
+
+    def k3(q, k, v):
+        seen.add(_k3_key(q, k, v))
+        return saved[2](q, k, v)
+
+    res_block._launch, head_conv._launch, att._moments_fwd = k1, k2, k3
+    try:
+        yield seen
+    finally:
+        res_block._launch, head_conv._launch, att._moments_fwd = saved
 
 
 def k1_inputs(g, dtype, shape=K1_SHAPE):
@@ -439,6 +511,8 @@ def _k1_check(g, dtype, label, shape, tol):
     x, wt, b, gamma, beta = k1_inputs(g, dtype, shape)
     c, co = wt.shape[2:]
     w2 = wt if c == co else rnd(g, (3, 3, co, co), 0.02, dtype)
+    CHECKED.update({("K1", dtype, tuple(x.shape), co),
+                    ("K1", dtype, (*x.shape[:3], co), co)})
     y, s = res_block.conv3x3_in_stats(x, wt, b)
     yp, sp = res_block.conv3x3_in_stats_plain(x, wt, b)
     e1 = check(f"K1 {label} {shape} y", y, yp, tol)
@@ -456,6 +530,7 @@ def _k1_check(g, dtype, label, shape, tol):
 
 def _k2_check(g, dtype, label, shape, tol):
     xk, wk = k2_inputs(g, shape, dtype)
+    CHECKED.add(("K2", dtype, tuple(xk.shape), wk.shape[3]))
     yk = head_conv.conv3x3_valid(xk, wk)
     err = check(f"K2 {label} {shape}", yk,
                 head_conv.conv3x3_valid_plain(xk, wk), tol)
@@ -468,7 +543,8 @@ def phase_kernels(g):
     """K1 and K2 against their plain versions on the same inputs, f32
     (3xTF32) and bf16, at every shape of K1_BF16 and K2_BF16 and in f32
     also at channel counts that are not multiples of 4 (K1_F32_ODD,
-    K2_F32_ODD); a second launch must give the same bits.  Tolerances: f32
+    K2_F32_ODD) and at [5e]'s batch-1 shapes (K1_EVAL_F32, K2_EVAL_F32);
+    a second launch must give the same bits.  Tolerances: f32
     1e-4·max|plain| (sums in another order over up to 6912 terms, and the
     split's 2^-21-relative products); bf16 one bf16 ulp at the output's
     scale, 2^-7·max|plain| (the f32 sums may round to neighbouring bf16
@@ -477,10 +553,12 @@ def phase_kernels(g):
     apply_precision(torch.float32)
     errs = {"K1 f32": max(_k1_check(g, torch.float32, f"f32 {label}", shape,
                                     1e-4) for label, shape in
-                          {**K1_BF16, **K1_F32_ODD}.items()),
+                          {**K1_BF16, **K1_F32_ODD,
+                           **K1_EVAL_F32}.items()),
             "K2 f32": max(_k2_check(g, torch.float32, f"f32 {label}", shape,
                                     1e-4) for label, shape in
-                          {**K2_BF16, **K2_F32_ODD}.items())}
+                          {**K2_BF16, **K2_F32_ODD,
+                           **K2_EVAL_F32}.items())}
     apply_precision(torch.bfloat16)
     errs.update(
         K1=max(_k1_check(g, torch.bfloat16, f"bf16 {label}", shape, BF16_ULP)
@@ -498,6 +576,14 @@ def phase_kernels(g):
 # AdaAttN attention levels at 512² (relu3_1, relu4_1, relu5_1): (n = m, d, c)
 K3_LEVELS = [(16384, 448, 256), (4096, 960, 512), (1024, 1472, 512)]
 K3_BATCH = 2
+# and at 256×512, the sintel-ada frames
+ADA_SINTEL_LEVELS = [(8192, 448, 256), (2048, 960, 512), (512, 1472, 512)]
+# [5e]'s K3 cases: the image sweep's bf16 batch 1 at 512²; sintel-ada's f32
+# batch 8 at 256×512 against the cached style's K/V (batch stride 0)
+K3_EVAL = ([("bf16 image sweep", torch.bfloat16, (1, n, n, d, c), 1.0, "")
+            for n, d, c in K3_LEVELS]
+           + [("f32 sintel-ada", torch.float32, (8, n, n, d, c), 1.0, "kv")
+              for n, d, c in ADA_SINTEL_LEVELS])
 
 
 def k3_inputs(g, b, n, m, d, c, dtype, score_std=1.0):
@@ -518,6 +604,30 @@ def _broadcast(q, k, v, which):
     return q, k, v
 
 
+def _k3_check(g, tag, dtype, shape, score_std, bcast):
+    """One K3 case of ``phase_kernels_k3``, launched twice for the same
+    bits; returns the worst M1/M2 error."""
+    apply_precision(dtype)
+    q, k, v = _broadcast(*k3_inputs(g, *shape, dtype, score_std), bcast)
+    CHECKED.add(_k3_key(q, k, v))
+    m1, m2, lse = adaattn_attention.softmax_attention_moments(q, k, v)
+    again = adaattn_attention.softmax_attention_moments(q, k, v)
+    if not all(torch.equal(a, b) for a, b in zip((m1, m2, lse), again)):
+        raise AssertionError(f"K3 {tag} {shape}: two launches differ")
+    del again
+    if dtype == torch.bfloat16:
+        ref, tol = adaattn_attention.softmax_attention_moments_plain(
+            q, k, v), 2 * BF16_ULP
+    else:
+        ref, tol = adaattn_attention.softmax_attention_moments_plain(
+            q.double(), k.double(), v.double()), 1e-4
+    name = f"K3 {tag} {shape}"
+    e = max(check(f"{name} M1", m1, ref[0], tol),
+            check(f"{name} M2", m2, ref[1], tol))
+    check(f"{name} L", lse, ref[2], 1e-5)
+    return e
+
+
 def phase_kernels_k3(g):
     """K3 against its plain version, every case launched twice for the
     same bits.  bf16 at the three AdaAttN 512² batch-2 level shapes, at
@@ -529,7 +639,9 @@ def phase_kernels_k3(g):
     training level shapes (256² batch 8), the serving relu3_1 shape (512²
     batch 2), relu3_1's training shape with scores of std 10 and 100, a
     ragged shape, the slice edges (c = 264; c = 512 over two slices with
-    d = 1480 past relu5_1's), a stride-0 K/V and a stride-0 Q.
+    d = 1480 past relu5_1's), a stride-0 K/V and a stride-0 Q.  And
+    [5e]'s cases (K3_EVAL): bf16 at batch 1 at 512², f32 at batch 8 at
+    256×512 with a stride-0 K/V.
     Tolerances: bf16 M1, M2 2^-6·max|plain| (one bf16 ulp of the output
     rounding plus the f32 difference of P rounded to bf16 against a
     running max instead of the row max); f32 1e-4 of each output's scale
@@ -563,27 +675,9 @@ def phase_kernels_k3(g):
               ("f32 stride-0 Q", torch.float32, (4, 200, 330, 448, 256), 1.0,
                "q")]
     errs = {"K3": 0.0, "K3 f32": 0.0}
-    for tag, dtype, shape, score_std, bcast in cases:
-        apply_precision(dtype)
-        q, k, v = _broadcast(*k3_inputs(g, *shape, dtype, score_std), bcast)
-        m1, m2, lse = adaattn_attention.softmax_attention_moments(q, k, v)
-        again = adaattn_attention.softmax_attention_moments(q, k, v)
-        if not all(torch.equal(a, b) for a, b in zip((m1, m2, lse), again)):
-            raise AssertionError(f"K3 {tag} {shape}: two launches differ")
-        del again
-        if dtype == torch.bfloat16:
-            ref, tol = adaattn_attention.softmax_attention_moments_plain(
-                q, k, v), 2 * BF16_ULP
-        else:
-            ref, tol = adaattn_attention.softmax_attention_moments_plain(
-                q.double(), k.double(), v.double()), 1e-4
-        name = f"K3 {tag} {shape}"
-        e = max(check(f"{name} M1", m1, ref[0], tol),
-                check(f"{name} M2", m2, ref[1], tol))
-        check(f"{name} L", lse, ref[2], 1e-5)
-        key = "K3" if dtype == torch.bfloat16 else "K3 f32"
-        errs[key] = max(errs[key], e)
-        del q, k, v, m1, m2, lse, ref
+    for case in cases + K3_EVAL:
+        key = "K3" if case[1] == torch.bfloat16 else "K3 f32"
+        errs[key] = max(errs[key], _k3_check(g, *case))
     log("  K3 bf16 and f32: a second launch gives the same bits at every shape")
     torch.cuda.synchronize()
     return errs
@@ -2212,6 +2306,316 @@ def timing_k1_rtnstv(g):
     return row
 
 
+# ------------------------------------------------------------- evaluation
+
+EVAL_SIZE = 512           # the image sweep's and the metrics' 512² pairs
+SINTEL_HW = (360, 640)    # RTNSTV's Et and ReCoNet's MSE frames
+ADA_SINTEL_HW = (256, 512)
+
+
+def _eval_count(label, expect):
+    """Read the launch counts of one [5e] item and hold them to
+    ``expect`` (K1, K2, K3; K4 and K5 must be 0)."""
+    got = counts()
+    log(f"  {label}: launches K1-K5 {got}")
+    if got != (*expect, 0, 0):
+        raise AssertionError(f"{label}: expected K1-K3 {expect}, K4/K5 0, "
+                             f"got {got}")
+    return got
+
+
+def _eval_image_sweep(rng):
+    """The ``image`` loop (``cli/experiments.py::image_rows``): 2 contents
+    × 2 styles at 512² (smooth synthetic images), AdaAttN softmax bf16
+    (VGG19 seed 0, AdaAttN seed 1), metrics SSIM, histograms, Gram (f32
+    VGG19) and LPIPS-vgg; K3 3 a stylize.  The seeded decoder's output is
+    small and partly negative, so the clamped styled images are near
+    black and SSIM near 0.  SIFID columns are left out: their 2048²
+    ``sqrtm`` is host work of tens of seconds a pair (the metrics item
+    holds SIFID)."""
+    vgg, net = _ada_models(0, 1, torch.bfloat16)
+    metric_vgg = init_vgg19_adaattn(0, device="cuda")
+    lpips_fn = lpips_metric({k: v.cuda() for k, v in params_from_jax(
+        random_lpips_params(0)).items()})
+    # smooth synthetic images (bicubic from 8×8 noise), so SSIM and the
+    # histograms read structure rather than white noise
+    coarse = torch.from_numpy(rng.random((4, 3, 8, 8)).astype(np.float32))
+    smooth = (F.interpolate(coarse, size=(EVAL_SIZE, EVAL_SIZE),
+                            mode="bicubic", align_corners=False)
+              .clamp(0, 1) * 255).permute(0, 2, 3, 1).numpy()
+    imgs = [(f"{t}{i}", smooth[2 * j + i]) for j, t in enumerate("cs")
+            for i in range(2)]
+
+    def stylize(c, s):
+        return stylize_adaattn(vgg, net, c, s, "softmax")
+
+    image_rows(stylize, imgs[:1], imgs[2:3], metric_vgg, lpips_fn)  # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = image_rows(stylize, imgs[:2], imgs[2:], metric_vgg, lpips_fn)
+    ms = (time.perf_counter() - t0) * 1e3 / 4
+    got = _eval_count("image sweep 2×2 512² bf16 softmax", (0, 0, 12))
+    values = [v for r in rows for v in r.values() if isinstance(v, float)]
+    if (len(rows) != 5 or not {"style_gram", "lpips_style"} <= set(rows[0])
+            or not np.isfinite(values).all()):
+        raise AssertionError("image sweep: rows, columns or finite values")
+    log(f"  image sweep: {ms:.3f} ms a pair (stylize + 2 × (SSIM, "
+        f"histograms, Gram) + 2 × LPIPS-vgg); average style_ssim "
+        f"{rows[-1]['style_ssim']:.6f}, lpips_style "
+        f"{rows[-1]['lpips_style']:.6f}")
+    return {"ms_per_pair": ms, "launches": got[:3]}
+
+
+def _eval_sintel_et(rng):
+    """RTNSTV's Et (``temporal_error_sintel``) with ``stylize_rtnstv`` in
+    f32 (seed 0) over 17 synthetic 640×360 frames, flows of std 2 px and
+    masks (90% visible): 3 batches of 8 (the last padded), K1 10 a
+    forward."""
+    apply_precision(torch.float32)
+    model = rtnstv_m.init_stylizing_network(0, device="cuda")
+    h, w = SINTEL_HW
+    frames = list(rng.integers(0, 256, (17, h, w, 3)).astype(np.float32))
+    flows = list((rng.standard_normal((16, h, w, 2)) * 2).astype(np.float32))
+    masks = list((rng.random((16, h, w)) > 0.1).astype(np.float32))
+    model_fn = functools.partial(stylize_rtnstv, model)
+    temporal_error_sintel(model_fn, frames[:9], flows[:8], masks[:8])  # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    et = temporal_error_sintel(model_fn, frames, flows, masks)
+    ms = (time.perf_counter() - t0) * 1e3
+    got = _eval_count("Sintel Et, RTNSTV f32, 17 frames", (30, 0, 0))
+    if not (np.isfinite(et) and et > 0):
+        raise AssertionError(f"Et {et}")
+    log(f"  Et {et:.6f}; {ms:.3f} ms for 17 frames ({ms / 16:.3f} ms a "
+        f"pair)")
+    return {"Et": et, "ms": ms, "ms_per_pair": ms / 16, "launches": got[:3]}
+
+
+def _eval_temporal_mse(rng):
+    """ReCoNet's ``temporal_mse`` with ``stylize_reconet`` in f32 (seed 0)
+    over 9 synthetic 640×360 frames: 9 forwards, K1 10 and K2 2 each."""
+    apply_precision(torch.float32)
+    model = init_reconet(0, device="cuda")
+    frames = list(rng.integers(0, 256, (9, *SINTEL_HW, 3)).astype(np.float32))
+    model_fn = functools.partial(stylize_reconet, model)
+    temporal_mse(model_fn, iter(frames[:2]))  # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    mse = temporal_mse(model_fn, iter(frames))
+    ms = (time.perf_counter() - t0) * 1e3
+    got = _eval_count("temporal MSE, ReCoNet f32, 9 frames", (90, 18, 0))
+    if not (np.isfinite(mse) and mse > 0):
+        raise AssertionError(f"temporal MSE {mse}")
+    log(f"  temporal MSE {mse:.4f}; {ms:.3f} ms for 9 frames ({ms / 8:.3f} "
+        f"ms a pair)")
+    return {"mse": mse, "ms": ms, "ms_per_pair": ms / 8, "launches": got[:3]}
+
+
+def _eval_sintel_ada(rng, raft):
+    """The ``sintel-ada`` loop (``sintel_ada_loss``) at 256×512, batch 8,
+    over 9 synthetic frames, AdaAttN f32 (VGG19 seed 0, AdaAttN seed 1),
+    RAFT (12 iterations) as the flow engine, MAE: cosine (no launches)
+    and softmax (2 stylize calls, K3 6), each after an untimed run on 3
+    frames (one padded batch, 4 RAFT flows)."""
+    apply_precision(torch.float32)
+    vgg, net = _ada_models(0, 1, torch.float32)
+    h, w = ADA_SINTEL_HW
+    frames = list(rng.integers(0, 256, (9, h, w, 3)).astype(np.float32))
+    style = rng.integers(0, 256, (1, h, w, 3)).astype(np.float32)
+    pair = estimated_pairs(raft_flow_fn(raft))
+    out = {}
+    for act, k3 in (("cosine", 0), ("softmax", 6)):
+        stylize_batch = sintel_ada_stylizer(vgg, net, style, act)
+        sintel_ada_loss(stylize_batch, frames[:3], pair)  # warm
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = sintel_ada_loss(stylize_batch, frames, pair)
+        ms = (time.perf_counter() - t0) * 1e3
+        got = _eval_count(f"sintel-ada {act}, 9 frames 256×512 + RAFT",
+                          (0, 0, k3))
+        if not (np.isfinite(loss) and loss > 0):
+            raise AssertionError(f"sintel-ada {act}: loss {loss}")
+        log(f"  sintel-ada {act}: loss {loss:.6f}; {ms:.3f} ms for 9 frames "
+            f"and 16 RAFT flows ({ms / 8:.3f} ms a pair)")
+        out[act] = {"loss": loss, "ms": ms, "ms_per_pair": ms / 8,
+                    "launches": got[:3]}
+    return out
+
+
+def _eval_raft(rng, raft):
+    """RAFT at 1×256×512, 12 iterations, on the card against the port's
+    own RAFT on the CPU on the same inputs and seeded parameters (rtol
+    1e-3, atol 2e-4, tests/test_raft.py's tolerance); ms a pair by CUDA
+    events."""
+    a, b = (rng.random((2, 1, *ADA_SINTEL_HW, 3)) * 2 - 1).astype(np.float32)
+    ours = raft_flow(raft, a, b).cpu()
+    ref = raft_flow(init_raft(0, device="cpu"), a, b)
+    err = (ours - ref).abs()
+    lim = 2e-4 + 1e-3 * ref.abs()
+    worst = float((err / lim).max())
+    log(f"  RAFT 1×256×512 ×12: card against CPU max |diff| "
+        f"{float(err.max()):.3e} (|flow| ≤ {float(ref.abs().max()):.3f}); "
+        f"largest share of the rtol 1e-3 + atol 2e-4 bound {worst:.3f}")
+    if not (ours.shape == (1, *ADA_SINTEL_HW, 2) and worst <= 1.0):
+        raise AssertionError(f"RAFT card vs CPU: {worst} of the tolerance")
+    ta, tb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    ms = event_ms(lambda: raft_flow(raft, ta, tb), reps=5, warmup=2)
+    log(f"  RAFT 1×256×512 ×12 f32 (TF32 off): {ms:.3f} ms a pair")
+    _profile("RAFT 1×256×512 ×12 (per pair)", lambda: raft_flow(raft, ta, tb),
+             top=12)
+    return {"ms_per_pair": ms, "max_abs_err": float(err.max()),
+            "share_of_tol": worst}
+
+
+def _eval_metrics(rng):
+    """The metrics on the card against the same metrics on the CPU on one
+    512² pair: SSIM, Gram (f32 VGG19 seed 0), LPIPS vgg/alex/squeeze
+    (seeded) at 1e-4 relative; SIFID's Inception statistics (seed 0) at
+    dims 64/192/768/2048 at 1e-4 of each one's scale and the Fréchet
+    distance from either side's statistics at 1e-3 relative, on the same
+    sqrtm branch.  Where both distances lie within 1e-5 of the traces
+    (sqrtm's round-off on a singular product: the seeded trunk's deep
+    blocks barely depend on the input, so the true distance is about 0)
+    they are held to that floor and stated.  ms by CUDA events for the
+    card side."""
+    shape = (1, EVAL_SIZE, EVAL_SIZE, 3)
+    a = (rng.random(shape) * 255).astype(np.float32)
+    b = (rng.random(shape) ** 2 * 255).astype(np.float32)
+    ta, tb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    ca, cb = torch.from_numpy(a), torch.from_numpy(b)
+    out = {}
+
+    def hold(name, card, cpu, rel, fn):
+        err = abs(card - cpu)
+        ms = event_ms(fn, reps=3, warmup=1)
+        ok = err <= rel * abs(cpu)
+        log(f"  {name}: card {card:.8g} CPU {cpu:.8g} |diff| {err:.3e} "
+            f"tol {rel * abs(cpu):.3e} {'ok' if ok else 'FAIL'}; "
+            f"{ms:.3f} ms on the card")
+        if not ok:
+            raise AssertionError(f"{name}: card {card} CPU {cpu}")
+        out[name] = {"card": card, "cpu": cpu, "ms": ms}
+
+    hold("SSIM", float(ssim(ta, tb)), float(ssim(ca, cb)), 1e-4,
+         lambda: ssim(ta, tb))
+    vgg_card = init_vgg19_adaattn(0, device="cuda")
+    vgg_cpu = init_vgg19_adaattn(0, device="cpu")
+    hold("Gram 5-tap", float(gram_loss_5tap(vgg_card, ta, tb)),
+         float(gram_loss_5tap(vgg_cpu, ca, cb)), 1e-4,
+         lambda: gram_loss_5tap(vgg_card, ta, tb))
+    xa, xb = ta / 127.5 - 1.0, tb / 127.5 - 1.0
+    for net in ("vgg", "alex", "squeeze"):
+        cpu_p = params_from_jax(random_lpips_params(0, net))
+        card_p = {k: v.cuda() for k, v in cpu_p.items()}
+        hold(f"LPIPS-{net}", float(lpips_distance(card_p, xa, xb, net)[0]),
+             float(lpips_distance(cpu_p, xa.cpu(), xb.cpu(), net)[0]), 1e-4,
+             lambda: lpips_distance(card_p, xa, xb, net))
+    inc_card, inc_cpu = init_inception(0, "cuda"), init_inception(0, "cpu")
+    for dims in (64, 192, 768, 2048):
+        stats = {}
+        for side, params in (("card", inc_card), ("cpu", inc_cpu)):
+            stats[side] = [activation_statistics(params, x / 255.0, dims)
+                           for x in (a, b)]
+        errs = [float(np.abs(c - p).max() / np.abs(p).max())
+                for (cm, cs), (pm, ps) in zip(stats["card"], stats["cpu"])
+                for c, p in ((cm, pm), (cs, ps))]
+        dist, jitter = {}, {}
+        for side in ("card", "cpu"):
+            (m1, s1), (m2, s2) = stats[side]
+            dist[side], jitter[side] = frechet_distance_branch(m1, s1, m2, s2)
+        traces = float(np.trace(stats["cpu"][0][1])
+                       + np.trace(stats["cpu"][1][1]))
+        derr = abs(dist["card"] - dist["cpu"])
+        # a distance within sqrtm's round-off of its traces (a singular
+        # product) is 0 on both sides: held to that floor, not 1e-3
+        floor = 1e-5 * traces
+        zero = max(abs(dist["card"]), abs(dist["cpu"])) <= floor
+        dtol = floor if zero else 1e-3 * abs(dist["cpu"])
+        block = BLOCK_INDEX_BY_DIM[dims]
+        ms = event_ms(lambda: inception_blocks(inc_card, ta / 255.0,
+                                               block), reps=3, warmup=1)
+        ok = (max(errs) <= 1e-4 and derr <= dtol
+              and jitter["card"] == jitter["cpu"])
+        log(f"  SIFID {dims}: statistics card vs CPU {max(errs):.3e} of "
+            f"their scale (tol 1e-4); distance card {dist['card']:.8g} "
+            f"CPU {dist['cpu']:.8g} |diff| {derr:.3e} tol {dtol:.3e}"
+            f"{' (both round-off of the traces: 0)' if zero else ''} "
+            f"(traces {traces:.6g}; sqrtm's jitter branch, card / CPU: "
+            f"{jitter['card']} / {jitter['cpu']}) "
+            f"{'ok' if ok else 'FAIL'}; Inception to block {block} "
+            f"{ms:.3f} ms on the card")
+        if not ok:
+            raise AssertionError(f"SIFID {dims}: {errs}, {derr}")
+        out[f"SIFID-{dims}"] = {"card": dist["card"], "cpu": dist["cpu"],
+                                "stats_err": max(errs), "zero": zero,
+                                "jitter": jitter["cpu"], "ms": ms}
+    return out
+
+
+def phase_eval():
+    """[5e] evaluation (slice 6) from seeded weights on synthetic data, the
+    launch counts reset before each item and read after it: the image
+    sweep, Sintel Et, temporal MSE, the ``sintel-ada`` loop with RAFT,
+    RAFT against the CPU, and the metrics against the CPU.  Every K1, K2
+    and K3 launch must be at a shape [3] held against the plain version
+    (CHECKED).  Returns the K1/K2/K3 launches and the items' numbers."""
+    log("[5e] evaluation: the experiment loops and metrics from seeded "
+        "weights")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(21)
+    raft = init_raft(0, device="cuda")
+    res, walls = {}, {}
+    with recording_launches() as seen:
+        for name, item, *args in (
+                ("image", _eval_image_sweep), ("sintel_et", _eval_sintel_et),
+                ("temporal_mse", _eval_temporal_mse),
+                ("sintel_ada", _eval_sintel_ada, raft),
+                ("raft", _eval_raft, raft), ("metrics", _eval_metrics)):
+            t = time.perf_counter()
+            res[name] = item(rng, *args)
+            walls[name] = time.perf_counter() - t
+    log(f"  [5e] items' wall (s, warm-ups, CPU references and host work "
+        f"included): {json.dumps(walls)}")
+    unchecked = sorted(map(str, seen - CHECKED))
+    log(f"  [5e] launched K1-K3 at {len(seen)} shapes, all held against "
+        f"the plain versions in [3]" if not unchecked else
+        f"  [5e] launched at shapes [3] did not check: {unchecked}")
+    if unchecked:
+        raise AssertionError(f"[5e] shapes not checked: {unchecked}")
+    launches = [res["image"]["launches"], res["sintel_et"]["launches"],
+                res["temporal_mse"]["launches"],
+                res["sintel_ada"]["softmax"]["launches"]]
+    totals = {k: sum(n[i] for n in launches)
+              for i, k in enumerate(("K1", "K2", "K3"))}
+    res["wall_s"], res["item_wall_s"] = time.perf_counter() - t0, walls
+    log(f"  [5e] launches {totals}; wall {res['wall_s']:.1f} s")
+    log(json.dumps({"evaluation": res}))
+    apply_precision(torch.bfloat16)
+    return totals, res
+
+
+def phase_eval_alone():
+    """``--eval``: the kernels' build ([2]), K1, K2 and K3 at [5e]'s shapes
+    ([3]: Sintel Et's RTNSTV batch-8 K1, temporal MSE's batch-1 K1/K2 in
+    f32, K3_EVAL) and [5e]."""
+    phase_build()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    log("[3] kernels against their plain versions at [5e]'s shapes")
+    apply_precision(torch.float32)
+    for label, shape in {"RTNSTV": K1_RTNSTV, **K1_EVAL_F32}.items():
+        _k1_check(g, torch.float32, f"f32 {label}", shape, 1e-4)
+    for label, shape in K2_EVAL_F32.items():
+        _k2_check(g, torch.float32, f"f32 {label}", shape, 1e-4)
+    for case in K3_EVAL:
+        _k3_check(g, *case)
+    apply_precision(torch.bfloat16)
+    phase_eval()
+
+
 def phase_rtnstv_alone():
     """``--rtnstv``: the kernels' build ([2]), K1 at RTNSTV's shape ([3]),
     the RTNSTV forward and golden ([4]), serving ([5]), training ([5d]),
@@ -2848,12 +3252,12 @@ def main(argv):
     parent = argv[1] if len(argv) == 2 and argv[0] == "--parent" else None
     alone = {"--f32-step": phase_f32_step, "--f32-reconet": phase_f32_reconet,
              "--reconet-train": phase_reconet_train_alone,
-             "--rtnstv": phase_rtnstv_alone}
+             "--rtnstv": phase_rtnstv_alone, "--eval": phase_eval_alone}
     if not (argv == [] or (len(argv) == 1 and argv[0] in alone)
             or parent is not None):
         print(f"usage: chip_smoke.py [--f32-step | --f32-reconet | "
-              f"--reconet-train | --rtnstv | --parent DIR]; got {argv}",
-              file=sys.stderr)
+              f"--reconet-train | --rtnstv | --eval | --parent DIR]; got "
+              f"{argv}", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     smi = phase_card()
@@ -2887,9 +3291,13 @@ def main(argv):
                     ("RTNSTV training", rt_train["K1"])):
         launches["K1"] += n
         launches["K1 by path"][path] = n
+    ev, ev_res = phase_eval()
+    for k in ("K1", "K2"):
+        launches[k] += ev[k]
+        launches[f"{k} by path"]["evaluation"] = ev[k]
     by_path = {"serving": launches["K3"], "training": train["K3"],
-               "training loop": loop["K3"]}
-    launches["K3"] += train["K3"] + loop["K3"]
+               "training loop": loop["K3"], "evaluation": ev["K3"]}
+    launches["K3"] += train["K3"] + loop["K3"] + ev["K3"]
     launches.update(K4=train["K4"] + loop["K4"], K5=train["K5"] + loop["K5"])
     k45_rows, k3_f32 = timing_k45(launches, errs, slices)
     kernels = phase_timing(launches, errs, slices["K3"]) + k45_rows
@@ -2916,6 +3324,18 @@ def main(argv):
         row["train_grad_err"] = {e: v for e, v in rtrain["errs"].items()
                                  if e.startswith(k)}
     kernels[0]["train_step_ms"] = rtrain["ms"]
+    kernels[0]["evaluation"] = {
+        "per": "[5e]: Sintel Et (RTNSTV f32, 17 frames 640x360) and "
+               "temporal MSE (ReCoNet f32, 9 frames)",
+        "sintel_et_ms_per_pair": ev_res["sintel_et"]["ms_per_pair"],
+        "temporal_mse_ms_per_pair": ev_res["temporal_mse"]["ms_per_pair"]}
+    kernels[2]["evaluation"] = {
+        "per": "[5e]: the image sweep (bf16 softmax 512^2, 2x2) and the "
+               "sintel-ada loop (f32 softmax 256x512, batch 8, RAFT flows)",
+        "image_ms_per_pair": ev_res["image"]["ms_per_pair"],
+        "sintel_ada_ms_per_pair": {
+            a: v["ms_per_pair"] for a, v in ev_res["sintel_ada"].items()},
+        "raft_ms_per_pair": ev_res["raft"]["ms_per_pair"]}
     log("[6] timing: K1 at RTNSTV's shape (bf16, f32)")
     kernels[0]["rtnstv"] = timing_k1_rtnstv(
         torch.Generator(device="cuda").manual_seed(15))

@@ -147,15 +147,31 @@ def test_cli_all_pairs(tmp_path, weights):
 
 
 @pytest.mark.parametrize("argv,match", [
-    # RTNSTV runs since its slice: an RTNSTV checkpoint styles the content
+    # RTNSTV runs since its slice: an RTNSTV checkpoint styles the content;
+    # --sample-from runs since the evaluation slice: it writes the sampled
+    # content and style and the stylized image
     (["--model", "rtnstv", "--content", CONTENT], None),
-    (["--model", "adaattn", "--sample-from", "a,b"], "not ported"),
+    (["--model", "adaattn", "--sample-from"], None),
     (["--model", "adaattn", "--content", CONTENT], "--style"),
     (["--model", "reconet"], "does not look like"),
 ])
 def test_cli_image_rejects(tmp_path, weights, argv, match):
     from vst_tpu_torch.cli import infer_image
 
+    if match is None and "--sample-from" in argv:
+        from PIL import Image
+
+        for d in ("coco", "wiki"):
+            os.makedirs(tmp_path / d / "cls")
+            Image.fromarray(np.full((40, 48, 3), 90, np.uint8)).save(
+                tmp_path / d / "cls" / "0.png")
+        infer_image.main(argv + [f"{tmp_path / 'coco'},{tmp_path / 'wiki'}",
+                                 "--weights", weights, "--device", "cpu",
+                                 "--out", str(tmp_path / "o")])
+        for name in ("content", "style", "stylized"):
+            out = np.asarray(Image.open(tmp_path / "o" / f"{name}.png"))
+            assert out.shape == (256, 256, 3)
+        return
     if match is None:
         from PIL import Image
         from vst_tpu.models.rtnstv import init_stylizing_network

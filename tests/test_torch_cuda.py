@@ -884,3 +884,39 @@ def test_run_training_two_steps_on_the_card(cuda, tmp_path):
     for i, st in sa["state"].items():
         for key in ("step", "exp_avg", "exp_avg_sq"):
             assert torch.equal(st[key], sb["state"][i][key]), (i, key)
+
+
+@pytest.mark.parametrize("metric", ["raft", "ssim", "lpips_vgg"])
+def test_eval_on_the_card_against_the_cpu(cuda, metric):
+    """Evaluation on the card against the same code on the CPU, in
+    float32 with TF32 off: RAFT at 1×128×160 (3 iterations, rtol 1e-3,
+    atol 2e-4, the RAFT parity tolerance), SSIM and LPIPS-vgg of a 64²
+    pair (1e-4 relative)."""
+    import numpy as np
+
+    from vst_tpu_torch.compat import params_from_jax
+
+    rng = np.random.default_rng(0)
+    if metric == "raft":
+        from vst_tpu_torch.models.raft import init_raft, raft_flow
+
+        a, b = (rng.random((2, 1, 128, 160, 3)) * 2 - 1).astype(np.float32)
+        ours = raft_flow(init_raft(0, device=cuda), a, b, iters=3).cpu()
+        ref = raft_flow(init_raft(0, device="cpu"), a, b, iters=3)
+        torch.testing.assert_close(ours, ref, rtol=1e-3, atol=2e-4)
+        return
+    a, b = (rng.random((2, 1, 64, 64, 3)) * 255).astype(np.float32)
+    if metric == "ssim":
+        from vst_tpu_torch.eval import ssim
+
+        ours = ssim(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda))
+        ref = ssim(torch.from_numpy(a), torch.from_numpy(b))
+    else:
+        from vst_tpu_torch.eval.lpips import (image_to_lpips_input, lpips_vgg,
+                                              random_lpips_params)
+
+        params = params_from_jax(random_lpips_params(0))
+        x, y = image_to_lpips_input(a[0]), image_to_lpips_input(b[0])
+        ours = lpips_vgg({k: v.to(cuda) for k, v in params.items()}, x, y)
+        ref = lpips_vgg(params, x, y)
+    _close(ours.cpu(), ref, 1e-4)

@@ -14,5 +14,8 @@ attention moments).  AdaAttN trains through K3 forward and K4/K5
 backward, ReCoNet (with its SD1/SD2 students) through K1 and K2 forward
 and their library conv-gradient backward, and RTNSTV through K1 the
 same way, end to end from the training CLI (``cli/train.py``,
-``train/loop.py``).
+``train/loop.py``).  Evaluation (``eval/``, ``models/raft.py``,
+``cli/evaluate.py``, ``cli/experiments.py``) runs its metrics and RAFT
+in float32 on the card and its experiment stylizers through K1, K2 and
+K3.
 """

@@ -9,10 +9,15 @@ AdaAttN/infer_image.py and AdaAttN/infer_image_all.py):
 
 ``--all-pairs`` styles every content in ``--content`` (a directory) with
 every style in ``--style``, style-major: each style is encoded once.
+``--sample-from COCO_DIR,WIKIART_DIR`` (adaattn) takes item
+``--sample-idx`` of a ``CocoWikiArt`` pairing as the content and style
+(AdaAttN/infer_image.py:38-53) and writes all three images.
 """
 
 import argparse
 import os
+
+import torch
 
 from vst_tpu_torch.cli.common import (check_weights_match, list_files,
                                       load_image_255, load_vgg_weights,
@@ -34,7 +39,10 @@ def build_parser():
                    help="image path, or directory with --all-pairs")
     p.add_argument("--style", help="style image (adaattn) or directory")
     p.add_argument("--sample-from", metavar="COCO_DIR,WIKIART_DIR",
-                   help="not ported yet")
+                   help="adaattn only: sample content/style from a "
+                        "CocoWikiArt pairing instead of explicit paths "
+                        "(AdaAttN/infer_image.py:38-53)")
+    p.add_argument("--sample-idx", type=int, default=0)
     p.add_argument("--vgg-weights",
                    help="VGG19 .pth/.npz (default: seeded random init)")
     p.add_argument("--activation", default="softmax",
@@ -61,9 +69,6 @@ def _save(out, dst):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.sample_from:
-        raise SystemExit("error: --sample-from is not ported to "
-                         "vst_tpu_torch yet; pass --content and --style")
     device = resolve_device(args.device)
     state = load_weights(args.weights)
     check_weights_match(state, args.model, args.weights)
@@ -82,11 +87,21 @@ def main(argv=None):
         _save(out, os.path.join(args.out, "stylized.png"))
         return
 
-    if not args.content or not args.style:
-        raise SystemExit("error: --content and --style are required for "
-                         "adaattn")
     model = adaattn.build(state, device, dtype)
     vgg = load_vgg_weights(args.vgg_weights, device=device, dtype=dtype)
+    if args.sample_from:
+        from vst_tpu_torch.data.datasets import CocoWikiArt
+
+        coco_dir, wikiart_dir = args.sample_from.split(",")
+        c, s = (x[None] for x in
+                CocoWikiArt(coco_dir, wikiart_dir)[args.sample_idx])
+        out = stylize_adaattn(vgg, model, c, s, args.activation)
+        for name, img in (("content", c), ("style", s), ("stylized", out)):
+            _save(torch.as_tensor(img), os.path.join(args.out, f"{name}.png"))
+        return
+    if not args.content or not args.style:
+        raise SystemExit("error: --content and --style (or --sample-from) "
+                         "are required for adaattn")
     if not args.all_pairs:
         out = stylize_adaattn(vgg, model, _load(args.content, args.size),
                               _load(args.style, args.size), args.activation)
