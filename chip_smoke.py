@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of vst_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version, drives the seven paths of
+holds each against its plain PyTorch version, drives the eight paths of
 the port (ReCoNet streaming stylization, AdaAttN arbitrary-style serving,
 AdaAttN training, ReCoNet training, RTNSTV serving, RTNSTV training,
-evaluation) and checks what comes out.
+evaluation, scale-out over torch.distributed) and checks what comes
+out.
 
     python3 chip_smoke.py
 
@@ -111,8 +112,30 @@ result line):
    at 1×256×512 ×12 against the port's RAFT on the CPU, and SSIM, Gram,
    LPIPS (vgg, alex, squeeze) and SIFID's statistics and distance at dims
    64/192/768/2048 on one 512² pair against the CPU; ms of each;
+8. scale-out (``--scale-out`` runs it alone after the build), the counts
+   set to 0 before each run and read after: ``cli.infer_video
+   --data-parallel 1`` (a world-1 NCCL group of its own; rank 0 scatters
+   and gathers each batch) on 48 synthetic 640×360 frames of the f32
+   ReCoNet against the same command without it (frames within one uint8
+   step; K1 10, K2 2 a forward); then a world-1 NCCL group on cuda:0
+   (``multihost.initialize`` over ``tcp://127.0.0.1:<free port>``) and
+   ``make_mesh(1)``: the f32 ReCoNet flow step (360×640 b2) and the bf16
+   AdaAttN image step (256² b8) with and without the mesh (metrics within
+   rtol 1e-6, gradients within max(1e-3, 4 × two bare runs' distance) of
+   each key's largest: the attention convs' and the biases before an
+   instance norm aside; the same launches a step), timed alternating
+   (median of 7) with the gradient all-reduce alone; ``AdaAttNVideoStylizer(mesh=)`` against ``mesh=None`` (softmax
+   512×256 b4, within one uint8 step); the ring's ``fold_block`` of 4 key
+   blocks through K3 against one K3 call at the 512² b2 bf16 levels (2 ×
+   bf16's spacing of the largest M) and the 256² b8 f32 levels (1e-4),
+   L within 1e-5, 4 K3 launches a level; the world-1 sharded softmax and
+   cosine moments bit for bit the single-device ones; and a Chrome trace
+   of one 512² bf16 ReCoNet forward from ``utils.profiling.trace_context``
+   that names K1's (``conv3x3_wgmma<true, …>``) and K2's
+   (``conv3x3_wgmma<false, …>``) kernels, 10 and 2;
 6. timing: each kernel, its plain version and a library yardstick the
-   port never calls (cuDNN ``F.conv2d`` of the same conv for K1/K2,
+   port never calls (cuDNN ``F.conv2d`` of the same conv for K1/K2, in
+   benchmark mode and the faster of NCHW and channels_last, bf16 and f32,
    ``F.scaled_dot_product_attention`` for K3 and its backward for K4/K5)
    at the main paths' shapes, printed as one JSON ``kernels`` line (K1/K2
    rows also carry ms, TFLOP/s and the bound's share per launch; K3-K5
@@ -168,6 +191,10 @@ that shape and the f32 step's profile.
     python3 chip_smoke.py --eval
 
 builds the kernels and runs [5e] alone.
+
+    python3 chip_smoke.py --scale-out
+
+builds the kernels and runs [8] alone.
 """
 
 import contextlib
@@ -2279,7 +2306,7 @@ def timing_k1_rtnstv(g):
               event_ms(lambda: res_block.conv3x3_in_stats_plain(
                   y, wt, b, s, gamma, beta), 5, 1)]
         xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
-        tl, layout, both = cudnn_f32_ms(xp, wt.permute(3, 2, 0, 1), b)
+        tl, layout, both = cudnn_ms(xp, wt.permute(3, 2, 0, 1), b)
         nbytes = (2 * n * h * w * c + 9 * c * c + c) * nb + n * 2 * c * 4
         b1, by = bound(flops, nbytes, peak)
         b1_pro, _ = bound(flops, nbytes + (n * 2 * c + 2 * c) * 4, peak)
@@ -2637,6 +2664,376 @@ def phase_rtnstv_alone():
     _profile_rtnstv_step(np.random.default_rng(4))
 
 
+# -------------------------------------------------------------- scale-out
+
+SCALE_OUT_CLIP = 48            # 640×360 frames through cli.infer_video
+RING_BLOCKS = 4                # key blocks of the ring fold
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cli_video_frames(argv, clip):
+    """``cli.infer_video.main(argv)`` with the decoder replaced by ``clip``
+    and the frame dump by a list (the card's machine has no cv2 and no
+    PIL); returns the frames it wrote, in order."""
+    from vst_tpu_torch.cli import infer_video as cli_video
+
+    out = []
+    saved = cli_video.frames_from_source, cli_video.save_image_255
+    cli_video.frames_from_source = lambda *a, **k: iter(clip)
+    cli_video.save_image_255 = lambda f, path: out.append(np.asarray(f).copy())
+    try:
+        cli_video.main(argv)
+    finally:
+        cli_video.frames_from_source, cli_video.save_image_255 = saved
+    return out
+
+
+def _frames_match(label, ours, ref):
+    """Same count and order, within one uint8 step; returns the largest
+    difference."""
+    if len(ours) != len(ref) or any(a.shape != b.shape
+                                    for a, b in zip(ours, ref)):
+        raise AssertionError(f"{label}: {len(ours)} frames against "
+                             f"{len(ref)}, or of another shape")
+    diff = max(np.abs(a.astype(int) - b.astype(int)).max()
+               for a, b in zip(ours, ref))
+    same = all(np.array_equal(a, b) for a, b in zip(ours, ref))
+    log(f"  {label}: {len(ours)} frames, max |diff| {diff} (tol 1)"
+        f"{', bit for bit' if same else ''}")
+    if diff > 1:
+        raise AssertionError(f"{label}: frames differ by {diff}")
+    return int(diff)
+
+
+def _scale_out_serving():
+    """``infer_video --data-parallel 1`` (a world-1 NCCL group of its own,
+    rank 0 scattering and gathering each batch) on the 640×360 ReCoNet
+    stream against the same command without it; K1 10 and K2 2 launches
+    a forward in the data-parallel run."""
+    rng = np.random.default_rng(31)
+    clip = list(rng.integers(0, 256, (SCALE_OUT_CLIP, 360, 640, 3))
+                .astype(np.uint8))
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_scale_out")
+    weights = os.path.join(out_dir, "reconet.npz")
+    ckpt.save_params(init_reconet(0, device="cuda"), weights)
+    argv = ["--model", "reconet", "--weights", weights, "--video", "clip",
+            "--size", "640", "360", "--batch-size", "8", "--frames-dir",
+            out_dir]
+    ref = _cli_video_frames(argv, clip)
+    reset_counts()
+    t0 = time.perf_counter()
+    ours = _cli_video_frames(argv + ["--data-parallel", "1"], clip)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    forwards = SCALE_OUT_CLIP // 8
+    log(f"  infer_video --data-parallel 1, {SCALE_OUT_CLIP}×640×360 f32 "
+        f"batch 8: launches K1-K5 {launches}; {wall:.2f} s with the group's "
+        f"set-up")
+    if launches != (10 * forwards, 2 * forwards, 0, 0, 0):
+        raise AssertionError(f"expected K1 {10 * forwards}, K2 "
+                             f"{2 * forwards} launches")
+    diff = _frames_match("infer_video --data-parallel 1 against without",
+                         ours, ref)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"K1": launches[0], "K2": launches[1], "max_diff": diff,
+            "wall_s": wall}
+
+
+def _grads(state):
+    return {k: p.grad.detach().clone()
+            for k, p in state.model.named_parameters() if p.grad is not None}
+
+
+def _dp_step(label, new_state, make_step, batch, mesh, per_step, keys):
+    """One step with the world-1 mesh and two without, each from a fresh
+    state: the metrics within rtol 1e-6 (the forward is the same; the
+    world-1 all-reduce adds nothing), the gradients of ``keys(name)``
+    within max(1e-3, 4 × the two bare runs' own distance) of each key's
+    largest (library backwards that accumulate with atomics differ from
+    run to run by rounding, in bf16 by whole steps of it), the same
+    (K1-K5) launches per step.  Then 2 + 7 steps alternating with and
+    without the mesh, timed on the host clock after a synchronize: the
+    all-reduces' cost over the bare step, median of 7, and the gradient
+    all-reduce alone (CUDA events, median of 10), and ``replicate`` of the
+    stepped state (its Adam step counts on the CPU) leaves it as it was.
+    Every step's launches are counted and must be ``per_step``;
+    ``launches`` is the sum over the ten steps run with the mesh, as
+    counted."""
+    from vst_tpu_torch.parallel.mesh import (_state_tensors,
+                                             all_reduce_mean, replicate)
+
+    res = {}
+    for tag, m in (("bare", None), ("again", None), ("mesh", mesh)):
+        state = new_state()
+        step = make_step(m)
+        reset_counts()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        res[tag] = ({k: float(v) for k, v in metrics.items()},
+                    _grads(state), counts(), state, step)
+    (m0, g0, n0, s0, f0), (_, ga, _, _, _) = res["bare"], res["again"]
+    m1, g1, n1, s1, f1 = res["mesh"]
+    del res
+    if n0 != n1 or n1 != per_step:
+        raise AssertionError(f"{label}: launches {n1} with the mesh, {n0} "
+                             f"without, expected {per_step}")
+    bad = [k for k in m0 if not math.isclose(m1[k], m0[k], rel_tol=1e-6)]
+
+    def dist_(a):
+        return max((a[k] - g0[k]).abs().max().item()
+                   / max(g0[k].abs().max().item(), 1e-30)
+                   for k in g0 if keys(k))
+
+    g_err, calib = dist_(g1), dist_(ga)
+    tol = max(1e-3, 4 * calib)
+    bitwise = all(torch.equal(g1[k], g0[k]) for k in g0)
+    log(f"  {label}: launches K1-K5 {n1} a step with and without the mesh; "
+        f"metrics {'equal' if m0 == m1 else 'within rtol 1e-6'}; "
+        f"gradients {'bit for bit' if bitwise else f'max rel {g_err:.2e}'} "
+        f"(two bare runs {calib:.2e}; tol {tol:.2e})")
+    if bad or g_err > tol:
+        raise AssertionError(f"{label}: metrics {bad} or gradients "
+                             f"({g_err}) differ with the mesh")
+    del ga, g1
+    times = {"bare": [], "mesh": []}
+    mesh_launches = list(n1)
+    for i in range(9):
+        for tag, state, step in (("bare", s0, f0), ("mesh", s1, f1)):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times[tag].append((time.perf_counter() - t0) * 1e3)
+            n = counts()
+            if n != per_step:
+                raise AssertionError(f"{label}: timed {tag} step {i} "
+                                     f"launched {n}, expected {per_step}")
+            if tag == "mesh":
+                mesh_launches = [a + b for a, b in zip(mesh_launches, n)]
+    grads = [p.grad for p in s1.model.parameters() if p.grad is not None]
+    ar_ms = event_ms(lambda: all_reduce_mean(mesh, grads), 10, 2)
+    # replicate of a stepped state, as cli.train runs it after a resume
+    # (torch's Adam keeps its step counts on the CPU)
+    held = [t.clone() for t in _state_tensors(s1)]
+    cpu = sum(t.device.type == "cpu" for t in held)
+    replicate(mesh, s1)
+    if not all(torch.equal(a, b) for a, b in zip(held, _state_tensors(s1))):
+        raise AssertionError(f"{label}: replicate changed the state")
+    log(f"  {label}: replicate of the stepped state ({len(held)} tensors, "
+        f"{cpu} on the CPU) leaves it bit for bit")
+    del held
+    ms = {t: float(np.median(v)) for t, v in times.items()}
+    mb = sum(g.numel() * g.element_size() for g in grads) / 2**20
+    extra = ms["mesh"] - ms["bare"]
+    log(f"  {label}: {ms['bare']:.3f} ms/step bare, {ms['mesh']:.3f} with "
+        f"the world-1 mesh (median of 7, alternating): {extra:+.3f} ms "
+        f"({extra / ms['bare'] * 100:+.2f}%); the gradient all-reduce alone "
+        f"({mb:.1f} MiB f32) {ar_ms:.4f} ms = {ar_ms / ms['bare'] * 100:.2f}% "
+        f"of the bare step")
+    return {"bare_ms": ms["bare"], "mesh_ms": ms["mesh"],
+            "allreduce_ms": ar_ms, "allreduce_mib": mb,
+            "grad_max_rel_diff": g_err, "bare_runs_rel_diff": calib,
+            "bitwise": bitwise, "launches_per_step": n1,
+            "launches": mesh_launches}
+
+
+def _ring_fold(g, tag, dtype, b, levels, tol):
+    """Each level's keys split into RING_BLOCKS blocks, each block through
+    K3 and the blocks merged by ``fold_block``, against one K3 call over
+    all keys: M1, M2 within ``tol`` of their largest, L within 1e-5;
+    RING_BLOCKS K3 launches a level.  Times the fold beside the one call."""
+    from vst_tpu_torch.parallel.attention import fold_block
+
+    apply_precision(dtype)
+    errs, rows = [], []
+    for n, d, c in levels:
+        q, k, v = k3_inputs(g, b, n, n, d, c, dtype)
+        m1, m2, lse = adaattn_attention.softmax_attention_moments(q, k, v)
+        blocks = [(kb.contiguous(), vb.contiguous()) for kb, vb in
+                  zip(k.chunk(RING_BLOCKS, 1), v.chunk(RING_BLOCKS, 1))]
+
+        def fold():
+            acc = None
+            for kb, vb in blocks:
+                acc = fold_block(acc, *adaattn_attention
+                                 .softmax_attention_moments(q, kb, vb))
+            return acc
+
+        reset_counts()
+        f1, f2, fl = fold()
+        if counts()[2] != RING_BLOCKS:
+            raise AssertionError(f"ring fold {tag}: K3 launched "
+                                 f"{counts()[2]} times, not {RING_BLOCKS}")
+        name = f"ring fold {tag} ({b},{n},{n},{d},{c}) / {RING_BLOCKS}"
+        errs.append(max(check(f"{name} M1", f1, m1, tol),
+                        check(f"{name} M2", f2, m2, tol)))
+        check(f"{name} L", fl, lse, 1e-5)
+        t_fold = event_ms(fold, 3, 1)
+        t_one = event_ms(
+            lambda: adaattn_attention.softmax_attention_moments(q, k, v),
+            3, 1)
+        log(f"  {name}: fold {t_fold:.3f} ms, one call {t_one:.3f} ms")
+        rows.append({"shape": [b, n, n, d, c], "fold_ms": t_fold,
+                     "one_call_ms": t_one})
+        del q, k, v, blocks
+    return max(errs), rows
+
+
+def _profile_names(log_dir):
+    """The Chrome trace of one 512² bf16 ReCoNet forward under
+    ``utils.profiling.trace_context``: the kernel events must name K1's
+    (``conv3x3_wgmma<true, …>``, reflect padding, with its
+    ``finalize_stats``) and K2's (``conv3x3_wgmma<false, …>``) bodies, 10
+    and 2 of them."""
+    from vst_tpu_torch.utils.profiling import trace_context
+
+    model = init_reconet(0, device="cuda", dtype=torch.bfloat16)
+    x = np.random.default_rng(33).integers(0, 256, (1, 512, 512, 3)).astype(
+        np.uint8)
+    stylize_reconet(model, x, uint8_out=True)
+    torch.cuda.synchronize()
+    shutil.rmtree(log_dir, ignore_errors=True)
+    with trace_context(log_dir):
+        stylize_reconet(model, x, uint8_out=True)
+        torch.cuda.synchronize()
+    (path,) = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    k1 = sum(("conv3x3_wgmma<true" in n or "conv3x3_wgmmaILb1" in n)
+             for n in names)
+    k2 = sum(("conv3x3_wgmma<false" in n or "conv3x3_wgmmaILb0" in n)
+             for n in names)
+    stats = sum("finalize_stats" in n for n in names)
+    log(f"  trace_context: {os.path.basename(path)}, {len(events)} events, "
+        f"{len(names)} kernels: K1 conv3x3_wgmma<true,…> {k1}, "
+        f"finalize_stats {stats}, K2 conv3x3_wgmma<false,…> {k2}")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    if (k1, k2) != (10, 2) or stats < 10:
+        raise AssertionError(f"trace: K1 {k1}, K2 {k2}, finalize_stats "
+                             f"{stats} kernel events (expected 10, 2, >= 10)")
+    return {"events": len(events), "kernels": len(names), "K1": k1, "K2": k2}
+
+
+def phase_scale_out():
+    """[8] scale-out over ``torch.distributed`` on the one card: the data-
+    parallel ReCoNet CLI serving at world 1 (its own group), then a world-1
+    NCCL group on cuda:0 (``multihost.initialize`` over
+    ``tcp://127.0.0.1:<port>``) with ``make_mesh(1)``: the f32 ReCoNet
+    flow step and the bf16 AdaAttN image step with and without the mesh,
+    ``AdaAttNVideoStylizer(mesh=)`` against ``mesh=None``, the ring's
+    ``fold_block`` through K3 at the 512² b2 bf16 and 256² b8 f32 levels,
+    the world-1 sharded softmax and cosine moments against the
+    single-device ones, and a Chrome trace from ``trace_context``.
+    Returns the launches (K1-K5) of its main-path runs and its numbers."""
+    from vst_tpu_torch.models.adaattn import attention_moments
+    from vst_tpu_torch.parallel import make_mesh, multihost
+    from vst_tpu_torch.parallel.attention import (
+        sharded_cosine_attention_moments, sharded_softmax_attention_moments)
+
+    log("[8] scale-out: torch.distributed at world 1 (NCCL on cuda:0)")
+    t_phase = time.perf_counter()
+    res = {"serving_cli": _scale_out_serving()}
+    total = [res["serving_cli"]["K1"], res["serving_cli"]["K2"], 0, 0, 0]
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh(1)
+        log(f"  world-1 group: backend {torch.distributed.get_backend()}, "
+            f"{mesh}")
+        rng = np.random.default_rng(32)
+        apply_precision(torch.float32)
+        vgg16 = init_vgg16_reconet(0, device="cuda")
+        grams = _style_grams(vgg16, RECONET_CANDY, rng)
+        res["reconet_flow_f32"] = _dp_step(
+            "ReCoNet flow step 360×640 b2 f32", lambda: create(
+                init_reconet(1, device="cuda"), RECONET_CANDY.lr),
+            lambda m: make_reconet_flow_step(RECONET_CANDY, vgg16, grams, m),
+            _flow_batch(rng, RECONET_CANDY), mesh, (10, 2, 0, 0, 0),
+            lambda k: not _before_norm(k))
+        del vgg16, grams
+        cfg = dataclasses.replace(AdaAttNImageConfig(), dtype="bfloat16")
+        vgg19 = init_vgg19_adaattn(0, device="cuda")
+        res["adaattn_image_bf16"] = _dp_step(
+            "AdaAttN image step 256² b8 bf16", lambda: create(
+                init_stylizing_network(1, device="cuda"), cfg.lr),
+            lambda m: make_adaattn_image_step(cfg, vgg19, m),
+            _image_batch(rng, cfg.batch_size, cfg.crop_size), mesh,
+            (0, 0, 6, 3, 3), lambda k: k.startswith("decoder."))
+        del vgg19
+        for key in ("reconet_flow_f32", "adaattn_image_bf16"):
+            total = [t + n for t, n in zip(total, res[key]["launches"])]
+
+        apply_precision(torch.bfloat16)
+        vgg, net = _ada_models(0, 1, torch.bfloat16)
+        clip = list(rng.integers(0, 256, (ADA_CLIP, *ADA_FRAMES, 3))
+                    .astype(np.uint8))
+        ref = list(AdaAttNVideoStylizer(vgg, net, clip[0][None], "softmax",
+                                        batch_size=4).stylize_frames(
+                                            iter(clip)))
+        reset_counts()
+        ours = list(AdaAttNVideoStylizer(
+            vgg, net, clip[0][None], "softmax", batch_size=4,
+            mesh=mesh).stylize_frames(iter(clip)))
+        n_video = counts()
+        if n_video != (0, 0, 3 * ADA_CLIP // 4, 0, 0):
+            raise AssertionError(f"AdaAttNVideoStylizer(mesh=): launches "
+                                 f"{n_video}")
+        res["adaattn_video_max_diff"] = _frames_match(
+            "AdaAttNVideoStylizer(mesh=) softmax 512×256 b4 against "
+            "mesh=None", ours, ref)
+        total = [t + n for t, n in zip(total, n_video)]
+
+        g = torch.Generator(device="cuda").manual_seed(34)
+        res["ring_err_bf16"], res["ring_bf16"] = _ring_fold(
+            g, "bf16", torch.bfloat16, K3_BATCH, K3_LEVELS, 2 * BF16_ULP)
+        res["ring_err_f32"], res["ring_f32"] = _ring_fold(
+            g, "f32", torch.float32, TRAIN_BATCH, TRAIN_LEVELS, 1e-4)
+        apply_precision(torch.bfloat16)
+        reset_counts()
+        for n, d, c in K3_LEVELS:
+            q, k, v = k3_inputs(g, K3_BATCH, n, n, d, c, torch.bfloat16)
+            for act, fn in (("softmax", sharded_softmax_attention_moments),
+                            ("cosine", sharded_cosine_attention_moments)):
+                ours = fn(mesh, q, k, v)
+                ref = attention_moments(q, k, v, act)
+                if not all(torch.equal(a, b) for a, b in zip(ours, ref)):
+                    raise AssertionError(f"world-1 sharded {act} moments at "
+                                         f"{(n, d, c)} differ from "
+                                         f"single-device")
+        n_sharded = counts()
+        log(f"  world-1 sharded softmax and cosine moments at the 512² b2 "
+            f"bf16 levels: bit for bit the single-device ones; launches "
+            f"K1-K5 {n_sharded}")
+        if n_sharded != (0, 0, 2 * len(K3_LEVELS), 0, 0):
+            raise AssertionError(f"sharded moments: launches {n_sharded}")
+        total = [t + n for t, n in zip(total, n_sharded)]
+        res["trace"] = _profile_names(
+            os.path.join(ROOT, "build", "chip_smoke_trace"))
+    finally:
+        multihost.shutdown()
+    res["wall_s"] = time.perf_counter() - t_phase
+    launches = dict(zip(("K1", "K2", "K3", "K4", "K5"), total))
+    log(f"  [8] launches over the phase's main-path runs: {launches}; wall "
+        f"{res['wall_s']:.1f} s")
+    log(json.dumps({"scale_out": res}))
+    return launches, res
+
+
+def phase_scale_out_alone():
+    """``--scale-out``: the kernels' build ([2]) and [8]."""
+    log(f"  build: {_build.build_all():.2f} s")
+    phase_scale_out()
+
+
 def phase_timing(launches, errs, slice_v):
     """Kernel, plain-version and cuDNN times at the main path's shapes, per
     forward: K1 five launches without and five with its prologue; K2 the
@@ -2656,12 +3053,13 @@ def phase_timing(launches, errs, slice_v):
         "p_pro": event_ms(lambda: res_block.conv3x3_in_stats_plain(
             y, wt, b, s, gamma, beta)),
     }
-    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").contiguous(
-        memory_format=torch.channels_last)
-    w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    t["lib"] = event_ms(lambda: F.conv2d(xp, w_oihw, b))
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    t["lib"], layout, both = cudnn_ms(xp, wt.permute(3, 2, 0, 1), b)
+    del xp
     log(f"  K1 ms: kernel {t['k']:.4f}, with prologue {t['k_pro']:.4f}; "
-        f"plain {t['p']:.4f} / {t['p_pro']:.4f}; cuDNN conv {t['lib']:.4f}")
+        f"plain {t['p']:.4f} / {t['p_pro']:.4f}; cuDNN conv {t['lib']:.4f} "
+        f"(benchmark mode, {layout}; NCHW {both['NCHW']:.4f}, channels_last "
+        f"{both['channels_last']:.4f})")
     flops = 2 * 9 * c * c * n * h * w
     nbytes_k1 = (2 * n * h * w * c * 2 + 9 * c * c * 2 + c * 2
                  + n * 2 * c * 4)
@@ -2677,6 +3075,9 @@ def phase_timing(launches, errs, slice_v):
           "plain_ms": 5 * (t["p"] + t["p_pro"]),
           "bound_ms": 5 * (b1 + b1_pro), "bound_by": by1,
           "library_ms": 10 * t["lib"],
+          "library": f"F.conv2d bf16 (cuDNN, benchmark mode, {layout}; "
+                     f"NCHW {both['NCHW']:.4f}, channels_last "
+                     f"{both['channels_last']:.4f} ms)",
           "per": "one 512x512 batch-8 bf16 forward: 5 launches without and "
                  "5 with the prologue at (8,128,128,192)->192",
           "ms_per_launch": [t["k"], t["k_pro"]],
@@ -2700,21 +3101,25 @@ def phase_timing(launches, errs, slice_v):
           "per": "one 512x512 batch-8 bf16 forward: the packed stem "
                  "(8,130,130,48)->768 and head (8,130,130,768)->48",
           "ms_per_launch": [], "tflops_per_launch": [],
-          "bound_share_per_launch": [], "library_ms_per_launch": []}
+          "bound_share_per_launch": [], "library_ms_per_launch": [],
+          "library": []}
     by2 = set()
     for part, (c2, co) in K2_SHAPES.items():
         xk, wk = k2_inputs(g, (8, 130, 130, c2, co), dt)
         tk = event_ms(lambda: head_conv.conv3x3_valid(xk, wk))
         tp = event_ms(lambda: head_conv.conv3x3_valid_plain(xk, wk))
-        xl = xk.permute(0, 3, 1, 2)
-        wl = wk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        tl = event_ms(lambda: F.conv2d(xl, wl))
+        tl, layout, both = cudnn_ms(xk.permute(0, 3, 1, 2),
+                                    wk.permute(3, 2, 0, 1))
         flops2 = 2 * 9 * c2 * co * 8 * 128 * 128
         bb, by = bound(flops2, (8 * 130 * 130 * c2 + 9 * c2 * co
                                 + 8 * 128 * 128 * co) * 2, dt)
         log(f"  K2 {part} ms: kernel {tk:.4f} ({flops2 / tk / 1e9:.1f} "
             f"TFLOP/s, bound share {bb / tk:.3f}), plain {tp:.4f}, cuDNN conv "
-            f"{tl:.4f}, bound {bb:.4f} ({by})")
+            f"{tl:.4f} (benchmark mode, {layout}; NCHW {both['NCHW']:.4f}, "
+            f"channels_last {both['channels_last']:.4f}), bound {bb:.4f} "
+            f"({by})")
+        k2["library"].append(f"{part}: F.conv2d bf16 (cuDNN, benchmark "
+                             f"mode, {layout})")
         k2["tflops_per_launch"].append(flops2 / tk / 1e9)
         k2["bound_share_per_launch"].append(bb / tk)
         k2["library_ms_per_launch"].append(tl)
@@ -2730,11 +3135,12 @@ def phase_timing(launches, errs, slice_v):
     return [k1, k2, timing_k3(launches["K3"], errs["K3"], slice_v)]
 
 
-def cudnn_f32_ms(x_nchw, w_oihw, b=None):
-    """The fair library yardstick of an f32 K1/K2 launch: cuDNN's
-    ``F.conv2d`` in f32 (TF32 off) with ``torch.backends.cudnn.benchmark``
-    set only around this timing, in the NCHW and the channels_last layout;
-    returns (the faster's ms, its layout, both ms)."""
+def cudnn_ms(x_nchw, w_oihw, b=None):
+    """The fair library yardstick of a K1/K2 launch, in the inputs' dtype
+    (bf16, or f32 with TF32 off): cuDNN's ``F.conv2d`` with
+    ``torch.backends.cudnn.benchmark`` set only around this timing, in the
+    NCHW and the channels_last layout; returns (the faster's ms, its
+    layout, both ms)."""
     was = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = True
     try:
@@ -2756,7 +3162,7 @@ def timing_f32_convs(g, k1, k2):
     head), both 3xTF32 on wgmma, at the bf16 rows' 512² batch-8 shapes
     (the f32 ReCoNet forward of [4] and [5] runs both bodies), beside
     cuDNN's f32 conv in benchmark mode in the faster of NCHW and
-    channels_last (``cudnn_f32_ms``), per forward as the bf16 rows; event
+    channels_last (``cudnn_ms``), per forward as the bf16 rows; event
     time over 5 launches after 1.  Bound in the f32 K3-K5 columns'
     convention: FLOPs over 3xTF32's 495 / 3 TFLOP/s, bytes (float32) over
     3.35 TB/s.  Added to the rows as ``ms_f32``, ``bound_ms_f32``,
@@ -2773,7 +3179,7 @@ def timing_f32_convs(g, k1, k2):
     tp_pro = event_ms(lambda: res_block.conv3x3_in_stats_plain(
         y, wt, b, s, gamma, beta), 5, 1)
     xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
-    tl, layout, both = cudnn_f32_ms(xp, wt.permute(3, 2, 0, 1), b)
+    tl, layout, both = cudnn_ms(xp, wt.permute(3, 2, 0, 1), b)
     del xp
     flops = 2 * 9 * c * c * n * h * w
     nbytes = (2 * n * h * w * c + 9 * c * c + c + n * 2 * c) * 4
@@ -2805,7 +3211,7 @@ def timing_f32_convs(g, k1, k2):
         xk, wk = k2_inputs(g, (8, 130, 130, c2, co), dt)
         tk = event_ms(lambda: head_conv.conv3x3_valid(xk, wk), 5, 1)
         tp = event_ms(lambda: head_conv.conv3x3_valid_plain(xk, wk), 5, 1)
-        tl, layout, both = cudnn_f32_ms(xk.permute(0, 3, 1, 2),
+        tl, layout, both = cudnn_ms(xk.permute(0, 3, 1, 2),
                                         wk.permute(3, 2, 0, 1))
         flops2 = 2 * 9 * c2 * co * 8 * 128 * 128
         bb, _ = bound(flops2, (8 * 130 * 130 * c2 + 9 * c2 * co
@@ -3252,12 +3658,13 @@ def main(argv):
     parent = argv[1] if len(argv) == 2 and argv[0] == "--parent" else None
     alone = {"--f32-step": phase_f32_step, "--f32-reconet": phase_f32_reconet,
              "--reconet-train": phase_reconet_train_alone,
-             "--rtnstv": phase_rtnstv_alone, "--eval": phase_eval_alone}
+             "--rtnstv": phase_rtnstv_alone, "--eval": phase_eval_alone,
+             "--scale-out": phase_scale_out_alone}
     if not (argv == [] or (len(argv) == 1 and argv[0] in alone)
             or parent is not None):
         print(f"usage: chip_smoke.py [--f32-step | --f32-reconet | "
-              f"--reconet-train | --rtnstv | --eval | --parent DIR]; got "
-              f"{argv}", file=sys.stderr)
+              f"--reconet-train | --rtnstv | --eval | --scale-out | "
+              f"--parent DIR]; got {argv}", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     smi = phase_card()
@@ -3295,13 +3702,29 @@ def main(argv):
     for k in ("K1", "K2"):
         launches[k] += ev[k]
         launches[f"{k} by path"]["evaluation"] = ev[k]
+    so, so_res = phase_scale_out()
+    for k in ("K1", "K2"):
+        launches[k] += so[k]
+        launches[f"{k} by path"]["scale-out"] = so[k]
     by_path = {"serving": launches["K3"], "training": train["K3"],
-               "training loop": loop["K3"], "evaluation": ev["K3"]}
-    launches["K3"] += train["K3"] + loop["K3"] + ev["K3"]
-    launches.update(K4=train["K4"] + loop["K4"], K5=train["K5"] + loop["K5"])
+               "training loop": loop["K3"], "evaluation": ev["K3"],
+               "scale-out": so["K3"]}
+    launches["K3"] += train["K3"] + loop["K3"] + ev["K3"] + so["K3"]
+    launches.update(K4=train["K4"] + loop["K4"] + so["K4"],
+                    K5=train["K5"] + loop["K5"] + so["K5"])
     k45_rows, k3_f32 = timing_k45(launches, errs, slices)
     kernels = phase_timing(launches, errs, slices["K3"]) + k45_rows
     kernels[2]["launches_by_path"] = by_path
+    for row, k in ((kernels[3], "K4"), (kernels[4], "K5")):
+        row["launches_by_path"] = {"training": train[k],
+                                   "training loop": loop[k],
+                                   "scale-out": so[k]}
+    kernels[2]["scale_out"] = {
+        "per": "[8]: the ring's fold of 4 key blocks through K3 against one "
+               "K3 call, per level",
+        "fold_bf16": so_res["ring_bf16"], "fold_f32": so_res["ring_f32"],
+        "max_abs_err_fold_bf16": so_res["ring_err_bf16"],
+        "max_abs_err_fold_f32": so_res["ring_err_f32"]}
     kernels[2]["ms_f32"] = sum(k3_f32["ms"])
     kernels[2]["plain_ms_f32"] = k3_f32["plain_ms"]
     kernels[2]["ms_f32_per_launch"] = k3_f32["ms"]

@@ -129,10 +129,20 @@ class TestAttentionMoments:
                 assert torch.isfinite(ours).all()
                 torch.testing.assert_close(ours, ref, rtol=1e-4, atol=1e-5)
 
-    def test_mesh_and_unknown_raise(self, rng):
+    def test_mesh_and_unknown_raise(self, rng, tmp_path):
+        """A world-1 mesh (a gloo group in this process) gives the bits of
+        mesh=None in both activations; tokens that do not divide by the
+        mesh axis raise, as shard_map does."""
+        from tests.torch_dist import mesh_of, world1
+
         q, k, v = (t(a) for a in _qkv(rng, 1, 4, 4, 8, 8))
-        with pytest.raises(NotImplementedError, match="scale-out"):
-            pa.attention_moments(q, k, v, "cosine", mesh=object())
+        with world1(tmp_path) as mesh:
+            for act in ("cosine", "softmax"):
+                ours = pa.attention_moments(q, k, v, act, mesh=mesh)
+                for o, r in zip(ours, pa.attention_moments(q, k, v, act)):
+                    torch.testing.assert_close(o, r, rtol=0, atol=0)
+        with pytest.raises(ValueError, match="divide by the 3-way"):
+            pa.attention_moments(q, k, v, "cosine", mesh=mesh_of(3))
         with pytest.raises(ValueError, match="activation"):
             pa.attention_moments(q, k, v, "relu")
         with pytest.raises(ValueError, match="mode"):

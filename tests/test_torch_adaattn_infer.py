@@ -92,8 +92,10 @@ def test_video_stylizer_i420_and_guards(rng, both):
     assert len(yuv) == 3 and yuv[0].shape == (32, 48, 3)
     # I420 subsamples chroma: close to the RGB frames, not equal
     assert np.abs(yuv[0].astype(int) - rgb[0].astype(int)).mean() < 8
-    with pytest.raises(NotImplementedError, match="mesh"):
-        AdaAttNVideoStylizer(vgg, net, style, mesh=object())
+    from tests.torch_dist import mesh_of
+
+    with pytest.raises(ValueError, match="divisible by the 3-device mesh"):
+        AdaAttNVideoStylizer(vgg, net, style, batch_size=2, mesh=mesh_of(3))
 
 
 @pytest.fixture(scope="module")

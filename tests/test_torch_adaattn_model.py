@@ -118,10 +118,13 @@ def test_style_state_matches_jax(port):
                                        rtol=1e-4, atol=1e-4, err_msg=key)
 
 
-def test_no_conv_module_and_guards(port):
+def test_no_conv_module_and_guards(port, tmp_path):
     """adaattn_no_conv (the local-loss target) against JAX; a style state
-    refuses a batch of styles; mesh raises; remat gives the forward and the
-    gradients of no remat."""
+    refuses a batch of styles; a world-1 mesh gives the bits of mesh=None
+    and tokens that do not divide by the mesh axis raise; remat gives the
+    forward and the gradients of no remat."""
+    from tests.torch_dist import mesh_of, world1
+
     rng = np.random.default_rng(6)
     cx, sx = (rng.standard_normal((1, 6, 8, 16)).astype(np.float32)
               for _ in range(2))
@@ -137,8 +140,13 @@ def test_no_conv_module_and_guards(port):
         fc = vgg(torch.from_numpy(c))
         with pytest.raises(ValueError, match="one style"):
             pa.style_state(net, fc)
-        with pytest.raises(NotImplementedError, match="scale-out"):
-            pa.stylizing_network(net, fc, fc, mesh=object())
+        with world1(tmp_path) as mesh:
+            for act in ("softmax", "cosine"):
+                torch.testing.assert_close(
+                    pa.stylizing_network(net, fc, fc, act, mesh=mesh),
+                    pa.stylizing_network(net, fc, fc, act), rtol=0, atol=0)
+        with pytest.raises(ValueError, match="divide by the 5-way"):
+            pa.stylizing_network(net, fc, fc, mesh=mesh_of(5))
     grads = []
     for remat in (False, True):
         net.zero_grad()

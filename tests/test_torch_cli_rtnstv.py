@@ -103,8 +103,8 @@ def test_preempted_run_exits_zero_and_resumes(data, tmp_path, monkeypatch,
     of the epoch (the preempted step logs nothing)."""
     build = steps.make_rtnstv_step
 
-    def wrapped_build(cfg, vgg, grams):
-        step = build(cfg, vgg, grams)
+    def wrapped_build(cfg, vgg, grams, mesh=None):
+        step = build(cfg, vgg, grams, mesh)
 
         def wrapped(state, batch):
             if preempt and state.step == 1:

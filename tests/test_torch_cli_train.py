@@ -62,8 +62,8 @@ def _recording(monkeypatch, kind, seen, preempt_at=None):
     name = f"make_adaattn_{kind}_step"
     build = getattr(steps, name)
 
-    def wrapped_build(cfg, vgg):
-        step = build(cfg, vgg)
+    def wrapped_build(cfg, vgg, mesh=None):
+        step = build(cfg, vgg, mesh)
 
         def wrapped(state, batch):
             if preempt_at and state.step == preempt_at[0]:
@@ -175,8 +175,13 @@ def test_preempted_run_resumes_bitwise(uninterrupted, folders, tmp_path,
      "--teacher-weights is required"),
     # RTNSTV trains since its slice: a step on a two-frame Videvo tree
     (["--trainer", "rtnstv", "--data-format", "videvo"], None),
-    (["--trainer", "adaattn-image", "--data-parallel", "2"], "item 20"),
-    (["--trainer", "adaattn-video", "--multihost"], "item 20"),
+    # data parallelism over 2 ranks needs a batch that divides by 2
+    (["--trainer", "adaattn-image", "--data-parallel", "2",
+      "--batch-size", "3"], "divisible by the 2-device data mesh"),
+    # no TPU pod auto-detection: --multihost needs the process count and id
+    (["--trainer", "adaattn-video", "--multihost"], "--num-processes"),
+    (["--trainer", "adaattn-video", "--multihost", "127.0.0.1:1"],
+     "--num-processes"),
 ])
 def test_unported_options_exit_cleanly(argv, match, tmp_path):
     if match is None:

@@ -100,25 +100,35 @@ class TestNoCard:
 
 
 def test_cli_rejects_unported(tmp_path, capsys):
-    """--data-parallel is refused; --model rtnstv runs since RTNSTV's
-    slice and writes its frames."""
+    """--model rtnstv runs since RTNSTV's slice and writes its frames, and
+    --data-parallel 1 (one rank through a world-1 gloo group) writes the
+    same frames; a batch that does not divide by the ranks exits."""
+    from PIL import Image
     from vst_tpu_torch.cli import infer_video
 
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match="divisible by the 2-device"):
         infer_video.main(["--model", "reconet", "--data-parallel", "2",
-                          "--weights", "w.pth", "--video", "v.avi",
-                          "--device", "cpu"])
+                          "--batch-size", "3", "--weights", "w.pth",
+                          "--video", "v.avi", "--device", "cpu"])
     from vst_tpu.models.rtnstv import init_stylizing_network
     from vst_tpu.train.checkpoint import save_params
 
     weights = str(tmp_path / "rtnstv.npz")
     save_params(init_stylizing_network(0), weights)
-    infer_video.main(["--model", "rtnstv", "--weights", weights, "--video",
-                      _mjpg(tmp_path / "in.avi", n=2), "--size", "32", "24",
-                      "--frames-dir", str(tmp_path / "frames"),
-                      "--device", "cpu"])
-    assert "2 frames" in capsys.readouterr().out
-    assert len(list((tmp_path / "frames").glob("*.jpg"))) == 2
+    video = _mjpg(tmp_path / "in.avi", n=3)
+    for name, extra in (("frames", []), ("dp", ["--data-parallel", "1"])):
+        infer_video.main(["--model", "rtnstv", "--weights", weights,
+                          "--video", video, "--size", "32", "24",
+                          "--batch-size", "2", "--frames-ext", "png",
+                          "--frames-dir", str(tmp_path / name),
+                          "--device", "cpu", *extra])
+        assert "3 frames" in capsys.readouterr().out
+    ref = sorted((tmp_path / "frames").glob("*.png"))
+    ours = sorted((tmp_path / "dp").glob("*.png"))
+    assert len(ref) == len(ours) == 3
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(np.asarray(Image.open(a)),
+                                      np.asarray(Image.open(b)))
 
 
 def _mjpg(path, n=5, w=32, h=24):

@@ -1,0 +1,274 @@
+"""Multi-rank harness for the port's CPU tests: real spawned gloo process
+groups, one process per rank, with a timeout of their own.
+
+``spawn(fn, world, tmp_path, *args)`` runs ``fn(mesh_rank, world, *args)``
+in ``world`` spawned processes joined through ``multihost.initialize``
+(gloo, ``file://`` rendezvous under ``tmp_path``) and returns their results
+in rank order.  A rank that raises fails the test with its traceback; a
+group that does not finish within ``timeout`` seconds is killed and fails
+the test, so a collective that hangs cannot eat the suite's time limit.
+
+The rank functions live here, not in the test files: a spawned child
+imports the module of its function, and this one imports neither JAX nor
+the JAX package.  Results cross back as numpy arrays (pickled)."""
+
+import contextlib
+import os
+import queue
+import signal
+import subprocess
+import sys
+import time
+import traceback
+import uuid
+
+import numpy as np
+import torch
+
+
+def spawn(fn, world, tmp_path, *args, timeout=120.0):
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = "file://" + os.path.join(str(tmp_path), f"rdzv_{uuid.uuid4().hex}")
+    procs = [ctx.Process(target=_child, daemon=True,
+                         args=(fn, rank, world, init, results, args))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    out = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(out) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise AssertionError(
+                    f"{fn.__name__}: {world} ranks did not finish in "
+                    f"{timeout:.0f} s (ranks done: {sorted(out)})")
+            try:
+                rank, ok, payload = results.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead and results.empty():
+                    raise AssertionError(f"{fn.__name__}: a rank died with "
+                                         f"exit code {dead[0]}")
+                continue
+            if not ok:
+                raise AssertionError(f"{fn.__name__} rank {rank}:\n{payload}")
+            out[rank] = payload
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [out[r] for r in range(world)]
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_commands(commands, timeout=180.0):
+    """Run each command (argv lists after the interpreter) as its own
+    process group, all at once, from the repo root; return
+    [(returncode, output)].  Past ``timeout`` every group is killed,
+    spawned ranks included, and the test fails."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    logs = [tempfile.TemporaryFile("w+") for _ in commands]
+    procs = [subprocess.Popen([sys.executable, *c], cwd=REPO, env=env,
+                              stdout=log, stderr=subprocess.STDOUT,
+                              text=True, start_new_session=True)
+             for c, log in zip(commands, logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        rcs = [p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+               for p in procs]
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"commands did not finish in {timeout:.0f} s: "
+                             f"{commands}") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    out = []
+    for rc, log in zip(rcs, logs):
+        log.seek(0)
+        out.append((rc, log.read()))
+        log.close()
+    return out
+
+
+def _child(fn, rank, world, init, results, args):
+    from vst_tpu_torch.parallel import multihost
+
+    torch.set_num_threads(1)
+    try:
+        multihost.initialize(num_processes=world, process_id=rank,
+                             device="cpu", init_method=init)
+        results.put((rank, True, fn(rank, world, *args)))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        multihost.shutdown()
+
+
+@contextlib.contextmanager
+def world1(tmp_path):
+    """A world-1 gloo group in this process and its 1-D mesh, for the
+    duration of the block."""
+    from vst_tpu_torch.parallel import make_mesh, multihost
+
+    multihost.initialize(num_processes=1, process_id=0, device="cpu",
+                         init_method="file://" + os.path.join(
+                             str(tmp_path), f"rdzv_{uuid.uuid4().hex}"))
+    try:
+        yield make_mesh()
+    finally:
+        multihost.shutdown()
+
+
+def mesh_of(n):
+    """A mesh object of a ``n``-way data axis whose rank is the first: for
+    the checks that run before any collective."""
+    from vst_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(("data",), (n,), {}, {}, {"data": 0}, torch.device("cpu"))
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+# ------------------------------------------------------------- rank bodies
+
+def mesh_layouts(rank, world):
+    """A 1-D mesh with shard_batch and replicate on it, and a (1, world)
+    data×space mesh's groups."""
+    from vst_tpu_torch.parallel import make_mesh, replicate, shard_batch
+
+    mesh = make_mesh()
+    x = torch.arange(world * 6, dtype=torch.float32).reshape(world * 2, 3)
+    own = shard_batch(mesh, {"x": x, "y": [x.numpy()]})
+    tree = {"w": torch.full((3,), float(rank)),
+            "b": [torch.full((2,), rank, dtype=torch.int64)]}
+    replicate(mesh, tree)
+    grid = make_mesh(None, ("data", "space"), (1, world))
+    return ({"shape": mesh.shape, "index": mesh.index, "ranks": mesh.ranks,
+             "own": _np(own["x"]), "own_y": _np(own["y"][0]),
+             "w": _np(tree["w"]), "b": _np(tree["b"][0])},
+            {"shape": grid.shape, "index": grid.index, "ranks": grid.ranks})
+
+
+def _seeded(seed):
+    from vst_tpu_torch.compat import params_from_jax
+    from vst_tpu_torch.models import reconet
+
+    return reconet.build("reconet", params_from_jax(
+        reconet.init_params("reconet", seed, 1)), 1, "cpu")
+
+
+def reconet_flow_step(rank, world, cfg, batch, style, shard, seed=0):
+    """One ReCoNet flow step on this rank's shard of ``batch`` (or the
+    whole batch when ``shard`` is False); the metrics, the (averaged)
+    gradients and the updated parameters."""
+    from vst_tpu_torch.models import vgg as pv
+    from vst_tpu_torch.parallel import make_mesh, replicate, shard_batch
+    from vst_tpu_torch.train import state as ps
+    from vst_tpu_torch.train import steps as pst
+
+    mesh = make_mesh() if shard else None
+    vgg = pv.init_vgg16_reconet(0, device="cpu")
+    state = ps.create(_seeded(seed), cfg.lr)
+    if mesh is not None:
+        replicate(mesh, state)
+        batch = shard_batch(mesh, batch)
+    grams = pst.reconet_style_grams(vgg, style)
+    step = pst.make_reconet_flow_step(cfg, vgg, grams, mesh)
+    state, metrics = step(state, batch)
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: _np(p.grad) for k, p in state.model.named_parameters()},
+            {k: _np(v) for k, v in state.model.state_dict().items()})
+
+
+def adaattn_step(rank, world, kind, cfg, batch, shard):
+    """One AdaAttN image or video step, as ``reconet_flow_step``."""
+    from vst_tpu_torch.models import adaattn as pa
+    from vst_tpu_torch.models import vgg as pv
+    from vst_tpu_torch.parallel import make_mesh, replicate, shard_batch
+    from vst_tpu_torch.train import state as ps
+    from vst_tpu_torch.train import steps as pst
+
+    mesh = make_mesh() if shard else None
+    vgg = pv.init_vgg19_adaattn(0, device="cpu")
+    state = ps.create(pa.init_stylizing_network(1, device="cpu"), cfg.lr)
+    if mesh is not None:
+        replicate(mesh, state)
+        batch = shard_batch(mesh, batch)
+    build = {"image": pst.make_adaattn_image_step,
+             "video": pst.make_adaattn_video_step}[kind]
+    state, metrics = build(cfg, vgg, mesh)(state, batch)
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: _np(p.grad) for k, p in state.model.named_parameters()},
+            {k: _np(v) for k, v in state.model.state_dict().items()})
+
+
+def sharded_moments(rank, world, activation, q, k, v):
+    """The sequence-parallel moments of full q, k, v (every rank gets the
+    full result through ``attention_moments(mesh=)``) and this rank's
+    shard straight from the sharded function."""
+    from vst_tpu_torch.models import adaattn as pa
+    from vst_tpu_torch.parallel import attention as sp
+    from vst_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+    full = pa.attention_moments(q, k, v, activation, mesh=mesh)
+    fn = {"cosine": sp.sharded_cosine_attention_moments,
+          "softmax": sp.sharded_softmax_attention_moments}[activation]
+    n, m = q.shape[1] // world, k.shape[1] // world
+    own = fn(mesh, q[:, rank * n:(rank + 1) * n],
+             k[:, rank * m:(rank + 1) * m], v[:, rank * m:(rank + 1) * m])
+    return [_np(t) for t in full], [_np(t) for t in own]
+
+
+def stylizer_with_mesh(rank, world, activation, content, style):
+    """``stylizing_network(..., mesh=)`` of the seeded AdaAttN (VGG19 seed
+    0, AdaAttN seed 1) on every rank."""
+    from vst_tpu_torch.models import adaattn as pa
+    from vst_tpu_torch.models import vgg as pv
+    from vst_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    vgg = pv.init_vgg19_adaattn(0, device="cpu")
+    net = pa.init_stylizing_network(1, device="cpu")
+    with torch.no_grad():
+        fc = vgg(torch.from_numpy(content))
+        fs = vgg(torch.from_numpy(style))
+        return _np(pa.stylizing_network(net, fc, fs, activation, mesh=mesh))
+
+
+def video_stylizer(rank, world, frames, style, batch_size, activation):
+    """``AdaAttNVideoStylizer`` with a mesh: rank 0's styled frames (the
+    others get none), and rank 0's run without a mesh before it."""
+    from vst_tpu_torch.infer.video import AdaAttNVideoStylizer
+    from vst_tpu_torch.models import adaattn as pa
+    from vst_tpu_torch.models import vgg as pv
+    from vst_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    vgg = pv.init_vgg19_adaattn(0, device="cpu")
+    net = pa.init_stylizing_network(1, device="cpu")
+    ref = None
+    if rank == 0:
+        ref = list(AdaAttNVideoStylizer(vgg, net, style, activation,
+                                        batch_size).stylize_frames(
+                                            iter(frames)))
+    out = list(AdaAttNVideoStylizer(
+        vgg, net, style, activation, batch_size, mesh=mesh).stylize_frames(
+            iter(frames) if rank == 0 else None))
+    return ref, out

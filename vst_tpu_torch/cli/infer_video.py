@@ -11,6 +11,13 @@ a live window.
         --weights reconet.pth --video in.avi --out styled.mp4
     python -m vst_tpu_torch.cli.infer_video --model adaattn \\
         --weights adaattn.pth --style style.png --video in.avi --out s.mp4
+
+``--data-parallel N`` serves on N ranks of this host, one card each
+(NCCL; gloo under ``--device cpu``), spawned and joined through a
+``file://`` rendezvous in a temporary directory (N = 1: one rank in this
+process, through a world-1 group; no N: every card).  Rank 0 decodes and
+scatters each batch, every rank stylizes its slice, rank 0 gathers and
+writes; ``--batch-size`` must divide by N.
 """
 
 import argparse
@@ -27,11 +34,12 @@ from vst_tpu_torch.cli.common import (check_weights_match, load_image_255,
 from vst_tpu_torch.device import resolve_device
 from vst_tpu_torch.infer.image import stylize_reconet, stylize_rtnstv
 from vst_tpu_torch.infer.video import (AdaAttNVideoStylizer,
-                                       StreamingStylizer,
+                                       ShardedBatches, StreamingStylizer,
                                        StreamingVideoWriter,
                                        frames_from_source, video_fps)
 from vst_tpu_torch.models import adaattn, rtnstv
 from vst_tpu_torch.models.reconet import build
+from vst_tpu_torch.parallel import make_mesh, multihost, replicate
 
 
 def _validated_wire(wire, size, weights2=None):
@@ -85,31 +93,34 @@ def build_parser():
                         "the card (half the bytes; bit-exact cv2)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--data-parallel", type=int, metavar="N", nargs="?",
-                   const=0, help="not ported yet")
+                   const=0, help="serve on N ranks of this host, one "
+                                 "device each (no N: every card)")
     return p
 
 
-def _load_model(family, path, input_frame_num, device):
+def _load_model(family, path, input_frame_num, device, mesh=None):
     state = load_weights(path)
     check_weights_match(state, family, path, input_frame_num)
     dtype = next(iter(state.values())).dtype
     if family == "rtnstv":
-        return rtnstv.build(state, device, dtype)
-    return build(family, state, input_frame_num, device, dtype)
+        model = rtnstv.build(state, device, dtype)
+    else:
+        model = build(family, state, input_frame_num, device, dtype)
+    return model if mesh is None else replicate(mesh, model)
 
 
-def _stylizer(family, path, input_frame_num, device):
+def _stylizer(family, path, input_frame_num, device, mesh=None):
     """``(batch, wire) -> styled uint8 frames`` of the ``family``
-    checkpoint at ``path``."""
-    model = _load_model(family, path, input_frame_num, device)
+    checkpoint at ``path`` (broadcast from rank 0 with a ``mesh``)."""
+    model = _load_model(family, path, input_frame_num, device, mesh)
     stylize = stylize_rtnstv if family == "rtnstv" else stylize_reconet
     return lambda batch, wire="rgb": stylize(model, batch, uint8_out=True,
                                              wire=wire)
 
 
-def _adaattn_frames(args, device):
+def _adaattn_frames(args, device, mesh=None):
     """AdaAttN: the style encoded once, frames area-resized (as
-    vst_tpu.cli.infer_video)."""
+    vst_tpu.cli.infer_video); with a ``mesh`` only rank 0 decodes."""
     if not args.style:
         raise SystemExit("error: --style is required for adaattn")
     if args.weights2:
@@ -120,20 +131,26 @@ def _adaattn_frames(args, device):
     dtype = next(iter(state.values())).dtype
     model = adaattn.build(state, device, dtype)
     vgg = load_vgg_weights(args.vgg_weights, device=device, dtype=dtype)
+    if mesh is not None:
+        replicate(mesh, model)
+        replicate(mesh, vgg)
     size = tuple(args.size or (512, 256))
     wire = _validated_wire(args.wire, size)
     stylizer = AdaAttNVideoStylizer(
         vgg, model, load_image_255(args.style, size)[None], args.activation,
-        args.batch_size, pipeline_depth=args.pipeline_depth, wire=wire)
-    return stylizer.stylize_frames(
-        frames_from_source(args.video, size, "area", dtype="uint8"))
+        args.batch_size, pipeline_depth=args.pipeline_depth, wire=wire,
+        mesh=mesh)
+    frames = (frames_from_source(args.video, size, "area", dtype="uint8")
+              if multihost.is_primary() else None)
+    return stylizer.stylize_frames(frames)
 
 
-def _feed_forward_frames(args, device):
+def _feed_forward_frames(args, device, mesh=None):
     """The ReCoNet family and RTNSTV: frames resized linearly, optionally
-    beside a second checkpoint's (``--weights2``)."""
+    beside a second checkpoint's (``--weights2``); with a ``mesh`` each
+    batch is split over its ranks and only rank 0 decodes."""
     stylize = _stylizer(args.model, args.weights, args.input_frame_num,
-                        device)
+                        device, mesh)
     size = tuple(args.size or (640, 360))
     wire = _validated_wire(args.wire, size, args.weights2)
 
@@ -142,28 +159,43 @@ def _feed_forward_frames(args, device):
 
     if args.weights2:
         stylize2 = _stylizer(args.model2 or args.model, args.weights2,
-                             args.input_frame_num, device)
+                             args.input_frame_num, device, mesh)
 
         def model_fn(batch):  # noqa: F811 — side-by-side comparison
             return torch.cat([stylize(batch), stylize2(batch)], dim=2)
 
-    frames = frames_from_source(args.video, size, "linear", dtype="uint8")
-    return iter(StreamingStylizer(
-        model_fn, frames, args.input_frame_num, args.batch_size,
-        args.first_frame, pipeline_depth=args.pipeline_depth, wire=wire,
-        device=device))
+    def stream(fn):
+        frames = frames_from_source(args.video, size, "linear",
+                                    dtype="uint8")
+        return StreamingStylizer(
+            fn, frames, args.input_frame_num, args.batch_size,
+            args.first_frame, pipeline_depth=args.pipeline_depth, wire=wire,
+            device=device)
+
+    if mesh is None:
+        return iter(stream(model_fn))
+    return ShardedBatches(mesh, model_fn).stream(stream)
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    if args.data_parallel is not None:
-        raise SystemExit("error: --data-parallel is not ported to "
-                         "vst_tpu_torch yet")
+def serve(args):
+    """Stylize the video and write what was asked for: on one device, or
+    as this rank of the initialized process group (data parallel; rank 0
+    decodes and writes)."""
     device = resolve_device(args.device)
+    mesh = None
+    if args.data_parallel is not None:
+        mesh = make_mesh(None, ("data",))
+        if multihost.is_primary():
+            print(f"data-parallel serving over {mesh.size} devices "
+                  f"({args.batch_size // mesh.size} frames/device)")
     if args.model == "adaattn":
-        out_iter = _adaattn_frames(args, device)
+        out_iter = _adaattn_frames(args, device, mesh)
     else:
-        out_iter = _feed_forward_frames(args, device)
+        out_iter = _feed_forward_frames(args, device, mesh)
+    if not multihost.is_primary():
+        for _ in out_iter:   # serve rank 0's batches; nothing comes out
+            pass
+        return
 
     show = args.show
     if show:
@@ -190,6 +222,7 @@ def main(argv=None):
             cv2.imshow("stylized", np.asarray(frame)[..., ::-1])  # RGB→BGR
             if cv2.waitKey(1) & 0xFF == ord("q"):
                 break
+    out_iter.close()   # with a mesh: tells the other ranks to stop
     if show:
         cv2.destroyAllWindows()
     if writer is not None:
@@ -198,6 +231,23 @@ def main(argv=None):
     print(f"{count} frames in {dt:.2f}s → {count / dt:.1f} fps")
     if args.out:
         print(args.out)
+
+
+def _serve_argv(argv):
+    serve(build_parser().parse_args(argv))
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    if args.data_parallel is None:
+        serve(args)
+        return
+    n = multihost.local_rank_count(args.data_parallel, args.device)
+    if args.batch_size % n:
+        raise SystemExit(f"--batch-size {args.batch_size} must be "
+                         f"divisible by the {n}-device data mesh")
+    multihost.run_local_ranks(_serve_argv, argv, n, args.device)
 
 
 if __name__ == "__main__":

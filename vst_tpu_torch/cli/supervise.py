@@ -23,9 +23,13 @@ When the heartbeat is a metrics jsonl, liveness is the ``"step"`` counter
 in its tail, not the file mtime — a wedged device lease whose host-side
 retries keep appending log lines is still detected as a hang.
 
-Multi-process children (``--multihost``, ROADMAP item 20, not ported
-yet) need one supervisor per host, each watching a per-host
-``--heartbeat-file``; the rules for it are kept.
+Multi-process children (``--multihost``: one trainer per rank) need one
+supervisor per rank, each watching that rank's own ``--heartbeat-file``
+(the metrics jsonl advances on rank 0 only).  When a rank dies, its peers
+fail or stall at their next collective, their supervisors restart them,
+and every restarted rank waits in ``initialize`` for the others (its
+heartbeat kept alive meanwhile) and checks that all ranks resume at the
+same position before the first step.
 
 This is the aux subsystem the reference lacks outright (SURVEY.md §5.3:
 "failure detection / elastic recovery — absent").

@@ -13,17 +13,29 @@ takes the place of ``--platform``.
         --data-format videvo --style candy.jpg --out-dir models
     python -m vst_tpu_torch.cli.train --trainer adaattn-image \\
         --data coco/train2014,wikiart --out-dir models --resume auto
+
+Data parallelism: ``--data-parallel N`` spawns N ranks on this host, one
+card each (NCCL; gloo on the CPU under ``--device cpu``), joined through
+a ``file://`` rendezvous in a temporary directory; ``-1`` takes every card
+and 1 runs one rank in this process, still through a world-1 group.
+``--multihost HOST:PORT --num-processes P --process-id I`` runs this
+process as rank I of P (on any host), which implies ``--data-parallel
+-1``: the global batch is split over every rank, and each rank loads only
+its slice.
 """
 
 import argparse
 import dataclasses
 import os
+import sys
+import threading
 
 from vst_tpu_torch.cli.common import (load_image_255, load_vgg_weights,
                                       load_weights)
 from vst_tpu_torch.compat import params_from_jax
 from vst_tpu_torch.device import resolve_device
 from vst_tpu_torch.models import adaattn, reconet, rtnstv
+from vst_tpu_torch.parallel import make_mesh, multihost, replicate
 from vst_tpu_torch.train import config as C
 from vst_tpu_torch.train import steps
 from vst_tpu_torch.train.checkpoint import load_state, partial_init_from
@@ -103,9 +115,14 @@ def build_parser():
                    help="rtnstv: SceneFlow GT flow or Videvo precomputed "
                         "flow")
     p.add_argument("--data-parallel", type=int, default=0, metavar="N",
-                   help="not ported yet (0 = off)")
+                   help="data parallelism over N ranks of this host, one "
+                        "device each (0 = off, -1 = every card; under "
+                        "--multihost: the whole process group)")
     p.add_argument("--multihost", nargs="?", const="auto",
-                   metavar="COORD:PORT", help="not ported yet")
+                   metavar="COORD:PORT",
+                   help="run as one rank of a multi-process group whose "
+                        "rank 0 listens at COORD:PORT; needs "
+                        "--num-processes and --process-id")
     p.add_argument("--num-processes", type=int, help="see --multihost")
     p.add_argument("--process-id", type=int, help="see --multihost")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -183,7 +200,23 @@ def _seeded_model(family, seed, input_frame_num, device, donor=None):
     return reconet.build(family, state, input_frame_num, device)
 
 
-def _build_reconet(args, device):
+def trainer_config(args):
+    """The trainer's config with the command line's overrides."""
+    t = args.trainer
+    if t == "reconet-coco":
+        base = C.ReCoNetCocoConfig()
+    elif t.startswith("reconet"):
+        base = RECONET_FLOW[t]
+    elif t == "rtnstv":
+        base = C.RTNSTVConfig()
+    elif t == "adaattn-image":
+        base = C.AdaAttNImageConfig()
+    else:
+        base = C.AdaAttNVideoConfig()
+    return _override(base, args)
+
+
+def _build_reconet(args, device, mesh):
     """(config, dataset, state, step) of a ReCoNet trainer, seeded as JAX
     seeds it: ``init_reconet(seed, input_frame_num)`` (or the student's
     init with the teacher's matching weights copied in) and the VGG16 of
@@ -192,7 +225,7 @@ def _build_reconet(args, device):
 
     t = args.trainer
     coco = t == "reconet-coco"
-    cfg = _override(C.ReCoNetCocoConfig() if coco else RECONET_FLOW[t], args)
+    cfg = trainer_config(args)
     vgg = load_vgg_weights(args.vgg_weights, device, seed=args.seed,
                            flavor="vgg16")
     # candy and starry-night resize the style image to img_size; the
@@ -203,7 +236,7 @@ def _build_reconet(args, device):
     if coco:
         dataset = Coco2014(args.data, cfg.img_size)
         model = _seeded_model("reconet", args.seed, 1, device)
-        step = steps.make_reconet_coco_step(cfg, vgg, grams)
+        step = steps.make_reconet_coco_step(cfg, vgg, grams, mesh)
     elif t in ("reconet-sd1", "reconet-sd2"):
         dataset = SceneFlowCombined(args.data, cfg.img_size,
                                     cfg.input_frame_num)
@@ -212,82 +245,125 @@ def _build_reconet(args, device):
                                 device)
         model = _seeded_model(cfg.student, args.seed, cfg.input_frame_num,
                               device, donor)
-        step = steps.make_reconet_distill_step(cfg, vgg, grams, teacher)
+        step = steps.make_reconet_distill_step(cfg, vgg, grams, teacher,
+                                               mesh)
     else:
         dataset = SceneFlowCombined(args.data, cfg.img_size,
                                     cfg.input_frame_num)
         donor = load_weights(args.init_weights) if args.init_weights else None
         model = _seeded_model("reconet", args.seed, cfg.input_frame_num,
                               device, donor)
-        step = steps.make_reconet_flow_step(cfg, vgg, grams)
+        step = steps.make_reconet_flow_step(cfg, vgg, grams, mesh)
     return cfg, dataset, create(model, cfg.lr), step
 
 
-def _build_rtnstv(args, device):
+def _build_rtnstv(args, device, mesh):
     """(config, dataset, state, step) of the RTNSTV trainer, seeded as JAX
     seeds it: ``rtnstv.init_stylizing_network(seed)`` and the VGG19 of
     ``load_vgg_weights(path, "vgg19_rtnstv", seed)``; the style image as
     it is, SceneFlow at ``img_size`` or Videvo frames at their own size."""
     from vst_tpu_torch.data.datasets import SceneFlowCombined, VidevoFlow
 
-    cfg = _override(C.RTNSTVConfig(), args)
+    cfg = trainer_config(args)
     vgg = load_vgg_weights(args.vgg_weights, device, seed=args.seed,
                            flavor="vgg19_rtnstv")
     grams = steps.rtnstv_style_grams(vgg, _style_tensor(args))
     dataset = (VidevoFlow(args.data) if args.data_format == "videvo"
                else SceneFlowCombined(args.data, cfg.img_size))
     state = create(rtnstv.init_stylizing_network(args.seed, device), cfg.lr)
-    return cfg, dataset, state, steps.make_rtnstv_step(cfg, vgg, grams)
+    return cfg, dataset, state, steps.make_rtnstv_step(cfg, vgg, grams,
+                                                       mesh)
 
 
-def build_trainer(args, device):
-    """(config, dataset, state, step) of a trainer.  An AdaAttN trainer is
-    seeded as JAX seeds it: ``init_stylizing_network(seed)`` and the VGG19
-    of ``load_vgg_weights(path, seed=seed)``."""
+def build_trainer(args, device, mesh=None):
+    """(config, dataset, state, step) of a trainer; ``mesh``: the step's
+    data-parallel mesh.  An AdaAttN trainer is seeded as JAX seeds it:
+    ``init_stylizing_network(seed)`` and the VGG19 of
+    ``load_vgg_weights(path, seed=seed)``."""
     if args.trainer.startswith("reconet"):
-        return _build_reconet(args, device)
+        return _build_reconet(args, device, mesh)
     if args.trainer == "rtnstv":
-        return _build_rtnstv(args, device)
+        return _build_rtnstv(args, device, mesh)
     from vst_tpu_torch.data.datasets import CocoWikiArt, VidevoWikiArt
 
     image = args.trainer == "adaattn-image"
-    cfg = _override(C.AdaAttNImageConfig() if image
-                    else C.AdaAttNVideoConfig(), args)
+    cfg = trainer_config(args)
     vgg = load_vgg_weights(args.vgg_weights, device, seed=args.seed)
     content_path, wikiart_path = args.data.split(",")
     if image:
         dataset = CocoWikiArt(content_path, wikiart_path, cfg.crop_size,
                               args.seed)
-        step = steps.make_adaattn_image_step(cfg, vgg)
+        step = steps.make_adaattn_image_step(cfg, vgg, mesh)
     else:
         dataset = VidevoWikiArt(content_path, wikiart_path, args.seed,
                                 size_crop=cfg.frame_size)
-        step = steps.make_adaattn_video_step(cfg, vgg)
+        step = steps.make_adaattn_video_step(cfg, vgg, mesh)
     state = create(adaattn.init_stylizing_network(args.seed, device), cfg.lr)
     return cfg, dataset, state, step
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    if args.trainer in PER_STYLE and not args.style:
-        raise SystemExit(f"error: --style is required for trainer "
-                         f"'{args.trainer}'")
-    if args.trainer in ("reconet-sd1", "reconet-sd2") and (
-            not args.teacher_weights):
-        raise SystemExit(f"error: --teacher-weights is required for "
-                         f"trainer '{args.trainer}'")
-    if args.data_parallel or args.multihost:
-        raise SystemExit("error: --data-parallel and --multihost are not "
-                         "ported to vst_tpu_torch yet (ROADMAP item 20)")
+def _check_resume_agreement(position):
+    """Every rank must resume at the same data position.  Rank 0 owns the
+    checkpoint; a rank whose --out-dir is not the shared one finds no state
+    under --resume auto, starts fresh and would desync the collectives
+    (its epoch and batch change its slicing).  An all-gather and compare,
+    not a broadcast, so that every rank sees the mismatch and aborts."""
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, list(position))
+    if any(e != every[0] for e in every):
+        raise SystemExit(
+            f"multihost resume mismatch: process {dist.get_rank()} derived "
+            f"epoch/batch/step {list(position)} but the cluster disagrees "
+            f"({every}) — all hosts must see the same --out-dir (shared "
+            f"storage) so --resume auto agrees")
+
+
+def _heartbeat_while(path):
+    """Touch ``path`` every 5 s until the returned event is set: keeps a
+    rank that waits in ``initialize`` for its peers (after a restart) alive
+    to its supervisor's hang timeout."""
+    if os.path.dirname(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+    open(path, "a").close()
+    stop = threading.Event()
+
+    def touch():
+        while not stop.wait(5.0):
+            os.utime(path, None)
+
+    threading.Thread(target=touch, daemon=True).start()
+    return stop
+
+
+def _check_batch(cfg, n_dev):
+    if cfg.batch_size % n_dev:
+        raise SystemExit(f"--batch-size {cfg.batch_size} must be divisible "
+                         f"by the {n_dev}-device data mesh")
+
+
+def train(args):
+    """Build the trainer, resume, and run it: on one device, or as this
+    rank of the initialized process group (data parallel)."""
     device = resolve_device(args.device)
     name = args.name or args.trainer
-    cfg, dataset, state, step = build_trainer(args, device)
+    mesh = make_mesh(None, ("data",)) if args.data_parallel else None
+    cfg, dataset, state, step = build_trainer(args, device, mesh)
     start_batch = 0
     if args.resume:
         n_batches = max(len(dataset) // cfg.batch_size, 1)
         args.epoch_start, start_batch = resume_position(
             state, args.resume, args.out_dir, name, args.epoch_start,
             n_batches)
+    if mesh is not None:
+        if mesh.size > 1:
+            _check_resume_agreement((args.epoch_start, start_batch,
+                                     state.step))
+        replicate(mesh, state)
+        if multihost.is_primary():
+            print(f"data-parallel over {mesh.size} devices "
+                  f"({cfg.batch_size // mesh.size} samples/device)")
     try:
         run_training(
             step, state, dataset,
@@ -304,6 +380,60 @@ def main(argv=None):
         # restarts this same command with --resume auto
         print(f"preempted: {e}")
         raise SystemExit(0)
+
+
+def _train_argv(argv):
+    train(build_parser().parse_args(argv))
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    if args.trainer in PER_STYLE and not args.style:
+        raise SystemExit(f"error: --style is required for trainer "
+                         f"'{args.trainer}'")
+    if args.trainer in ("reconet-sd1", "reconet-sd2") and (
+            not args.teacher_weights):
+        raise SystemExit(f"error: --teacher-weights is required for "
+                         f"trainer '{args.trainer}'")
+    if args.multihost:
+        if (args.multihost == "auto" or args.num_processes is None
+                or args.process_id is None):
+            raise SystemExit(
+                "error: --multihost needs COORD:PORT, --num-processes and "
+                "--process-id (torch has no TPU pod auto-detection)")
+        if args.data_parallel > 0 and args.data_parallel != (
+                args.num_processes):
+            raise SystemExit(
+                f"error: under --multihost the data mesh is the whole "
+                f"group: --data-parallel {args.data_parallel} != "
+                f"--num-processes {args.num_processes}")
+        _check_batch(trainer_config(args), args.num_processes)
+        # keep the heartbeat alive while blocked in initialize: after a
+        # crash, a restarted rank waits here until every host's supervisor
+        # has restarted its trainer, longer than its own hang timeout
+        stop = (_heartbeat_while(args.heartbeat_file)
+                if args.heartbeat_file else None)
+        try:
+            multihost.initialize(args.multihost, args.num_processes,
+                                 args.process_id, device=args.device)
+        finally:
+            if stop is not None:
+                stop.set()
+        args.data_parallel = -1
+        print(f"multihost: process {multihost.process_index()}/"
+              f"{multihost.process_count()}, one {args.device} device per "
+              f"process")
+        try:
+            train(args)
+        finally:
+            multihost.shutdown()
+    elif args.data_parallel:
+        n = multihost.local_rank_count(args.data_parallel, args.device)
+        _check_batch(trainer_config(args), n)
+        multihost.run_local_ranks(_train_argv, argv, n, args.device)
+    else:
+        train(args)
 
 
 if __name__ == "__main__":

@@ -9,6 +9,10 @@ queue, and up to ``pipeline_depth`` batches are in flight on the card:
 each batch goes up from a pinned host buffer and comes back into one,
 both copies without blocking, and a CUDA event per batch says when its
 result is on the host.  This takes the place of JAX's async dispatch.
+
+Data-parallel serving (``ShardedBatches``): rank 0 decodes, scatters each
+batch's frames over the mesh's "data" axis, every rank stylizes its
+slice, and rank 0 gathers the results in rank order and writes them.
 """
 
 import collections
@@ -17,6 +21,7 @@ from threading import Thread
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vst_tpu_torch.device import resolve_device
 
@@ -187,6 +192,85 @@ class StreamingStylizer:
         return frame
 
 
+# dtypes a batch may have on the wire of ShardedBatches' header: decoded
+# frames, or float 0-255 ones
+_WIRE_DTYPES = (torch.uint8, torch.float32)
+_HEADER = 8   # [more batches?, dtype code, ndim, dims...]
+
+
+class ShardedBatches:
+    """``fn`` over batches split along dim 0 across the "data" axis of
+    ``mesh``.
+
+    The axis's first rank (the root) calls the object on each whole batch:
+    it broadcasts the batch's shape and dtype, scatters one contiguous
+    slice to each rank, runs ``fn`` on its own slice and gathers the
+    results, in rank order, into the whole batch's result.  The other
+    ranks run ``serve()``, which answers the root's batches until it
+    calls ``close()``.  ``stream`` is the same on every rank: the root
+    iterates a stream of batches through the object, the others serve."""
+
+    def __init__(self, mesh, fn):
+        self.mesh, self.fn = mesh, fn
+        self.n = mesh.shape["data"]
+        self.group = mesh.groups["data"]
+        self.root = mesh.ranks["data"][0]
+        self.is_root = mesh.index["data"] == 0
+
+    def _header(self, values):
+        h = torch.zeros(_HEADER, dtype=torch.int64, device=self.mesh.device)
+        h[:len(values)] = torch.tensor(values, dtype=torch.int64)
+        dist.broadcast(h, src=self.root, group=self.group)
+        return h
+
+    def _run(self, local):
+        return torch.as_tensor(self.fn(local)).to(self.mesh.device).contiguous()
+
+    def __call__(self, batch):
+        batch = torch.as_tensor(batch)
+        if batch.shape[0] % self.n:
+            raise ValueError(f"batch of {batch.shape[0]} must be divisible "
+                             f"by the {self.n}-device mesh")
+        self._header([1, _WIRE_DTYPES.index(batch.dtype), batch.dim(),
+                      *batch.shape])
+        parts = list(batch.to(self.mesh.device).chunk(self.n))
+        local = torch.empty_like(parts[0])
+        dist.scatter(local, [p.contiguous() for p in parts], src=self.root,
+                     group=self.group)
+        out = self._run(local)
+        gathered = [torch.empty_like(out) for _ in range(self.n)]
+        dist.gather(out, gathered, dst=self.root, group=self.group)
+        return torch.cat(gathered)
+
+    def serve(self):
+        while True:
+            h = self._header([]).tolist()
+            if not h[0]:
+                return
+            shape = h[3:3 + h[2]]
+            local = torch.empty((shape[0] // self.n, *shape[1:]),
+                                dtype=_WIRE_DTYPES[h[1]],
+                                device=self.mesh.device)
+            dist.scatter(local, None, src=self.root, group=self.group)
+            dist.gather(self._run(local), None, dst=self.root,
+                        group=self.group)
+
+    def close(self):
+        self._header([0])
+
+    def stream(self, make):
+        """Root: yield from ``make(self)`` (an iterable whose batches go
+        through this object), then ``close``; other ranks: ``serve`` and
+        yield nothing."""
+        if not self.is_root:
+            self.serve()
+            return
+        try:
+            yield from make(self)
+        finally:
+            self.close()
+
+
 class AdaAttNVideoStylizer:
     """Arbitrary-style streaming stylizer (AdaAttN/infer_video.py:40-64):
     the style is encoded once into its attention state
@@ -197,7 +281,12 @@ class AdaAttNVideoStylizer:
     pinned host buffers, up to ``pipeline_depth`` batches in flight, the
     tail padded to ``batch_size``, and uint8 RGB or packed I420
     (``wire="i420"``) on the way back.  The card is the models' device.
-    ``mesh`` (data-parallel serving) comes with the scale-out slice."""
+
+    ``mesh``: data-parallel serving over its "data" axis
+    (``ShardedBatches``): every rank builds the stylizer and calls
+    ``stylize_frames``; rank 0's frames are decoded there and its iterator
+    yields every styled frame, the other ranks' yield none.
+    ``batch_size`` must divide by the axis size."""
 
     def __init__(self, vgg, model, style_255, activation="cosine",
                  batch_size: int = 2, pipeline_depth: int = 3,
@@ -206,9 +295,10 @@ class AdaAttNVideoStylizer:
                                                stylize_adaattn_cached)
         from vst_tpu_torch.ops.yuv import rgb_to_i420
 
-        if mesh is not None:
-            raise NotImplementedError("data-parallel AdaAttN serving (mesh=) "
-                                      "is not ported yet")
+        if mesh is not None and batch_size % mesh.shape["data"]:
+            raise ValueError(
+                f"batch_size {batch_size} must be divisible by the "
+                f"{mesh.shape['data']}-device mesh")
         if wire not in ("rgb", "i420"):
             raise ValueError(f"wire must be 'rgb' or 'i420', got {wire!r}")
         self.batch_size = batch_size
@@ -222,13 +312,20 @@ class AdaAttNVideoStylizer:
             return rgb_to_i420(cs) if wire == "i420" else cs.to(torch.uint8)
 
         self._run = run
+        self._sharded = None if mesh is None else ShardedBatches(mesh, run)
 
     def stylize_frames(self, frames):
-        """frames: iterator of HWC RGB uint8/float 0–255 → RGB uint8."""
-        return iter(StreamingStylizer(
-            self._run, frames, 1, self.batch_size,
-            pipeline_depth=self.pipeline_depth, wire=self.wire,
-            device=self.device))
+        """frames: iterator of HWC RGB uint8/float 0–255 → RGB uint8 (with
+        a mesh: on rank 0; the others pass None and get nothing)."""
+        def stream(model_fn):
+            return StreamingStylizer(
+                model_fn, frames, 1, self.batch_size,
+                pipeline_depth=self.pipeline_depth, wire=self.wire,
+                device=self.device)
+
+        if self._sharded is None:
+            return iter(stream(self._run))
+        return self._sharded.stream(stream)
 
 
 def write_video(path, frames, fps: float = 30.0):

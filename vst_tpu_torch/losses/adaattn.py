@@ -14,6 +14,7 @@ Tensors are NHWC.
 import torch
 
 from vst_tpu_torch.losses.perceptual import mse
+from vst_tpu_torch.parallel.mesh import batch_shards
 
 
 def _spatial_mean_std(f):
@@ -49,12 +50,13 @@ def cosine_distance(fu, fv):
     return 1.0 - dots / (nu[:, :, None] * nv[:, None, :] + 1e-6)
 
 
-def image_similarity_loss(fc1, fc2, fcs1, fcs2):
+def image_similarity_loss(fc1, fc2, fcs1, fcs2, mesh=None):
     """Frame-pair similarity-structure preservation
-    (AdaAttN/lossfn.py:41-53)."""
+    (AdaAttN/lossfn.py:41-53): a sum over the batch, multiplied by the
+    number of shards when the batch is this rank's shard of ``mesh``."""
     n = fc1.shape[1] * fc1.shape[2]
     d_c = cosine_distance(fc1, fc2)
     d_cs = cosine_distance(fcs1, fcs2)
     d_c = d_c / d_c.sum(dim=1, keepdim=True)
     d_cs = d_cs / d_cs.sum(dim=1, keepdim=True)
-    return torch.abs(d_c - d_cs).sum() / n
+    return torch.abs(d_c - d_cs).sum() / n * batch_shards(mesh)

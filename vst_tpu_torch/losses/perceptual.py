@@ -13,6 +13,7 @@ NHWC, taken in float32 (float64 for float64 inputs)."""
 import torch
 
 from vst_tpu_torch.ops.image import gram_matrix, gram_matrix_hw
+from vst_tpu_torch.parallel.mesh import batch_shards
 
 
 def _acc(x):
@@ -43,13 +44,15 @@ def reconet_style_loss(styled_feats, style_grams):
     return loss
 
 
-def reconet_reg_loss(styled):
+def reconet_reg_loss(styled, mesh=None):
     """Total variation as a raw sum of squared neighbour differences
-    (train_candy.py:140-145: torch.sum, not mean)."""
+    (train_candy.py:140-145: torch.sum, not mean).  With a ``mesh``,
+    ``styled`` is this rank's shard of the batch and the sum is multiplied
+    by the number of shards (the mean over ranks is the global sum)."""
     x = _acc(styled)
     reg1 = torch.square(x[:, :-1, 1:, :] - x[:, :-1, :-1, :])
     reg2 = torch.square(x[:, 1:, :-1, :] - x[:, :-1, :-1, :])
-    return torch.sum(reg1 + reg2)
+    return torch.sum(reg1 + reg2) * batch_shards(mesh)
 
 
 def rtnstv_spatial_loss(content_feats, styled_feats, style_grams, styled,

@@ -12,7 +12,11 @@ train_candy.py:91-123):
   (RTNSTV/train.py:117-133), divided by the SUM of the channel-expanded
   mask + 1e-8.
 
-Computed in float32 (float64 for float64 inputs).
+Computed in float32 (float64 for float64 inputs).  With a ``mesh`` the
+batch is this rank's shard of the global batch: the divisor is the global
+batch's count (``parallel/mesh.py::batch_total``) and the loss is
+multiplied by the number of shards, so that the mean over ranks is the
+global batch's loss.
 """
 
 import torch
@@ -20,13 +24,15 @@ import torch
 from vst_tpu_torch.ops.image import rgb_to_luma709
 from vst_tpu_torch.ops.resize import resize_bilinear
 from vst_tpu_torch.ops.warp import warp
+from vst_tpu_torch.parallel.mesh import batch_shards, batch_total
 
 
 def _acc(x):
     return x.double() if x.dtype == torch.float64 else x.float()
 
 
-def reconet_feature_temporal_loss(feature_map1, feature_map2, flow, mask):
+def reconet_feature_temporal_loss(feature_map1, feature_map2, flow, mask,
+                                  mesh=None):
     """FTL between consecutive frames' encoder features (N, Hf, Wf, C),
     with the image-resolution flow (N, H, W, 2) and occlusion mask (N, H,
     W).  Unweighted: the caller scales by lambda_f."""
@@ -39,11 +45,12 @@ def reconet_feature_temporal_loss(feature_map1, feature_map2, flow, mask):
     fmask = resize_bilinear(_acc(mask)[..., None], (hf, wf))
     fmask = (fmask > 0).to(acc).expand(feature_map1.shape)
     err = torch.square(_acc(feature_map2) - _acc(warped))
-    return torch.sum(fmask * err) / torch.count_nonzero(fmask).to(acc)
+    count = batch_total(mesh, torch.count_nonzero(fmask).to(acc))
+    return torch.sum(fmask * err) * batch_shards(mesh) / count
 
 
 def reconet_output_temporal_loss(img1n, img2n, styled1n, styled2n, flow,
-                                 mask):
+                                 mask, mesh=None):
     """OTL with the luminance-relaxed input term; the four (N, H, W, 3)
     images are already vgg-normalized, as in the reference, which
     normalizes before warping."""
@@ -52,13 +59,15 @@ def reconet_output_temporal_loss(img1n, img2n, styled1n, styled2n, flow,
     luma = rgb_to_luma709(input_term)[..., None].expand(output_term.shape)
     cmask = _acc(mask)[..., None].expand(output_term.shape)
     loss = torch.sum(cmask * torch.square(output_term - luma))
-    return loss / torch.count_nonzero(cmask).to(loss.dtype)
+    count = batch_total(mesh, torch.count_nonzero(cmask).to(loss.dtype))
+    return loss * batch_shards(mesh) / count
 
 
-def rtnstv_temporal_loss(styled1, styled2, flow, mask):
+def rtnstv_temporal_loss(styled1, styled2, flow, mask, mesh=None):
     """The first styled frame warped by ``flow`` against the second, on
     0–255 frames (N, H, W, 3), masked by ``mask`` (N, H, W).  Unweighted:
     the caller scales by lam."""
     cmask = _acc(mask)[..., None].expand(styled2.shape)
     err = torch.square(_acc(styled2) - _acc(warp(styled1, flow)))
-    return torch.sum(cmask * err) / (torch.sum(cmask) + 1e-8)
+    total = batch_total(mesh, torch.sum(cmask))
+    return torch.sum(cmask * err) * batch_shards(mesh) / (total + 1e-8)

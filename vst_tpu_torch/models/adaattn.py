@@ -21,11 +21,18 @@ Routing of ``attention_moments``:
 - cosine: the closed linear form (``"exact"``: the materialized oracle),
   plain torch matmuls, no kernel.
 ``stylizing_network(remat=True)`` checkpoints each attention module and
-the decoder (``torch.utils.checkpoint``).  The ``mesh`` (sequence-parallel)
-branches come with the scale-out slice and raise here.
+the decoder (``torch.utils.checkpoint``).
+
+With a ``mesh`` (``parallel/mesh.py``) the attention runs
+sequence-parallel over ``mesh_axis`` (``parallel/attention.py``): cosine
+as one all-reduce of the key moments, softmax as ring attention through
+K3.  Every rank passes the full q, k and v and gets the full M1 and M2
+back (its token shard computed, the others all-gathered), as JAX's
+global arrays; the token counts must divide by the axis size.
 """
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from vst_tpu_torch.compat import params_from_jax
@@ -163,24 +170,44 @@ def _attention_moments_cosine_exact(q, k, v):
     return torch.matmul(a, vf), torch.matmul(a, (v * v).float())
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "sequence-parallel attention (mesh=) is not ported yet; it "
-            "comes with the scale-out slice")
+def _sharded_moments(q, k, v, activation, mesh, axis):
+    """The sequence-parallel moments on full q, k, v: this rank's token
+    shard of each through ``parallel/attention.py``, then M1 and M2
+    all-gathered along ``axis`` into the full (b, n, c)."""
+    from vst_tpu_torch.parallel import attention as sp
+
+    n_dev, i = mesh.shape[axis], mesh.index[axis]
+    n, m = q.shape[1], k.shape[1]
+    if n % n_dev or m % n_dev:
+        raise ValueError(f"sequence-parallel attention: {n} query and {m} "
+                         f"key tokens must divide by the {n_dev}-way "
+                         f"'{axis}' axis")
+    fn = {"cosine": sp.sharded_cosine_attention_moments,
+          "softmax": sp.sharded_softmax_attention_moments}[activation]
+    qs, ks = n // n_dev, m // n_dev
+    m1, m2 = fn(mesh, q[:, i * qs:(i + 1) * qs].contiguous(),
+                k[:, i * ks:(i + 1) * ks].contiguous(),
+                v[:, i * ks:(i + 1) * ks].contiguous(), axis)
+    out = []
+    for part in (m1, m2):
+        parts = [torch.empty_like(part) for _ in range(n_dev)]
+        dist.all_gather(parts, part.contiguous(), group=mesh.groups[axis])
+        out.append(torch.cat(parts, dim=1))
+    return tuple(out)
 
 
 def attention_moments(q, k, v, activation: str, mode: str = "auto",
                       mesh=None, mesh_axis: str = "data"):
     """(A·V, A·V²) for q (b,n,d), k (b,m,d), v (b,m,c); routing in the
     module docstring.  K and V may be broadcast over the batch."""
-    _no_mesh(mesh)
+    if activation not in ("cosine", "softmax"):
+        raise ValueError(f"Unknown activation: {activation}")
+    if mesh is not None:
+        return _sharded_moments(q, k, v, activation, mesh, mesh_axis)
     if activation == "cosine":
         if mode == "exact":
             return _attention_moments_cosine_exact(q, k, v)
         return _attention_moments_cosine_linear(q, k, v)
-    if activation != "softmax":
-        raise ValueError(f"Unknown activation: {activation}")
     if mode == "exact":
         return _attention_moments_softmax_exact(q, k, v)
     if mode not in ("auto", "pallas", "chunked", "train"):
@@ -320,15 +347,16 @@ def stylizing_network(params, fc: dict, fs: dict, activation="softmax",
 
     ``remat=True`` checkpoints each attention module and the decoder
     separately (the JAX package's segments): backward holds one segment's
-    internals at a time and recomputes them, K3 included."""
-    _no_mesh(mesh)
+    internals at a time and recomputes them, K3 included.  ``mesh``:
+    sequence-parallel attention over ``mesh_axis`` (module docstring)."""
     apply_precision(next(iter(fc.values())).dtype)
     fcl = list(fc.values())
     fsl = list(fs.values())
 
     run_module = segment(
         lambda i, c_x, s_x, c_1x, s_1x: adaattn_module(
-            params, f"adaattn.{i}", c_x, s_x, c_1x, s_1x, activation, mode),
+            params, f"adaattn.{i}", c_x, s_x, c_1x, s_1x, activation, mode,
+            mesh, mesh_axis),
         remat)
     run_decoder = segment(
         lambda x5, x4, x3: decoder(params, x5, x4, x3), remat)

@@ -8,6 +8,13 @@ The port's state is updated in place by the step, where JAX's is a new
 value: a rollback snapshot is a host copy of the model's and the
 optimizer's state (``checkpoint.snapshot``), and a rollback loads it back
 into the live model and optimizer, keeping the step counter.
+
+In a multi-process run (``parallel/multihost.py``) every rank runs the
+loop on its slice of each global batch; rank 0 alone writes checkpoints,
+metrics and loss plots, and every rank touches the heartbeat.  Snapshots
+and rollbacks stay per rank (the replicas are identical); the one
+decision that reads the host clock, when to refresh the snapshot, is
+agreed across ranks.
 """
 
 import json
@@ -17,8 +24,10 @@ import signal
 import time
 
 import torch
+import torch.distributed as dist
 
 from vst_tpu_torch.data.pipeline import BatchLoader, device_prefetch
+from vst_tpu_torch.parallel import multihost
 from vst_tpu_torch.train import checkpoint as ckpt
 from vst_tpu_torch.train.state import TrainState
 
@@ -44,10 +53,20 @@ def _save_loss_plot(history, out_dir, name, epoch, batch_size):
 
 
 def _primary():
-    """True on the process that owns checkpoints and metrics.  One process
-    until the port's multi-process training (ROADMAP item 20); a seam
-    tests can monkeypatch."""
-    return True
+    """True on the process that owns checkpoints and metrics: rank 0, or
+    the only process (a seam tests can monkeypatch)."""
+    return multihost.is_primary()
+
+
+def _any_rank(flag: bool, device) -> bool:
+    """``flag`` on any rank: one all-reduce in a multi-process run, so that
+    a per-rank decision (one that reads the host clock) is the same on
+    every rank."""
+    if multihost.process_count() == 1:
+        return flag
+    t = torch.tensor([int(flag)], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
 
 
 def _fetch(metrics: dict) -> dict:
@@ -204,9 +223,14 @@ def _epoch_loop(step_fn, state, dataset, batch_size, epochs, epoch_start,
     last_state = os.path.join(out_dir, model_name + "_last_state")
     for epoch in range(epoch_start, epochs + 1):
         sb = start_batch if epoch == epoch_start else 0
+        # each process decodes only its slice of every global batch (the
+        # seed-derived shuffle keeps the processes in agreement on the
+        # global order without communication)
         loader = BatchLoader(dataset, batch_size, shuffle=True,
                              seed=seed + epoch, num_workers=num_workers,
-                             epoch=epoch, start_batch=sb)
+                             epoch=epoch, start_batch=sb,
+                             process_id=multihost.process_index(),
+                             num_processes=multihost.process_count())
         n_batches = len(loader)
         t0 = time.time()
         history: dict[str, list] = {}
@@ -249,8 +273,8 @@ def _epoch_loop(step_fn, state, dataset, batch_size, epochs, epoch_start,
                     # from it
                     ckpt.restore(state, snap)
                     continue
-                if (not is_save and not save_every_steps
-                        and time.time() - snap_t >= snapshot_every_s):
+                if (not is_save and not save_every_steps and _any_rank(
+                        time.time() - snap_t >= snapshot_every_s, device)):
                     # the check passed at a log point and no periodic saves
                     # refresh the snapshot: advance it here, at most once
                     # per snapshot_every_s (it copies the whole state to

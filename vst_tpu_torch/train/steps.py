@@ -40,6 +40,7 @@ from vst_tpu_torch.models import vgg as vgg_m
 from vst_tpu_torch.models.remat import segment
 from vst_tpu_torch.ops.features import feature_down_sample
 from vst_tpu_torch.ops.image import gram_matrix, gram_matrix_hw, vgg_normalize
+from vst_tpu_torch.parallel.mesh import all_reduce_mean
 from vst_tpu_torch.train.state import TrainState, apply_gradients
 
 # family name → model class (in JAX: → forward function)
@@ -105,7 +106,7 @@ def reconet_style_grams(vgg: vgg_m.VGG16ReCoNet, style_255) -> list:
 
 
 def _reconet_losses(cfg, vgg, style_grams, outs1, outs2, img1, img2, flow,
-                    mask):
+                    mask, mesh=None):
     """The candy-style loss block (train_candy.py:77-148).  outs1/outs2:
     the stylizer's (feature map, styled) per frame; img1/img2: the 0–255
     inputs (the whole multi-frame channel stack)."""
@@ -124,20 +125,20 @@ def _reconet_losses(cfg, vgg, style_grams, outs1, outs2, img1, img2, flow,
     metrics = {}
     total = 0.0
     if getattr(cfg, "use_ftl", True):
-        ftl = losses.reconet_feature_temporal_loss(fmap1, fmap2, flow,
-                                                   mask) * cfg.lambda_f
+        ftl = losses.reconet_feature_temporal_loss(
+            fmap1, fmap2, flow, mask, mesh) * cfg.lambda_f
         total = total + ftl
         metrics["FTL"] = ftl
     otl = losses.reconet_output_temporal_loss(i1n, i2n, s1n, s2n, flow,
-                                              mask) * cfg.lambda_o
+                                              mask, mesh) * cfg.lambda_o
     content = (losses.reconet_content_loss(sf1, cf1)
                + losses.reconet_content_loss(sf2, cf2)) * cfg.alpha
     style = (losses.reconet_style_loss(sf1, style_grams)
              + losses.reconet_style_loss(sf2, style_grams)) * cfg.beta
     # TV on the vgg-NORMALIZED styled images, as the reference computes it
     # (styled_img is reassigned at train_candy.py:82 before :140-145)
-    reg = (losses.reconet_reg_loss(s1n)
-           + losses.reconet_reg_loss(s2n)) * cfg.gamma
+    reg = (losses.reconet_reg_loss(s1n, mesh)
+           + losses.reconet_reg_loss(s2n, mesh)) * cfg.gamma
     total = total + otl + content + style + reg
     metrics.update(OTL=otl, CL=content, SL=style, RL=reg, loss=total)
     return total, metrics
@@ -154,7 +155,8 @@ def _stylizer(cfg):
     return segment(lambda net, x: net(x), cfg.remat)
 
 
-def make_reconet_flow_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams):
+def make_reconet_flow_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
+                           mesh=None):
     """ReCoNet single- and multi-frame flow trainer (train_candy.py:32-170);
     batch (img1, img2, flow, mask)."""
     grams = _grams_on(style_grams, vgg)
@@ -166,12 +168,13 @@ def make_reconet_flow_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams):
         _, fmap, styled = fwd(net, torch.cat([img1, img2]))
         return _reconet_losses(cfg, vgg, grams, (fmap[:n], styled[:n]),
                                (fmap[n:], styled[n:]), img1, img2, flow,
-                               mask)
+                               mask, mesh)
 
-    return _make_step(cfg, vgg, loss_fn, n_images=2)
+    return _make_step(cfg, vgg, loss_fn, n_images=2, mesh=mesh)
 
 
-def make_reconet_coco_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams):
+def make_reconet_coco_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
+                           mesh=None):
     """Image-only content + style trainer (train_coco2014.py:28-105);
     batch: the images."""
     grams = _grams_on(style_grams, vgg)
@@ -191,11 +194,11 @@ def make_reconet_coco_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams):
         total = content + style
         return total, {"CL": content, "SL": style, "loss": total}
 
-    return _make_step(cfg, vgg, loss_fn)
+    return _make_step(cfg, vgg, loss_fn, mesh=mesh)
 
 
 def make_reconet_distill_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
-                              teacher: torch.nn.Module):
+                              teacher: torch.nn.Module, mesh=None):
     """SD1/SD2 distillation trainer (train_Flow_SD1.py:33-185); batch
     (img1, img2, flow, mask).
 
@@ -217,7 +220,7 @@ def make_reconet_distill_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
         s = fwd(net, pair)
         total, metrics = _reconet_losses(
             cfg, vgg, grams, (s[-2][:n], s[-1][:n]), (s[-2][n:], s[-1][n:]),
-            img1, img2, flow, mask)
+            img1, img2, flow, mask, mesh)
         feat_s = s[cfg.student_tap]
         if t.shape == feat_s.shape:
             sd = (losses.mse(t[:n], feat_s[:n]) + losses.mse(t[n:], feat_s[n:]))
@@ -230,7 +233,7 @@ def make_reconet_distill_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
         metrics["SDL"] = sd
         return total, metrics
 
-    return _make_step(cfg, vgg, loss_fn, n_images=2)
+    return _make_step(cfg, vgg, loss_fn, n_images=2, mesh=mesh)
 
 
 # ------------------------------------------------------------ RTNSTV
@@ -245,7 +248,7 @@ def rtnstv_style_grams(vgg: vgg_m.VGG19RTNSTV, style_255) -> list:
     return [gram_matrix_hw(f).float() for f in feats.values()]
 
 
-def make_rtnstv_step(cfg, vgg: vgg_m.VGG19RTNSTV, style_grams):
+def make_rtnstv_step(cfg, vgg: vgg_m.VGG19RTNSTV, style_grams, mesh=None):
     """RTNSTV trainer (RTNSTV/train.py:63-158); batch (img1, img2, flow,
     mask).  One stylizer pass over both frames and one VGG19 pass over
     [img1, img2, styled1, styled2] (instance norm is per sample, VGG has
@@ -266,14 +269,14 @@ def make_rtnstv_step(cfg, vgg: vgg_m.VGG19RTNSTV, style_grams):
             cf1, sf1, grams, styled1, cfg.alpha, cfg.beta, cfg.gamma)
         cl2, sl2, rl2 = losses.rtnstv_spatial_loss(
             cf2, sf2, grams, styled2, cfg.alpha, cfg.beta, cfg.gamma)
-        tl = losses.rtnstv_temporal_loss(styled1, styled2, flow,
-                                         mask) * cfg.lam
+        tl = losses.rtnstv_temporal_loss(styled1, styled2, flow, mask,
+                                         mesh) * cfg.lam
         content, style, reg = cl1 + cl2, sl1 + sl2, rl1 + rl2
         total = content + style + reg + tl
         return total, {"CL": content, "SL": style, "RL": reg, "TL": tl,
                        "loss": total}
 
-    return _make_step(cfg, vgg, loss_fn, n_images=2)
+    return _make_step(cfg, vgg, loss_fn, n_images=2, mesh=mesh)
 
 
 # ------------------------------------------------------------ AdaAttN
@@ -328,11 +331,20 @@ def _split(f, *bounds):
     return [{k: v[a:b] for k, v in f.items()} for a, b in bounds]
 
 
-def _make_step(cfg, vgg, loss_fn, n_images=None):
+def _make_step(cfg, vgg, loss_fn, n_images=None, mesh=None):
     """``step(state, batch)`` around ``loss_fn(net, vgg, *batch)``; the
     first ``n_images`` batch entries (all by default) are cast to
     ``cfg.dtype``, the others only moved to the device.  A batch that is
-    one array is a batch of one entry."""
+    one array is a batch of one entry.
+
+    With a ``mesh`` (data parallelism, ``parallel/mesh.py``) the batch is
+    this rank's shard of the global batch.  After the backward the float32
+    master gradients are averaged over the "data" axis with one flattened
+    all-reduce, the JAX step's gradient psum, and so are the metrics: every
+    rank logs the global batch's losses and takes the same update, and the
+    loop's non-finite rollback decides the same on every rank.  The
+    losses that are not batch means are rescaled on each rank for this
+    (``batch_shards``, ``batch_total``)."""
     dtype = DTYPES[cfg.dtype]
     frozen = _frozen(vgg, dtype)
     cast = None
@@ -350,13 +362,21 @@ def _make_step(cfg, vgg, loss_fn, n_images=None):
         state.optimizer.zero_grad(set_to_none=True)
         total, metrics = loss_fn(cast(state.model), frozen, *batch)
         total.backward()
-        return apply_gradients(state), {k: v.detach()
-                                        for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            all_reduce_mean(mesh, [p.grad for p in state.model.parameters()
+                                   if p.grad is not None])
+            keys = list(metrics)
+            flat = all_reduce_mean(mesh, [torch.stack(
+                [metrics[k].double().reshape(()) for k in keys])])[0]
+            metrics = {k: flat[j].to(metrics[k].dtype)
+                       for j, k in enumerate(keys)}
+        return apply_gradients(state), metrics
 
     return step
 
 
-def make_adaattn_image_step(cfg, vgg: vgg_m.VGG19AdaAttN):
+def make_adaattn_image_step(cfg, vgg: vgg_m.VGG19AdaAttN, mesh=None):
     """AdaAttN image-mode trainer (AdaAttN/train_image.py:25-125); batch
     (content, style)."""
     vgg_feats, stylize, no_conv_target = _adaattn_fwds(cfg)
@@ -372,10 +392,10 @@ def make_adaattn_image_step(cfg, vgg: vgg_m.VGG19AdaAttN):
         total = loss_gs + loss_lf
         return total, {"loss_gs": loss_gs, "loss_lf": loss_lf, "loss": total}
 
-    return _make_step(cfg, vgg, loss_fn)
+    return _make_step(cfg, vgg, loss_fn, mesh=mesh)
 
 
-def make_adaattn_video_step(cfg, vgg: vgg_m.VGG19AdaAttN):
+def make_adaattn_video_step(cfg, vgg: vgg_m.VGG19AdaAttN, mesh=None):
     """AdaAttN video-mode trainer (AdaAttN/train_video.py:26-138); batch
     (content1, content2, style).  Global and local losses on frame 1 only;
     the image-similarity loss across the frame pair on relu2_1/3_1/4_1
@@ -400,10 +420,10 @@ def make_adaattn_video_step(cfg, vgg: vgg_m.VGG19AdaAttN):
         loss_is = 0.0
         for tap in ("relu2_1", "relu3_1", "relu4_1"):
             loss_is = loss_is + losses.image_similarity_loss(
-                fc1[tap], fc2[tap], fcs1[tap], fcs2[tap])
+                fc1[tap], fc2[tap], fcs1[tap], fcs2[tap], mesh)
         loss_is = loss_is * cfg.lambda_is
         total = loss_gs + loss_lf + loss_is
         return total, {"loss_gs": loss_gs, "loss_lf": loss_lf,
                        "loss_is": loss_is, "loss": total}
 
-    return _make_step(cfg, vgg, loss_fn)
+    return _make_step(cfg, vgg, loss_fn, mesh=mesh)
