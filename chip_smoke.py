@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of vst_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version, drives the eight paths of
+holds each against its plain PyTorch version, drives the nine paths of
 the port (ReCoNet streaming stylization, AdaAttN arbitrary-style serving,
 AdaAttN training, ReCoNet training, RTNSTV serving, RTNSTV training,
-evaluation, scale-out over torch.distributed) and checks what comes
-out.
+evaluation, scale-out over torch.distributed, H-sharded 4K serving) and
+checks what comes out.
 
     python3 chip_smoke.py
 
@@ -43,7 +43,15 @@ result line):
    100, the slice edges and with a stride-0 K/V and Q, launched twice for
    the same bits; with ``--parent DIR`` the f32 K5 also gives the bits of
    DIR's (a checkout of the parent commit, built here) at the three level
-   shapes;
+   shapes; and at the spatial part's 4K shapes: K1's halo-rows mode in
+   bf16 and f32 at (1,540,960,C), C = 192, 64, 48, without and with its
+   prologue, the reflect-padded tensor cut into 4 row shards that carry
+   their neighbours' rows and into 1, the stitched y and summed
+   statistics against the halo mode's plain version and against one
+   reflect-mode launch on the whole tensor, each shard launched twice for
+   the same bits; K2 on the packed (1,542,962,·) ReCoNet and SD2 stems and
+   heads; K3 (bf16) at a 2160×3840 content's three levels against a 512²
+   style's;
 4. model: the f32 ReCoNet and RTNSTV forwards through the kernels against
    the same forwards through the plain versions at 1×256×256 (and, with
    grad mode on, the same kernels' outputs bit for bit), the f32 AdaAttN
@@ -132,7 +140,18 @@ result line):
    cosine moments bit for bit the single-device ones; and a Chrome trace
    of one 512² bf16 ReCoNet forward from ``utils.profiling.trace_context``
    that names K1's (``conv3x3_wgmma<true, …>``) and K2's
-   (``conv3x3_wgmma<false, …>``) kernels, 10 and 2;
+   (``conv3x3_wgmma<false, …>``) kernels, 10 and 2; then the spatial part
+   (``--spatial`` runs it alone, after the build and [3]'s spatial cases,
+   in a world-1 group of its own): a "space" mesh of one rank and one
+   2160×3840 uint8 frame on the card through ``stylize_spatial_sharded``
+   (ReCoNet bf16 and f32, SD2 bf16, RTNSTV bf16) and
+   ``stylize_adaattn_sharded`` (softmax bf16, cosine f32, a 512² style),
+   each against the unsharded ``stylize_*``: the network outputs' max
+   error and whether the bits are equal, ms per frame sharded and
+   unsharded (median of 5, alternating), launches per frame (K1 10, all
+   in the halo-rows mode, K2 2 or 0, K3 3 or 0), each forward's share of
+   device time in padded copies (pad, cat and copy kernels), and every
+   launch at a shape [3] held;
 6. timing: each kernel, its plain version and a library yardstick the
    port never calls (cuDNN ``F.conv2d`` of the same conv for K1/K2, in
    benchmark mode and the faster of NCHW and channels_last, bf16 and f32,
@@ -194,7 +213,12 @@ builds the kernels and runs [5e] alone.
 
     python3 chip_smoke.py --scale-out
 
-builds the kernels and runs [8] alone.
+builds the kernels and runs [3]'s spatial cases and [8] alone.
+
+    python3 chip_smoke.py --spatial
+
+builds the kernels and runs [3]'s spatial cases and the spatial part of
+[8] alone.
 """
 
 import contextlib
@@ -348,13 +372,16 @@ WRAPPERS = (res_block.conv3x3_in_stats, head_conv.conv3x3_valid,
 
 
 def reset_counts():
-    for w in WRAPPERS:
+    for w in WRAPPERS + (res_block.conv3x3_in_stats_halo,):
         w.launches = 0
 
 
 def counts():
-    """Launches of K1 … K5 since the last ``reset_counts``."""
-    return tuple(w.launches for w in WRAPPERS)
+    """Launches of K1 … K5 since the last ``reset_counts``; K1's in both
+    of its modes (reflect and halo rows)."""
+    out = [w.launches for w in WRAPPERS]
+    out[0] += res_block.conv3x3_in_stats_halo.launches
+    return tuple(out)
 
 
 # ------------------------------------------------------------------ phases
@@ -472,8 +499,9 @@ K1_EVAL_F32 = {"temporal MSE": (1, 90, 160, 192)}
 K2_EVAL_F32 = {"temporal MSE stem": (1, 92, 162, 48, 768),
                "temporal MSE head": (1, 92, 162, 768, 48)}
 
-# The shapes [3] held against the plain versions: ("K1" | "K2" | "K3",
-# dtype, shape, batch-stride-0 operands); [5e] fails on a launch outside.
+# The shapes [3] held against the plain versions: ("K1" | "K1h" | "K2" |
+# "K3", dtype, shape, batch-stride-0 operands or Co); [5e] and the spatial
+# part of [8] fail on a launch outside.
 CHECKED = set()
 
 
@@ -488,15 +516,21 @@ def _k3_key(q, k, v):
 @contextlib.contextmanager
 def recording_launches():
     """Record the key of every K1, K2 and K3 launch in the block (the
-    wrappers' ``_launch`` / ``_moments_fwd``, which run only on the
-    card); yields the set."""
+    wrappers' ``_launch`` / ``_launch_halo`` / ``_moments_fwd``, which
+    run only on the card; K1's halo-rows mode as "K1h"); yields the
+    set."""
     seen = set()
     att = adaattn_attention
-    saved = res_block._launch, head_conv._launch, att._moments_fwd
+    saved = (res_block._launch, head_conv._launch, att._moments_fwd,
+             res_block._launch_halo)
 
     def k1(x, w, *a, **kw):
         seen.add(("K1", x.dtype, tuple(x.shape), w.shape[3]))
         return saved[0](x, w, *a, **kw)
+
+    def k1h(x, w, *a, **kw):
+        seen.add(("K1h", x.dtype, tuple(x.shape), w.shape[3]))
+        return saved[3](x, w, *a, **kw)
 
     def k2(x, w):
         seen.add(("K2", x.dtype, tuple(x.shape), w.shape[3]))
@@ -506,11 +540,13 @@ def recording_launches():
         seen.add(_k3_key(q, k, v))
         return saved[2](q, k, v)
 
-    res_block._launch, head_conv._launch, att._moments_fwd = k1, k2, k3
+    (res_block._launch, head_conv._launch, att._moments_fwd,
+     res_block._launch_halo) = k1, k2, k3, k1h
     try:
         yield seen
     finally:
-        res_block._launch, head_conv._launch, att._moments_fwd = saved
+        (res_block._launch, head_conv._launch, att._moments_fwd,
+         res_block._launch_halo) = saved
 
 
 def k1_inputs(g, dtype, shape=K1_SHAPE):
@@ -2924,6 +2960,352 @@ def _profile_names(log_dir):
     return {"events": len(events), "kernels": len(names), "K1": k1, "K2": k2}
 
 
+# ---------------------------------------------------- spatial (H-sharded)
+
+# The 4K frame of the spatial part of [8] and its style, and what it
+# launches: K1 at the residual level (1, 540, 960, C), in its halo-rows
+# mode over a world-1 rank's whole frame (1, 542, 962, C) and, in [3], a
+# 4-way split's interior shards (1, 137, 962, C); K2 on the packed
+# (1, 542, 962, ·); K3 at the content's level token counts against the
+# 512² style's.
+SPATIAL_FRAME = (2160, 3840)
+SPATIAL_STYLE = 512
+SPATIAL_SPLIT = 4
+K1_SPATIAL = {"ReCoNet 4K": (1, 540, 960, 192), "SD 4K": (1, 540, 960, 64),
+              "RTNSTV 4K": (1, 540, 960, 48)}
+K2_SPATIAL = {"4K ReCoNet stem": (1, 542, 962, 48, 768),
+              "4K ReCoNet head": (1, 542, 962, 768, 48),
+              "4K SD2 stem": (1, 542, 962, 48, 256),
+              "4K SD2 head": (1, 542, 962, 256, 48)}
+K3_SPATIAL = [("bf16 4K content", torch.bfloat16, (1, n, m, d, c), 1.0, "")
+              for n, m, d, c in ((518400, 16384, 448, 256),
+                                 (129600, 4096, 960, 512),
+                                 (32400, 1024, 1472, 512))]
+
+
+def _k1_halo_check(g, dtype, label, shape, tol):
+    """K1's halo-rows mode at ``shape`` (N, H, W, C), without and with its
+    prologue: the tensor reflect-padded and cut into SPLIT row shards that
+    carry their neighbours' rows (what the exchange hands over), and into
+    one (a world-1 rank's); every shard launched twice for the same bits.
+    The stitched y and the summed statistics are held against the halo
+    mode's plain version and against one reflect-mode launch on the whole
+    tensor (itself held against the plain version).  Returns (the worst
+    y error, whether y equals the reflect launch's bits)."""
+    x, wt, b, gamma, beta = k1_inputs(g, dtype, shape)
+    n, h, wd, _ = x.shape
+    co = wt.shape[3]
+    y0, s0 = res_block.conv3x3_in_stats(x, wt, b)
+    worst, same = 0.0, True
+    for pro in (False, True):
+        xin = y0 if pro else x
+        kw = dict(stats_in=s0, gamma=gamma, beta=beta) if pro else {}
+        yr, sr = res_block.conv3x3_in_stats(xin, wt, b, **kw)
+        xp = ops_conv.reflection_pad2d(xin, 1)
+        for parts in (SPATIAL_SPLIT, 1):
+            r = h // parts
+            ys, yps, sums, psums = [], [], 0, 0
+            for i in range(parts):
+                xh = xp[:, i * r:i * r + r + 2].contiguous()
+                CHECKED.add(("K1h", dtype, tuple(xh.shape), co))
+                y, sm = res_block.conv3x3_in_stats_halo(xh, wt, b, **kw)
+                again = res_block.conv3x3_in_stats_halo(xh, wt, b, **kw)
+                if not (torch.equal(y, again[0])
+                        and torch.equal(sm, again[1])):
+                    raise AssertionError(f"K1 halo {label}: two launches "
+                                         f"differ")
+                yp, sp = res_block.conv3x3_in_stats_halo_plain(xh, wt, b,
+                                                               **kw)
+                ys.append(y)
+                yps.append(yp)
+                sums, psums = sums + sm, psums + sp
+            y, yp = torch.cat(ys, 1), torch.cat(yps, 1)
+            tag = (f"K1 halo {label} {tuple(x.shape)} in {parts}"
+                   f"{' prologue' if pro else ''}")
+            worst = max(worst, check(f"{tag} y", y, yp, tol))
+            check(f"{tag} y against the reflect launch", y, yr, tol)
+            check(f"{tag} reflect launch against plain", yr, yp, tol)
+            check(f"{tag} sums", sums, psums, 1e-4)
+            mean = sums[:, 0] / (h * wd)
+            check(f"{tag} stats against the reflect launch",
+                  torch.stack([mean, sums[:, 1] / (h * wd) - mean * mean], 1),
+                  sr, 1e-4)
+            same = same and torch.equal(y, yr)
+    CHECKED.add(("K1", dtype, tuple(x.shape), co))
+    return worst, same
+
+
+def phase_kernels_spatial(g):
+    """[3]'s cases of the spatial part of [8]: K1's halo-rows mode at
+    K1_SPATIAL in bf16 and f32 (``_k1_halo_check``), K2 at K2_SPATIAL and
+    K3 at K3_SPATIAL against their plain versions, each launched twice for
+    the same bits.  Tolerances as [3]'s: bf16 one bf16 ulp of the output's
+    scale, f32 1e-4 of it, the statistics 1e-4."""
+    log("[3] K1's halo-rows mode, K2 and K3 at the spatial part's 4K shapes")
+    errs, same = {}, {}
+    for dtype, key, tol in ((torch.float32, "K1 halo f32", 1e-4),
+                            (torch.bfloat16, "K1 halo", BF16_ULP)):
+        apply_precision(dtype)
+        errs[key] = 0.0
+        for label, shape in K1_SPATIAL.items():
+            e, same[f"{key} {label}"] = _k1_halo_check(g, dtype, label,
+                                                       shape, tol)
+            errs[key] = max(errs[key], e)
+        for label, shape in K2_SPATIAL.items():
+            _k2_check(g, dtype, label, shape, tol)
+    for case in K3_SPATIAL:
+        _k3_check(g, *case)
+    log(f"  K1 halo mode: a second launch gives the same bits; y equals one "
+        f"reflect-mode launch bit for bit: {json.dumps(same)}")
+    apply_precision(torch.bfloat16)
+    torch.cuda.synchronize()
+    errs["K1 halo same bits as reflect"] = same
+    return errs
+
+
+def _host_ms(fn, runs):
+    """Host-clock ms of each synchronized call of ``fn``."""
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+PAD_RANGES = ("vst::exchange_rows", "vst::reflection_pad2d")
+
+
+def _copy_share(forward, top=0):
+    """Device time of one forward (torch.profiler) and the share of it in
+    the padded copies: the kernels launched inside the profiler ranges of
+    ``parallel/spatial.py``'s ``exchange_rows`` (the sharded layers' halo
+    rows and W border, written in one copy) and ``ops/pad.py``'s
+    ``reflection_pad2d`` (the unsharded layers' pad), and the ranges'
+    spans on the device's timeline.  The ranges' own device-side rows are
+    left out of the total (they would count their kernels twice).
+    ``top``: log that many of the largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        forward()
+        torch.cuda.synchronize()
+    events = prof.events()
+
+    def ranged(e):
+        return e.name.startswith("vst::") or getattr(
+            e, "is_user_annotation", False)
+
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and not ranged(e)]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    copies = sum(e.device_time_total for e in events
+                 if e.device_type == DeviceType.CPU
+                 and e.name in PAD_RANGES) / 1e3
+    span = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA
+               and e.name in PAD_RANGES) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.self_device_time_total
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"    {us / 1e3:9.3f} ms  {name[:96]}")
+    return {"device_ms": total, "copies_ms": copies, "copies_span_ms": span,
+            "copies_share": copies / total if total else None}
+
+
+def _spatial_case(label, mesh, sharded, unsharded, network, expect, tol,
+                  network32=None, timed=5):
+    """One model of the spatial part: the sharded entry point against the
+    unsharded one (the network's unclamped outputs through ``network``
+    (ctx or None), the max error and whether the bits are the same), ms
+    per frame of both (median of ``timed``, alternating, after a warm-up
+    of each), the launches per sharded frame (every K1 launch in the
+    halo-rows mode; ``expect`` K1, K2, K3), and each forward's share of
+    device time in padded copies.
+
+    f32 (``network32`` None): sharded within ``tol`` of the unsharded
+    output's scale.  bf16: both against ``network32()``, the same weights
+    unsharded in f32 through the plain versions; the sharded output may
+    lie no further from it than 1.5 × the unsharded bf16 output's own
+    distance plus ``tol`` of the scale (bf16 rounding moves outputs whole
+    steps, and the two paths round in different places)."""
+    from vst_tpu_torch.parallel.spatial import SpatialContext
+
+    ctx = SpatialContext(mesh)
+    with torch.inference_mode():
+        ref = network(None)
+        out = network(ctx)
+    same = torch.equal(out, ref)
+    if network32 is None:
+        err = check(f"{label}: sharded network output against unsharded",
+                    out, ref, tol)
+        dist32 = None
+    else:
+        with torch.inference_mode(), plain_kernels():
+            r32 = network32()
+        err = max_err(out, ref)
+        dist32 = {"unsharded": max_err(ref, r32), "sharded": max_err(out, r32)}
+        limit = 1.5 * dist32["unsharded"] + tol * r32.abs().max().item()
+        ok = dist32["sharded"] <= limit
+        log(f"  {label}: against the f32 plain unsharded output: sharded "
+            f"{dist32['sharded']:.3e}, unsharded {dist32['unsharded']:.3e} "
+            f"(limit {limit:.3e}) {'ok' if ok else 'FAIL'}; sharded against "
+            f"unsharded {err:.3e}, "
+            f"{(out != ref).float().mean().item():.2e} of the values differ")
+        if not ok:
+            raise AssertionError(f"{label}: sharded output {dist32} from f32")
+        del r32
+    del out, ref
+    n, halo = [0] * 5, 0
+
+    def counted():
+        # the counts set to 0 just before each sharded frame, read after
+        nonlocal halo
+        reset_counts()
+        sharded()
+        n[:] = [t + k for t, k in zip(n, counts())]
+        halo += res_block.conv3x3_in_stats_halo.launches
+
+    counted()     # the sharded warm-up (``network`` warmed the unsharded)
+    ms_u, ms_s = [], []
+    for _ in range(timed):
+        ms_s += _host_ms(counted, 1)
+        ms_u += _host_ms(unsharded, 1)
+    n = tuple(n)
+    runs = timed + 1
+    per = tuple(k // runs for k in n[:3])
+    if per != expect or halo != n[0] or any(k % runs for k in n):
+        raise AssertionError(f"{label}: launches {n} over {runs} frames "
+                             f"(halo mode {halo}); expected {expect} a frame, "
+                             f"all K1 in the halo-rows mode")
+    res = {"max_abs_err": err, "bits_equal": same, "err_vs_f32": dist32,
+           "ms_sharded": float(np.median(ms_s)),
+           "ms_unsharded": float(np.median(ms_u)),
+           "ms_sharded_runs": ms_s, "ms_unsharded_runs": ms_u,
+           "launches_per_frame": dict(zip(("K1", "K2", "K3"), per)),
+           "launches": dict(zip(("K1", "K2", "K3", "K4", "K5"), n)),
+           "profile_sharded": _copy_share(sharded, top=6),
+           "profile_unsharded": _copy_share(unsharded, top=4)}
+    log(f"  {label}: max_abs_err {err:.3e} (bits {'equal' if same else 'differ'}"
+        f"); ms per frame sharded {res['ms_sharded']:.3f}, unsharded "
+        f"{res['ms_unsharded']:.3f}; launches per frame {per} (K1 all in the "
+        f"halo mode); padded copies {100 * res['profile_sharded']['copies_share']:.1f}% "
+        f"of {res['profile_sharded']['device_ms']:.3f} device ms sharded, "
+        f"{100 * res['profile_unsharded']['copies_share']:.1f}% of "
+        f"{res['profile_unsharded']['device_ms']:.3f} unsharded")
+    return res
+
+
+def _spatial_serving(mesh_space):
+    """The spatial part of [8] at world 1 (``mesh_space``, a 1-rank
+    "space" mesh on cuda:0): one 2160×3840 uint8 frame (batch 1, on the
+    card) through ``stylize_spatial_sharded`` (ReCoNet bf16 and f32, SD2
+    bf16, RTNSTV bf16) and ``stylize_adaattn_sharded`` (softmax bf16,
+    cosine f32, against a 512² style), each against its unsharded
+    ``stylize_*`` (``_spatial_case``).  Every K1, K2 and K3 launch must
+    fall on a shape [3] held (CHECKED).  Returns its launches (K1-K5, the
+    sharded runs) and numbers."""
+    from vst_tpu_torch.infer.image import (stylize_adaattn_sharded,
+                                           stylize_spatial_sharded)
+    from vst_tpu_torch.models.adaattn import stylizing_network
+    from vst_tpu_torch.parallel import shard_spatial
+
+    h, w = SPATIAL_FRAME
+    rng = np.random.default_rng(35)
+    frame = torch.from_numpy(rng.integers(0, 256, (1, h, w, 3)).astype(
+        np.uint8)).cuda()
+    style = torch.from_numpy(rng.integers(
+        0, 256, (1, SPATIAL_STYLE, SPATIAL_STYLE, 3)).astype(np.uint8)).cuda()
+    res, total = {}, [0] * 5
+    t0 = time.perf_counter()
+    with recording_launches() as seen:
+        for label, make, dtype, plain, expect in (
+                ("ReCoNet bf16", init_reconet, torch.bfloat16,
+                 stylize_reconet, (10, 2, 0)),
+                ("ReCoNet f32", init_reconet, torch.float32, stylize_reconet,
+                 (10, 2, 0)),
+                ("SD2 bf16", init_reconet_sd2, torch.bfloat16,
+                 stylize_reconet, (10, 2, 0)),
+                ("RTNSTV bf16", rtnstv_m.init_stylizing_network,
+                 torch.bfloat16, stylize_rtnstv, (10, 0, 0))):
+            apply_precision(dtype)
+            model = make(0, device="cuda", dtype=dtype)
+            xin = frame.to(dtype)
+
+            def network(ctx, model=model, xin=xin):
+                y = model(xin if ctx is None else shard_spatial(
+                    ctx.mesh, xin, ctx.axis), spatial=ctx)
+                return y[-1] if isinstance(y, tuple) else y
+
+            def network32(make=make):
+                apply_precision(torch.float32)
+                y = make(0, device="cuda")(frame.float())
+                apply_precision(dtype)
+                return y[-1] if isinstance(y, tuple) else y
+
+            res[label] = _spatial_case(
+                label, mesh_space,
+                lambda model=model: stylize_spatial_sharded(model, frame,
+                                                            mesh_space),
+                lambda model=model, plain=plain: plain(model, frame),
+                network, expect,
+                1e-5 if dtype == torch.float32 else 2 * BF16_ULP,
+                None if dtype == torch.float32 else network32)
+            total = [t + k for t, k in zip(total, res[label]["launches"].values())]
+            del model, xin
+        for act, dtype in (("softmax", torch.bfloat16),
+                           ("cosine", torch.float32)):
+            apply_precision(dtype)
+            vgg, net = _ada_models(0, 1, dtype)
+            label = f"AdaAttN {act} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            c_in, s_in = frame.to(dtype), style.to(dtype)
+
+            def network(ctx, vgg=vgg, net=net, act=act, c_in=c_in,
+                        s_in=s_in):
+                fc = vgg(c_in if ctx is None else shard_spatial(
+                    ctx.mesh, c_in, ctx.axis), spatial=ctx)
+                return stylizing_network(net, fc, vgg(s_in), act,
+                                         spatial=ctx)
+
+            def network32(act=act):
+                apply_precision(torch.float32)
+                v32, n32 = _ada_models(0, 1, torch.float32)
+                y = stylizing_network(n32, v32(frame.float()),
+                                      v32(style.float()), act)
+                apply_precision(dtype)
+                return y
+
+            res[label] = _spatial_case(
+                label, mesh_space,
+                lambda vgg=vgg, net=net, act=act: stylize_adaattn_sharded(
+                    vgg, net, frame, style, mesh_space, act),
+                lambda vgg=vgg, net=net, act=act: stylize_adaattn(
+                    vgg, net, frame, style, act),
+                network, (0, 0, 3 if act == "softmax" else 0),
+                1e-4 if dtype == torch.float32 else 2 * BF16_ULP,
+                None if dtype == torch.float32 else network32)
+            total = [t + k for t, k in zip(total, res[label]["launches"].values())]
+            del vgg, net, c_in, s_in
+    unchecked = sorted(map(str, seen - CHECKED))
+    log(f"  spatial: launched K1-K3 at {len(seen)} shapes, all held against "
+        f"the plain versions in [3]" if not unchecked else
+        f"  spatial: launched at shapes [3] did not check: {unchecked}")
+    if unchecked:
+        raise AssertionError(f"spatial: shapes not checked: {unchecked}")
+    res["wall_s"] = time.perf_counter() - t0
+    launches = dict(zip(("K1", "K2", "K3", "K4", "K5"), total))
+    log(f"  spatial: launches over its sharded runs {launches}; wall "
+        f"{res['wall_s']:.1f} s")
+    apply_precision(torch.bfloat16)
+    return launches, res
+
+
 def phase_scale_out():
     """[8] scale-out over ``torch.distributed`` on the one card: the data-
     parallel ReCoNet CLI serving at world 1 (its own group), then a world-1
@@ -3018,20 +3400,42 @@ def phase_scale_out():
         total = [t + n for t, n in zip(total, n_sharded)]
         res["trace"] = _profile_names(
             os.path.join(ROOT, "build", "chip_smoke_trace"))
+        log("  [8] spatial: H-sharded serving at world 1, a 2160×3840 frame")
+        res["spatial_launches"], res["spatial"] = _spatial_serving(
+            make_mesh(None, ("space",)))
     finally:
         multihost.shutdown()
     res["wall_s"] = time.perf_counter() - t_phase
     launches = dict(zip(("K1", "K2", "K3", "K4", "K5"), total))
-    log(f"  [8] launches over the phase's main-path runs: {launches}; wall "
+    log(f"  [8] launches over the phase's main-path runs: {launches} (the "
+        f"spatial part's apart: {res['spatial_launches']}); wall "
         f"{res['wall_s']:.1f} s")
     log(json.dumps({"scale_out": res}))
     return launches, res
 
 
 def phase_scale_out_alone():
-    """``--scale-out``: the kernels' build ([2]) and [8]."""
+    """``--scale-out``: the kernels' build ([2]), [3]'s spatial cases and
+    [8]."""
     log(f"  build: {_build.build_all():.2f} s")
+    phase_kernels_spatial(torch.Generator(device="cuda").manual_seed(0))
     phase_scale_out()
+
+
+def phase_spatial_alone():
+    """``--spatial``: the kernels' build ([2]), [3]'s spatial cases and
+    the spatial part of [8] in a world-1 NCCL group of its own."""
+    from vst_tpu_torch.parallel import make_mesh, multihost
+
+    log(f"  build: {_build.build_all():.2f} s")
+    errs = phase_kernels_spatial(torch.Generator(device="cuda").manual_seed(0))
+    log("[8] spatial: H-sharded serving at world 1, a 2160×3840 frame")
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda")
+    try:
+        launches, res = _spatial_serving(make_mesh(None, ("space",)))
+    finally:
+        multihost.shutdown()
+    log(json.dumps({"spatial": {"launches": launches, "errs": errs, **res}}))
 
 
 def phase_timing(launches, errs, slice_v):
@@ -3517,9 +3921,11 @@ def _profile(label, forward, top=14):
                        getattr(e, "self_cuda_time_total", 0.0))
 
     # device-side rows only (kernels and copies): CPU operators also carry
-    # the device time of what they launch, which would count it twice
+    # the device time of what they launch, which would count it twice, and
+    # so do the package's profiler ranges ("vst::…") on the device side
     rows = sorted((e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")),
+                   if str(e.device_type).endswith("CUDA")
+                   and not e.key.startswith("vst::")),
                   key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
     per_forward = sum(e.count for e in rows) // 2
@@ -3659,12 +4065,13 @@ def main(argv):
     alone = {"--f32-step": phase_f32_step, "--f32-reconet": phase_f32_reconet,
              "--reconet-train": phase_reconet_train_alone,
              "--rtnstv": phase_rtnstv_alone, "--eval": phase_eval_alone,
-             "--scale-out": phase_scale_out_alone}
+             "--scale-out": phase_scale_out_alone,
+             "--spatial": phase_spatial_alone}
     if not (argv == [] or (len(argv) == 1 and argv[0] in alone)
             or parent is not None):
         print(f"usage: chip_smoke.py [--f32-step | --f32-reconet | "
               f"--reconet-train | --rtnstv | --eval | --scale-out | "
-              f"--parent DIR]; got {argv}", file=sys.stderr)
+              f"--spatial | --parent DIR]; got {argv}", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     smi = phase_card()
@@ -3679,6 +4086,7 @@ def main(argv):
     errs = phase_kernels(g)
     errs.update(phase_kernels_k3(g))
     errs.update(phase_kernels_k45(g, started and parent_k5(started)))
+    errs.update(phase_kernels_spatial(g))
     phase_model()
     bf16, f32 = phase_main_path(), phase_main_f32()
     launches = {k: bf16[k] + f32[k] for k in ("K1", "K2")}
@@ -3703,13 +4111,16 @@ def main(argv):
         launches[k] += ev[k]
         launches[f"{k} by path"]["evaluation"] = ev[k]
     so, so_res = phase_scale_out()
+    sp = so_res["spatial_launches"]
     for k in ("K1", "K2"):
-        launches[k] += so[k]
+        launches[k] += so[k] + sp[k]
         launches[f"{k} by path"]["scale-out"] = so[k]
+        launches[f"{k} by path"]["spatial"] = sp[k]
     by_path = {"serving": launches["K3"], "training": train["K3"],
                "training loop": loop["K3"], "evaluation": ev["K3"],
-               "scale-out": so["K3"]}
-    launches["K3"] += train["K3"] + loop["K3"] + ev["K3"] + so["K3"]
+               "scale-out": so["K3"], "spatial": sp["K3"]}
+    launches["K3"] += (train["K3"] + loop["K3"] + ev["K3"] + so["K3"]
+                       + sp["K3"])
     launches.update(K4=train["K4"] + loop["K4"] + so["K4"],
                     K5=train["K5"] + loop["K5"] + so["K5"])
     k45_rows, k3_f32 = timing_k45(launches, errs, slices)
@@ -3760,6 +4171,20 @@ def main(argv):
             a: v["ms_per_pair"] for a, v in ev_res["sintel_ada"].items()},
         "raft_ms_per_pair": ev_res["raft"]["ms_per_pair"]}
     log("[6] timing: K1 at RTNSTV's shape (bf16, f32)")
+    kernels[0]["spatial"] = {
+        "per": "[8] spatial: one 2160x3840 frame at world 1 through "
+               "stylize_spatial_sharded / stylize_adaattn_sharded against "
+               "the unsharded stylize_*; K1 every launch in its halo-rows "
+               "mode",
+        "halo_mode_max_abs_err": errs["K1 halo"],
+        "halo_mode_max_abs_err_f32": errs["K1 halo f32"],
+        "halo_mode_bits_equal_reflect": errs["K1 halo same bits as reflect"],
+        **{k: {f: v[f] for f in ("max_abs_err", "bits_equal", "ms_sharded",
+                                 "ms_unsharded", "launches_per_frame")}
+           | {"copies_share_sharded": v["profile_sharded"]["copies_share"],
+              "copies_share_unsharded":
+                  v["profile_unsharded"]["copies_share"]}
+           for k, v in so_res["spatial"].items() if isinstance(v, dict)}}
     kernels[0]["rtnstv"] = timing_k1_rtnstv(
         torch.Generator(device="cuda").manual_seed(15))
     kernels[0]["rtnstv"].update(

@@ -259,6 +259,82 @@ def test_k1_rtnstv_width(cuda, dtype, tol, prologue):
     assert torch.equal(y, y2) and torch.equal(s, s2)
 
 
+def _halo_shards(x, parts):
+    """x reflect-padded by one pixel a side, cut into ``parts`` row shards
+    of R + 2 rows, each holding its neighbours' rows (the exchange's
+    output; reflected rows at the frame's edges)."""
+    xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1),
+                                 mode="reflect").permute(0, 2, 3, 1)
+    r = x.shape[1] // parts
+    return [xp[:, i * r:i * r + r + 2].contiguous() for i in range(parts)]
+
+
+@pytest.mark.parametrize("c,co", [(192, 192), (64, 64), (48, 48), (40, 80)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("parts", [1, 4])
+def test_k1_halo_rows_mode(cuda, c, co, dtype, tol, prologue, parts):
+    """K1's halo-rows mode over a split into row shards that carry their
+    neighbours' rows: the stitched y within ``tol`` of the halo mode's
+    plain version and of one reflect-mode launch on the whole tensor,
+    the summed statistics within 1e-4 of theirs (after the division), and
+    a second launch of each shard gives the same bits."""
+    x, w, b, pro = _k1_inputs(cuda, 2, 36, 50, c, co, dtype)
+    kw = dict(zip(("stats_in", "gamma", "beta"), pro)) if prologue else {}
+    before = res_block.conv3x3_in_stats_halo.launches
+    ys, sums, ps, psums = [], 0, [], 0
+    for xh in _halo_shards(x, parts):
+        y, s = res_block.conv3x3_in_stats_halo(xh, w, b, **kw)
+        assert torch.equal(y, res_block.conv3x3_in_stats_halo(xh, w, b, **kw)[0])
+        yp, sp = res_block.conv3x3_in_stats_halo_plain(xh, w, b, **kw)
+        ys.append(y)
+        ps.append(yp)
+        sums, psums = sums + s, psums + sp
+    assert res_block.conv3x3_in_stats_halo.launches == before + 2 * parts
+    y, yp = torch.cat(ys, 1), torch.cat(ps, 1)
+    yr, sr = res_block.conv3x3_in_stats(x, w, b, **kw)
+    _close(y, yp, tol)
+    _close(y, yr, tol)
+    _close(sums, psums, 1e-4)
+    hw = 36 * 50
+    mean = sums[:, 0] / hw
+    _close(torch.stack([mean, sums[:, 1] / hw - mean * mean], 1), sr, 1e-4)
+
+
+def test_sharded_reconet_launches_the_halo_mode(cuda):
+    """A world-1 sharded f32 ReCoNet forward on the card (an NCCL group of
+    one) launches K1 only in its halo-rows mode, ten times, K2 twice, and
+    matches the unsharded forward."""
+    import socket
+
+    from vst_tpu_torch.infer.image import (stylize_reconet,
+                                           stylize_spatial_sharded)
+    from vst_tpu_torch.models.reconet import init_reconet
+    from vst_tpu_torch.parallel import make_mesh, multihost
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    x = torch.rand(1, 64, 48, 3, generator=torch.Generator().manual_seed(0)) * 255
+    model = init_reconet(0, device=cuda)
+    ref = stylize_reconet(model, x)
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh(None, ("space",))
+        before = (res_block.conv3x3_in_stats.launches,
+                  res_block.conv3x3_in_stats_halo.launches,
+                  head_conv.conv3x3_valid.launches)
+        got = stylize_spatial_sharded(model, x, mesh)
+        after = (res_block.conv3x3_in_stats.launches,
+                 res_block.conv3x3_in_stats_halo.launches,
+                 head_conv.conv3x3_valid.launches)
+    finally:
+        multihost.shutdown()
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 10, 2)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=2e-3)
+
+
 def test_rtnstv_routes_through_k1(cuda, monkeypatch):
     """An f32 RTNSTV forward launches K1 ten times and matches the same
     forward through K1's plain version on the card and the CPU forward

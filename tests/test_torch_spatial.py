@@ -1,0 +1,269 @@
+"""H-sharded (spatial) serving of the port on real spawned gloo groups
+(tests/torch_dist.py), against the JAX package.
+
+- ``shard_spatial``'s layout and its ``ValueError``;
+- every layer kind of the sharded path (reflect 3×3 stride 1 and 2, the
+  9×9 through K2's packing, nearest ×2 + conv, the transposed conv, the
+  zero-padded conv, max pool, the feature pyramid, bilinear ×2, instance
+  norm, the K1 residual block in its halo-rows mode) on 2 and 4 ranks
+  against the same layer unsharded;
+- ``stylize_spatial_sharded`` of ReCoNet, SD1, SD2 and RTNSTV at (1, 64,
+  32, 3) on 2 and 4 ranks against JAX's ``stylize_reconet`` /
+  ``stylize_rtnstv`` at JAX's own tolerances (tests/test_parallel.py), and
+  once against JAX's own ``stylize_spatial_sharded`` on a 4-device mesh;
+- ``stylize_adaattn_sharded``, cosine and softmax, at 128² on 2 ranks
+  against JAX's ``stylize_adaattn``;
+- K1's halo-rows plain version, split 4 ways, against JAX's
+  ``conv3x3_in_stats`` (interpret mode) on the whole tensor;
+- a world-1 sharded forward against the unsharded one, and the size and
+  serving-only rules.
+
+Each world's ranks are spawned once for all their cases (module-scoped
+caches); the JAX references are computed once each."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from vst_tpu.infer import image as jimg
+from vst_tpu.kernels import res_block as jrb
+from vst_tpu.models import adaattn as ja
+from vst_tpu.models import reconet as jr
+from vst_tpu.models import rtnstv as jrt
+from vst_tpu.models import vgg as jv
+from vst_tpu_torch.infer import image as pim
+from vst_tpu_torch.kernels import res_block
+from vst_tpu_torch.models import adaattn as pa
+from vst_tpu_torch.models import vgg as pv
+from vst_tpu_torch.parallel import SpatialContext, make_mesh, shard_spatial
+from tests import torch_dist as td
+
+FRAME = (np.random.default_rng(0).random((1, 64, 32, 3)) * 255).astype(
+    np.float32)
+ADA = tuple((np.random.default_rng(s).random((1, 128, 128, 3)) * 255)
+            .astype(np.float32) for s in (1, 2))
+TOL = {"reconet": dict(rtol=1e-4, atol=2e-3),
+       "sd1": dict(rtol=1e-4, atol=2e-3),
+       "sd2": dict(rtol=1e-4, atol=2e-3),
+       "rtnstv": dict(rtol=1e-4, atol=1e-3)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cached(fn):
+    cache = {}
+
+    def get(key):
+        if key not in cache:
+            cache[key] = fn(key)
+        return cache[key]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def layers(tmp_path_factory):
+    """world → each rank's outputs of every layer kind."""
+    return _cached(lambda world: td.spawn(
+        td.spatial_layers, world, tmp_path_factory.mktemp("layers")))
+
+
+@pytest.fixture(scope="module")
+def stylized(tmp_path_factory):
+    """world → each rank's (rows of every family (and AdaAttN at world
+    2), the gathered ReCoNet frame)."""
+    return _cached(lambda world: td.spawn(
+        td.spatial_stylize, world, tmp_path_factory.mktemp("stylize"),
+        FRAME, ADA if world == 2 else None, timeout=180.0))
+
+
+def _jax_params(family):
+    if family == "rtnstv":
+        return jrt.init_stylizing_network(0)
+    return {"reconet": jr.init_reconet, "sd1": jr.init_reconet_sd1,
+            "sd2": jr.init_reconet_sd2}[family](0)
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    """family → JAX's unsharded stylization of FRAME; "adaattn_<act>" →
+    JAX's ``stylize_adaattn`` of ADA."""
+    def ref(key):
+        x = jnp.asarray(FRAME)
+        if key == "rtnstv":
+            return np.asarray(jimg.stylize_rtnstv(_jax_params(key), x))
+        if key in td.SPATIAL_FAMILIES:
+            return np.asarray(jimg.stylize_reconet(_jax_params(key), x, key))
+        act = key.split("_")[1]
+        return np.asarray(jimg.stylize_adaattn(
+            jv.init_vgg19_adaattn(0), ja.init_stylizing_network(1),
+            *map(jnp.asarray, ADA), act))
+
+    return _cached(ref)
+
+
+def test_shard_spatial_layout(tmp_path):
+    """Each of 2 ranks gets its contiguous H rows of every leaf, on its
+    device; an H that does not split raises ValueError."""
+    x = np.arange(2 * 6 * 3 * 2, dtype=np.float32).reshape(2, 6, 3, 2)
+    for rank, (own, own_y, dev, err) in enumerate(
+            td.spawn(td.spatial_layout, 2, tmp_path, x)):
+        np.testing.assert_array_equal(own, x[:, 3 * rank:3 * rank + 3])
+        np.testing.assert_array_equal(own_y, own)
+        assert dev == "cpu"
+        assert err is not None and "must divide by the 2-way" in err
+
+
+@pytest.mark.parametrize("kind", sorted(td.spatial_layer_cases()))
+@pytest.mark.parametrize("world", [2, 4])
+def test_layer_kind_matches_unsharded(layers, world, kind):
+    """The ranks' rows, stitched, equal the unsharded layer (float32)."""
+    fn, x = td.spatial_layer_cases()[kind]
+    with torch.no_grad():
+        ref = fn(x, None).numpy()
+    got = np.concatenate([r[kind] for r in layers(world)], axis=1)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("family", td.SPATIAL_FAMILIES)
+@pytest.mark.parametrize("world", [2, 4])
+def test_stylize_spatial_sharded_matches_jax(stylized, jax_ref, world,
+                                             family):
+    """Each rank's rows, stitched, equal JAX's unsharded stylization at
+    JAX's tolerances (rtol 1e-4; atol 2e-3 ReCoNet, 1e-3 RTNSTV)."""
+    got = np.concatenate([out[family] for out, _ in stylized(world)], axis=1)
+    np.testing.assert_allclose(got, jax_ref(family), **TOL[family])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_gather_rows_assembles_the_frame(stylized, world):
+    """``gather_rows`` gives every rank the stitched frame."""
+    results = stylized(world)
+    stitched = np.concatenate([out["reconet"] for out, _ in results], axis=1)
+    for _, gathered in results:
+        np.testing.assert_array_equal(gathered, stitched)
+
+
+def test_matches_jax_sharded_entry(stylized):
+    """4 gloo ranks against JAX's own ``stylize_spatial_sharded`` on a
+    4-device "space" mesh of the virtual CPU devices that
+    tests/conftest.py sets up."""
+    from vst_tpu.parallel import make_mesh as jax_mesh
+
+    mesh = jax_mesh(4, ("space",))
+    ref = np.asarray(jimg.stylize_spatial_sharded(
+        jr.init_reconet(0), jnp.asarray(FRAME), mesh))
+    got = np.concatenate([out["reconet"] for out, _ in stylized(4)], axis=1)
+    np.testing.assert_allclose(got, ref, **TOL["reconet"])
+
+
+@pytest.mark.parametrize("activation", ["cosine", "softmax"])
+def test_adaattn_sharded_matches_jax(stylized, jax_ref, activation):
+    """``stylize_adaattn_sharded`` at 128² on 2 ranks against JAX's
+    unsharded ``stylize_adaattn`` (rtol 1e-3, atol 5e-2, as
+    tests/test_parallel.py holds JAX's sharded program)."""
+    key = f"adaattn_{activation}"
+    got = np.concatenate([out[key] for out, _ in stylized(2)], axis=1)
+    np.testing.assert_allclose(got, jax_ref(key), rtol=1e-3, atol=5e-2)
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+def test_k1_halo_plain_matches_jax(rng, prologue):
+    """K1's halo-rows plain version over a 4-way row split (each shard
+    with its neighbours' rows, reflected rows at the frame's edges), the
+    outputs stitched and the sums combined into (mean, var), equals JAX's
+    ``conv3x3_in_stats`` (interpret mode) on the whole tensor."""
+    x = (rng.standard_normal((2, 16, 12, 8)) * 3).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 8, 8)) * 0.1).astype(np.float32)
+    b = (rng.standard_normal(8) * 0.1).astype(np.float32)
+    kw = {}
+    if prologue:
+        kw = dict(stats_in=np.stack([rng.standard_normal((2, 8)),
+                                     rng.random((2, 8)) + 0.5],
+                                    1).astype(np.float32),
+                  gamma=(rng.random(8) + 0.5).astype(np.float32),
+                  beta=(rng.standard_normal(8) * 0.1).astype(np.float32))
+    yj, sj = jrb.conv3x3_in_stats(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+        **{k: jnp.asarray(v) for k, v in kw.items()}, interpret=True)
+    xp = torch.nn.functional.pad(torch.from_numpy(x).permute(0, 3, 1, 2),
+                                 (1, 1, 1, 1), mode="reflect").permute(
+                                     0, 2, 3, 1)
+    tw = {k: torch.from_numpy(v) for k, v in kw.items()}
+    ys, sums = [], 0
+    for i in range(4):
+        y, s = res_block.conv3x3_in_stats_halo(
+            xp[:, 4 * i:4 * i + 6].contiguous(), torch.from_numpy(w),
+            torch.from_numpy(b), **tw)
+        assert y.shape == (2, 4, 12, 8) and s.dtype == torch.float32
+        ys.append(y)
+        sums = sums + s
+    mean = sums[:, 0] / (16 * 12)
+    var = sums[:, 1] / (16 * 12) - mean * mean
+    np.testing.assert_allclose(torch.cat(ys, 1).numpy(), np.asarray(yj),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(sj[:, 0]),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(var.numpy(), np.asarray(sj[:, 1]),
+                               rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("family", td.SPATIAL_FAMILIES)
+def test_world1_matches_unsharded(tmp_path, family):
+    """A world-1 sharded forward on the CPU gives the unsharded one's
+    bits: the exchange pads as the layers do, and the two-pass instance
+    norm and K1's sums divide as the unsharded ones."""
+    model = td.spatial_model(family)
+    plain = pim.stylize_rtnstv if family == "rtnstv" else pim.stylize_reconet
+    with td.world1(tmp_path):
+        mesh = make_mesh(None, ("space",))
+        got = pim.stylize_spatial_sharded(model, FRAME, mesh)
+    assert torch.equal(got, plain(model, FRAME))
+
+
+def test_world1_adaattn_matches_unsharded(tmp_path):
+    """The same for AdaAttN cosine at 64²: the local queries are all the
+    queries, so the moments are the unsharded ones."""
+    vgg = pv.init_vgg19_adaattn(0, device="cpu")
+    net = pa.init_stylizing_network(1, device="cpu")
+    c, s = (a[:, :64, :64] for a in ADA)
+    with td.world1(tmp_path):
+        mesh = make_mesh(None, ("space",))
+        got = pim.stylize_adaattn_sharded(vgg, net, c, s, mesh)
+    ref = pim.stylize_adaattn(vgg, net, c, s, "cosine")
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+
+
+def test_size_rules_and_serving_only(tmp_path):
+    """H that the layers cannot split raises ValueError naming the
+    multiple; a sharded op that would need a gradient raises."""
+    from vst_tpu_torch.ops.conv import conv2d_reflect
+
+    model = td.spatial_model("reconet")
+    vgg = pv.init_vgg19_adaattn(0, device="cpu")
+    net = pa.init_stylizing_network(1, device="cpu")
+    with td.world1(tmp_path):
+        mesh = make_mesh(None, ("space",))
+        with pytest.raises(ValueError, match="multiple of 4"):
+            pim.stylize_spatial_sharded(model, FRAME[:, :62], mesh)
+        with pytest.raises(ValueError, match="divide by 16"):
+            pim.stylize_adaattn_sharded(vgg, net, ADA[0][:, :120], ADA[1],
+                                        mesh)
+        ctx = SpatialContext(mesh)
+        x = shard_spatial(mesh, torch.from_numpy(FRAME))
+        w = torch.zeros(4, 3, 3, 3, requires_grad=True)
+        with pytest.raises(NotImplementedError, match="serves only"):
+            conv2d_reflect(x, w, spatial=ctx)
+        with pytest.raises(NotImplementedError, match="serves only"):
+            model(x, spatial=ctx)
+        with torch.no_grad():
+            assert conv2d_reflect(x, w, spatial=ctx).shape == (1, 64, 32, 4)

@@ -272,3 +272,125 @@ def video_stylizer(rank, world, frames, style, batch_size, activation):
         vgg, net, style, activation, batch_size, mesh=mesh).stylize_frames(
             iter(frames) if rank == 0 else None))
     return ref, out
+
+
+# ------------------------------------------------- spatial (H-sharded) serving
+
+def spatial_layout(rank, world, x):
+    """``shard_spatial`` of a dict on a 1-D "space" mesh, and the message
+    of its ``ValueError`` on an H that does not split."""
+    from vst_tpu_torch.parallel import make_mesh, shard_spatial
+
+    mesh = make_mesh(None, ("space",))
+    own = shard_spatial(mesh, {"x": x, "y": [torch.from_numpy(x)]})
+    try:
+        shard_spatial(mesh, np.zeros((1, x.shape[1] + 1, 2, 3), np.float32))
+        err = None
+    except ValueError as e:
+        err = str(e)
+    return _np(own["x"]), _np(own["y"][0]), str(own["x"].device), err
+
+
+def spatial_layer_cases(seed=3):
+    """Every layer kind of the H-sharded path: name → (fn(x, spatial),
+    the full-frame input: a tensor, or the list of a pyramid's levels).  ``fn(x, None)`` is the unsharded layer; a rank
+    applies ``fn`` to its rows.  Every H divides by 4 ranks with the
+    blocks each kind needs (K2's 9×9 at 8 rows a block)."""
+    from vst_tpu_torch.kernels.res_block import residual_block_fused
+    from vst_tpu_torch.models.adaattn import _up2
+    from vst_tpu_torch.ops import conv as oc
+    from vst_tpu_torch.ops.features import feature_down_sample
+    from vst_tpu_torch.ops.norm import instance_norm
+
+    g = np.random.default_rng(seed)
+
+    def a(*shape, scale=1.0):
+        return torch.from_numpy((g.standard_normal(shape) * scale)
+                                .astype(np.float32))
+
+    w3, b3 = a(6, 5, 3, 3, scale=0.2), a(6, scale=0.1)
+    w9, b9 = a(4, 3, 9, 9, scale=0.05), a(4, scale=0.1)
+    wt, bt = a(5, 4, 3, 3, scale=0.2), a(4, scale=0.1)    # (I, O, kh, kw)
+    res = [a(3, 3, 8, 8, scale=0.1), a(8, scale=0.1), a(8, scale=0.2) + 1,
+           a(8, scale=0.1), a(3, 3, 8, 8, scale=0.1), a(8, scale=0.1),
+           a(8, scale=0.2) + 1, a(8, scale=0.1)]
+    pyramid = [a(1, 64 >> i, 48 >> i, 3, scale=2.0) for i in range(5)]
+    return {
+        "reflect3x3_s1": (lambda x, s: oc.conv2d_reflect(x, w3, b3,
+                                                         spatial=s),
+                          a(2, 32, 12, 5)),
+        "reflect3x3_s2": (lambda x, s: oc.conv2d_reflect(x, w3, b3, 2,
+                                                         spatial=s),
+                          a(2, 32, 13, 5)),
+        "polyphase9x9_k2": (lambda x, s: oc.conv2d_polyphase_reflect(
+            x, w9, b9, spatial=s), a(1, 32, 14, 3, scale=50.0)),
+        "nearest_up2_conv": (lambda x, s: oc.conv2d_nearest_up2(
+            x, w3, b3, spatial=s), a(2, 8, 7, 5)),
+        "conv_transpose_s2": (lambda x, s: oc.conv_transpose2d(
+            x, wt, bt, spatial=s), a(2, 8, 6, 5)),
+        "zero_pad_conv3x3": (lambda x, s: oc.conv2d(
+            x, w3, b3, padding=1, spatial=s), a(2, 16, 9, 5)),
+        "max_pool2x2": (lambda x, s: oc.max_pool2d(x, spatial=s),
+                        a(2, 16, 10, 4)),
+        "feature_down_sample": (lambda x, s: feature_down_sample(
+            x, 4, spatial=s), pyramid),
+        "bilinear_up2_clamp": (lambda x, s: _up2(x, s), a(2, 8, 5, 4)),
+        "instance_norm": (lambda x, s: instance_norm(
+            x, res[2][:5], res[3][:5], spatial=s), a(2, 16, 9, 5, scale=3.0)),
+        "residual_block_k1": (lambda x, s: residual_block_fused(
+            x, *res, spatial=s), a(2, 16, 10, 8, scale=3.0)),
+    }
+
+
+def spatial_layers(rank, world):
+    """Each layer kind of ``spatial_layer_cases`` on this rank's rows:
+    name → its output rows."""
+    from vst_tpu_torch.parallel import make_mesh, shard_spatial
+    from vst_tpu_torch.parallel.spatial import SpatialContext
+
+    mesh = make_mesh(None, ("space",))
+    ctx = SpatialContext(mesh)
+    out = {}
+    with torch.no_grad():
+        for name, (fn, x) in spatial_layer_cases().items():
+            out[name] = _np(fn(shard_spatial(mesh, x), ctx))
+    return out
+
+
+SPATIAL_FAMILIES = ("reconet", "sd1", "sd2", "rtnstv")
+
+
+def spatial_model(family, seed=0):
+    """The seeded (JAX ``init_*(seed)``) model of ``family`` on the CPU."""
+    from vst_tpu_torch.models import reconet, rtnstv
+
+    if family == "rtnstv":
+        return rtnstv.init_stylizing_network(seed, device="cpu")
+    return {"reconet": reconet.init_reconet, "sd1": reconet.init_reconet_sd1,
+            "sd2": reconet.init_reconet_sd2}[family](seed, device="cpu")
+
+
+def spatial_stylize(rank, world, x, ada=None):
+    """``stylize_spatial_sharded`` of each seeded family on this rank's
+    rows of x, and with ``ada`` = (content, style) ``stylize_adaattn_
+    sharded`` cosine and softmax (VGG19 seed 0, AdaAttN seed 1); plus the
+    ReCoNet frame assembled by ``gather_rows``."""
+    from vst_tpu_torch.infer.image import (stylize_adaattn_sharded,
+                                           stylize_spatial_sharded)
+    from vst_tpu_torch.models import adaattn as pa
+    from vst_tpu_torch.models import vgg as pv
+    from vst_tpu_torch.parallel import gather_rows, make_mesh
+    from vst_tpu_torch.parallel.spatial import SpatialContext
+
+    mesh = make_mesh(None, ("space",))
+    out = {f: stylize_spatial_sharded(spatial_model(f), x, mesh)
+           for f in SPATIAL_FAMILIES}
+    gathered = _np(gather_rows(SpatialContext(mesh), out["reconet"]))
+    out = {f: _np(y) for f, y in out.items()}
+    if ada is not None:
+        vgg = pv.init_vgg19_adaattn(0, device="cpu")
+        net = pa.init_stylizing_network(1, device="cpu")
+        for act in ("cosine", "softmax"):
+            out[f"adaattn_{act}"] = _np(stylize_adaattn_sharded(
+                vgg, net, *ada, mesh, activation=act))
+    return out, gathered

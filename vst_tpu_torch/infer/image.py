@@ -2,7 +2,8 @@
 
 Counterpart of ``vst_tpu/infer/image.py`` (``stylize_reconet``,
 ``stylize_rtnstv``, ``_finish``, ``stylize_adaattn``,
-``adaattn_style_state``, ``stylize_adaattn_cached``; parity:
+``adaattn_style_state``, ``stylize_adaattn_cached``, and the H-sharded
+``stylize_spatial_sharded`` and ``stylize_adaattn_sharded``; parity:
 ReCoNet/inference/infer.py, RTNSTV/infer.py, AdaAttN/infer_image.py,
 AdaAttN/infer_image_all.py).  Inputs may be
 numpy arrays or tensors, uint8 or float 0–255; they are copied to the
@@ -89,3 +90,69 @@ def stylize_adaattn_cached(vgg, model, content, state,
     fc = vgg(_on_model(vgg, content))
     return torch.clamp(
         adaattn_m.stylizing_network_cached(model, fc, state, activation), 0, 255)
+
+
+# ------------------------------------------------ H-sharded (spatial) serving
+
+def _spatial_setup(model, mesh, axis):
+    from vst_tpu_torch.parallel.spatial import SpatialContext
+
+    ctx = SpatialContext(mesh, axis)
+    dev = next(model.parameters()).device
+    if dev != mesh.device:
+        raise ValueError(f"the model is on {dev}, this rank's mesh device "
+                         f"is {mesh.device}")
+    return ctx
+
+
+@torch.inference_mode()
+def stylize_spatial_sharded(model, x, mesh, axis: str = "space"):
+    """High-resolution stylization with the frame's H axis sharded over
+    ``axis`` of ``mesh`` (``parallel/mesh.py``), for frames beyond one
+    card's comfortable working set (4K).  Every rank calls it with the full
+    frame x (N, H, W, 3·frames) 0–255, as JAX's callers pass it, and gets
+    back **its own rows** of the clamped styled frames on its device: its
+    shard of JAX's H-sharded result (``parallel.spatial.gather_rows``
+    assembles the frame).
+
+    ``model`` is a ReCoNet-family model or an RTNSTV ``StylizingNetwork``
+    on this rank's device; only the rank's rows of x cross to it
+    (``shard_spatial``).  The layers exchange their halo rows over the
+    axis and K1 runs in its halo-rows mode (``parallel/spatial.py``).  H
+    must divide by 4 times the axis size, with at least 8 rows a rank."""
+    from vst_tpu_torch.parallel.mesh import shard_spatial
+
+    ctx = _spatial_setup(model, mesh, axis)
+    out = model(_on_model(model, shard_spatial(mesh, x, axis)), spatial=ctx)
+    return _finish(out[-1] if isinstance(out, tuple) else out, False)
+
+
+@torch.inference_mode()
+def stylize_adaattn_sharded(vgg, model, content, style, mesh,
+                            activation: str = "cosine", axis: str = "space"):
+    """AdaAttN with the content's H axis sharded over ``axis`` of ``mesh``:
+    VGG19 encode, attention and decoder on each rank's row block.  Every
+    rank passes the full content (N, H, W, 3) and style, and gets back its
+    own rows of the clamped styled frames on its device.
+
+    The style (batch 1 is broadcast to the content batch) is encoded whole
+    on every rank, as JAX replicates it; each rank's queries, a contiguous
+    token range, meet the whole style's K/V in one ``attention_moments``
+    call a level (K3 for softmax, the linear form for cosine), so the
+    attention needs no collective.  H must divide by 16 times the axis
+    size (every VGG tap's rows split evenly).  Defaults as JAX's:
+    ``activation="cosine"``, ``axis="space"``."""
+    from vst_tpu_torch.parallel.mesh import shard_spatial
+
+    ctx = _spatial_setup(vgg, mesh, axis)
+    h = content.shape[1]
+    if h % (16 * ctx.size):
+        raise ValueError(f"stylize_adaattn_sharded: content H {h} must "
+                         f"divide by 16·{ctx.size} = {16 * ctx.size}")
+    fc = vgg(_on_model(vgg, shard_spatial(mesh, content, axis)),
+             spatial=ctx)
+    fs = vgg(_on_model(vgg, style))
+    n = content.shape[0]
+    fs = {k: v.expand(n, *v.shape[1:]) for k, v in fs.items()}
+    return torch.clamp(adaattn_m.stylizing_network(
+        model, fc, fs, activation, spatial=ctx), 0, 255)

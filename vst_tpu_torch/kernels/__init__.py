@@ -2,7 +2,9 @@
 ``_build.py``) and their plain PyTorch versions.
 
 - K1 ``res_block.conv3x3_in_stats``: the residual stack's conv with
-  instance-norm statistics (replaces ``vst_tpu/kernels/res_block.py``).
+  instance-norm statistics (replaces ``vst_tpu/kernels/res_block.py``),
+  and ``res_block.conv3x3_in_stats_halo``, its halo-rows mode for a row
+  shard of an H-sharded frame.
 - K2 ``head_conv.conv3x3_valid``: the packed 3×3 conv of the 9×9 stem and
   head (replaces ``vst_tpu/kernels/head_conv.py``).
 - K3 ``adaattn_attention.softmax_attention_moments``: AdaAttN's softmax

@@ -22,7 +22,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "vst_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("res_block", "head_conv", "adaattn_fwd", "adaattn_bwd")
+KERNELS = ("res_block", "res_block_halo", "head_conv", "adaattn_fwd",
+           "adaattn_bwd")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}   # nvcc's output (ptxas register/spill report)

@@ -8,7 +8,9 @@
 //
 // Design against the TPU kernel:
 // - Reflect padding is resolved by index inside the kernel; the JAX form
-//   materialises the padded tensor plus three row-shifted slabs.
+//   materialises the padded tensor plus three row-shifted slabs.  A row
+//   shard of an H-sharded frame takes res_block_halo.cu's halo-rows mode
+//   instead, whose input carries its neighbours' rows.
 // - The TPU carried the sum / sum-of-squares accumulator across its
 //   sequential grid.  Hopper blocks run in no order, so each block writes
 //   its partial sums to a (N, blocks, 2, Co) scratch and finalize_stats
@@ -39,56 +41,8 @@
 // by operations.  The bf16 body reaches about half of that rate: its
 // consumers keep wgmma busy, and what is left is the tensor cores' rate on
 // this tile shape plus the epilogue (PERF.md).
-#include "conv3x3_tf32.cuh"   // and conv3x3_wgmma.cuh
-
-namespace vst {
-
-__global__ void finalize_stats(const float* __restrict__ partial,
-                               float* __restrict__ stats, int nblk, int co,
-                               float hw) {
-  const int n = blockIdx.y;
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= co) return;
-  float s = 0.f, s2 = 0.f;
-  for (int b = 0; b < nblk; ++b) {
-    const float* pb = partial + ((size_t)n * nblk + b) * 2 * co;
-    s += pb[o];
-    s2 += pb[co + o];
-  }
-  const float mean = s / hw;
-  stats[(size_t)n * 2 * co + o] = mean;
-  stats[(size_t)n * 2 * co + co + o] = __fsub_rn(s2 / hw, __fmul_rn(mean, mean));
-}
-
-// The prologue's per-image mean and scale = gamma * rsqrt(var + eps) and
-// beta, as float32 arrays, from the previous conv's (N, 2, C) statistics
-// and gamma, beta (float32, or bf16 when gb_bf16): the arithmetic of the
-// plain version's _prologue, in one launch.
-__global__ void prologue_params(const float* __restrict__ stats_in,
-                                const void* gamma, const void* beta,
-                                int gb_bf16, float* __restrict__ mean,
-                                float* __restrict__ scale,
-                                float* __restrict__ beta_out, int n, int c) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n * c) return;
-  const int img = i / c, ch = i - (i / c) * c;
-  const float g = gb_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(gamma)[ch])
-                          : static_cast<const float*>(gamma)[ch];
-  mean[i] = stats_in[(size_t)img * 2 * c + ch];
-  scale[i] = __fmul_rn(g, rsqrtf(__fadd_rn(stats_in[(size_t)img * 2 * c + c + ch], 1e-5f)));
-  if (img == 0)
-    beta_out[ch] = gb_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(beta)[ch])
-                           : static_cast<const float*>(beta)[ch];
-}
-
-template <bool PRO>
-cudaError_t launch(const ConvArgs& a, float* wsplit, int n, bool bf16,
-                   cudaStream_t s) {
-  return bf16 ? wg::launch<true, PRO, true>(a, n, s)
-              : tf::launch<true, PRO, true>(a, wsplit, n, s);
-}
-
-}  // namespace vst
+#include "conv3x3_tf32.cuh"      // and conv3x3_wgmma.cuh
+#include "res_block_common.cuh"   // finalize_stats, prologue_params, k1_run
 
 // The number of partial-sum blocks per image that vst_k1_conv3x3_in_stats
 // writes for an (h, wd) image, in both dtypes (one per 8 x 16 tile): the
@@ -127,27 +81,7 @@ extern "C" int vst_k1_conv3x3_in_stats(
     const void* gamma, const void* beta, int gb_bf16, void* pro, void* wsplit,
     void* y, void* partial, void* stats, int n, int h, int wd, int c, int co,
     int bf16, void* stream) {
-  using namespace vst;
-  float* mean = stats_in != nullptr ? static_cast<float*>(pro) : nullptr;
-  float* scale = mean != nullptr ? mean + (size_t)n * c : nullptr;
-  float* beta_f = mean != nullptr ? scale + (size_t)n * c : nullptr;
-  ConvArgs a{x, w, b, mean, scale, beta_f,
-             y, static_cast<float*>(partial), h, wd, h, wd, c, co};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stats_in != nullptr) {
-    prologue_params<<<(n * c + 255) / 256, 256, 0, s>>>(
-        static_cast<const float*>(stats_in), gamma, beta, gb_bf16, mean,
-        scale, beta_f, n, c);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  float* ws = static_cast<float*>(wsplit);
-  const cudaError_t err = stats_in != nullptr
-                              ? launch<true>(a, ws, n, bf16 != 0, s)
-                              : launch<false>(a, ws, n, bf16 != 0, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finalize_stats<<<dim3((co + 127) / 128, n), 128, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(stats),
-      wg::tiles(h, wd), co, static_cast<float>(h * wd));
-  return static_cast<int>(cudaGetLastError());
+  return vst::k1_run<true>(x, w, b, stats_in, gamma, beta, gb_bf16, pro,
+                           wsplit, y, partial, stats, n, h, wd, c, co, bf16,
+                           stream);
 }

@@ -8,6 +8,13 @@ channels, RTNSTV's at 48) is two launches plus an elementwise tail in
 torch; the port's models run every residual block this way.  The kernel
 source is ``csrc/res_block.cu``.
 
+Halo-rows mode (``conv3x3_in_stats_halo``, ``csrc/res_block_halo.cu``):
+the same conv over one row shard of an H-sharded frame, whose input
+carries its neighbours' rows (``parallel/spatial.py::exchange_rows``) and
+a reflect-padded W border, and whose statistics come back as the shard's
+sums Σy, Σy² for the caller to all-reduce.  ``residual_block_fused(...,
+spatial=ctx)`` runs every launch in this mode, world 1 included.
+
 ``conv3x3_in_stats`` is the autograd Function ``Conv3x3InStats``: its
 forward launches the kernel for CUDA tensors (or raises) and takes the
 plain version only for CPU tensors; its backward is one explicit VJP on
@@ -34,6 +41,16 @@ EPS = 1e-5   # torch InstanceNorm2d default
 @functools.cache
 def _kernel():
     fn = _build.load("res_block").vst_k1_conv3x3_in_stats
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _kernel_halo():
+    fn = _build.load("res_block_halo").vst_k1_conv3x3_in_stats_halo
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
@@ -73,6 +90,23 @@ def _prologue(stats_in, gamma, beta, dtype=torch.float32):
     return mean, scale.contiguous(), beta.to(dtype).contiguous()
 
 
+def _plain_conv(x, w, b, stats_in, gamma, beta, pad):
+    """relu(IN(x))-prologue (optional), then the 3×3 conv of x
+    reflect-padded by ``pad`` (0: x is padded already) in the
+    accumulation dtype: float32, float64 for float64 inputs.  The
+    prologue output is rounded to x.dtype first, as the kernel does."""
+    acc_t = torch.float64 if x.dtype == torch.float64 else torch.float32
+    v = x
+    if stats_in is not None:
+        mean, scale, bt = _prologue(stats_in, gamma, beta, acc_t)
+        vf = (x.to(acc_t) - mean[:, None, None, :]) * scale[:, None, None, :]
+        v = torch.relu(vf + bt).to(x.dtype)
+    vp = reflection_pad2d(v, pad)
+    acc = F.conv2d(vp.permute(0, 3, 1, 2).to(acc_t),
+                   w.permute(3, 2, 0, 1).to(acc_t), b.to(acc_t))
+    return acc.permute(0, 2, 3, 1)
+
+
 def conv3x3_in_stats_plain(x, w, b, stats_in=None, gamma=None, beta=None):
     """Plain version, same rounding points as the kernel and the JAX one:
     the prologue output is rounded to x.dtype; the conv runs in float32;
@@ -80,20 +114,23 @@ def conv3x3_in_stats_plain(x, w, b, stats_in=None, gamma=None, beta=None):
     inputs run in float64 throughout (the exact evaluation a card check
     may hold the float32 kernel against)."""
     n, h, wd, _ = x.shape
-    acc_t = torch.float64 if x.dtype == torch.float64 else torch.float32
-    v = x
-    if stats_in is not None:
-        mean, scale, bt = _prologue(stats_in, gamma, beta, acc_t)
-        vf = (x.to(acc_t) - mean[:, None, None, :]) * scale[:, None, None, :]
-        v = torch.relu(vf + bt).to(x.dtype)
-    vp = reflection_pad2d(v, 1)
-    acc = F.conv2d(vp.permute(0, 3, 1, 2).to(acc_t),
-                   w.permute(3, 2, 0, 1).to(acc_t), b.to(acc_t))
-    acc = acc.permute(0, 2, 3, 1)
+    acc = _plain_conv(x, w, b, stats_in, gamma, beta, 1)
     hw = float(h * wd)
     mean = acc.sum(dim=(1, 2)) / hw
     var = (acc * acc).sum(dim=(1, 2)) / hw - mean * mean
     return acc.to(x.dtype).contiguous(), torch.stack([mean, var], dim=1)
+
+
+def conv3x3_in_stats_halo_plain(xh, w, b, stats_in=None, gamma=None,
+                                beta=None):
+    """Plain version of the halo-rows mode: the prologue and a VALID conv
+    over xh (N, R+2, W+2, C), whose border rows and columns are already
+    there → (y (N, R, W, Co) in xh.dtype, this shard's per-image sums
+    Σy, Σy² (N, 2, Co), float32 or float64 for float64 input)."""
+    acc = _plain_conv(xh, w, b, stats_in, gamma, beta, 0)
+    sums = torch.stack([acc.sum(dim=(1, 2)), (acc * acc).sum(dim=(1, 2))],
+                       dim=1)
+    return acc.to(xh.dtype).contiguous(), sums
 
 
 def _check(x, w, b, stats_in, gamma, beta):
@@ -159,6 +196,56 @@ def _launch(x, w, b, stats_in=None, gamma=None, beta=None):
         raise RuntimeError(f"K1 conv3x3_in_stats launch failed: CUDA error {rc}")
     conv3x3_in_stats.launches += 1
     return y, stats
+
+
+def _launch_halo(xh, w, b, stats_in=None, gamma=None, beta=None):
+    """The halo-rows kernel on CUDA tensors: xh (N, R+2, W+2, C) →
+    (y (N, R, W, Co), sums (N, 2, Co) float32)."""
+    _check(xh, w, b, stats_in, gamma, beta)
+    n, hp, wp, c = xh.shape
+    h, wd, co = hp - 2, wp - 2, w.shape[3]
+    bf16 = xh.dtype == torch.bfloat16
+    f32 = dict(dtype=torch.float32, device=xh.device)
+    y = torch.empty((n, h, wd, co), dtype=xh.dtype, device=xh.device)
+    partial = torch.empty((n, partial_blocks(h, wd), 2, co), **f32)
+    wsplit = None if bf16 else torch.empty(weight_floats(c, co), **f32)
+    sums = torch.empty((n, 2, co), **f32)
+    pro = [None] * 4
+    if stats_in is not None:
+        pro = [stats_in.float().contiguous(), gamma.contiguous(),
+               beta.contiguous(), torch.empty(2 * n * c + c, **f32)]
+    with torch.cuda.device(xh.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _kernel_halo()(
+            xh.data_ptr(), w.data_ptr(), b.data_ptr(),
+            *(_ptr(t) for t in pro[:3]),
+            int(stats_in is not None and gamma.dtype == torch.bfloat16),
+            _ptr(pro[3]), _ptr(wsplit), y.data_ptr(), partial.data_ptr(),
+            sums.data_ptr(), n, h, wd, c, co, int(bf16), stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 conv3x3_in_stats_halo launch failed: CUDA "
+                           f"error {rc}")
+    conv3x3_in_stats_halo.launches += 1
+    return y, sums
+
+
+def conv3x3_in_stats_halo(xh, w, b, stats_in=None, gamma=None, beta=None):
+    """K1's halo-rows mode, serving only: xh (B, R+2, W+2, C), a row shard
+    with its neighbours' (or a global edge's reflected) rows above and
+    below and its W border reflect-padded → (y (B, R, W, Co) in xh.dtype,
+    the shard's per-image sums Σy, Σy² (B, 2, Co) float32), with the
+    optional normalize+relu prologue of ``conv3x3_in_stats``.  CUDA
+    tensors launch the kernel (or raise), CPU tensors take the plain
+    version.  Raises when a gradient is needed."""
+    from vst_tpu_torch.parallel.spatial import no_grad_needed
+
+    no_grad_needed("conv3x3_in_stats_halo", xh, w, b, stats_in, gamma, beta)
+    if xh.device.type == "cpu":
+        return conv3x3_in_stats_halo_plain(xh, w, b, stats_in, gamma, beta)
+    return _launch_halo(xh, w, b, stats_in, gamma, beta)
+
+
+conv3x3_in_stats_halo.launches = 0
 
 
 def conv3x3_in_stats_vjp(x, w, b, stats_in, gamma, beta, y, stats, gy,
@@ -259,14 +346,37 @@ def conv3x3_in_stats(x, w, b, stats_in=None, gamma=None, beta=None):
 conv3x3_in_stats.launches = 0
 
 
-def residual_block_fused(x, w1, b1, g1, bt1, w2, b2, g2, bt2):
+def residual_block_fused(x, w1, b1, g1, bt1, w2, b2, g2, bt2, spatial=None):
     """One residual block (conv→IN→relu→conv→IN, + x) of ReCoNet or RTNSTV
     as two K1 launches and a float32 (float64 for float64 input)
     elementwise tail (normalize₂ + residual add).  Where the block widens
     the channels, x is zero-padded to them (RTNSTV/network.py:40-43).
-    Weights HWIO; g/bt are the two instance norms' weight and bias."""
-    y1, s1 = conv3x3_in_stats(x, w1, b1)
-    y2, s2 = conv3x3_in_stats(y1, w2, b2, stats_in=s1, gamma=g1, beta=bt1)
+    Weights HWIO; g/bt are the two instance norms' weight and bias.
+
+    With a ``spatial`` context (``parallel/spatial.py``) x is this rank's
+    row shard and both launches run in the halo-rows mode: conv1 on the
+    exchanged rows, its sums all-reduced into the frame's statistics, y1's
+    edge rows exchanged raw, conv2 with those statistics in its prologue,
+    its sums all-reduced, then the same tail (serving only)."""
+    if spatial is None:
+        y1, s1 = conv3x3_in_stats(x, w1, b1)
+        y2, s2 = conv3x3_in_stats(y1, w2, b2, stats_in=s1, gamma=g1,
+                                  beta=bt1)
+    else:
+        from vst_tpu_torch.parallel import spatial as sp
+
+        sp.no_grad_needed("residual_block_fused", x, w1, b1, g1, bt1, w2, b2,
+                          g2, bt2)
+        count = x.shape[1] * spatial.size * x.shape[2]
+        # each launch's input: one row a side from the exchange (reflected
+        # at a frame edge) and the W border reflected, (N, R+2, W+2, C)
+        y1, sums = conv3x3_in_stats_halo(
+            sp.exchange_rows(spatial, x, 1, 1, "reflect", 1), w1, b1)
+        s1 = sp.sharded_in_stats(spatial, sums, count)
+        y2, sums = conv3x3_in_stats_halo(
+            sp.exchange_rows(spatial, y1, 1, 1, "reflect", 1), w2, b2, s1,
+            g1, bt1)
+        s2 = sp.sharded_in_stats(spatial, sums, count)
     acc_t = torch.float64 if x.dtype == torch.float64 else torch.float32
     mean = s2[:, 0][:, None, None, :]
     var = s2[:, 1][:, None, None, :]

@@ -29,6 +29,16 @@ as one all-reduce of the key moments, softmax as ring attention through
 K3.  Every rank passes the full q, k and v and gets the full M1 and M2
 back (its token shard computed, the others all-gathered), as JAX's
 global arrays; the token counts must divide by the axis size.
+
+With ``spatial`` (``parallel/spatial.py``) the content taps are this
+rank's row blocks of an H-sharded frame and the style taps whole (every
+rank encodes the style, as JAX replicates it): each block's queries are a
+contiguous range of the row-major tokens, so one ``attention_moments``
+call of the local queries against the whole style's K/V (one K3 launch a
+level for softmax, the linear form for cosine) needs no collective; the
+content instance norms all-reduce their sums, ``_up2`` takes one row a
+side (repeated at the frame's edges) and the decoder's reflect convs
+theirs.  Serving only; H must divide by 16 times the axis size.
 """
 
 import torch
@@ -68,8 +78,9 @@ class Conv(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, k)
 
-    def forward(self, x):
-        return conv2d_reflect(x, self.conv.weight, self.conv.bias)
+    def forward(self, x, spatial=None):
+        return conv2d_reflect(x, self.conv.weight, self.conv.bias,
+                              spatial=spatial)
 
 
 class ConvReLU(nn.Module):
@@ -79,8 +90,8 @@ class ConvReLU(nn.Module):
         super().__init__()
         self.conv = Conv(cin, cout)
 
-    def forward(self, x):
-        return torch.relu(self.conv(x))
+    def forward(self, x, spatial=None):
+        return torch.relu(self.conv(x, spatial))
 
 
 class AttentionConvs(nn.Module):
@@ -221,14 +232,15 @@ def _flatten_hw(x):
     return x.reshape(b, h * w, c)
 
 
-def _apply_moments(c_x, m1, m2):
+def _apply_moments(c_x, m1, m2, spatial=None):
     """out = sqrt(max(M2 − M1², 1e-6))·IN(c) + M1 (network.py:214-220), in
     float32 (the variance cancels too much to take it in bf16), returned
     in c_x's dtype."""
     b, h, w, _ = c_x.shape
     m1, m2 = m1.float(), m2.float()
     s = torch.sqrt(torch.clamp(m2 - m1 * m1, min=1e-6))
-    out = (s.reshape(b, h, w, -1) * instance_norm(c_x).float()
+    out = (s.reshape(b, h, w, -1)
+           * instance_norm(c_x, spatial=spatial).float()
            + m1.reshape(b, h, w, -1))
     return out.to(c_x.dtype)
 
@@ -238,11 +250,12 @@ def _qkv_conv(layer, x):
 
 
 def adaattn_module(params, name, c_x, s_x, c_1x, s_1x, activation,
-                   mode="auto", mesh=None, mesh_axis="data"):
+                   mode="auto", mesh=None, mesh_axis="data", spatial=None):
     """One attention module (AdaAttN/network.py:174-220), NHWC.  ``name``
     e.g. ``"adaattn.0"``, a submodule of ``params``; ``name=None`` is the
-    conv-free ``AdaAttnNoConv`` (network.py:128-171)."""
-    qn = instance_norm(c_1x)
+    conv-free ``AdaAttnNoConv`` (network.py:128-171).  ``spatial``: c_x
+    and c_1x are row blocks, s_x and s_1x whole (module docstring)."""
+    qn = instance_norm(c_1x, spatial=spatial)
     kn = instance_norm(s_1x)
     if name is not None:
         convs = params.get_submodule(name)
@@ -254,7 +267,7 @@ def adaattn_module(params, name, c_x, s_x, c_1x, s_1x, activation,
     m1, m2 = attention_moments(_flatten_hw(q), _flatten_hw(k),
                                _flatten_hw(v), activation, mode, mesh=mesh,
                                mesh_axis=mesh_axis)
-    return _apply_moments(c_x, m1, m2)
+    return _apply_moments(c_x, m1, m2, spatial)
 
 
 def adaattn_no_conv(c_x, s_x, c_1x, s_1x, activation, mode="auto"):
@@ -323,32 +336,40 @@ def stylizing_network_cached(params, fc, states, activation="cosine",
 
 # ----------------------------------------------------------------- decoder
 
-def _up2(x):
-    return resize_bilinear(x, (x.shape[1] * 2, x.shape[2] * 2))
+def _up2(x, spatial=None):
+    return resize_bilinear(x, (x.shape[1] * 2, x.shape[2] * 2), spatial)
 
 
-def decoder(params, x5, x4, x3):
+def decoder(params, x5, x4, x3, spatial=None):
     """AdaAttN Decoder (network.py:63-99) on the three attention outputs
-    at the relu5_1/4_1/3_1 scales (NHWC)."""
+    at the relu5_1/4_1/3_1 scales (NHWC; row blocks with ``spatial``)."""
     d = params.decoder
-    x = d.conv2(d.conv1(_up2(x5) + x4))
-    x = d.conv3(torch.cat([_up2(x), x3], dim=-1))
-    x = d.conv6(d.conv5(_up2(d.conv4(x))))
-    return d.conv8(d.conv7(_up2(x)))
+    x = d.conv2(d.conv1(_up2(x5, spatial) + x4, spatial), spatial)
+    x = torch.cat([_up2(x, spatial), x3], dim=-1)
+    for layer in d.conv3:
+        x = layer(x, spatial)
+    x = d.conv6(d.conv5(_up2(d.conv4(x, spatial), spatial), spatial),
+                spatial)
+    return d.conv8(d.conv7(_up2(x, spatial), spatial), spatial)
 
 
 # ------------------------------------------------------------- full model
 
 def stylizing_network(params, fc: dict, fs: dict, activation="softmax",
                       mode="auto", mesh=None, mesh_axis="data",
-                      remat=False):
+                      remat=False, spatial=None):
     """Full AdaAttN stylizer (network.py:223-251) on ordered VGG19 tap
     dicts (``models/vgg.py::vgg19_adaattn_features``).
 
     ``remat=True`` checkpoints each attention module and the decoder
     separately (the JAX package's segments): backward holds one segment's
     internals at a time and recomputes them, K3 included.  ``mesh``:
-    sequence-parallel attention over ``mesh_axis`` (module docstring)."""
+    sequence-parallel attention over ``mesh_axis``; ``spatial``: fc holds
+    this rank's row blocks of an H-sharded content (module docstring)."""
+    if mesh is not None and spatial is not None:
+        raise ValueError("stylizing_network: pass mesh= (a token-sharded "
+                         "attention) or spatial= (an H-sharded content), "
+                         "not both")
     apply_precision(next(iter(fc.values())).dtype)
     fcl = list(fc.values())
     fsl = list(fs.values())
@@ -356,15 +377,15 @@ def stylizing_network(params, fc: dict, fs: dict, activation="softmax",
     run_module = segment(
         lambda i, c_x, s_x, c_1x, s_1x: adaattn_module(
             params, f"adaattn.{i}", c_x, s_x, c_1x, s_1x, activation, mode,
-            mesh, mesh_axis),
+            mesh, mesh_axis, spatial),
         remat)
     run_decoder = segment(
-        lambda x5, x4, x3: decoder(params, x5, x4, x3), remat)
+        lambda x5, x4, x3: decoder(params, x5, x4, x3, spatial), remat)
     outs = []
     for i in range(3):
         idx = i + 2
         outs.append(run_module(i, fcl[idx], fsl[idx],
-                               feature_down_sample(fcl, idx),
+                               feature_down_sample(fcl, idx, spatial),
                                feature_down_sample(fsl, idx)))
     return run_decoder(outs[2], outs[1], outs[0])
 

@@ -18,6 +18,12 @@ polyphase-packed input (``ops/conv.py::conv2d_polyphase_reflect``), on
 the card always.  On CPU tensors the kernels' plain versions run.  The
 stride-2 encoder convs and the upsample convs are ``F.conv2d``, as the
 JAX package leaves them to XLA.
+
+``forward(x, spatial=ctx)`` (``parallel/spatial.py``) runs the model over
+this rank's row block of an H-sharded frame (serving only): every layer
+exchanges its halo rows, the instance norms all-reduce their sums, and
+the residual blocks run K1's halo-rows mode.  H must divide by 4 times the
+axis size, with at least 8 rows a block.
 """
 
 import torch
@@ -30,6 +36,7 @@ from vst_tpu_torch.models.init import as_rng, conv_init, instance_norm_init
 from vst_tpu_torch.ops.conv import (conv2d_nearest_up2,
                                     conv2d_polyphase_reflect, conv2d_reflect)
 from vst_tpu_torch.ops.norm import instance_norm
+from vst_tpu_torch.parallel.spatial import check_rows
 
 
 def _hwio(w):
@@ -43,18 +50,21 @@ class ConvLayer(nn.Module):
         super().__init__()
         self.conv2d = nn.Conv2d(cin, cout, k, stride)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         c = self.conv2d
         if c.kernel_size[0] == 9 and c.stride[0] == 1:
-            return conv2d_polyphase_reflect(x, c.weight, c.bias, factor=4)
-        return conv2d_reflect(x, c.weight, c.bias, c.stride[0])
+            return conv2d_polyphase_reflect(x, c.weight, c.bias, factor=4,
+                                            spatial=spatial)
+        return conv2d_reflect(x, c.weight, c.bias, c.stride[0],
+                              spatial=spatial)
 
 
 class ConvTanh(ConvLayer):
     """ConvLayer, then tanh(x/255)·150 + 127.5 (:78-85)."""
 
-    def forward(self, x):
-        return torch.tanh(super().forward(x) / 255.0) * 150.0 + 255.0 / 2.0
+    def forward(self, x, spatial=None):
+        return (torch.tanh(super().forward(x, spatial) / 255.0) * 150.0
+                + 255.0 / 2.0)
 
 
 class ConvInstRelu(ConvLayer):
@@ -64,20 +74,21 @@ class ConvInstRelu(ConvLayer):
         super().__init__(cin, cout, k, stride)
         self.instance = nn.InstanceNorm2d(cout, affine=True)
 
-    def _norm_relu(self, x):
+    def _norm_relu(self, x, spatial):
         return torch.relu(instance_norm(x, self.instance.weight,
-                                        self.instance.bias))
+                                        self.instance.bias, spatial=spatial))
 
-    def forward(self, x):
-        return self._norm_relu(super().forward(x))
+    def forward(self, x, spatial=None):
+        return self._norm_relu(super().forward(x, spatial), spatial)
 
 
 class UpsampleConvInstRelu(ConvInstRelu):
     """Nearest ×2 upsample + ConvLayer + IN + ReLU (:101-133)."""
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         c = self.conv2d
-        return self._norm_relu(conv2d_nearest_up2(x, c.weight, c.bias))
+        return self._norm_relu(
+            conv2d_nearest_up2(x, c.weight, c.bias, spatial=spatial), spatial)
 
 
 class ResidualBlock(nn.Module):
@@ -91,11 +102,12 @@ class ResidualBlock(nn.Module):
         self.conv2 = ConvLayer(ch, ch, 3)
         self.in2 = nn.InstanceNorm2d(ch, affine=True)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         c1, c2 = self.conv1.conv2d, self.conv2.conv2d
         return residual_block_fused(
             x, _hwio(c1.weight), c1.bias, self.in1.weight, self.in1.bias,
-            _hwio(c2.weight), c2.bias, self.in2.weight, self.in2.bias)
+            _hwio(c2.weight), c2.bias, self.in2.weight, self.in2.bias,
+            spatial=spatial)
 
 
 _LAYER = {"conv": ConvInstRelu, "up": UpsampleConvInstRelu,
@@ -121,12 +133,15 @@ class _ReCoNetFamily(nn.Module):
             else:
                 self.add_module(name, _LAYER[kind](cin, cout, k, stride))
 
-    def forward(self, x):
-        """x: (N, H, W, 3·input_frame_num) 0–255 in the parameters' dtype."""
+    def forward(self, x, spatial=None):
+        """x: (N, H, W, 3·input_frame_num) 0–255 in the parameters' dtype;
+        with ``spatial``, this rank's rows of it (module docstring)."""
         apply_precision(x.dtype)
+        if spatial is not None:
+            check_rows(spatial, x.shape[1], 4, type(self).__name__)
         taps = {}
         for name, layer in self.named_children():
-            x = layer(x)
+            x = layer(x, spatial)
             if name in self.TAPS:
                 taps[name] = x
         return tuple(taps[t] for t in self.TAPS) + (x,)

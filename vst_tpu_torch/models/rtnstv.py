@@ -18,6 +18,12 @@ Routing: every residual block runs as two K1 launches and a float32 tail
 CPU tensors K1's plain version runs.  The other convs are ``F.conv2d``
 and the decoders ``F.conv_transpose2d``, as the JAX package leaves them
 to XLA.
+
+``forward(x, spatial=ctx)`` (``parallel/spatial.py``) runs the network
+over this rank's row block of an H-sharded frame (serving only), every
+layer exchanging its halo rows and the residual blocks on K1's halo-rows
+mode; H must divide by 4 times the axis size, with at least 8 rows a
+block.
 """
 
 import torch
@@ -31,6 +37,7 @@ from vst_tpu_torch.models.init import (as_rng, conv_init, conv_transpose_init,
 from vst_tpu_torch.models.reconet import _hwio
 from vst_tpu_torch.ops.conv import conv2d_reflect, conv_transpose2d
 from vst_tpu_torch.ops.norm import instance_norm
+from vst_tpu_torch.parallel.spatial import check_rows
 
 # (name, in, out, stride, activation) of the encoder, the head last
 ENCODER = [("conv1", 3, 16, 1, "relu"), ("conv2", 16, 32, 2, "relu"),
@@ -52,10 +59,11 @@ class ConvBlock(nn.Module):
         self.norm = nn.InstanceNorm2d(cout, affine=True)
         self.activation = activation
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         c = self.conv
-        x = instance_norm(conv2d_reflect(x, c.weight, c.bias, c.stride[0]),
-                          self.norm.weight, self.norm.bias)
+        x = instance_norm(conv2d_reflect(x, c.weight, c.bias, c.stride[0],
+                                         spatial=spatial),
+                          self.norm.weight, self.norm.bias, spatial=spatial)
         act = _ACT[self.activation]
         return act(x) if act is not None else x
 
@@ -70,12 +78,12 @@ class ResBlock(nn.Module):
         self.conv1 = ConvBlock(cin, cout, 3, 1, "relu")
         self.conv2 = ConvBlock(cout, cout, 3, 1)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         c1, c2 = self.conv1, self.conv2
         return residual_block_fused(
             x, _hwio(c1.conv.weight), c1.conv.bias, c1.norm.weight,
             c1.norm.bias, _hwio(c2.conv.weight), c2.conv.bias,
-            c2.norm.weight, c2.norm.bias)
+            c2.norm.weight, c2.norm.bias, spatial=spatial)
 
 
 class DeconvBlock(nn.Module):
@@ -88,9 +96,11 @@ class DeconvBlock(nn.Module):
                                          output_padding=1)
         self.norm = nn.InstanceNorm2d(cout, affine=True)
 
-    def forward(self, x):
-        x = conv_transpose2d(x, self.deconv.weight, self.deconv.bias)
-        return torch.relu(instance_norm(x, self.norm.weight, self.norm.bias))
+    def forward(self, x, spatial=None):
+        x = conv_transpose2d(x, self.deconv.weight, self.deconv.bias,
+                             spatial=spatial)
+        return torch.relu(instance_norm(x, self.norm.weight, self.norm.bias,
+                                        spatial=spatial))
 
 
 class StylizingNetwork(nn.Module):
@@ -107,12 +117,14 @@ class StylizingNetwork(nn.Module):
         name, cin, cout, stride, act = HEAD
         self.add_module(name, ConvBlock(cin, cout, 3, stride, act))
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         """x: (N, H, W, 3) 0–255 in the parameters' dtype → the styled
-        frames, 0–255."""
+        frames, 0–255; with ``spatial``, this rank's rows of both."""
         apply_precision(x.dtype)
+        if spatial is not None:
+            check_rows(spatial, x.shape[1], 4, "RTNSTV")
         for layer in self.children():
-            x = layer(x)
+            x = layer(x, spatial)
         return (x + 1.0) / 2.0 * 255.0
 
 

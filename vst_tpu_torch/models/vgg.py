@@ -12,6 +12,11 @@ torchvision state_dict loads once its other keys are dropped
 Both VGG19s normalize their input inside (RTNSTV/vgg19.py:39); ReCoNet's
 VGG16 takes input the caller has normalized (the ReCoNet trainers call
 ``vgg_normalize`` themselves).  Input and taps are NHWC.
+
+``forward(x, spatial=ctx)`` (``parallel/spatial.py``) encodes this rank's
+row block of an H-sharded frame: each zero-padded conv exchanges one row
+a side, the pools need an even block, and the taps come back as row
+blocks (serving only; AdaAttN's content side).
 """
 
 import numpy as np
@@ -91,29 +96,32 @@ class _VGGTaps(nn.Module):
                 layers.append(nn.MaxPool2d(2, 2))
         self.features = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor, remat: bool = False) -> dict:
+    def forward(self, x: torch.Tensor, remat: bool = False,
+                spatial=None) -> dict:
         """``remat=True`` checkpoints each inter-tap segment, as the JAX
         package's ``_run`` does: only the taps survive the forward, and
-        backward recomputes one segment's internals at a time."""
+        backward recomputes one segment's internals at a time.
+        ``spatial``: x is this rank's row block (module docstring)."""
         apply_precision(x.dtype)
         if self.NORMALIZE:
             x = vgg_normalize(x)
         out = {}
         start = 0
         for name, idx in self.TAPS.items():
-            x = segment(self._layers, remat)(x, start, idx + 1)
+            x = segment(self._layers, remat)(x, start, idx + 1, spatial)
             out[name] = x
             start = idx + 1
         return out
 
-    def _layers(self, x, start, stop):
+    def _layers(self, x, start, stop, spatial=None):
         for layer in self.features[start:stop]:
             if isinstance(layer, nn.Conv2d):
-                x = conv2d(x, layer.weight, layer.bias, padding=1)
+                x = conv2d(x, layer.weight, layer.bias, padding=1,
+                           spatial=spatial)
             elif isinstance(layer, nn.ReLU):
                 x = torch.relu(x)
             else:
-                x = max_pool2d(x)
+                x = max_pool2d(x, spatial=spatial)
         return x
 
 

@@ -7,6 +7,24 @@ Counterpart of ``vst_tpu/ops/conv.py``.  The JAX forms there
 convolve"; the port computes the same function directly.  The 9×9
 layers keep the JAX package's f=4 polyphase packing, because the packed
 3×3 VALID conv is what kernel K2 (``kernels/head_conv.py``) computes.
+
+Each layer takes ``spatial=``, a ``parallel/spatial.py::SpatialContext``:
+x is then this rank's block of R rows of an H-sharded frame, and the
+layer takes the rows it reads beyond the block from its neighbours,
+padding only at the frame's global edges:
+
+- reflect k×k stride 1: k//2 rows a side, reflected at an edge;
+- reflect 3×3 stride 2: 1 row above, none below (R even);
+- 9×9 through K2: 4 rows a side, packed with the block (R a multiple of 4);
+- nearest ×2 + reflect 3×3: 1 upsampled row a side, repeated at an edge
+  (the upsampled frame's reflection);
+- transposed conv k3 s2 p1 op1: 1 row below, zero at the bottom edge;
+- zero-padded conv: p rows above and k−1−p below, zero at an edge;
+- max pool 2×2 s2: none (R even).
+
+The W border is padded as in the unsharded layer, in the same copy as the
+rows (``parallel/spatial.py::exchange_rows``), so the conv reads the layout
+the unsharded layer's padded copy has.  Serving only.
 """
 
 import torch
@@ -25,44 +43,114 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+def _sp():
+    """``parallel/spatial.py``, imported at call time (``parallel``
+    imports the models, which import this module)."""
+    from vst_tpu_torch.parallel import spatial
+
+    return spatial
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
-           stride: int = 1, padding: int = 0) -> torch.Tensor:
+           stride: int = 1, padding: int = 0, spatial=None) -> torch.Tensor:
     """torch Conv2d semantics (symmetric zero ``padding``) on NHWC input
-    with OIHW weights → NHWC: the VGG convs and AdaAttN's 1×1 convs."""
-    return _nhwc(F.conv2d(_nchw(x), w, b, stride=stride, padding=padding))
+    with OIHW weights → NHWC: the VGG convs and AdaAttN's 1×1 convs.
+    ``spatial``: x is a row block (stride 1; module docstring)."""
+    if spatial is None:
+        return _nhwc(F.conv2d(_nchw(x), w, b, stride=stride,
+                              padding=padding))
+    sp = _sp()
+    sp.no_grad_needed("conv2d", x, w, b)
+    if stride != 1:
+        raise ValueError("conv2d over a row block: stride 1 only")
+    k = w.shape[2]
+    xp = sp.exchange_rows(spatial, x, padding, k - 1 - padding, "zero", padding,
+                     "zero")
+    return _nhwc(F.conv2d(_nchw(xp), w, b))
 
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
                      b: torch.Tensor | None = None, stride: int = 2,
-                     padding: int = 1,
-                     output_padding: int = 1) -> torch.Tensor:
+                     padding: int = 1, output_padding: int = 1,
+                     spatial=None) -> torch.Tensor:
     """``torch.nn.ConvTranspose2d`` on NHWC input with torch's (I, O, kh,
     kw) weights → NHWC; output size (in − 1)·stride − 2·padding + k +
     output_padding (RTNSTV's Deconv, k 3, s 2, p 1, op 1: 2× upsampling).
-    The JAX package leaves it to XLA (``vst_tpu/ops/conv.py:57-90``)."""
-    return _nhwc(F.conv_transpose2d(_nchw(x), w, b, stride=stride,
-                                    padding=padding,
-                                    output_padding=output_padding))
+    The JAX package leaves it to XLA (``vst_tpu/ops/conv.py:57-90``).
+
+    ``spatial`` (k 3, s 2, p 1, op 1 only): output row 2i+1 of the block's
+    last input row i reads row i+1, the next block's first (zero below the
+    frame: the output_padding row), so the block takes one row from below,
+    and the 2R + 1 rows out are cut to 2R."""
+    if spatial is None:
+        return _nhwc(F.conv_transpose2d(_nchw(x), w, b, stride=stride,
+                                        padding=padding,
+                                        output_padding=output_padding))
+    sp = _sp()
+    sp.no_grad_needed("conv_transpose2d", x, w, b)
+    if (w.shape[2], stride, padding, output_padding) != (3, 2, 1, 1):
+        raise ValueError("conv_transpose2d over a row block: k 3, stride 2, "
+                         "padding 1, output_padding 1 only")
+    r = x.shape[1]
+    xh = sp.exchange_rows(spatial, x, 0, 1, "zero")
+    y = F.conv_transpose2d(_nchw(xh), w, b, stride=2, padding=1,
+                           output_padding=(0, 1))
+    return _nhwc(y[:, :, :2 * r])
 
 
-def max_pool2d(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
-    """``torch.nn.MaxPool2d(window, stride)`` (VALID) on NHWC."""
+def max_pool2d(x: torch.Tensor, window: int = 2, stride: int = 2,
+               spatial=None) -> torch.Tensor:
+    """``torch.nn.MaxPool2d(window, stride)`` (VALID) on NHWC.  Over a row
+    block (``spatial``) each window lies in the block when window ==
+    stride and R divides by it."""
+    if spatial is not None:
+        if window != stride:
+            raise ValueError("max_pool2d over a row block: window == stride "
+                             "only")
+        _sp().check_rows(spatial, x.shape[1], stride, "max_pool2d")
     return _nhwc(F.max_pool2d(_nchw(x), window, stride))
 
 
 def conv2d_reflect(x: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor | None = None,
-                   stride: int = 1) -> torch.Tensor:
+                   stride: int = 1, spatial=None) -> torch.Tensor:
     """Reflect-pad k//2, then a k×k conv: ReCoNet's ConvLayer and AdaAttN's
-    ``Conv`` (AdaAttN/network.py:11-21).  x NHWC, w OIHW → NHWC."""
-    xp = reflection_pad2d(x, w.shape[-1] // 2)
+    ``Conv`` (AdaAttN/network.py:11-21).  x NHWC, w OIHW → NHWC.
+    ``spatial``: x is a row block (stride 1, or 3×3 stride 2)."""
+    pad = w.shape[-1] // 2
+    if spatial is None:
+        xp = reflection_pad2d(x, pad)
+        return _nhwc(F.conv2d(_nchw(xp), w, b, stride=stride))
+    sp = _sp()
+    sp.no_grad_needed("conv2d_reflect", x, w, b)
+    if stride == 1:
+        above = below = pad
+    elif stride == 2 and w.shape[-1] == 3:
+        # output row y reads input rows 2y-1 … 2y+1: with R and the block's
+        # first row even, one row above and none below
+        sp.check_rows(spatial, x.shape[1], 2, "stride-2 conv2d_reflect")
+        above, below = 1, 0
+    else:
+        raise ValueError("conv2d_reflect over a row block: stride 1, or a "
+                         "3×3 kernel at stride 2")
+    xp = sp.exchange_rows(spatial, x, above, below, "reflect", pad)
     return _nhwc(F.conv2d(_nchw(xp), w, b, stride=stride))
 
 
 def conv2d_nearest_up2(x: torch.Tensor, w: torch.Tensor,
-                       b: torch.Tensor | None = None) -> torch.Tensor:
-    """ReCoNet's UpsampleConvLayer body: nearest ×2, reflect-pad 1, 3×3."""
-    return conv2d_reflect(upsample_nearest(x, 2), w, b)
+                       b: torch.Tensor | None = None,
+                       spatial=None) -> torch.Tensor:
+    """ReCoNet's UpsampleConvLayer body: nearest ×2, reflect-pad 1, 3×3.
+    ``spatial``: the upsampled block takes one upsampled row a side from
+    its neighbours; at a global edge the edge row repeats, which is the
+    upsampled frame's reflection (its rows 0 and 1 are equal)."""
+    up = upsample_nearest(x, 2)
+    if spatial is None:
+        return conv2d_reflect(up, w, b)
+    sp = _sp()
+    sp.no_grad_needed("conv2d_nearest_up2", x, w, b)
+    return _nhwc(F.conv2d(_nchw(sp.exchange_rows(spatial, up, 1, 1, "clamp", 1)),
+                          w, b))
 
 
 def polyphase_weights(w: torch.Tensor, f: int) -> torch.Tensor:
@@ -88,7 +176,7 @@ def polyphase_weights(w: torch.Tensor, f: int) -> torch.Tensor:
 
 def conv2d_polyphase_reflect(x: torch.Tensor, w: torch.Tensor,
                              b: torch.Tensor | None = None,
-                             factor: int = 4) -> torch.Tensor:
+                             factor: int = 4, spatial=None) -> torch.Tensor:
     """Reflect-pad k//2 then a k×k stride-1 conv (k = 2f+1), computed as a
     3×3 VALID conv over the f×-space-to-depth packed input (K2).
 
@@ -97,7 +185,11 @@ def conv2d_polyphase_reflect(x: torch.Tensor, w: torch.Tensor,
     phase shuffling (``vst_tpu/ops/conv.py:202-226``).  An H or W that is
     not a multiple of f gets zero rows/columns below and right of the
     padded input; the outputs they feed lie outside (H, W) and are cut
-    off, so every size goes through the same kernel."""
+    off, so every size goes through the same kernel.
+
+    ``spatial``: x is a row block of R rows, R a multiple of f; its f rows
+    a side come from the neighbours (reflected at a global edge, which
+    needs R > f) and are packed with it, so K2 runs unchanged."""
     f = factor
     cout, cin, k, _ = w.shape
     if k != 2 * f + 1:
@@ -105,7 +197,13 @@ def conv2d_polyphase_reflect(x: torch.Tensor, w: torch.Tensor,
                          f"k={k}, f={f}")
     n, h, wd, _ = x.shape
     hq, wq = -(-h // f), -(-wd // f)
-    xp = reflection_pad2d(x, f)
+    if spatial is None:
+        xp = reflection_pad2d(x, f)
+    else:
+        sp = _sp()
+        sp.no_grad_needed("conv2d_polyphase_reflect", x, w, b)
+        sp.check_rows(spatial, h, f, "conv2d_polyphase_reflect")
+        xp = sp.exchange_rows(spatial, x, f, f, "reflect", f)
     if (hq * f, wq * f) != (h, wd):
         xp = F.pad(xp, (0, 0, 0, wq * f - wd, 0, hq * f - h))
     packed = xp.reshape(n, hq + 2, f, wq + 2, f, cin).permute(

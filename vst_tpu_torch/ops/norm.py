@@ -8,13 +8,28 @@ import torch
 
 def instance_norm(x: torch.Tensor, scale: torch.Tensor | None = None,
                   bias: torch.Tensor | None = None,
-                  eps: float = 1e-5) -> torch.Tensor:
+                  eps: float = 1e-5, spatial=None) -> torch.Tensor:
     """Normalize each (sample, channel) plane over H, W.  x: (N, H, W, C);
-    scale/bias: (C,) or None."""
+    scale/bias: (C,) or None.
+
+    ``spatial`` (``parallel/spatial.py``): x is this rank's row block; the
+    block's Σx is all-reduced over the axis into the frame's mean, then
+    its Σ(x − mean)² into the variance: the unsharded two passes, two
+    small all-reduces (serving only)."""
     acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     xf = x.to(acc)
-    mean = xf.mean(dim=(1, 2), keepdim=True)
-    var = (xf - mean).square().mean(dim=(1, 2), keepdim=True)
+    if spatial is None:
+        mean = xf.mean(dim=(1, 2), keepdim=True)
+        var = (xf - mean).square().mean(dim=(1, 2), keepdim=True)
+    else:
+        from vst_tpu_torch.parallel import spatial as sp
+
+        sp.no_grad_needed("instance_norm", x, scale, bias)
+        count = x.shape[1] * spatial.size * x.shape[2]
+        mean = sp.all_reduce_sum(spatial, xf.sum(dim=(1, 2),
+                                                 keepdim=True)) / count
+        var = sp.all_reduce_sum(spatial, (xf - mean).square().sum(
+            dim=(1, 2), keepdim=True)) / count
     out = (xf - mean) * torch.reciprocal(torch.sqrt(var + eps))
     if scale is not None:
         out = out * scale.to(acc)

@@ -17,8 +17,12 @@ each axis, and the collectives are explicit:
 
 The device follows the process group's backend: NCCL on the rank's card
 (``cuda:<local rank>``, set by ``multihost.initialize``), gloo on the CPU,
-which a caller gets only by asking for the CPU.  The spatial placements
-(``shard_spatial``, ``shard_batch_spatial``) come with the spatial slice.
+which a caller gets only by asking for the CPU.
+
+Spatial parallelism: ``shard_spatial`` gives each rank its contiguous H
+rows (dim 1) of every NHWC leaf; the layers then exchange their halo rows
+themselves (``parallel/spatial.py``).  ``shard_batch_spatial`` (a batch
+sharded on both axes, for training) waits for slice 7c.
 """
 
 import math
@@ -138,6 +142,23 @@ def shard_batch(mesh: Mesh, tree, axis: str = "data"):
                              f"{n}-way '{axis}' axis")
         rows = x.shape[0] // n
         return x[i * rows:(i + 1) * rows].to(mesh.device)
+
+    return _tree_map(take, tree)
+
+
+def shard_spatial(mesh: Mesh, tree, axis: str = "space"):
+    """This rank's contiguous H slice (dim 1) of every NHWC leaf (tensor
+    or array) of ``tree``, on the rank's device: the frame sharded over
+    ``axis``.  Only those rows are copied to the device."""
+    n, i = mesh.shape[axis], mesh.index[axis]
+
+    def take(x):
+        x = torch.as_tensor(x)
+        if x.dim() < 2 or x.shape[1] % n:
+            raise ValueError(f"H {tuple(x.shape)[1:2]} must divide by the "
+                             f"{n}-way '{axis}' axis")
+        rows = x.shape[1] // n
+        return x[:, i * rows:(i + 1) * rows].to(mesh.device)
 
     return _tree_map(take, tree)
 
