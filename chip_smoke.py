@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of vst_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version, drives the nine paths of
+holds each against its plain PyTorch version, drives the ten paths of
 the port (ReCoNet streaming stylization, AdaAttN arbitrary-style serving,
 AdaAttN training, ReCoNet training, RTNSTV serving, RTNSTV training,
-evaluation, scale-out over torch.distributed, H-sharded 4K serving) and
-checks what comes out.
+evaluation, scale-out over torch.distributed, H-sharded 4K serving and
+data × space ReCoNet training) and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -51,7 +51,9 @@ result line):
    reflect-mode launch on the whole tensor, each shard launched twice for
    the same bits; K2 on the packed (1,542,962,·) ReCoNet and SD2 stems and
    heads; K3 (bf16) at a 2160×3840 content's three levels against a 512²
-   style's;
+   style's; and at the data × space flow step's shapes: K1's halo-rows
+   mode at (4,90,160,192), whole (xh (4,92,162,192)) and split in 2, and
+   K2 on the packed (4,92,162,·) stem and head, bf16 and f32;
 4. model: the f32 ReCoNet and RTNSTV forwards through the kernels against
    the same forwards through the plain versions at 1×256×256 (and, with
    grad mode on, the same kernels' outputs bit for bit), the f32 AdaAttN
@@ -151,7 +153,23 @@ result line):
    unsharded (median of 5, alternating), launches per frame (K1 10, all
    in the halo-rows mode, K2 2 or 0, K3 3 or 0), each forward's share of
    device time in padded copies (pad, cat and copy kernels), and every
-   launch at a shape [3] held;
+   launch at a shape [3] held; then the data × space part (in the same
+   group): K1's halo-rows autograd Function against its plain route in
+   float64 at (4,92,162,192), without and with the prologue, f32 (1e-4 of
+   each gradient's scale) and bf16 (3e-2), and ``RECONET_CANDY``'s flow
+   step (360×640 b2, [5c]'s seeded state, grams and batch) on a (1, 1)
+   ("data", "space") mesh, its batch placed by ``shard_batch_spatial``,
+   against two bare steps, in f32 and bf16, all held to the plain float64
+   bare step: the sharded step's metrics and gradients within the larger
+   of a floor (``SPACE_FLOORS``, [5c]'s) and 2 × the bare step's own
+   distance from it, its metrics also within the larger of a floor
+   (``SPACE_METRIC_FLOORS``) and 4 × two bare runs' distance of the bare
+   step's, Adam's update on its own gradient within 1e-3·lr and
+   the bare update's within 1e-3·lr where the float64 gradient is above
+   the tolerance, K1 10 launches a step all in the halo-rows mode, K2 2; ms
+   per step sharded and bare (median of 6, alternating), the peak memory
+   of one step each, and the sharded step's device time in
+   ``vst::exchange_rows`` and ``vst::exchange_rows_bwd``;
 6. timing: each kernel, its plain version and a library yardstick the
    port never calls (cuDNN ``F.conv2d`` of the same conv for K1/K2, in
    benchmark mode and the faster of NCHW and channels_last, bf16 and f32,
@@ -217,8 +235,8 @@ builds the kernels and runs [3]'s spatial cases and [8] alone.
 
     python3 chip_smoke.py --spatial
 
-builds the kernels and runs [3]'s spatial cases and the spatial part of
-[8] alone.
+builds the kernels and runs [3]'s spatial cases and the spatial and data ×
+space parts of [8] alone.
 """
 
 import contextlib
@@ -2981,13 +2999,22 @@ K3_SPATIAL = [("bf16 4K content", torch.bfloat16, (1, n, m, d, c), 1.0, "")
               for n, m, d, c in ((518400, 16384, 448, 256),
                                  (129600, 4096, 960, 512),
                                  (32400, 1024, 1472, 512))]
+# The data × space part of [8]: RECONET_CANDY's flow step (360×640 b2, the
+# frame pair as one batch of 4) on a world-1 ("data", "space") mesh.  K1
+# runs its halo-rows mode on the rank's whole frame with its border,
+# (4, 92, 162, 192), held in [3] also split in 2 (4, 47, 162, 192); K2 the
+# packed stem and head (4, 92, 162, ·) of [5c] (RC_K2).
+K1_FLOW = {"flow step": (4, 90, 160, 192)}
+FLOW_SPLITS = (2, 1)
 
 
-def _k1_halo_check(g, dtype, label, shape, tol):
+def _k1_halo_check(g, dtype, label, shape, tol,
+                   splits=(SPATIAL_SPLIT, 1)):
     """K1's halo-rows mode at ``shape`` (N, H, W, C), without and with its
-    prologue: the tensor reflect-padded and cut into SPLIT row shards that
-    carry their neighbours' rows (what the exchange hands over), and into
-    one (a world-1 rank's); every shard launched twice for the same bits.
+    prologue: the tensor reflect-padded and cut into each of ``splits``
+    row shards that carry their neighbours' rows (what the exchange hands
+    over; 1: a world-1 rank's); every shard launched twice for the same
+    bits.
     The stitched y and the summed statistics are held against the halo
     mode's plain version and against one reflect-mode launch on the whole
     tensor (itself held against the plain version).  Returns (the worst
@@ -3002,7 +3029,7 @@ def _k1_halo_check(g, dtype, label, shape, tol):
         kw = dict(stats_in=s0, gamma=gamma, beta=beta) if pro else {}
         yr, sr = res_block.conv3x3_in_stats(xin, wt, b, **kw)
         xp = ops_conv.reflection_pad2d(xin, 1)
-        for parts in (SPATIAL_SPLIT, 1):
+        for parts in splits:
             r = h // parts
             ys, yps, sums, psums = [], [], 0, 0
             for i in range(parts):
@@ -3037,11 +3064,13 @@ def _k1_halo_check(g, dtype, label, shape, tol):
 
 def phase_kernels_spatial(g):
     """[3]'s cases of the spatial part of [8]: K1's halo-rows mode at
-    K1_SPATIAL in bf16 and f32 (``_k1_halo_check``), K2 at K2_SPATIAL and
-    K3 at K3_SPATIAL against their plain versions, each launched twice for
-    the same bits.  Tolerances as [3]'s: bf16 one bf16 ulp of the output's
-    scale, f32 1e-4 of it, the statistics 1e-4."""
-    log("[3] K1's halo-rows mode, K2 and K3 at the spatial part's 4K shapes")
+    K1_SPATIAL and K1_FLOW in bf16 and f32 (``_k1_halo_check``), K2 at
+    K2_SPATIAL and RC_K2 and K3 at K3_SPATIAL against their plain
+    versions, each launched twice for the same bits.  Tolerances as [3]'s:
+    bf16 one bf16 ulp of the output's scale, f32 1e-4 of it, the
+    statistics 1e-4."""
+    log("[3] K1's halo-rows mode, K2 and K3 at the spatial part's 4K shapes "
+        "and the data × space flow step's")
     errs, same = {}, {}
     for dtype, key, tol in ((torch.float32, "K1 halo f32", 1e-4),
                             (torch.bfloat16, "K1 halo", BF16_ULP)):
@@ -3051,7 +3080,11 @@ def phase_kernels_spatial(g):
             e, same[f"{key} {label}"] = _k1_halo_check(g, dtype, label,
                                                        shape, tol)
             errs[key] = max(errs[key], e)
-        for label, shape in K2_SPATIAL.items():
+        for label, shape in K1_FLOW.items():
+            e, same[f"{key} {label}"] = _k1_halo_check(
+                g, dtype, label, shape, tol, FLOW_SPLITS)
+            errs[key] = max(errs[key], e)
+        for label, shape in {**K2_SPATIAL, **RC_K2}.items():
             _k2_check(g, dtype, label, shape, tol)
     for case in K3_SPATIAL:
         _k3_check(g, *case)
@@ -3078,7 +3111,7 @@ def _host_ms(fn, runs):
 PAD_RANGES = ("vst::exchange_rows", "vst::reflection_pad2d")
 
 
-def _copy_share(forward, top=0):
+def _copy_share(forward, top=0, ranges=PAD_RANGES):
     """Device time of one forward (torch.profiler) and the share of it in
     the padded copies: the kernels launched inside the profiler ranges of
     ``parallel/spatial.py``'s ``exchange_rows`` (the sharded layers' halo
@@ -3086,7 +3119,9 @@ def _copy_share(forward, top=0):
     ``reflection_pad2d`` (the unsharded layers' pad), and the ranges'
     spans on the device's timeline.  The ranges' own device-side rows are
     left out of the total (they would count their kernels twice).
-    ``top``: log that many of the largest kernels."""
+    ``top``: log that many of the largest kernels.  ``ranges``: the
+    profiler ranges counted as copies (each one's device ms also comes
+    back in "by_range")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3104,19 +3139,21 @@ def _copy_share(forward, top=0):
     kernels = [e for e in events
                if e.device_type == DeviceType.CUDA and not ranged(e)]
     total = sum(e.self_device_time_total for e in kernels) / 1e3
-    copies = sum(e.device_time_total for e in events
-                 if e.device_type == DeviceType.CPU
-                 and e.name in PAD_RANGES) / 1e3
+    by_range = {r: sum(e.device_time_total for e in events
+                       if e.device_type == DeviceType.CPU and e.name == r)
+                / 1e3 for r in ranges}
+    copies = sum(by_range.values())
     span = sum(e.self_device_time_total for e in events
                if e.device_type == DeviceType.CUDA
-               and e.name in PAD_RANGES) / 1e3
+               and e.name in ranges) / 1e3
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.self_device_time_total
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"    {us / 1e3:9.3f} ms  {name[:96]}")
     return {"device_ms": total, "copies_ms": copies, "copies_span_ms": span,
-            "copies_share": copies / total if total else None}
+            "copies_share": copies / total if total else None,
+            "by_range": by_range}
 
 
 def _spatial_case(label, mesh, sharded, unsharded, network, expect, tol,
@@ -3306,6 +3343,280 @@ def _spatial_serving(mesh_space):
     return launches, res
 
 
+def _k1h_plain64(*a):
+    return res_block.Conv3x3InStatsHalo.apply(
+        *a, *([None] * (6 - len(a))), res_block.conv3x3_in_stats_halo_plain)
+
+
+def _k1_halo_grad_checks(g):
+    """K1's halo-rows Function on the card (kernel forward, library VJP)
+    against the same Function's plain route in float64 on the card, at the
+    sharded flow step's shape (xh (4, 92, 162, 192): a world-1 rank's
+    frame with its border), without and with the prologue, f32 and bf16,
+    at [5c]'s tolerances (GRAD_TOLS).  Returns the worst error of each."""
+    errs = {}
+    names = ("xh", "w", "b", "stats_in", "gamma", "beta")
+    for dtype, tol in GRAD_TOLS.items():
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        apply_precision(dtype)
+        for prologue in (False, True):
+            args, cot = _k1_grad_inputs(g, dtype, prologue)
+            args[0] = ops_conv.reflection_pad2d(args[0], 1)
+            ours = _vjp(res_block.conv3x3_in_stats_halo, args, cot)
+            ref = _vjp(_k1h_plain64, [a.double() for a in args], cot)
+            e = [max_err(a, r) / r.abs().max().item()
+                 for a, r in zip(ours, ref)]
+            label = (f"K1 halo Function {tag} {tuple(args[0].shape)}"
+                     f"{' prologue' if prologue else ''}")
+            log(f"  {label}: gradient errors of the largest against float64 "
+                + ", ".join(f"{k} {v:.2e}" for k, v in zip(names, e))
+                + f" tol {tol:.0e}")
+            errs[f"{tag}{' prologue' if prologue else ''}"] = max(e)
+            if not max(e) <= tol:
+                raise AssertionError(f"{label} gradient: {e}")
+    return errs
+
+
+# The data × space step's checks hold the sharded and the bare step to
+# the plain float64 bare step, as [5c] holds the kernel route: the sharded
+# step's distance from it within the larger of a floor and 2 × the bare
+# step's own (floors: metrics 1e-4 relative, gradients 1e-3 of each key's
+# largest, [5c]'s).  Two bare f32 runs agree to 1.7e-5 (NVIDIA H100 80GB
+# HBM3 at 700 W), but the sharded step sums in another order (the padded VGG
+# convs, the sharded statistics and loss shares), and this step's f32
+# gradients are differences of large terms (the FTL's weight 1e12): the
+# two routes' distance (3.7e-3 there) is float32's conditioning here, which
+# the float64 step measures.
+SPACE_FLOORS = (1e-4, 1e-3)
+# The metrics come from the forward, which two bare runs repeat bit for
+# bit: the sharded step's are held to the bare step's directly, within
+# the larger of 4 × two bare runs' distance and a floor: f32 1e-5 (its
+# statistics and loss shares are summed in another order; 2.0e-7
+# measured), bf16 2⁻⁸ (two bf16 roundings of some intermediates; 1.2e-4
+# measured; its distance from float64 is the bf16 route's, 1.27 relative
+# on both routes; NVIDIA H100 80GB HBM3 at 700 W).
+SPACE_METRIC_FLOORS = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+
+
+def _rel_metric(a, b):
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in b)
+
+
+def _flow_step64(vgg, grams, batch):
+    """The bare RECONET_CANDY flow step in float64 through the plain
+    versions, from init_reconet(1): (metrics, gradients)."""
+    state = create(init_reconet(1, device="cuda"), RECONET_CANDY.lr)
+    with _float64_steps(), plain_kernels():
+        step = make_reconet_flow_step(
+            dataclasses.replace(RECONET_CANDY, dtype="float64"), vgg, grams)
+        _, m = step(state, batch)
+    return ({k: float(v) for k, v in m.items()}, _grads(state))
+
+
+def _space_step(label, dtype, mesh, vgg, grams, batch, ref64, timed=6):
+    """One RECONET_CANDY flow step at ``dtype`` on the world-1 ("data",
+    "space") ``mesh`` (the batch placed by ``shard_batch_spatial``) against
+    two bare steps, each from the same seeded state, and all three against
+    ``ref64`` (``_flow_step64``): the sharded step's metrics and gradients
+    within SPACE_FLOORS or 2 × the bare step's own distance from float64
+    (the biases an instance norm follows aside), its metrics within
+    SPACE_METRIC_FLOORS or 4 × two bare runs' distance of the bare step's;
+    Adam's update: the
+    sharded step's is Adam's first step on its own gradient within
+    1e-3·lr everywhere, the bare step's within 1e-3·lr wherever the
+    float64 gradient lies above the gradient tolerance, and within 2.1·lr
+    everywhere (float32 rounding decides the sign of a ±lr step below
+    it); K1 10 launches a step, all in the halo-rows mode, K2 2.  Then 2 +
+    ``timed`` steps alternating bare and sharded (host clock after a
+    synchronize; median), each step's launches counted; the peak memory
+    of one step each; and one step of each profiled: the sharded step's
+    device time in "vst::exchange_rows" and "vst::exchange_rows_bwd", the
+    bare step's in "vst::reflection_pad2d".  Returns the sharded runs'
+    launches (K1-K5) and the numbers."""
+    from vst_tpu_torch.parallel import shard_batch_spatial
+
+    cfg = dataclasses.replace(RECONET_CANDY, dtype=dtype)
+    sharded_batch = shard_batch_spatial(mesh, batch)
+    runs = {}
+    p0 = {k: v.detach().clone() for k, v in
+          init_reconet(1, device="cuda").named_parameters()}
+    for tag, m, b in (("bare", None, batch), ("again", None, batch),
+                      ("sharded", mesh, sharded_batch)):
+        state = create(init_reconet(1, device="cuda"), cfg.lr)
+        step = make_reconet_flow_step(cfg, vgg, grams, m)
+        reset_counts()
+        state, metrics = step(state, b)
+        torch.cuda.synchronize()
+        runs[tag] = ({k: float(v) for k, v in metrics.items()},
+                     _grads(state), counts(),
+                     res_block.conv3x3_in_stats_halo.launches,
+                     {k: p.detach().clone()
+                      for k, p in state.model.named_parameters()},
+                     state, step, b)
+    (m0, g0, n0, h0, q0, s0, f0, b0), (ma, ga, _, _, _, _, _, _) = (
+        runs["bare"], runs["again"])
+    m1, g1, n1, h1, q1, s1, f1, b1 = runs["sharded"]
+    m64, g64 = ref64
+    per_step = (10, 2, 0, 0, 0)
+    if n0 != per_step or n1 != per_step or h0 != 0 or h1 != 10:
+        raise AssertionError(f"{label}: launches bare {n0} (halo {h0}), "
+                             f"sharded {n1} (halo {h1}); expected {per_step}"
+                             f", the sharded K1 all in the halo-rows mode")
+    keys = [k for k in g0 if not _before_norm(k)]
+
+    def gdist(a, ref):
+        return max(((a[k] - ref[k].to(a[k].dtype)).abs().max().item()
+                    / max(ref[k].abs().max().item(), 1e-30), k)
+                   for k in keys)
+
+    dist = {"metrics": {t: _rel_metric(m, r) for t, (m, r) in (
+                ("sharded-bare", (m1, m0)), ("bare-bare", (ma, m0)),
+                ("sharded-f64", (m1, m64)), ("bare-f64", (m0, m64)))},
+            "grads": {t: gdist(a, r) for t, (a, r) in (
+                ("sharded-bare", (g1, g0)), ("bare-bare", (ga, g0)),
+                ("sharded-f64", (g1, g64)), ("bare-f64", (g0, g64)))}}
+    tol_m = max(SPACE_FLOORS[0], 2 * dist["metrics"]["bare-f64"])
+    tol_mb = max(SPACE_METRIC_FLOORS[dtype], 4 * dist["metrics"]["bare-bare"])
+    tol_g = max(SPACE_FLOORS[1], 2 * dist["grads"]["bare-f64"][0])
+    err_m, (err_g, worst) = (dist["metrics"]["sharded-f64"],
+                             dist["grads"]["sharded-f64"])
+    err_mb = dist["metrics"]["sharded-bare"]
+    lr = cfg.lr
+    own = max(((q1[k] - (p0[k] - lr * g1[k] / (g1[k].abs() + 1e-8)))
+               .abs().max().item() for k in q1))
+    firm, loose = 0.0, 0.0
+    for k in q1:
+        loose = max(loose, (q1[k] - q0[k]).abs().max().item())
+        if k in keys:
+            sure = g64[k].abs() > tol_g * g64[k].abs().max()
+            firm = max(firm, (q1[k] - q0[k])[sure].abs().max().item())
+    log(f"  {label}: launches K1-K5 {n1} a step, K1 all {h1} in the "
+        f"halo-rows mode (bare {n0}); metrics' max rel distance "
+        + ", ".join(f"{t} {v:.2e}" for t, v in dist["metrics"].items())
+        + f" (tol on sharded-f64 {tol_m:.2e}, on sharded-bare "
+        f"{tol_mb:.2e}); gradients' "
+        + ", ".join(f"{t} {v:.2e} ({k})" for t, (v, k)
+                    in dist["grads"].items())
+        + f" (tol on sharded-f64 {tol_g:.2e}); Adam's update: on its own "
+        f"gradient {own / lr:.2e}·lr (tol 1e-3·lr), against the bare "
+        f"step's where the float64 gradient is above the tolerance "
+        f"{firm / lr:.2e}·lr (tol 1e-3·lr), everywhere {loose / lr:.2f}·lr "
+        f"(tol 2.1·lr)")
+    if (err_m > tol_m or err_mb > tol_mb or err_g > tol_g
+            or own > 1e-3 * lr or firm > 1e-3 * lr or loose > 2.1 * lr):
+        raise AssertionError(f"{label}: sharded step: metrics {err_m}, "
+                             f"{err_mb}, "
+                             f"gradients {err_g} ({worst}), update {own}, "
+                             f"{firm}, {loose}")
+    del runs, ga, g1, q0, q1
+    launches = list(n1)
+    times = {"bare": [], "sharded": []}
+    for i in range(2 + timed):
+        for tag, state, step, b in (("bare", s0, f0, b0),
+                                    ("sharded", s1, f1, b1)):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, b)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times[tag].append((time.perf_counter() - t0) * 1e3)
+            n = counts()
+            if n != per_step:
+                raise AssertionError(f"{label}: timed {tag} step {i} "
+                                     f"launched {n}")
+            if tag == "sharded":
+                launches = [a + c for a, c in zip(launches, n)]
+    peak = {}
+    for tag, state, step, b in (("bare", s0, f0, b0),
+                                ("sharded", s1, f1, b1)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        step(state, b)
+        torch.cuda.synchronize()
+        top = torch.cuda.max_memory_allocated()
+        peak[tag] = {"peak_gib": top / 2**30,
+                     "step_gib": (top - base) / 2**30}
+        if tag == "sharded":
+            launches = [a + c for a, c in zip(launches, counts())]
+    reset_counts()
+    prof_s = _copy_share(lambda: f1(s1, b1), top=6,
+                         ranges=("vst::exchange_rows",
+                                 "vst::exchange_rows_bwd"))
+    launches = [a + c for a, c in zip(launches, counts())]
+    prof_b = _copy_share(lambda: f0(s0, b0), top=4,
+                         ranges=("vst::reflection_pad2d",))
+    ms = {t: float(np.median(v)) for t, v in times.items()}
+    share = {r: v / prof_s["device_ms"] for r, v in prof_s["by_range"].items()}
+    log(f"  {label}: {ms['bare']:.3f} ms/step bare, {ms['sharded']:.3f} "
+        f"sharded (median of {timed}, alternating; {ms['sharded'] / ms['bare'] - 1:+.2%}); "
+        f"peak {peak['bare']['peak_gib']:.2f} / "
+        f"{peak['sharded']['peak_gib']:.2f} GiB (the step's own "
+        f"{peak['bare']['step_gib']:.2f} / {peak['sharded']['step_gib']:.2f}"
+        f"); sharded device time {prof_s['device_ms']:.3f} ms, in "
+        + ", ".join(f"{r} {v:.3f} ms ({share[r]:.2%})"
+                    for r, v in prof_s["by_range"].items())
+        + f"; bare device time {prof_b['device_ms']:.3f} ms, in "
+        f"vst::reflection_pad2d {prof_b['copies_ms']:.3f} ms "
+        f"({prof_b['copies_share']:.2%})")
+    res = {"metrics_max_rel": dist["metrics"],
+           "grad_max_rel": {t: v for t, (v, _) in dist["grads"].items()},
+           "tol_metrics": tol_m, "tol_metrics_bare": tol_mb,
+           "tol_grad": tol_g,
+           "update_own_lr": own / lr, "update_firm_lr": firm / lr,
+           "update_max_lr": loose / lr, "ms_bare": ms["bare"],
+           "ms_sharded": ms["sharded"], "ms_bare_runs": times["bare"],
+           "ms_sharded_runs": times["sharded"], "memory": peak,
+           "device_ms_sharded": prof_s["device_ms"],
+           "device_ms_bare": prof_b["device_ms"],
+           "exchange_ms": prof_s["by_range"], "exchange_share": share,
+           "bare_pad_share": prof_b["copies_share"],
+           "launches_per_step": dict(zip(("K1", "K2"), per_step[:2]))}
+    del s0, s1, f0, f1
+    return launches, res
+
+
+def _spatial_training(mesh):
+    """The data × space part of [8] at world 1 (``mesh``: a (1, 1) ("data",
+    "space") mesh on cuda:0): K1's halo-rows Function against float64 at
+    the step's shape (``_k1_halo_grad_checks``), then RECONET_CANDY's flow
+    step (360×640 b2, ReCoNet seed 1, VGG16 seed 0, [5c]'s seeded grams
+    and batch) sharded against bare in f32 and bf16 (``_space_step``).
+    Every K1 and K2 launch must fall on a shape [3] held (CHECKED).
+    Returns the launches (K1-K5) of its sharded runs and its numbers."""
+    t0 = time.perf_counter()
+    res = {"k1_halo_vjp": _k1_halo_grad_checks(
+        torch.Generator(device="cuda").manual_seed(36))}
+    apply_precision(torch.float32)
+    rng = np.random.default_rng(20)
+    vgg = init_vgg16_reconet(0, device="cuda")
+    grams = _style_grams(vgg, RECONET_CANDY, rng)
+    batch = _flow_batch(rng, RECONET_CANDY)
+    ref64 = _flow_step64(vgg, grams, batch)
+    total = [0] * 5
+    with recording_launches() as seen:
+        for dtype in ("float32", "bfloat16"):
+            tag = "f32" if dtype == "float32" else "bf16"
+            n, res[tag] = _space_step(
+                f"data × space flow step 360×640 b2 {tag}", dtype, mesh, vgg,
+                grams, batch, ref64)
+            total = [a + b for a, b in zip(total, n)]
+    unchecked = sorted(map(str, seen - CHECKED))
+    log(f"  data × space: launched K1/K2 at {len(seen)} shapes, all held "
+        f"against the plain versions in [3]" if not unchecked else
+        f"  data × space: launched at shapes [3] did not check: {unchecked}")
+    if unchecked:
+        raise AssertionError(f"data × space: shapes not checked: {unchecked}")
+    res["wall_s"] = time.perf_counter() - t0
+    launches = dict(zip(("K1", "K2", "K3", "K4", "K5"), total))
+    log(f"  data × space: launches over its sharded runs {launches}; wall "
+        f"{res['wall_s']:.1f} s")
+    apply_precision(torch.bfloat16)
+    return launches, res
+
+
 def phase_scale_out():
     """[8] scale-out over ``torch.distributed`` on the one card: the data-
     parallel ReCoNet CLI serving at world 1 (its own group), then a world-1
@@ -3403,12 +3714,17 @@ def phase_scale_out():
         log("  [8] spatial: H-sharded serving at world 1, a 2160×3840 frame")
         res["spatial_launches"], res["spatial"] = _spatial_serving(
             make_mesh(None, ("space",)))
+        log("  [8] data × space: the ReCoNet flow step on a world-1 "
+            "(data, space) mesh")
+        res["space_train_launches"], res["space_train"] = _spatial_training(
+            make_mesh(1, ("data", "space")))
     finally:
         multihost.shutdown()
     res["wall_s"] = time.perf_counter() - t_phase
     launches = dict(zip(("K1", "K2", "K3", "K4", "K5"), total))
     log(f"  [8] launches over the phase's main-path runs: {launches} (the "
-        f"spatial part's apart: {res['spatial_launches']}); wall "
+        f"spatial part's apart: {res['spatial_launches']}; the data × space "
+        f"part's: {res['space_train_launches']}); wall "
         f"{res['wall_s']:.1f} s")
     log(json.dumps({"scale_out": res}))
     return launches, res
@@ -3424,7 +3740,8 @@ def phase_scale_out_alone():
 
 def phase_spatial_alone():
     """``--spatial``: the kernels' build ([2]), [3]'s spatial cases and
-    the spatial part of [8] in a world-1 NCCL group of its own."""
+    the spatial and data × space parts of [8] in a world-1 NCCL group of
+    their own."""
     from vst_tpu_torch.parallel import make_mesh, multihost
 
     log(f"  build: {_build.build_all():.2f} s")
@@ -3433,9 +3750,14 @@ def phase_spatial_alone():
     multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda")
     try:
         launches, res = _spatial_serving(make_mesh(None, ("space",)))
+        log("[8] data × space: the ReCoNet flow step on a world-1 (data, "
+            "space) mesh")
+        t_launches, t_res = _spatial_training(make_mesh(1, ("data",
+                                                            "space")))
     finally:
         multihost.shutdown()
-    log(json.dumps({"spatial": {"launches": launches, "errs": errs, **res}}))
+    log(json.dumps({"spatial": {"launches": launches, "errs": errs, **res},
+                    "space_train": {"launches": t_launches, **t_res}}))
 
 
 def phase_timing(launches, errs, slice_v):
@@ -4111,11 +4433,12 @@ def main(argv):
         launches[k] += ev[k]
         launches[f"{k} by path"]["evaluation"] = ev[k]
     so, so_res = phase_scale_out()
-    sp = so_res["spatial_launches"]
+    sp, st = so_res["spatial_launches"], so_res["space_train_launches"]
     for k in ("K1", "K2"):
-        launches[k] += so[k] + sp[k]
+        launches[k] += so[k] + sp[k] + st[k]
         launches[f"{k} by path"]["scale-out"] = so[k]
         launches[f"{k} by path"]["spatial"] = sp[k]
+        launches[f"{k} by path"]["data × space training"] = st[k]
     by_path = {"serving": launches["K3"], "training": train["K3"],
                "training loop": loop["K3"], "evaluation": ev["K3"],
                "scale-out": so["K3"], "spatial": sp["K3"]}
@@ -4185,6 +4508,21 @@ def main(argv):
               "copies_share_unsharded":
                   v["profile_unsharded"]["copies_share"]}
            for k, v in so_res["spatial"].items() if isinstance(v, dict)}}
+    train = so_res["space_train"]
+    space_train = {
+        "per": "[8] data x space: one RECONET_CANDY flow step (360x640 b2) "
+               "on a world-1 (data, space) mesh against the bare step; K1 "
+               "every launch in its halo-rows mode (4, 92, 162, 192)",
+        "halo_vjp_err_vs_f64": train["k1_halo_vjp"],
+        **{tag: {f: train[tag][f] for f in (
+            "ms_bare", "ms_sharded", "memory", "exchange_share",
+            "metrics_max_rel", "grad_max_rel", "launches_per_step")}
+           for tag in ("f32", "bf16")}}
+    kernels[0]["space_train"] = space_train
+    kernels[1]["space_train"] = {
+        "per": space_train["per"] + "; K2 the packed stem and head "
+               "(4, 92, 162, .)",
+        **{tag: space_train[tag] for tag in ("f32", "bf16")}}
     kernels[0]["rtnstv"] = timing_k1_rtnstv(
         torch.Generator(device="cuda").manual_seed(15))
     kernels[0]["rtnstv"].update(

@@ -1,12 +1,18 @@
 """H-sharded (spatial) serving of the port on real spawned gloo groups
-(tests/torch_dist.py), against the JAX package.
+(tests/torch_dist.py), against the JAX package, and the sharded layers'
+gradients.
 
 - ``shard_spatial``'s layout and its ``ValueError``;
 - every layer kind of the sharded path (reflect 3×3 stride 1 and 2, the
   9×9 through K2's packing, nearest ×2 + conv, the transposed conv, the
   zero-padded conv, max pool, the feature pyramid, bilinear ×2, instance
-  norm, the K1 residual block in its halo-rows mode) on 2 and 4 ranks
-  against the same layer unsharded;
+  norm, the K1 residual block in its halo-rows mode, the warp over the
+  gathered source) on 2 and 4 ranks against the same layer unsharded;
+- in the same spawns, each layer kind's gradient and the ReCoNet flow
+  step's loss shares' (Gram, content, TV, FTL, OTL) in float64 against
+  the unsharded autograd: the input gradient stitched across ranks, the
+  parameter gradient summed over them; and the exchange's adjoint,
+  Σ ⟨exchange(x), g⟩ = Σ ⟨x, exchangeᵀ(g)⟩, for each edge mode;
 - ``stylize_spatial_sharded`` of ReCoNet, SD1, SD2 and RTNSTV at (1, 64,
   32, 3) on 2 and 4 ranks against JAX's ``stylize_reconet`` /
   ``stylize_rtnstv`` at JAX's own tolerances (tests/test_parallel.py), and
@@ -15,11 +21,16 @@
   against JAX's ``stylize_adaattn``;
 - K1's halo-rows plain version, split 4 ways, against JAX's
   ``conv3x3_in_stats`` (interpret mode) on the whole tensor;
-- a world-1 sharded forward against the unsharded one, and the size and
-  serving-only rules.
+- a world-1 sharded forward against the unsharded one (and its
+  gradient), the size rules, and the guards that remain (the
+  sequence-parallel attention, the step builders not ported over a space
+  axis).
 
 Each world's ranks are spawned once for all their cases (module-scoped
 caches); the JAX references are computed once each."""
+
+import copy
+import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
@@ -70,7 +81,8 @@ def _cached(fn):
 
 @pytest.fixture(scope="module")
 def layers(tmp_path_factory):
-    """world → each rank's outputs of every layer kind."""
+    """world → each rank's outputs ("fwd"), gradients ("grad") and
+    exchange adjoint products ("adjoint"), ``td.spatial_layers``."""
     return _cached(lambda world: td.spawn(
         td.spatial_layers, world, tmp_path_factory.mktemp("layers")))
 
@@ -125,13 +137,70 @@ def test_shard_spatial_layout(tmp_path):
 @pytest.mark.parametrize("world", [2, 4])
 def test_layer_kind_matches_unsharded(layers, world, kind):
     """The ranks' rows, stitched, equal the unsharded layer (float32)."""
-    fn, x = td.spatial_layer_cases()[kind]
+    fn, x, _ = td.spatial_layer_cases()[kind]
     with torch.no_grad():
         ref = fn(x, None).numpy()
-    got = np.concatenate([r[kind] for r in layers(world)], axis=1)
+    got = np.concatenate([r["fwd"][kind] for r in layers(world)], axis=1)
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, rtol=1e-5,
                                atol=1e-5 * np.abs(ref).max())
+
+
+def _close(got, ref, what, floor=0.0):
+    """Within 1e-10 of the reference's largest magnitude, or of ``floor``
+    where that is larger (float64)."""
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    err = np.abs(got - ref).max()
+    scale = max(np.abs(ref).max(), floor)
+    assert err <= 1e-10 * scale, (what, err, scale)
+
+
+@pytest.mark.parametrize("kind", sorted(td.spatial_layer_cases())
+                         + sorted(td.spatial_loss_cases()))
+@pytest.mark.parametrize("world", [2, 4])
+def test_layer_kind_gradient_matches_unsharded(layers, world, kind):
+    """In float64, each layer kind under a seeded cotangent of its whole
+    output (each rank its rows) and each loss share under 1: the output
+    (rows stitched, shares summed), the inputs' gradients stitched across
+    the ranks and the parameters' gradients summed over them equal the
+    unsharded layer's autograd to 1e-10 of their scale.  This holds the
+    exchange's adjoint, the all-reduce's and the gather's backward, K1's
+    halo-rows VJP (the residual block) and the loss shares' factors (the
+    style loss of the all-reduced Grams enters each share divided by the
+    axis size)."""
+    if kind in td.spatial_layer_cases():
+        fn, x, params = td.spatial_layer_cases(dtype=torch.float64)[kind]
+        idx, cot = None, td.rows_cotangent(kind, 0, 1)
+    else:
+        (fn, x, idx), params = td.spatial_loss_cases()[kind], []
+        cot = torch.ones_like
+    y, gx, gp = td.spatial_grad(fn, x, params, idx, None, cot)
+    ranks = [r["grad"][kind] for r in layers(world)]
+    if y.ndim:
+        _close(np.concatenate([r[0] for r in ranks], axis=1), y, "output")
+    else:
+        _close(np.array(sum(r[0] for r in ranks)), y, "loss")
+    for i, ref in enumerate(gx):
+        _close(np.concatenate([r[1][i] for r in ranks], axis=1), ref,
+               f"input {i}")
+    # a conv bias that an instance norm follows has a true gradient of 0:
+    # its float64 rounding is held against the layer's gradient scale
+    top = max(np.abs(g).max() for g in gx + gp)
+    for i, ref in enumerate(gp):
+        _close(sum(r[2][i] for r in ranks), ref, f"parameter {i}",
+               1e-3 * top)
+
+
+@pytest.mark.parametrize("edge,wpad", td.EXCHANGE_CASES)
+@pytest.mark.parametrize("world", [2, 4])
+def test_exchange_rows_adjoint(layers, world, edge, wpad):
+    """Σ_ranks ⟨exchange(x), g⟩ = Σ_ranks ⟨x, exchangeᵀ(g)⟩ in float64
+    (2 rows above, 1 below, the W border ``wpad`` reflected, or zero with
+    the zero edge): the backward is the forward's adjoint, halo rows sent
+    back to their ranks and edge rows folded."""
+    fwd, adj = (sum(r["adjoint"][(edge, wpad)][i] for r in layers(world))
+                for i in (0, 1))
+    assert abs(fwd - adj) <= 1e-12 * abs(fwd), (fwd, adj)
 
 
 @pytest.mark.parametrize("family", td.SPATIAL_FAMILIES)
@@ -245,8 +314,16 @@ def test_world1_adaattn_matches_unsharded(tmp_path):
 
 def test_size_rules_and_serving_only(tmp_path):
     """H that the layers cannot split raises ValueError naming the
-    multiple; a sharded op that would need a gradient raises."""
+    multiple, the ReCoNet flow step's too (8·D, VGG16's pools); a world-1
+    sharded forward differentiates to the unsharded forward's gradients;
+    the guards that remain raise: the sequence-parallel attention with a
+    gradient, and the step builders not yet ported over a space axis."""
     from vst_tpu_torch.ops.conv import conv2d_reflect
+    from vst_tpu_torch.parallel.attention import (
+        sharded_cosine_attention_moments)
+    from vst_tpu_torch.train import config as pc
+    from vst_tpu_torch.train import steps as pst
+    from vst_tpu_torch.train.state import create
 
     model = td.spatial_model("reconet")
     vgg = pv.init_vgg19_adaattn(0, device="cpu")
@@ -260,10 +337,49 @@ def test_size_rules_and_serving_only(tmp_path):
                                         mesh)
         ctx = SpatialContext(mesh)
         x = shard_spatial(mesh, torch.from_numpy(FRAME))
-        w = torch.zeros(4, 3, 3, 3, requires_grad=True)
-        with pytest.raises(NotImplementedError, match="serves only"):
-            conv2d_reflect(x, w, spatial=ctx)
-        with pytest.raises(NotImplementedError, match="serves only"):
-            model(x, spatial=ctx)
+        w = torch.zeros(4, 3, 3, 3).normal_(generator=torch.Generator()
+                                            .manual_seed(0))
+        wu = w.clone().requires_grad_()
+        w.requires_grad_()
+        conv2d_reflect(x, w, spatial=ctx).square().sum().backward()
+        conv2d_reflect(x, wu).square().sum().backward()
+        torch.testing.assert_close(w.grad, wu.grad, rtol=1e-5, atol=0)
+        # the whole model's gradient, in float64: the biases an instance
+        # norm follows (true gradient 0) against the largest gradient
+        m64, x64 = copy.deepcopy(model).double(), x.double()
+        sharded = torch.autograd.grad(m64(x64, spatial=ctx)[-1].sum(),
+                                      list(m64.parameters()))
+        plain = torch.autograd.grad(m64(x64)[-1].sum(),
+                                    list(m64.parameters()))
+        top = max(b.abs().max().item() for b in plain)
+        for (k, _), a, b in zip(m64.named_parameters(), sharded, plain):
+            scale = max(b.abs().max().item(), 1e-3 * top)
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-10 * scale,
+                                       msg=k)
         with torch.no_grad():
             assert conv2d_reflect(x, w, spatial=ctx).shape == (1, 64, 32, 4)
+        q = torch.zeros(1, 8, 4, requires_grad=True)
+        with pytest.raises(NotImplementedError, match="serves only"):
+            sharded_cosine_attention_moments(mesh, q, q, q, axis="space")
+        grid = make_mesh(None, ("data", "space"), (1, 1))
+        cfg = dataclasses.replace(pc.RECONET_CANDY, img_size=(28, 24))
+        v16 = pv.init_vgg16_reconet(0, device="cpu")
+        grams = [torch.zeros(1, c, c) for c in (64, 128, 256, 512)]
+        step = pst.make_reconet_flow_step(cfg, v16, grams, grid)
+        batch = (np.zeros((1, 28, 24, 3), np.float32),) * 2 + (
+            np.zeros((1, 28, 24, 2), np.float32),
+            np.ones((1, 28, 24), np.float32))
+        with pytest.raises(ValueError, match=r"multiple of 8·1 = 8"):
+            step(create(td._seeded(0), cfg.lr), batch)
+        for build, args in (
+                (pst.make_reconet_coco_step, (pc.ReCoNetCocoConfig(), v16,
+                                              grams)),
+                (pst.make_reconet_distill_step, (pc.DISTILL_SD1, v16, grams,
+                                                 model)),
+                (pst.make_rtnstv_step, (pc.RTNSTVConfig(), None, grams)),
+                (pst.make_adaattn_image_step, (pc.AdaAttNImageConfig(),
+                                               vgg)),
+                (pst.make_adaattn_video_step, (pc.AdaAttNVideoConfig(),
+                                               vgg))):
+            with pytest.raises(ValueError, match="slice 7d"):
+                build(*args, grid)

@@ -164,12 +164,13 @@ def mesh_layouts(rank, world):
             {"shape": grid.shape, "index": grid.index, "ranks": grid.ranks})
 
 
-def _seeded(seed):
+def _seeded(seed, input_frame_num=1):
     from vst_tpu_torch.compat import params_from_jax
     from vst_tpu_torch.models import reconet
 
     return reconet.build("reconet", params_from_jax(
-        reconet.init_params("reconet", seed, 1)), 1, "cpu")
+        reconet.init_params("reconet", seed, input_frame_num)),
+        input_frame_num, "cpu")
 
 
 def reconet_flow_step(rank, world, cfg, batch, style, shard, seed=0):
@@ -183,7 +184,7 @@ def reconet_flow_step(rank, world, cfg, batch, style, shard, seed=0):
 
     mesh = make_mesh() if shard else None
     vgg = pv.init_vgg16_reconet(0, device="cpu")
-    state = ps.create(_seeded(seed), cfg.lr)
+    state = ps.create(_seeded(seed, cfg.input_frame_num), cfg.lr)
     if mesh is not None:
         replicate(mesh, state)
         batch = shard_batch(mesh, batch)
@@ -193,6 +194,47 @@ def reconet_flow_step(rank, world, cfg, batch, style, shard, seed=0):
     return ({k: float(v) for k, v in metrics.items()},
             {k: _np(p.grad) for k, p in state.model.named_parameters()},
             {k: _np(v) for k, v in state.model.state_dict().items()})
+
+
+def spatial_flow_steps(rank, world, cases, style, seed=0):
+    """One ReCoNet flow step for each case (cfg, global batch, mesh shape)
+    on a ("data", "space") mesh of that shape, the batch placed by
+    ``shard_batch_spatial``: this rank's (metrics, gradients (rank 0's
+    only; every rank's are equal after the step's reductions), updated
+    parameters).  First ``shard_batch_spatial``'s layout on the first
+    case's mesh: this rank's block of an arange batch, its mesh index, and
+    the ``ValueError`` of an H that does not split."""
+    from vst_tpu_torch.models import vgg as pv
+    from vst_tpu_torch.parallel import (make_mesh, replicate,
+                                        shard_batch_spatial)
+    from vst_tpu_torch.train import state as ps
+    from vst_tpu_torch.train import steps as pst
+
+    vgg = pv.init_vgg16_reconet(0, device="cpu")
+    grams = pst.reconet_style_grams(vgg, style)
+    out = []
+    for i, (cfg, batch, shape) in enumerate(cases):
+        mesh = make_mesh(None, ("data", "space"), shape)
+        if i == 0:
+            n, h = 2 * shape[0], 4 * shape[1]
+            x = np.arange(n * h * 3 * 2, dtype=np.float32).reshape(n, h, 3, 2)
+            own = shard_batch_spatial(mesh, {"x": x, "m": [x[..., 0]]})
+            try:
+                shard_batch_spatial(mesh, x[:, :h - 1])
+                err = None
+            except ValueError as e:
+                err = str(e)
+            out.append((mesh.index, _np(own["x"]), _np(own["m"][0]),
+                        str(own["x"].device), err))
+        state = ps.create(_seeded(seed, cfg.input_frame_num), cfg.lr)
+        replicate(mesh, state)
+        step = pst.make_reconet_flow_step(cfg, vgg, grams, mesh)
+        state, metrics = step(state, shard_batch_spatial(mesh, batch))
+        out.append(({k: float(v) for k, v in metrics.items()},
+                    {k: _np(p.grad) for k, p in
+                     state.model.named_parameters()} if rank == 0 else None,
+                    {k: _np(v) for k, v in state.model.state_dict().items()}))
+    return out
 
 
 def adaattn_step(rank, world, kind, cfg, batch, shard):
@@ -291,22 +333,25 @@ def spatial_layout(rank, world, x):
     return _np(own["x"]), _np(own["y"][0]), str(own["x"].device), err
 
 
-def spatial_layer_cases(seed=3):
+def spatial_layer_cases(seed=3, dtype=torch.float32):
     """Every layer kind of the H-sharded path: name → (fn(x, spatial),
-    the full-frame input: a tensor, or the list of a pyramid's levels).  ``fn(x, None)`` is the unsharded layer; a rank
-    applies ``fn`` to its rows.  Every H divides by 4 ranks with the
-    blocks each kind needs (K2's 9×9 at 8 rows a block)."""
+    the full-frame input: a tensor, or a list (a pyramid's levels; a
+    warp's source and flow), the parameters fn reads).  ``fn(x, None)``
+    is the unsharded layer; a rank applies ``fn`` to its rows.  Every H
+    divides by 4 ranks with the blocks each kind needs (K2's 9×9 at 8
+    rows a block).  ``dtype``: of the inputs and parameters (float64 for
+    the gradient checks)."""
     from vst_tpu_torch.kernels.res_block import residual_block_fused
     from vst_tpu_torch.models.adaattn import _up2
     from vst_tpu_torch.ops import conv as oc
     from vst_tpu_torch.ops.features import feature_down_sample
     from vst_tpu_torch.ops.norm import instance_norm
+    from vst_tpu_torch.ops.warp import warp
 
     g = np.random.default_rng(seed)
 
     def a(*shape, scale=1.0):
-        return torch.from_numpy((g.standard_normal(shape) * scale)
-                                .astype(np.float32))
+        return torch.from_numpy(g.standard_normal(shape) * scale).to(dtype)
 
     w3, b3 = a(6, 5, 3, 3, scale=0.2), a(6, scale=0.1)
     w9, b9 = a(4, 3, 9, 9, scale=0.05), a(4, scale=0.1)
@@ -315,46 +360,161 @@ def spatial_layer_cases(seed=3):
            a(8, scale=0.1), a(3, 3, 8, 8, scale=0.1), a(8, scale=0.1),
            a(8, scale=0.2) + 1, a(8, scale=0.1)]
     pyramid = [a(1, 64 >> i, 48 >> i, 3, scale=2.0) for i in range(5)]
+    norm = [res[2][:5].clone(), res[3][:5].clone()]
     return {
         "reflect3x3_s1": (lambda x, s: oc.conv2d_reflect(x, w3, b3,
                                                          spatial=s),
-                          a(2, 32, 12, 5)),
+                          a(2, 32, 12, 5), [w3, b3]),
         "reflect3x3_s2": (lambda x, s: oc.conv2d_reflect(x, w3, b3, 2,
                                                          spatial=s),
-                          a(2, 32, 13, 5)),
+                          a(2, 32, 13, 5), [w3, b3]),
         "polyphase9x9_k2": (lambda x, s: oc.conv2d_polyphase_reflect(
-            x, w9, b9, spatial=s), a(1, 32, 14, 3, scale=50.0)),
+            x, w9, b9, spatial=s), a(1, 32, 14, 3, scale=50.0), [w9, b9]),
         "nearest_up2_conv": (lambda x, s: oc.conv2d_nearest_up2(
-            x, w3, b3, spatial=s), a(2, 8, 7, 5)),
+            x, w3, b3, spatial=s), a(2, 8, 7, 5), [w3, b3]),
         "conv_transpose_s2": (lambda x, s: oc.conv_transpose2d(
-            x, wt, bt, spatial=s), a(2, 8, 6, 5)),
+            x, wt, bt, spatial=s), a(2, 8, 6, 5), [wt, bt]),
         "zero_pad_conv3x3": (lambda x, s: oc.conv2d(
-            x, w3, b3, padding=1, spatial=s), a(2, 16, 9, 5)),
+            x, w3, b3, padding=1, spatial=s), a(2, 16, 9, 5), [w3, b3]),
         "max_pool2x2": (lambda x, s: oc.max_pool2d(x, spatial=s),
-                        a(2, 16, 10, 4)),
+                        a(2, 16, 10, 4), []),
         "feature_down_sample": (lambda x, s: feature_down_sample(
-            x, 4, spatial=s), pyramid),
-        "bilinear_up2_clamp": (lambda x, s: _up2(x, s), a(2, 8, 5, 4)),
+            x, 4, spatial=s), pyramid, []),
+        "bilinear_up2_clamp": (lambda x, s: _up2(x, s), a(2, 8, 5, 4), []),
         "instance_norm": (lambda x, s: instance_norm(
-            x, res[2][:5], res[3][:5], spatial=s), a(2, 16, 9, 5, scale=3.0)),
+            x, *norm, spatial=s), a(2, 16, 9, 5, scale=3.0), norm),
         "residual_block_k1": (lambda x, s: residual_block_fused(
-            x, *res, spatial=s), a(2, 16, 10, 8, scale=3.0)),
+            x, *res, spatial=s), a(2, 16, 10, 8, scale=3.0), res),
+        "warp_gather": (lambda x, s: warp(x[0], x[1], spatial=s),
+                        [a(2, 16, 9, 4), a(2, 16, 9, 2, scale=4.0)], []),
     }
+
+
+def spatial_loss_cases(seed=4, dtype=torch.float64):
+    """The ReCoNet flow step's losses over row blocks: name → (fn(x,
+    spatial), the full-frame inputs (a list), the indices of the inputs
+    that take a gradient).  ``fn(x, None)`` is the unsharded loss; on a
+    rank, this rank's share (the shares sum to it over the axis).  The
+    temporal losses' mask counts are totalled over the spatial context's
+    mesh."""
+    from vst_tpu_torch import losses
+
+    g = np.random.default_rng(seed)
+
+    def a(*shape, scale=1.0):
+        return torch.from_numpy(g.standard_normal(shape) * scale).to(dtype)
+
+    grams = [a(1, 4, 4, scale=1e-2), a(1, 8, 8, scale=1e-2)]
+    mask = torch.from_numpy(g.random((2, 16, 12)) > 0.3).to(dtype)
+    flow = a(2, 16, 12, 2, scale=3.0)
+    return {
+        "style_gram": (lambda x, s: losses.reconet_style_loss(
+            x, grams, spatial=s), [a(2, 16, 6, 4), a(2, 8, 3, 8)], [0, 1]),
+        "content": (lambda x, s: losses.reconet_content_loss(
+            x[:1], x[1:], 0, spatial=s), [a(2, 16, 5, 4), a(2, 16, 5, 4)],
+            [0, 1]),
+        "total_variation": (lambda x, s: losses.reconet_reg_loss(
+            x[0], spatial=s), [a(2, 16, 7, 3, scale=5.0)], [0]),
+        "feature_temporal": (lambda x, s: losses.reconet_feature_temporal_loss(
+            x[0], x[1], x[2], x[3], spatial=s),
+            [a(2, 4, 3, 5), a(2, 4, 3, 5), flow, mask], [0, 1]),
+        "output_temporal": (lambda x, s: losses.reconet_output_temporal_loss(
+            *x, spatial=s), [a(2, 16, 12, 3) for _ in range(4)]
+            + [flow, mask], [0, 1, 2, 3]),
+    }
+
+
+def spatial_cotangent(name, shape):
+    """The seeded cotangent (float64) of a layer kind's whole output."""
+    import zlib
+
+    return torch.from_numpy(np.random.default_rng(
+        zlib.crc32(name.encode())).standard_normal(tuple(shape)))
+
+
+def spatial_grad(fn, x, params, grad_inputs, spatial, cotangent):
+    """Run ``fn(x, spatial)`` (x a tensor or a list) with gradients for
+    the inputs ``grad_inputs`` (indices into the list; None: all) and the
+    ``params`` (which fn reads), back-propagate ``cotangent(y)`` and
+    return (the output, the inputs' gradients, the parameters'
+    gradients) as numpy arrays."""
+    xs = list(x) if isinstance(x, list) else [x]
+    idx = list(range(len(xs)) if grad_inputs is None else grad_inputs)
+    xs = [t.detach().clone().requires_grad_(i in idx)
+          for i, t in enumerate(xs)]
+    for p in params:
+        p.requires_grad_()
+    try:
+        y = fn(xs if isinstance(x, list) else xs[0], spatial)
+        grads = torch.autograd.grad(y, [xs[i] for i in idx] + list(params),
+                                    cotangent(y))
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    return (_np(y), [_np(t) for t in grads[:len(idx)]],
+            [_np(t) for t in grads[len(idx):]])
+
+
+def rows_cotangent(name, rank, world):
+    """``cotangent(y)`` for ``spatial_grad`` of a layer kind: this rank's
+    rows of ``spatial_cotangent`` at the whole output's shape (world = 1:
+    the whole)."""
+    def cot(y):
+        r = y.shape[1]
+        whole = spatial_cotangent(name, (y.shape[0], r * world,
+                                         *y.shape[2:]))
+        return whole[:, rank * r:(rank + 1) * r].to(y.dtype)
+
+    return cot
+
+
+EXCHANGE_CASES = [(edge, wpad) for edge in ("reflect", "zero", "clamp")
+                  for wpad in (0, 1)]
+
+
+def _exchange_adjoint(rank, ctx):
+    """(edge, wpad) → (⟨exchange(x), g⟩, ⟨x, exchangeᵀ(g)⟩) on this rank,
+    float64, 2 rows above and 1 below, x and g seeded by rank and case."""
+    from vst_tpu_torch.parallel.spatial import exchange_rows
+
+    out = {}
+    for i, (edge, wpad) in enumerate(EXCHANGE_CASES):
+        g = np.random.default_rng((rank, i))
+        x = torch.from_numpy(g.standard_normal((2, 4, 5, 3))
+                             ).requires_grad_()
+        y = exchange_rows(ctx, x, 2, 1, edge, wpad,
+                          "zero" if edge == "zero" else "reflect")
+        cot = torch.from_numpy(g.standard_normal(tuple(y.shape)))
+        (gx,) = torch.autograd.grad(y, x, cot)
+        out[(edge, wpad)] = (float((y * cot).sum()), float((x * gx).sum()))
+    return out
 
 
 def spatial_layers(rank, world):
     """Each layer kind of ``spatial_layer_cases`` on this rank's rows:
-    name → its output rows."""
+    "fwd": name → its float32 output rows; "grad": name → (output, the
+    inputs' gradients, the parameters' gradients) in float64 under the
+    cotangent's rows, for every layer kind and loss share
+    (``spatial_loss_cases``, whose output is the share); "adjoint": the
+    exchange's inner products (``_exchange_adjoint``)."""
     from vst_tpu_torch.parallel import make_mesh, shard_spatial
     from vst_tpu_torch.parallel.spatial import SpatialContext
 
     mesh = make_mesh(None, ("space",))
     ctx = SpatialContext(mesh)
-    out = {}
+    fwd, grad = {}, {}
     with torch.no_grad():
-        for name, (fn, x) in spatial_layer_cases().items():
-            out[name] = _np(fn(shard_spatial(mesh, x), ctx))
-    return out
+        for name, (fn, x, _) in spatial_layer_cases().items():
+            fwd[name] = _np(fn(shard_spatial(mesh, x), ctx))
+    for name, (fn, x, params) in spatial_layer_cases(
+            dtype=torch.float64).items():
+        grad[name] = spatial_grad(fn, shard_spatial(mesh, x), params, None,
+                                  ctx, rows_cotangent(name, rank, world))
+    for name, (fn, x, idx) in spatial_loss_cases().items():
+        grad[name] = spatial_grad(fn, shard_spatial(mesh, x), [], idx, ctx,
+                                  torch.ones_like)
+    return {"fwd": fwd, "grad": grad, "adjoint": _exchange_adjoint(rank,
+                                                                   ctx)}
 
 
 SPATIAL_FAMILIES = ("reconet", "sd1", "sd2", "rtnstv")

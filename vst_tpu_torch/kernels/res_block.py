@@ -13,7 +13,11 @@ the same conv over one row shard of an H-sharded frame, whose input
 carries its neighbours' rows (``parallel/spatial.py::exchange_rows``) and
 a reflect-padded W border, and whose statistics come back as the shard's
 sums Σy, Σy² for the caller to all-reduce.  ``residual_block_fused(...,
-spatial=ctx)`` runs every launch in this mode, world 1 included.
+spatial=ctx)`` runs every launch in this mode, world 1 included.  It is
+the autograd Function ``Conv3x3InStatsHalo``, whose backward
+(``conv3x3_in_stats_halo_vjp``) shares the reflect mode's VJP, so the
+sharded residual block differentiates end to end (data × space
+training).
 
 ``conv3x3_in_stats`` is the autograd Function ``Conv3x3InStats``: its
 forward launches the kernel for CUDA tensors (or raises) and takes the
@@ -230,52 +234,38 @@ def _launch_halo(xh, w, b, stats_in=None, gamma=None, beta=None):
 
 
 def conv3x3_in_stats_halo(xh, w, b, stats_in=None, gamma=None, beta=None):
-    """K1's halo-rows mode, serving only: xh (B, R+2, W+2, C), a row shard
-    with its neighbours' (or a global edge's reflected) rows above and
-    below and its W border reflect-padded → (y (B, R, W, Co) in xh.dtype,
-    the shard's per-image sums Σy, Σy² (B, 2, Co) float32), with the
-    optional normalize+relu prologue of ``conv3x3_in_stats``.  CUDA
-    tensors launch the kernel (or raise), CPU tensors take the plain
-    version.  Raises when a gradient is needed."""
-    from vst_tpu_torch.parallel.spatial import no_grad_needed
-
-    no_grad_needed("conv3x3_in_stats_halo", xh, w, b, stats_in, gamma, beta)
-    if xh.device.type == "cpu":
-        return conv3x3_in_stats_halo_plain(xh, w, b, stats_in, gamma, beta)
-    return _launch_halo(xh, w, b, stats_in, gamma, beta)
+    """K1's halo-rows mode: xh (B, R+2, W+2, C), a row shard with its
+    neighbours' (or a global edge's reflected) rows above and below and
+    its W border reflect-padded → (y (B, R, W, Co) in xh.dtype, the
+    shard's per-image sums Σy, Σy² (B, 2, Co) float32), with the optional
+    normalize+relu prologue of ``conv3x3_in_stats``, differentiable in
+    every tensor argument (``Conv3x3InStatsHalo``).  CUDA tensors launch
+    the kernel (or raise), CPU tensors take the plain version."""
+    fwd = (conv3x3_in_stats_halo_plain if xh.device.type == "cpu"
+           else _launch_halo)
+    return Conv3x3InStatsHalo.apply(xh, w, b, stats_in, gamma, beta, fwd)
 
 
 conv3x3_in_stats_halo.launches = 0
 
 
-def conv3x3_in_stats_vjp(x, w, b, stats_in, gamma, beta, y, stats, gy,
-                         gstats, need=(True,) * 6):
-    """Gradients of ``conv3x3_in_stats`` for (x, w, b, stats_in, gamma,
-    beta), each None where ``need`` says it is not wanted, from the saved
-    inputs and outputs (y, stats) and the output gradients gy (B, H, W, Co)
-    and gstats (B, 2, Co).
+def _conv_vjp(x, w, b, stats_in, gamma, beta, g, pad, need):
+    """The part of K1's VJP that both modes share: from ``g``, the conv
+    output's gradient (B, Co, H, W) in the accumulation dtype, the
+    gradients of (x, w, b, stats_in, gamma, beta), each None where
+    ``need`` says it is not wanted.  ``pad``: 1 for the reflect mode (x is
+    reflect-padded after the prologue), 0 for the halo-rows mode (x has
+    its border rows and columns already: a VALID conv).
 
-    The statistics fold into the conv output's gradient,
-    g = gy + gmean/HW + gvar·2(y − mean)/HW, with y the saved output: in
-    bfloat16 it is rounded (relative 2⁻⁹) while the kernel's statistics
-    come from its float32 accumulator, so the gvar term carries that
-    rounding, an error of about 2⁻⁸·|gvar|·|y − mean|/HW per element
-    beside the bf16 forward's own.  dw and db come from g and the
-    recomputed padded prologue output, dv_pad from g and w, all in float32
-    (float64 for float64 inputs; TF32 off for float32 inputs, as JAX
-    differentiates at HIGHEST precision) through library convolutions;
-    dv_pad goes
-    back through the recomputed pad and prologue (elementwise) by
-    autograd, which gives x, stats_in, gamma and beta theirs."""
+    dw and db come from g and the recomputed padded prologue output,
+    dv_pad from g and w, all in float32 (float64 for float64 inputs; TF32
+    off for float32 inputs, as JAX differentiates at HIGHEST precision)
+    through library convolutions; dv_pad goes back through the recomputed
+    pad and prologue (elementwise) by autograd, which gives x, stats_in,
+    gamma and beta theirs."""
     need_x, need_w, need_b, need_s, need_g, need_bt = need
     apply_precision(x.dtype)   # float32: the library convs without TF32
-    n, h, wd, _ = x.shape
     acc_t = torch.float64 if x.dtype == torch.float64 else torch.float32
-    hw = float(h * wd)
-    mean = stats[:, 0].to(acc_t)[:, None, None, :]
-    g = (gy.to(acc_t) + gstats[:, 0].to(acc_t)[:, None, None, :] / hw
-         + gstats[:, 1].to(acc_t)[:, None, None, :] * (2.0 / hw)
-         * (y.to(acc_t) - mean)).permute(0, 3, 1, 2)
     prologue = stats_in is not None
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(nd) if t is not None else None
@@ -286,7 +276,7 @@ def conv3x3_in_stats_vjp(x, w, b, stats_in, gamma, beta, y, stats, gy,
             m_in, scale, bt = _prologue(*leaves[1:], acc_t)
             v = torch.relu((v.to(acc_t) - m_in[:, None, None, :])
                            * scale[:, None, None, :] + bt).to(x.dtype)
-        vp = reflection_pad2d(v, 1)
+        vp = reflection_pad2d(v, pad)
     vp_nchw = vp.detach().permute(0, 3, 1, 2).to(acc_t)
     w_oihw = w.detach().permute(3, 2, 0, 1).to(acc_t)
     dw = db = None
@@ -306,6 +296,51 @@ def conv3x3_in_stats_vjp(x, w, b, stats_in, gamma, beta, y, stats, gy,
     return dx, dw, db, ds, dg, dbt
 
 
+def conv3x3_in_stats_vjp(x, w, b, stats_in, gamma, beta, y, stats, gy,
+                         gstats, need=(True,) * 6):
+    """Gradients of ``conv3x3_in_stats`` for (x, w, b, stats_in, gamma,
+    beta), each None where ``need`` says it is not wanted, from the saved
+    inputs and outputs (y, stats) and the output gradients gy (B, H, W, Co)
+    and gstats (B, 2, Co).
+
+    The statistics fold into the conv output's gradient,
+    g = gy + gmean/HW + gvar·2(y − mean)/HW, with y the saved output: in
+    bfloat16 it is rounded (relative 2⁻⁹) while the kernel's statistics
+    come from its float32 accumulator, so the gvar term carries that
+    rounding, an error of about 2⁻⁸·|gvar|·|y − mean|/HW per element
+    beside the bf16 forward's own.  The rest is ``_conv_vjp`` on the
+    reflect-padded input."""
+    _, h, wd, _ = x.shape
+    acc_t = torch.float64 if x.dtype == torch.float64 else torch.float32
+    hw = float(h * wd)
+    mean = stats[:, 0].to(acc_t)[:, None, None, :]
+    g = (gy.to(acc_t) + gstats[:, 0].to(acc_t)[:, None, None, :] / hw
+         + gstats[:, 1].to(acc_t)[:, None, None, :] * (2.0 / hw)
+         * (y.to(acc_t) - mean)).permute(0, 3, 1, 2)
+    return _conv_vjp(x, w, b, stats_in, gamma, beta, g, 1, need)
+
+
+def conv3x3_in_stats_halo_vjp(xh, w, b, stats_in, gamma, beta, y, gy,
+                              gsums, need=(True,) * 6):
+    """Gradients of ``conv3x3_in_stats_halo`` for (xh, w, b, stats_in,
+    gamma, beta), as ``conv3x3_in_stats_vjp``, from the saved y and the
+    output gradients gy (B, R, W, Co) and gsums (B, 2, Co).
+
+    The sums fold into the conv output's gradient, g = gy + gΣy +
+    2·y·gΣy² (no division: the caller divides the all-reduced sums by the
+    global H·W), and ``_conv_vjp`` runs a VALID conv on xh, whose halo
+    rows and W border are the exchange's (its own backward takes their
+    gradients back to their sources).  The bf16 caveat of
+    ``conv3x3_in_stats_vjp`` holds here too: y is the rounded output, the
+    sums came from the float32 accumulator, so the gΣy² term carries y's
+    rounding, about 2⁻⁸·|gΣy²|·|y| per element."""
+    acc_t = torch.float64 if xh.dtype == torch.float64 else torch.float32
+    g = (gy.to(acc_t) + gsums[:, 0].to(acc_t)[:, None, None, :]
+         + 2.0 * gsums[:, 1].to(acc_t)[:, None, None, :]
+         * y.to(acc_t)).permute(0, 3, 1, 2)
+    return _conv_vjp(xh, w, b, stats_in, gamma, beta, g, 0, need)
+
+
 class Conv3x3InStats(torch.autograd.Function):
     """K1 with a gradient.  ``fwd`` computes the forward: ``_launch`` (the
     kernel) on the card, ``conv3x3_in_stats_plain`` on the CPU or as the
@@ -323,6 +358,27 @@ class Conv3x3InStats(torch.autograd.Function):
     def backward(ctx, gy, gstats):
         grads = conv3x3_in_stats_vjp(*ctx.saved_tensors, gy, gstats,
                                      ctx.needs_input_grad[:6])
+        return (*grads, None)
+
+
+class Conv3x3InStatsHalo(torch.autograd.Function):
+    """K1's halo-rows mode with a gradient.  ``fwd`` computes the forward:
+    ``_launch_halo`` (the kernel) on the card, ``conv3x3_in_stats_halo_
+    plain`` on the CPU or as the plain route a card check compares
+    against.  The backward is ``conv3x3_in_stats_halo_vjp`` whatever the
+    forward."""
+
+    @staticmethod
+    def forward(ctx, xh, w, b, stats_in, gamma, beta, fwd):
+        y, sums = fwd(xh, w, b, stats_in, gamma, beta)
+        ctx.save_for_backward(xh, w, b, stats_in, gamma, beta, y)
+        return y, sums
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, gsums):
+        grads = conv3x3_in_stats_halo_vjp(*ctx.saved_tensors, gy, gsums,
+                                          ctx.needs_input_grad[:6])
         return (*grads, None)
 
 
@@ -357,7 +413,9 @@ def residual_block_fused(x, w1, b1, g1, bt1, w2, b2, g2, bt2, spatial=None):
     row shard and both launches run in the halo-rows mode: conv1 on the
     exchanged rows, its sums all-reduced into the frame's statistics, y1's
     edge rows exchanged raw, conv2 with those statistics in its prologue,
-    its sums all-reduced, then the same tail (serving only)."""
+    its sums all-reduced, then the same tail.  Every step of it carries
+    its gradient (the halo Functions, the exchange's adjoint, the
+    all-reduce's all-reduce)."""
     if spatial is None:
         y1, s1 = conv3x3_in_stats(x, w1, b1)
         y2, s2 = conv3x3_in_stats(y1, w2, b2, stats_in=s1, gamma=g1,
@@ -365,8 +423,6 @@ def residual_block_fused(x, w1, b1, g1, bt1, w2, b2, g2, bt2, spatial=None):
     else:
         from vst_tpu_torch.parallel import spatial as sp
 
-        sp.no_grad_needed("residual_block_fused", x, w1, b1, g1, bt1, w2, b2,
-                          g2, bt2)
         count = x.shape[1] * spatial.size * x.shape[2]
         # each launch's input: one row a side from the exchange (reflected
         # at a frame edge) and the W border reflected, (N, R+2, W+2, C)

@@ -8,7 +8,12 @@
   relu4_2, style Grams normalized by H·W, the mean of a square-rooted
   total variation; scaled by its weights here, as JAX's.
 
-NHWC, taken in float32 (float64 for float64 inputs)."""
+NHWC, taken in float32 (float64 for float64 inputs).
+
+ReCoNet's take ``spatial=`` (``parallel/spatial.py``): the inputs are this
+rank's row blocks of an H-sharded frame and each returns this rank's
+share, the shares summing over the axis to the frame's loss (the ReCoNet
+flow step over a data × space mesh)."""
 
 import torch
 
@@ -20,38 +25,61 @@ def _acc(x):
     return x.double() if x.dtype == torch.float64 else x.float()
 
 
-def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mse(a: torch.Tensor, b: torch.Tensor, spatial=None) -> torch.Tensor:
     """torch.nn.MSELoss(reduction="mean"), taken in float32 (float64 when
-    either input is float64)."""
+    either input is float64).  ``spatial``: a and b are row blocks; this
+    rank's share Σ(a − b)² / (the frame's element count)."""
     if torch.float64 in (a.dtype, b.dtype):
-        return torch.mean(torch.square(a.double() - b.double()))
-    return torch.mean(torch.square(a.float() - b.float()))
+        d = a.double() - b.double()
+    else:
+        d = a.float() - b.float()
+    if spatial is None:
+        return torch.mean(torch.square(d))
+    return torch.sum(torch.square(d)) / (d.numel() * spatial.size)
 
 
-def reconet_content_loss(styled_feats, content_feats, tap_index: int = 2):
+def reconet_content_loss(styled_feats, content_feats, tap_index: int = 2,
+                         spatial=None):
     """MSE of the stylized and content taps at ``tap_index`` (relu3_3)."""
-    return mse(styled_feats[tap_index], content_feats[tap_index])
+    return mse(styled_feats[tap_index], content_feats[tap_index], spatial)
 
 
-def reconet_style_loss(styled_feats, style_grams):
+def reconet_style_loss(styled_feats, style_grams, spatial=None):
     """Σ over taps of MSE(gram(styled tap), style gram), grams / (C·H·W);
     each style gram (1, C, C) broadcasts over the batch, as the
-    reference's ``gram_s.expand``."""
+    reference's ``gram_s.expand``.  ``spatial``: the Grams are the
+    frame's (all-reduced), so every rank would compute the whole loss;
+    each rank's share is that divided by the axis size (in full, its
+    gradient would come out that many times too large)."""
     loss = 0.0
     for feat, gs in zip(styled_feats, style_grams):
-        gf = gram_matrix(feat)
+        gf = gram_matrix(feat, spatial)
         loss = loss + mse(gf, gs.expand_as(gf))
-    return loss
+    return loss if spatial is None else loss / spatial.size
 
 
-def reconet_reg_loss(styled, mesh=None):
+def reconet_reg_loss(styled, mesh=None, spatial=None):
     """Total variation as a raw sum of squared neighbour differences
     (train_candy.py:140-145: torch.sum, not mean).  With a ``mesh``,
     ``styled`` is this rank's shard of the batch and the sum is multiplied
-    by the number of shards (the mean over ranks is the global sum)."""
+    by the number of shards (the mean over ranks is the global sum).
+
+    ``spatial``: styled is a row block; the vertical differences of its
+    last row take the next block's first row (``exchange_rows``, one row
+    from below, zero under the frame), and the frame's last row drops out
+    of both sums, as ``x[:, :-1]`` drops it unsharded: on the last rank
+    only, which masks out the zero edge's terms."""
     x = _acc(styled)
-    reg1 = torch.square(x[:, :-1, 1:, :] - x[:, :-1, :-1, :])
-    reg2 = torch.square(x[:, 1:, :-1, :] - x[:, :-1, :-1, :])
+    if spatial is None:
+        reg1 = torch.square(x[:, :-1, 1:, :] - x[:, :-1, :-1, :])
+        reg2 = torch.square(x[:, 1:, :-1, :] - x[:, :-1, :-1, :])
+    else:
+        from vst_tpu_torch.parallel.spatial import exchange_rows
+
+        xe = exchange_rows(spatial, x, 0, 1, "zero")
+        n = x.shape[1] - int(spatial.last)
+        reg1 = torch.square(x[:, :n, 1:, :] - x[:, :n, :-1, :])
+        reg2 = torch.square(xe[:, 1:n + 1, :-1, :] - xe[:, :n, :-1, :])
     return torch.sum(reg1 + reg2) * batch_shards(mesh)
 
 

@@ -17,6 +17,14 @@ batch is this rank's shard of the global batch: the divisor is the global
 batch's count (``parallel/mesh.py::batch_total``) and the loss is
 multiplied by the number of shards, so that the mean over ranks is the
 global batch's loss.
+
+ReCoNet's FTL and OTL take ``spatial=`` (``parallel/spatial.py``): the
+inputs are this rank's row blocks of H-sharded frames (the flow and mask
+too), the flow and mask are resized inside the block (FTL's integer
+factor 4 needs no exchange), the warp gathers its source over the axis
+(``ops/warp.py``), and the mask counts are totals over the data and space
+axes of the mesh (``batch_total``); each returns this rank's share, the
+shares summing over the space axis.
 """
 
 import torch
@@ -31,18 +39,25 @@ def _acc(x):
     return x.double() if x.dtype == torch.float64 else x.float()
 
 
+def _count_mesh(mesh, spatial):
+    """The mesh a mask count is totalled over: ``mesh``, or the spatial
+    context's own."""
+    return mesh if mesh is not None or spatial is None else spatial.mesh
+
+
 def reconet_feature_temporal_loss(feature_map1, feature_map2, flow, mask,
-                                  mesh=None):
+                                  mesh=None, spatial=None):
     """FTL between consecutive frames' encoder features (N, Hf, Wf, C),
     with the image-resolution flow (N, H, W, 2) and occlusion mask (N, H,
     W).  Unweighted: the caller scales by lambda_f."""
+    mesh = _count_mesh(mesh, spatial)
     _, hf, wf, _ = feature_map1.shape
     h, w = flow.shape[1:3]
     acc = _acc(flow).dtype
     scale = torch.tensor([wf / w, hf / h], dtype=acc, device=flow.device)
-    feature_flow = resize_bilinear(_acc(flow), (hf, wf)) * scale
-    warped = warp(feature_map1, feature_flow)
-    fmask = resize_bilinear(_acc(mask)[..., None], (hf, wf))
+    feature_flow = resize_bilinear(_acc(flow), (hf, wf), spatial) * scale
+    warped = warp(feature_map1, feature_flow, spatial=spatial)
+    fmask = resize_bilinear(_acc(mask)[..., None], (hf, wf), spatial)
     fmask = (fmask > 0).to(acc).expand(feature_map1.shape)
     err = torch.square(_acc(feature_map2) - _acc(warped))
     count = batch_total(mesh, torch.count_nonzero(fmask).to(acc))
@@ -50,12 +65,14 @@ def reconet_feature_temporal_loss(feature_map1, feature_map2, flow, mask,
 
 
 def reconet_output_temporal_loss(img1n, img2n, styled1n, styled2n, flow,
-                                 mask, mesh=None):
+                                 mask, mesh=None, spatial=None):
     """OTL with the luminance-relaxed input term; the four (N, H, W, 3)
     images are already vgg-normalized, as in the reference, which
     normalizes before warping."""
-    output_term = _acc(styled2n) - _acc(warp(styled1n, flow))
-    input_term = _acc(img2n) - _acc(warp(img1n, flow))
+    mesh = _count_mesh(mesh, spatial)
+    output_term = _acc(styled2n) - _acc(warp(styled1n, flow,
+                                             spatial=spatial))
+    input_term = _acc(img2n) - _acc(warp(img1n, flow, spatial=spatial))
     luma = rgb_to_luma709(input_term)[..., None].expand(output_term.shape)
     cmask = _acc(mask)[..., None].expand(output_term.shape)
     loss = torch.sum(cmask * torch.square(output_term - luma))

@@ -38,7 +38,8 @@ call of the local queries against the whole style's K/V (one K3 launch a
 level for softmax, the linear form for cosine) needs no collective; the
 content instance norms all-reduce their sums, ``_up2`` takes one row a
 side (repeated at the frame's edges) and the decoder's reflect convs
-theirs.  Serving only; H must divide by 16 times the axis size.
+theirs.  It serves (the AdaAttN steps over a space axis are slice 7d);
+H must divide by 16 times the axis size.
 """
 
 import torch

@@ -20,10 +20,12 @@ stride-2 encoder convs and the upsample convs are ``F.conv2d``, as the
 JAX package leaves them to XLA.
 
 ``forward(x, spatial=ctx)`` (``parallel/spatial.py``) runs the model over
-this rank's row block of an H-sharded frame (serving only): every layer
-exchanges its halo rows, the instance norms all-reduce their sums, and
-the residual blocks run K1's halo-rows mode.  H must divide by 4 times the
-axis size, with at least 8 rows a block.
+this rank's row block of an H-sharded frame: every layer exchanges its
+halo rows, the instance norms all-reduce their sums, and the residual
+blocks run K1's halo-rows mode.  H must divide by 4 times the axis size,
+with at least 8 rows a block.  It serves, and differentiates for the data
+× space flow step (``train/steps.py``): the exchanges, all-reduces and
+K1's halo-rows mode carry their gradients.
 """
 
 import torch

@@ -20,10 +20,11 @@ and the decoders ``F.conv_transpose2d``, as the JAX package leaves them
 to XLA.
 
 ``forward(x, spatial=ctx)`` (``parallel/spatial.py``) runs the network
-over this rank's row block of an H-sharded frame (serving only), every
-layer exchanging its halo rows and the residual blocks on K1's halo-rows
-mode; H must divide by 4 times the axis size, with at least 8 rows a
-block.
+over this rank's row block of an H-sharded frame, every layer exchanging
+its halo rows and the residual blocks on K1's halo-rows mode; H must
+divide by 4 times the axis size, with at least 8 rows a block.  It
+serves; every layer carries its gradient, but the RTNSTV step over a
+space axis is still to port (slice 7d).
 """
 
 import torch

@@ -15,8 +15,11 @@ VGG16 takes input the caller has normalized (the ReCoNet trainers call
 
 ``forward(x, spatial=ctx)`` (``parallel/spatial.py``) encodes this rank's
 row block of an H-sharded frame: each zero-padded conv exchanges one row
-a side, the pools need an even block, and the taps come back as row
-blocks (serving only; AdaAttN's content side).
+a side, the pools need an even block (R a multiple of 2 to the number of
+pools before the last tap: 8 for VGG16's relu4_3, 16 for VGG19's
+relu5_1), and the taps come back as row blocks.  It differentiates (the
+exchange's backward), so the ReCoNet flow step's losses run on it over a
+space axis; AdaAttN's content side uses it to serve.
 """
 
 import numpy as np
@@ -29,6 +32,7 @@ from vst_tpu_torch.models.init import as_rng, conv_init
 from vst_tpu_torch.models.remat import segment
 from vst_tpu_torch.ops.conv import conv2d, max_pool2d
 from vst_tpu_torch.ops.image import vgg_normalize
+from vst_tpu_torch.parallel.spatial import check_rows
 
 # torchvision VGG "features" layouts: channel counts, "M" = MaxPool2d(2, 2).
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
@@ -103,6 +107,9 @@ class _VGGTaps(nn.Module):
         backward recomputes one segment's internals at a time.
         ``spatial``: x is this rank's row block (module docstring)."""
         apply_precision(x.dtype)
+        if spatial is not None:
+            check_rows(spatial, x.shape[1], self.row_multiple(),
+                       type(self).__name__)
         if self.NORMALIZE:
             x = vgg_normalize(x)
         out = {}
@@ -112,6 +119,14 @@ class _VGGTaps(nn.Module):
             out[name] = x
             start = idx + 1
         return out
+
+    @classmethod
+    def row_multiple(cls) -> int:
+        """2 to the number of pools before the last tap: what a row block's
+        height must divide by."""
+        last = max(cls.TAPS.values())
+        return 2 ** sum(kind == "pool" and idx < last
+                        for idx, kind, _, _ in _layer_table(cls.CFG))
 
     def _layers(self, x, start, stop, spatial=None):
         for layer in self.features[start:stop]:
@@ -159,9 +174,10 @@ def vgg19_rtnstv_features(vgg: VGG19RTNSTV, x: torch.Tensor,
 
 
 def vgg16_features(vgg: VGG16ReCoNet, x: torch.Tensor,
-                   remat: bool = False) -> dict:
-    """ReCoNet tap set of an already ``vgg_normalize``d NHWC batch."""
-    return vgg(x, remat=remat)
+                   remat: bool = False, spatial=None) -> dict:
+    """ReCoNet tap set of an already ``vgg_normalize``d NHWC batch; with
+    ``spatial``, of this rank's row block (R a multiple of 8)."""
+    return vgg(x, remat=remat, spatial=spatial)
 
 
 def _build(cls, state: dict, device, dtype):

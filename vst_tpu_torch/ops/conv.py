@@ -24,7 +24,10 @@ padding only at the frame's global edges:
 
 The W border is padded as in the unsharded layer, in the same copy as the
 rows (``parallel/spatial.py::exchange_rows``), so the conv reads the layout
-the unsharded layer's padded copy has.  Serving only.
+the unsharded layer's padded copy has.  Every sharded layer
+differentiates: the exchange's backward carries the halo rows' gradients
+back to their ranks, and the conv's own backward is autograd's (K2's
+Function for the 9×9).
 """
 
 import torch
@@ -60,7 +63,6 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
         return _nhwc(F.conv2d(_nchw(x), w, b, stride=stride,
                               padding=padding))
     sp = _sp()
-    sp.no_grad_needed("conv2d", x, w, b)
     if stride != 1:
         raise ValueError("conv2d over a row block: stride 1 only")
     k = w.shape[2]
@@ -87,7 +89,6 @@ def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
                                         padding=padding,
                                         output_padding=output_padding))
     sp = _sp()
-    sp.no_grad_needed("conv_transpose2d", x, w, b)
     if (w.shape[2], stride, padding, output_padding) != (3, 2, 1, 1):
         raise ValueError("conv_transpose2d over a row block: k 3, stride 2, "
                          "padding 1, output_padding 1 only")
@@ -122,7 +123,6 @@ def conv2d_reflect(x: torch.Tensor, w: torch.Tensor,
         xp = reflection_pad2d(x, pad)
         return _nhwc(F.conv2d(_nchw(xp), w, b, stride=stride))
     sp = _sp()
-    sp.no_grad_needed("conv2d_reflect", x, w, b)
     if stride == 1:
         above = below = pad
     elif stride == 2 and w.shape[-1] == 3:
@@ -148,7 +148,6 @@ def conv2d_nearest_up2(x: torch.Tensor, w: torch.Tensor,
     if spatial is None:
         return conv2d_reflect(up, w, b)
     sp = _sp()
-    sp.no_grad_needed("conv2d_nearest_up2", x, w, b)
     return _nhwc(F.conv2d(_nchw(sp.exchange_rows(spatial, up, 1, 1, "clamp", 1)),
                           w, b))
 
@@ -201,7 +200,6 @@ def conv2d_polyphase_reflect(x: torch.Tensor, w: torch.Tensor,
         xp = reflection_pad2d(x, f)
     else:
         sp = _sp()
-        sp.no_grad_needed("conv2d_polyphase_reflect", x, w, b)
         sp.check_rows(spatial, h, f, "conv2d_polyphase_reflect")
         xp = sp.exchange_rows(spatial, x, f, f, "reflect", f)
     if (hq * f, wq * f) != (h, wd):

@@ -35,10 +35,18 @@ def _gram(y: torch.Tensor) -> torch.Tensor:
     return torch.matmul(f.transpose(1, 2), f)
 
 
-def gram_matrix(y: torch.Tensor) -> torch.Tensor:
-    """(N, C, C) Gram matrix of NHWC features / (C·H·W), ReCoNet's."""
+def gram_matrix(y: torch.Tensor, spatial=None) -> torch.Tensor:
+    """(N, C, C) Gram matrix of NHWC features / (C·H·W), ReCoNet's.
+    ``spatial`` (``parallel/spatial.py``): y is this rank's row block; its
+    FᵀF divided by the frame's C·H·W, all-reduced over the axis, so every
+    rank holds the frame's Gram (the all-reduce's backward gives each
+    block its gradient)."""
     _, h, w, c = y.shape
-    return _gram(y) / (c * h * w)
+    if spatial is None:
+        return _gram(y) / (c * h * w)
+    from vst_tpu_torch.parallel.spatial import all_reduce_sum
+
+    return all_reduce_sum(spatial, _gram(y) / (c * h * spatial.size * w))
 
 
 def gram_matrix_hw(y: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,8 @@ def instance_norm(x: torch.Tensor, scale: torch.Tensor | None = None,
     ``spatial`` (``parallel/spatial.py``): x is this rank's row block; the
     block's Σx is all-reduced over the axis into the frame's mean, then
     its Σ(x − mean)² into the variance: the unsharded two passes, two
-    small all-reduces (serving only)."""
+    small all-reduces, whose backward all-reduces the statistics'
+    gradients (``parallel/spatial.py::all_reduce_sum``)."""
     acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     xf = x.to(acc)
     if spatial is None:
@@ -24,7 +25,6 @@ def instance_norm(x: torch.Tensor, scale: torch.Tensor | None = None,
     else:
         from vst_tpu_torch.parallel import spatial as sp
 
-        sp.no_grad_needed("instance_norm", x, scale, bias)
         count = x.shape[1] * spatial.size * x.shape[2]
         mean = sp.all_reduce_sum(spatial, xf.sum(dim=(1, 2),
                                                  keepdim=True)) / count

@@ -38,7 +38,6 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int],
                          f"{size[0]} (an integer factor down, or 2× up)")
     from vst_tpu_torch.parallel import spatial as sp
 
-    sp.no_grad_needed("resize_bilinear", x)
     xh = sp.exchange_rows(spatial, x, 1, 1, "clamp")
     return _bilinear(xh, (2 * r + 4, size[1]))[:, 2:2 * r + 2].contiguous()
 

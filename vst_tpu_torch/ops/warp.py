@@ -30,9 +30,10 @@ def grid_sample_bilinear(x: torch.Tensor, grid: torch.Tensor,
     return out.permute(0, 2, 3, 1).to(x.dtype)
 
 
-def _pixel_grid(h: int, w: int, dtype, device) -> torch.Tensor:
-    """(H, W, 2) grid of (x, y) pixel coordinates."""
-    gy, gx = torch.meshgrid(torch.arange(h, dtype=dtype, device=device),
+def _pixel_grid(h: int, w: int, dtype, device, row0: int = 0) -> torch.Tensor:
+    """(H, W, 2) grid of (x, y) pixel coordinates, rows from ``row0``."""
+    gy, gx = torch.meshgrid(torch.arange(row0, row0 + h, dtype=dtype,
+                                         device=device),
                             torch.arange(w, dtype=dtype, device=device),
                             indexing="ij")
     return torch.stack([gx, gy], dim=-1)
@@ -45,13 +46,28 @@ def _normalize(v, h, w):
 
 
 def warp(x: torch.Tensor, flow: torch.Tensor,
-         padding_mode: str = "zeros") -> torch.Tensor:
+         padding_mode: str = "zeros", spatial=None) -> torch.Tensor:
     """Backward-warp ``x`` (N, H, W, C) by ``flow`` (N, H, W, 2), channels
-    (fx, fy): sample x at pixel grid + flow (ReCoNet/utilities.py:39-57)."""
+    (fx, fy): sample x at pixel grid + flow (ReCoNet/utilities.py:39-57).
+
+    ``spatial`` (``parallel/spatial.py``): x and flow are this rank's row
+    blocks of R rows.  A flow vector may point anywhere in the frame, so
+    the source is gathered over the axis (``gather_rows``, whose backward
+    reduce-scatters its gradient), and the grid holds this block's rows
+    at the frame's coordinates (from row index·R, normalized by the
+    frame's H); the result is this block's rows."""
     _, h, w, _ = x.shape
     acc = _acc_dtype(x)
-    grid = _pixel_grid(h, w, acc, x.device)[None] + flow.to(acc)
-    return grid_sample_bilinear(x, _normalize(grid, h, w), padding_mode)
+    if spatial is None:
+        grid = _pixel_grid(h, w, acc, x.device)[None] + flow.to(acc)
+        return grid_sample_bilinear(x, _normalize(grid, h, w), padding_mode)
+    from vst_tpu_torch.parallel.spatial import gather_rows
+
+    src = gather_rows(spatial, x)
+    grid = (_pixel_grid(h, w, acc, x.device, spatial.index * h)[None]
+            + flow.to(acc))
+    return grid_sample_bilinear(src, _normalize(grid, src.shape[1], w),
+                                padding_mode)
 
 
 def flow_warp_mask(flow01: torch.Tensor, flow10: torch.Tensor,

@@ -21,8 +21,11 @@ which a caller gets only by asking for the CPU.
 
 Spatial parallelism: ``shard_spatial`` gives each rank its contiguous H
 rows (dim 1) of every NHWC leaf; the layers then exchange their halo rows
-themselves (``parallel/spatial.py``).  ``shard_batch_spatial`` (a batch
-sharded on both axes, for training) waits for slice 7c.
+themselves (``parallel/spatial.py``).  ``shard_batch_spatial`` shards a
+batch on both axes of a ("data", "space") mesh for training: the ReCoNet
+flow step then sums its gradients and metrics over "space" and averages
+them over "data" (``all_reduce_sum``, ``all_reduce_mean``), and its mask
+counts are totals over both axes (``batch_total``).
 """
 
 import math
@@ -163,6 +166,30 @@ def shard_spatial(mesh: Mesh, tree, axis: str = "space"):
     return _tree_map(take, tree)
 
 
+def shard_batch_spatial(mesh: Mesh, tree, batch_axis: str = "data",
+                        space_axis: str = "space"):
+    """This rank's contiguous dim-0 slice over ``batch_axis`` and, of
+    that, its contiguous dim-1 rows over ``space_axis``, of every leaf
+    with ndim >= 2 (the NHWC frames, the (N, H, W, 2) flow, the (N, H, W)
+    mask), on the rank's device: JAX's placement P(batch_axis,
+    space_axis).  Only those rows are copied to the device.  Raises
+    ``ValueError`` when a dimension does not divide."""
+    nb, ib = mesh.shape[batch_axis], mesh.index[batch_axis]
+    ns, js = mesh.shape[space_axis], mesh.index[space_axis]
+
+    def take(x):
+        x = torch.as_tensor(x)
+        if x.dim() < 2 or x.shape[0] % nb or x.shape[1] % ns:
+            raise ValueError(
+                f"shape {tuple(x.shape)}: dim 0 must divide by the {nb}-way "
+                f"{batch_axis!r} axis and dim 1 (H) by the {ns}-way "
+                f"{space_axis!r} axis")
+        b, r = x.shape[0] // nb, x.shape[1] // ns
+        return x[ib * b:(ib + 1) * b, js * r:(js + 1) * r].to(mesh.device)
+
+    return _tree_map(take, tree)
+
+
 def _buckets(tensors):
     """The tensors grouped by (dtype, device), in order."""
     out = {}
@@ -200,6 +227,15 @@ def all_reduce_mean(mesh: Mesh, tensors, axis: str = "data"):
         flat.div_(n)
 
     return _flat_collective(mesh, tensors, reduce)
+
+
+def all_reduce_sum(mesh: Mesh, tensors, axis: str = "space"):
+    """Sum ``tensors`` (a list) in place over ``axis``: one flattened SUM
+    all-reduce per dtype (the ranks' shares of an H-sharded loss's
+    gradients and metrics).  Returns the list."""
+    return _flat_collective(
+        mesh, tensors, lambda flat: dist.all_reduce(
+            flat, group=mesh.groups[axis]))
 
 
 def _state_tensors(obj):
@@ -245,17 +281,21 @@ def replicate(mesh: Mesh, tree):
 def batch_shards(mesh: Mesh | None, axis: str = "data") -> int:
     """How many ranks share the batch: a loss that sums over the batch is
     multiplied by this on each rank, so that the mean over ranks (the
-    step's all-reduce) is the global batch's sum."""
-    return 1 if mesh is None else mesh.shape[axis]
+    step's all-reduce) is the global batch's sum.  The "space" axis splits
+    a loss into shares that sum to it and takes no factor."""
+    return 1 if mesh is None else mesh.shape.get(axis, 1)
 
 
 def batch_total(mesh: Mesh | None, x: torch.Tensor,
-                axis: str = "data") -> torch.Tensor:
-    """The sum over ``axis`` of a tensor that depends on the data only (a
-    mask count): the global batch's denominator of a ratio loss.  Without
-    a mesh, ``x`` itself."""
+                axes=("data", "space")) -> torch.Tensor:
+    """The sum over the mesh's ``axes`` (those it has) of a tensor that
+    depends on the data only (a mask count): the global batch's
+    denominator of a ratio loss, every frame's rows counted once.
+    Without a mesh, ``x`` itself."""
     if mesh is None:
         return x
     out = x.detach().clone()
-    dist.all_reduce(out, group=mesh.groups[axis])
+    for axis in axes:
+        if axis in mesh.shape:
+            dist.all_reduce(out, group=mesh.groups[axis])
     return out

@@ -27,6 +27,16 @@ its residual blocks through K1; their backward is the library's conv
 gradients (``kernels/res_block.py``,
 ``kernels/head_conv.py``); the softmax attention trains through K3 forward
 and K4/K5 backward (``models/adaattn.py``).
+
+Data × space training: ``make_reconet_flow_step`` given a mesh with a
+"space" axis (a ("data", "space") mesh, the batch placed by
+``parallel.shard_batch_spatial``) runs the stylizer, the VGG16 and the
+losses on this rank's row blocks (``spatial=``, ``parallel/spatial.py``):
+each rank's loss is its share of its data shard's loss, the gradients and
+metrics are summed over "space" and averaged over "data", and the step is
+the single-device step on the global batch.  H must divide by 8 times the
+space axis's size (VGG16's three pools before relu4_3).  The other
+builders raise on such a mesh (slice 7d).
 """
 
 import copy
@@ -40,7 +50,8 @@ from vst_tpu_torch.models import vgg as vgg_m
 from vst_tpu_torch.models.remat import segment
 from vst_tpu_torch.ops.features import feature_down_sample
 from vst_tpu_torch.ops.image import gram_matrix, gram_matrix_hw, vgg_normalize
-from vst_tpu_torch.parallel.mesh import all_reduce_mean
+from vst_tpu_torch.parallel.mesh import all_reduce_mean, all_reduce_sum
+from vst_tpu_torch.parallel.spatial import SpatialContext, check_rows
 from vst_tpu_torch.train.state import TrainState, apply_gradients
 
 # family name → model class (in JAX: → forward function)
@@ -105,11 +116,29 @@ def reconet_style_grams(vgg: vgg_m.VGG16ReCoNet, style_255) -> list:
     return [gram_matrix(f).float() for f in feats.values()]
 
 
+def _space(mesh):
+    """The ``SpatialContext`` of ``mesh``'s "space" axis, or None (no mesh,
+    or a mesh without one)."""
+    if mesh is None or "space" not in mesh.shape:
+        return None
+    return SpatialContext(mesh)
+
+
+def _no_space(mesh, what):
+    """Raise for a builder that does not train over a space axis yet."""
+    if _space(mesh) is not None:
+        raise ValueError(
+            f"{what} over a mesh with a 'space' axis is not ported yet "
+            f"(slice 7d); make_reconet_flow_step is the one step that "
+            f"trains H-sharded")
+
+
 def _reconet_losses(cfg, vgg, style_grams, outs1, outs2, img1, img2, flow,
-                    mask, mesh=None):
+                    mask, mesh=None, spatial=None):
     """The candy-style loss block (train_candy.py:77-148).  outs1/outs2:
     the stylizer's (feature map, styled) per frame; img1/img2: the 0–255
-    inputs (the whole multi-frame channel stack)."""
+    inputs (the whole multi-frame channel stack).  ``spatial``: every
+    input is this rank's row block and the losses its shares."""
     fmap1, styled1 = outs1
     fmap2, styled2 = outs2
     idx = (cfg.input_frame_num - 1) * 3   # the last frame's RGB (:59-61)
@@ -119,26 +148,28 @@ def _reconet_losses(cfg, vgg, style_grams, outs1, outs2, img1, img2, flow,
     # one batched VGG pass over [s1, s2, i1, i2] (VGG has no cross-batch op)
     n = s1n.shape[0]
     feats = vgg_m.vgg16_features(vgg, torch.cat([s1n, s2n, i1n, i2n]),
-                                 remat=cfg.remat).values()
+                                 remat=cfg.remat, spatial=spatial).values()
     sf1, sf2, cf1, cf2 = ([f[i * n:(i + 1) * n] for f in feats]
                           for i in range(4))
     metrics = {}
     total = 0.0
     if getattr(cfg, "use_ftl", True):
         ftl = losses.reconet_feature_temporal_loss(
-            fmap1, fmap2, flow, mask, mesh) * cfg.lambda_f
+            fmap1, fmap2, flow, mask, mesh, spatial) * cfg.lambda_f
         total = total + ftl
         metrics["FTL"] = ftl
-    otl = losses.reconet_output_temporal_loss(i1n, i2n, s1n, s2n, flow,
-                                              mask, mesh) * cfg.lambda_o
-    content = (losses.reconet_content_loss(sf1, cf1)
-               + losses.reconet_content_loss(sf2, cf2)) * cfg.alpha
-    style = (losses.reconet_style_loss(sf1, style_grams)
-             + losses.reconet_style_loss(sf2, style_grams)) * cfg.beta
+    otl = losses.reconet_output_temporal_loss(
+        i1n, i2n, s1n, s2n, flow, mask, mesh, spatial) * cfg.lambda_o
+    content = (losses.reconet_content_loss(sf1, cf1, spatial=spatial)
+               + losses.reconet_content_loss(sf2, cf2, spatial=spatial)
+               ) * cfg.alpha
+    style = (losses.reconet_style_loss(sf1, style_grams, spatial)
+             + losses.reconet_style_loss(sf2, style_grams, spatial)
+             ) * cfg.beta
     # TV on the vgg-NORMALIZED styled images, as the reference computes it
     # (styled_img is reassigned at train_candy.py:82 before :140-145)
-    reg = (losses.reconet_reg_loss(s1n, mesh)
-           + losses.reconet_reg_loss(s2n, mesh)) * cfg.gamma
+    reg = (losses.reconet_reg_loss(s1n, mesh, spatial)
+           + losses.reconet_reg_loss(s2n, mesh, spatial)) * cfg.gamma
     total = total + otl + content + style + reg
     metrics.update(OTL=otl, CL=content, SL=style, RL=reg, loss=total)
     return total, metrics
@@ -149,26 +180,34 @@ def _grams_on(style_grams, vgg):
     return [torch.as_tensor(g).to(dev) for g in style_grams]
 
 
-def _stylizer(cfg):
+def _stylizer(cfg, spatial=None):
     """The stylizer's forward, checkpointed whole under ``cfg.remat`` (the
-    JAX step's ``jax.checkpoint`` of the forward)."""
-    return segment(lambda net, x: net(x), cfg.remat)
+    JAX step's ``jax.checkpoint`` of the forward); with ``spatial``, over
+    this rank's row block."""
+    return segment(lambda net, x: net(x, spatial=spatial), cfg.remat)
 
 
 def make_reconet_flow_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
                            mesh=None):
     """ReCoNet single- and multi-frame flow trainer (train_candy.py:32-170);
-    batch (img1, img2, flow, mask)."""
+    batch (img1, img2, flow, mask).  A ``mesh`` with a "space" axis trains
+    data × space (module docstring): the batch is this rank's
+    ``shard_batch_spatial`` block, whose rows must divide by 8."""
     grams = _grams_on(style_grams, vgg)
-    fwd = _stylizer(cfg)
+    spatial = _space(mesh)
+    fwd = _stylizer(cfg, spatial)
 
     def loss_fn(net, vgg, img1, img2, flow, mask):
+        if spatial is not None:
+            check_rows(spatial, img1.shape[1], vgg.row_multiple(),
+                       "make_reconet_flow_step (VGG16's pools before "
+                       "relu4_3)")
         # one stylizer pass over both frames (instance norm is per sample)
         n = img1.shape[0]
         _, fmap, styled = fwd(net, torch.cat([img1, img2]))
         return _reconet_losses(cfg, vgg, grams, (fmap[:n], styled[:n]),
                                (fmap[n:], styled[n:]), img1, img2, flow,
-                               mask, mesh)
+                               mask, mesh, spatial)
 
     return _make_step(cfg, vgg, loss_fn, n_images=2, mesh=mesh)
 
@@ -177,6 +216,7 @@ def make_reconet_coco_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
                            mesh=None):
     """Image-only content + style trainer (train_coco2014.py:28-105);
     batch: the images."""
+    _no_space(mesh, "make_reconet_coco_step")
     grams = _grams_on(style_grams, vgg)
     fwd = _stylizer(cfg)
 
@@ -207,6 +247,7 @@ def make_reconet_distill_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
     logged as ``SDL`` and left out of the total unless
     ``cfg.include_sd_in_total``; where the taps' shapes differ (the SD1
     stage) it is NaN."""
+    _no_space(mesh, "make_reconet_distill_step")
     grams = _grams_on(style_grams, vgg)
     frozen_teacher = _frozen(teacher, DTYPES[cfg.dtype])
     fwd = _stylizer(cfg)
@@ -254,6 +295,7 @@ def make_rtnstv_step(cfg, vgg: vgg_m.VGG19RTNSTV, style_grams, mesh=None):
     [img1, img2, styled1, styled2] (instance norm is per sample, VGG has
     no cross-batch op); each frame's spatial loss, the temporal loss on
     the 0–255 styled pair."""
+    _no_space(mesh, "make_rtnstv_step")
     grams = _grams_on(style_grams, vgg)
     fwd = _stylizer(cfg)
 
@@ -331,6 +373,17 @@ def _split(f, *bounds):
     return [{k: v[a:b] for k, v in f.items()} for a, b in bounds]
 
 
+def _reduce(mesh, tensors):
+    """Sum ``tensors`` over the mesh's "space" axis, if it has one, then
+    average them over "data" (a mesh of only "space" has no data axis to
+    average over).  In place; returns the list."""
+    if "space" in mesh.shape:
+        all_reduce_sum(mesh, tensors, "space")
+    if "data" in mesh.shape:
+        all_reduce_mean(mesh, tensors)
+    return tensors
+
+
 def _make_step(cfg, vgg, loss_fn, n_images=None, mesh=None):
     """``step(state, batch)`` around ``loss_fn(net, vgg, *batch)``; the
     first ``n_images`` batch entries (all by default) are cast to
@@ -344,7 +397,9 @@ def _make_step(cfg, vgg, loss_fn, n_images=None, mesh=None):
     rank logs the global batch's losses and takes the same update, and the
     loop's non-finite rollback decides the same on every rank.  The
     losses that are not batch means are rescaled on each rank for this
-    (``batch_shards``, ``batch_total``)."""
+    (``batch_shards``, ``batch_total``).  Over a "space" axis each rank's
+    loss is a share of its data shard's: the gradients and metrics are
+    first summed over "space" (one flattened all-reduce each)."""
     dtype = DTYPES[cfg.dtype]
     frozen = _frozen(vgg, dtype)
     cast = None
@@ -364,10 +419,10 @@ def _make_step(cfg, vgg, loss_fn, n_images=None, mesh=None):
         total.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if mesh is not None:
-            all_reduce_mean(mesh, [p.grad for p in state.model.parameters()
-                                   if p.grad is not None])
+            _reduce(mesh, [p.grad for p in state.model.parameters()
+                           if p.grad is not None])
             keys = list(metrics)
-            flat = all_reduce_mean(mesh, [torch.stack(
+            flat = _reduce(mesh, [torch.stack(
                 [metrics[k].double().reshape(()) for k in keys])])[0]
             metrics = {k: flat[j].to(metrics[k].dtype)
                        for j, k in enumerate(keys)}
@@ -379,6 +434,7 @@ def _make_step(cfg, vgg, loss_fn, n_images=None, mesh=None):
 def make_adaattn_image_step(cfg, vgg: vgg_m.VGG19AdaAttN, mesh=None):
     """AdaAttN image-mode trainer (AdaAttN/train_image.py:25-125); batch
     (content, style)."""
+    _no_space(mesh, "make_adaattn_image_step")
     vgg_feats, stylize, no_conv_target = _adaattn_fwds(cfg)
 
     def loss_fn(net, vgg, content, style):
@@ -400,6 +456,7 @@ def make_adaattn_video_step(cfg, vgg: vgg_m.VGG19AdaAttN, mesh=None):
     (content1, content2, style).  Global and local losses on frame 1 only;
     the image-similarity loss across the frame pair on relu2_1/3_1/4_1
     (:110-115)."""
+    _no_space(mesh, "make_adaattn_video_step")
     vgg_feats, stylize, no_conv_target = _adaattn_fwds(cfg)
 
     def loss_fn(net, vgg, content1, content2, style):
