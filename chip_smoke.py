@@ -4,7 +4,8 @@ holds each against its plain PyTorch version, drives the ten paths of
 the port (ReCoNet streaming stylization, AdaAttN arbitrary-style serving,
 AdaAttN training, ReCoNet training, RTNSTV serving, RTNSTV training,
 evaluation, scale-out over torch.distributed, H-sharded 4K serving and
-data × space ReCoNet training) and checks what comes out.
+data × space training of every step builder) and checks what comes
+out.
 
     python3 chip_smoke.py
 
@@ -51,9 +52,13 @@ result line):
    reflect-mode launch on the whole tensor, each shard launched twice for
    the same bits; K2 on the packed (1,542,962,·) ReCoNet and SD2 stems and
    heads; K3 (bf16) at a 2160×3840 content's three levels against a 512²
-   style's; and at the data × space flow step's shapes: K1's halo-rows
-   mode at (4,90,160,192), whole (xh (4,92,162,192)) and split in 2, and
-   K2 on the packed (4,92,162,·) stem and head, bf16 and f32;
+   style's; and at the data × space steps' shapes: K1's halo-rows mode at
+   the flow step's (4,90,160,192), the coco step's (4,64,64,192), the SD
+   stages' (4,90,160,64) and RTNSTV's (4,90,160,48), each whole (xh with
+   its border) and split in 2, and K2 on the packed (4,92,162,·) ReCoNet,
+   SD1 and SD2 and (4,66,66,·) coco stems and heads, bf16 and f32; the
+   f32 K3, K4 and K5 at the AdaAttN training levels where [3] has not
+   held them yet (``--spatial``);
 4. model: the f32 ReCoNet and RTNSTV forwards through the kernels against
    the same forwards through the plain versions at 1×256×256 (and, with
    grad mode on, the same kernels' outputs bit for bit), the f32 AdaAttN
@@ -156,17 +161,25 @@ result line):
    launch at a shape [3] held; then the data × space part (in the same
    group): K1's halo-rows autograd Function against its plain route in
    float64 at (4,92,162,192), without and with the prologue, f32 (1e-4 of
-   each gradient's scale) and bf16 (3e-2), and ``RECONET_CANDY``'s flow
-   step (360×640 b2, [5c]'s seeded state, grams and batch) on a (1, 1)
-   ("data", "space") mesh, its batch placed by ``shard_batch_spatial``,
-   against two bare steps, in f32 and bf16, all held to the plain float64
-   bare step: the sharded step's metrics and gradients within the larger
-   of a floor (``SPACE_FLOORS``, [5c]'s) and 2 × the bare step's own
-   distance from it, its metrics also within the larger of a floor
+   each gradient's scale) and bf16 (3e-2), and every step builder on a
+   (1, 1) ("data", "space") mesh, its batch placed by
+   ``shard_batch_spatial``, against two bare steps (``_space_cases``):
+   ``RECONET_CANDY``'s flow step (360×640 b2, [5c]'s seeded state, grams
+   and batch) in f32 and bf16, the coco step (256² b4), the SD1 and SD2
+   distillation stages (360×640 b2) and RTNSTV (``RTNSTVConfig()``,
+   360×640 b2), all f32 but the flow step's bf16 run, held to their plain
+   float64 bare step: the sharded step's metrics and gradients within the
+   larger of a floor (``SPACE_FLOORS``, [5c]'s) and 2 × the bare step's
+   own distance from it; the AdaAttN image step (256² b8 softmax) and
+   video step (256×512 b4 cosine), f32, held to two bare runs: decoder
+   gradients within the larger of the gradient floor and 4 × their
+   distance; every step's metrics within the larger of a floor
    (``SPACE_METRIC_FLOORS``) and 4 × two bare runs' distance of the bare
-   step's, Adam's update on its own gradient within 1e-3·lr and
-   the bare update's within 1e-3·lr where the float64 gradient is above
-   the tolerance, K1 10 launches a step all in the halo-rows mode, K2 2; ms
+   step's, Adam's update on its own gradient within 1e-3·lr and the bare
+   update's within 1e-3·lr where the reference gradient is above the
+   tolerance; launches a step: K1 10 (flow, coco, RTNSTV) or 20 (SD, the
+   teacher's forward included), all in the halo-rows mode, K2 2 or 4, K3
+   6, K4 3 and K5 3 (image), none (video), each at a shape [3] held; ms
    per step sharded and bare (median of 6, alternating), the peak memory
    of one step each, and the sharded step's device time in
    ``vst::exchange_rows`` and ``vst::exchange_rows_bwd``;
@@ -518,29 +531,29 @@ K2_EVAL_F32 = {"temporal MSE stem": (1, 92, 162, 48, 768),
                "temporal MSE head": (1, 92, 162, 768, 48)}
 
 # The shapes [3] held against the plain versions: ("K1" | "K1h" | "K2" |
-# "K3", dtype, shape, batch-stride-0 operands or Co); [5e] and the spatial
-# part of [8] fail on a launch outside.
+# "K3" | "K4" | "K5", dtype, shape, batch-stride-0 operands or Co); [5e]
+# and the spatial and data × space parts of [8] fail on a launch outside.
 CHECKED = set()
 
 
-def _k3_key(q, k, v):
+def _k3_key(q, k, v, kid="K3"):
     b = q.shape[0]
     bcast = "".join(t for t, x in (("q", q), ("kv", k))
                     if b > 1 and x.stride(0) == 0)
-    return ("K3", q.dtype, (b, q.shape[1], k.shape[1], q.shape[2],
-                            v.shape[2]), bcast)
+    return (kid, q.dtype, (b, q.shape[1], k.shape[1], q.shape[2],
+                           v.shape[2]), bcast)
 
 
 @contextlib.contextmanager
 def recording_launches():
-    """Record the key of every K1, K2 and K3 launch in the block (the
-    wrappers' ``_launch`` / ``_launch_halo`` / ``_moments_fwd``, which
-    run only on the card; K1's halo-rows mode as "K1h"); yields the
+    """Record the key of every K1-K5 launch in the block (the wrappers'
+    ``_launch`` / ``_launch_halo`` / ``_moments_fwd`` / ``_check_bwd``,
+    which run only on the card; K1's halo-rows mode as "K1h"); yields the
     set."""
     seen = set()
     att = adaattn_attention
     saved = (res_block._launch, head_conv._launch, att._moments_fwd,
-             res_block._launch_halo)
+             res_block._launch_halo, att._check_bwd)
 
     def k1(x, w, *a, **kw):
         seen.add(("K1", x.dtype, tuple(x.shape), w.shape[3]))
@@ -558,13 +571,18 @@ def recording_launches():
         seen.add(_k3_key(q, k, v))
         return saved[2](q, k, v)
 
+    def k45(q, k, v, *rest):
+        seen.add(_k3_key(q, k, v, "K4" if rest[-1].endswith("_dq")
+                         else "K5"))
+        return saved[4](q, k, v, *rest)
+
     (res_block._launch, head_conv._launch, att._moments_fwd,
-     res_block._launch_halo) = k1, k2, k3, k1h
+     res_block._launch_halo, att._check_bwd) = k1, k2, k3, k1h, k45
     try:
         yield seen
     finally:
         (res_block._launch, head_conv._launch, att._moments_fwd,
-         res_block._launch_halo) = saved
+         res_block._launch_halo, att._check_bwd) = saved
 
 
 def k1_inputs(g, dtype, shape=K1_SHAPE):
@@ -873,40 +891,50 @@ def phase_kernels_k45(g, parent=None):
               ("f32 stride-0 Q", torch.float32, (4, 200, 330, 448, 256),
                1.0, "q")]
     for tag, dtype, shape, score_std, bcast in cases:
-        apply_precision(dtype)
-        args = k45_inputs(g, *shape, dtype, score_std, bcast)
-        dq = adaattn_attention.softmax_attention_dq(*args)
-        dk, dv = adaattn_attention.softmax_attention_dkv(*args)
-        if not (torch.equal(dq, adaattn_attention.softmax_attention_dq(*args))
-                and all(torch.equal(a, b) for a, b in zip(
-                    (dk, dv), adaattn_attention.softmax_attention_dkv(*args)))):
-            raise AssertionError(f"K4/K5 {tag} {shape}: two launches differ")
-        ref = args
-        if dtype == torch.float32:   # the float64 evaluation
-            q, k, v, lse, dd, dm1, dm2 = args
-            ref = (q.double(), k.double(), v.double(), lse, dd, dm1.double(),
-                   dm2.double())
-        pq = adaattn_attention.softmax_attention_dq_plain(*ref)
-        pk, pv = adaattn_attention.softmax_attention_dkv_plain(*ref)
-        tol = 2 * BF16_ULP if dtype == torch.bfloat16 else 1e-4
-        name = f"{tag} {shape}"
-        e4 = check(f"K4 {name} dQ", dq, pq, tol)
-        e5 = max(check(f"K5 {name} dK", dk, pk, tol),
-                 check(f"K5 {name} dV", dv, pv, tol))
+        e4, e5 = _k45_check(g, tag, dtype, shape, score_std, bcast,
+                            parent if tag == "f32" and shape in levels
+                            else None)
         suffix = "" if dtype == torch.bfloat16 else " f32"
         errs["K4" + suffix] = max(errs["K4" + suffix], e4)
         errs["K5" + suffix] = max(errs["K5" + suffix], e5)
-        if parent is not None and tag == "f32" and shape in levels:
-            if not all(torch.equal(a, b) for a, b in zip((dk, dv),
-                                                         parent(*args))):
-                raise AssertionError(f"K5 f32 {shape}: differs from the "
-                                     f"parent's")
-            log(f"  K5 f32 {shape}: the same bits as the parent's")
-        del args, ref, dq, dk, dv, pq, pk, pv
     log("  K4 and K5, bf16 and f32: a second launch gives the same bits at "
         "every shape")
     torch.cuda.synchronize()
     return errs
+
+
+def _k45_check(g, tag, dtype, shape, score_std, bcast, parent=None):
+    """One K4/K5 case of ``phase_kernels_k45``, both launched twice for
+    the same bits; with ``parent``, K5 also against the parent's bits.
+    Returns the worst dQ and dK/dV errors."""
+    apply_precision(dtype)
+    args = k45_inputs(g, *shape, dtype, score_std, bcast)
+    CHECKED.update(_k3_key(*args[:3], kid) for kid in ("K4", "K5"))
+    dq = adaattn_attention.softmax_attention_dq(*args)
+    dk, dv = adaattn_attention.softmax_attention_dkv(*args)
+    if not (torch.equal(dq, adaattn_attention.softmax_attention_dq(*args))
+            and all(torch.equal(a, b) for a, b in zip(
+                (dk, dv), adaattn_attention.softmax_attention_dkv(*args)))):
+        raise AssertionError(f"K4/K5 {tag} {shape}: two launches differ")
+    ref = args
+    if dtype == torch.float32:   # the float64 evaluation
+        q, k, v, lse, dd, dm1, dm2 = args
+        ref = (q.double(), k.double(), v.double(), lse, dd, dm1.double(),
+               dm2.double())
+    pq = adaattn_attention.softmax_attention_dq_plain(*ref)
+    pk, pv = adaattn_attention.softmax_attention_dkv_plain(*ref)
+    tol = 2 * BF16_ULP if dtype == torch.bfloat16 else 1e-4
+    name = f"{tag} {shape}"
+    e4 = check(f"K4 {name} dQ", dq, pq, tol)
+    e5 = max(check(f"K5 {name} dK", dk, pk, tol),
+             check(f"K5 {name} dV", dv, pv, tol))
+    if parent is not None:
+        if not all(torch.equal(a, b) for a, b in zip((dk, dv),
+                                                     parent(*args))):
+            raise AssertionError(f"K5 f32 {shape}: differs from the "
+                                 f"parent's")
+        log(f"  K5 f32 {shape}: the same bits as the parent's")
+    return e4, e5
 
 
 def _image_batch(rng, b, size):
@@ -2999,12 +3027,22 @@ K3_SPATIAL = [("bf16 4K content", torch.bfloat16, (1, n, m, d, c), 1.0, "")
               for n, m, d, c in ((518400, 16384, 448, 256),
                                  (129600, 4096, 960, 512),
                                  (32400, 1024, 1472, 512))]
-# The data × space part of [8]: RECONET_CANDY's flow step (360×640 b2, the
-# frame pair as one batch of 4) on a world-1 ("data", "space") mesh.  K1
-# runs its halo-rows mode on the rank's whole frame with its border,
-# (4, 92, 162, 192), held in [3] also split in 2 (4, 47, 162, 192); K2 the
-# packed stem and head (4, 92, 162, ·) of [5c] (RC_K2).
-K1_FLOW = {"flow step": (4, 90, 160, 192)}
+# The data × space part of [8]: every step builder at its config's size on
+# a world-1 ("data", "space") mesh.  K1 runs its halo-rows mode on the
+# rank's whole frame with its border, held in [3] also split in 2: the flow
+# step's and the SD1 stage's teacher's (4, 92, 162, 192) (the frame pair
+# as one batch of 4), the coco step's (4, 66, 66, 192), the SD students'
+# and the SD2 stage's teacher's (4, 92, 162, 64), RTNSTV's
+# (4, 92, 162, 48); K2 the packed stems and heads of [5c] (RC_K2) and
+# those below; K3-K5 the f32 AdaAttN image step's training levels.
+K1_FLOW = {"flow step": (4, 90, 160, 192), "coco step": (4, 64, 64, 192),
+           "SD steps": (4, 90, 160, 64), "RTNSTV step": (4, 90, 160, 48)}
+K2_TRAIN = {"coco stem": (4, 66, 66, 48, 768),
+            "coco head": (4, 66, 66, 768, 48),
+            "SD1 stem": (4, 92, 162, 48, 512),
+            "SD1 head": (4, 92, 162, 512, 48),
+            "SD2 stem": (4, 92, 162, 48, 256),
+            "SD2 head": (4, 92, 162, 256, 48)}
 FLOW_SPLITS = (2, 1)
 
 
@@ -3063,14 +3101,17 @@ def _k1_halo_check(g, dtype, label, shape, tol,
 
 
 def phase_kernels_spatial(g):
-    """[3]'s cases of the spatial part of [8]: K1's halo-rows mode at
-    K1_SPATIAL and K1_FLOW in bf16 and f32 (``_k1_halo_check``), K2 at
-    K2_SPATIAL and RC_K2 and K3 at K3_SPATIAL against their plain
-    versions, each launched twice for the same bits.  Tolerances as [3]'s:
-    bf16 one bf16 ulp of the output's scale, f32 1e-4 of it, the
+    """[3]'s cases of the spatial and data × space parts of [8]: K1's
+    halo-rows mode at K1_SPATIAL and K1_FLOW in bf16 and f32
+    (``_k1_halo_check``), K2 at K2_SPATIAL, RC_K2 and K2_TRAIN and K3 at
+    K3_SPATIAL against their plain versions, each launched twice for the
+    same bits; and the f32 K3, K4 and K5 at the AdaAttN image step's
+    training levels against float64, where [3]'s K3-K5 phases have not
+    held them yet (``--spatial`` runs this phase alone).  Tolerances as
+    [3]'s: bf16 one bf16 ulp of the output's scale, f32 1e-4 of it, the
     statistics 1e-4."""
     log("[3] K1's halo-rows mode, K2 and K3 at the spatial part's 4K shapes "
-        "and the data × space flow step's")
+        "and the data × space steps'")
     errs, same = {}, {}
     for dtype, key, tol in ((torch.float32, "K1 halo f32", 1e-4),
                             (torch.bfloat16, "K1 halo", BF16_ULP)):
@@ -3084,10 +3125,16 @@ def phase_kernels_spatial(g):
             e, same[f"{key} {label}"] = _k1_halo_check(
                 g, dtype, label, shape, tol, FLOW_SPLITS)
             errs[key] = max(errs[key], e)
-        for label, shape in {**K2_SPATIAL, **RC_K2}.items():
+        for label, shape in {**K2_SPATIAL, **RC_K2, **K2_TRAIN}.items():
             _k2_check(g, dtype, label, shape, tol)
     for case in K3_SPATIAL:
         _k3_check(g, *case)
+    for n, d, c in TRAIN_LEVELS:
+        shape = (TRAIN_BATCH, n, n, d, c)
+        if ("K3", torch.float32, shape, "") not in CHECKED:
+            _k3_check(g, "f32", torch.float32, shape, 1.0, "")
+        if ("K4", torch.float32, shape, "") not in CHECKED:
+            _k45_check(g, "f32", torch.float32, shape, 1.0, "")
     log(f"  K1 halo mode: a second launch gives the same bits; y equals one "
         f"reflect-mode launch bit for bit: {json.dumps(same)}")
     apply_precision(torch.bfloat16)
@@ -3377,73 +3424,99 @@ def _k1_halo_grad_checks(g):
     return errs
 
 
-# The data × space step's checks hold the sharded and the bare step to
-# the plain float64 bare step, as [5c] holds the kernel route: the sharded
+# The data × space steps' checks hold the sharded and the bare step to the
+# plain float64 bare step, as [5c] holds the kernel route: the sharded
 # step's distance from it within the larger of a floor and 2 × the bare
 # step's own (floors: metrics 1e-4 relative, gradients 1e-3 of each key's
 # largest, [5c]'s).  Two bare f32 runs agree to 1.7e-5 (NVIDIA H100 80GB
-# HBM3 at 700 W), but the sharded step sums in another order (the padded VGG
-# convs, the sharded statistics and loss shares), and this step's f32
-# gradients are differences of large terms (the FTL's weight 1e12): the
-# two routes' distance (3.7e-3 there) is float32's conditioning here, which
-# the float64 step measures.
+# HBM3 at 700 W), but the sharded step sums in another order (the padded
+# VGG convs, the sharded statistics and loss shares), and the flow step's
+# f32 gradients are differences of large terms (the FTL's weight 1e12):
+# the two routes' distance (3.7e-3 there) is float32's conditioning here,
+# which the float64 step measures.  The AdaAttN steps have no float64
+# step here: their sharded gradients are held to the bare step's within
+# the larger of the gradient floor and 4 × two bare runs' distance.
 SPACE_FLOORS = (1e-4, 1e-3)
 # The metrics come from the forward, which two bare runs repeat bit for
 # bit: the sharded step's are held to the bare step's directly, within
 # the larger of 4 × two bare runs' distance and a floor: f32 1e-5 (its
 # statistics and loss shares are summed in another order; 2.0e-7
-# measured), bf16 2⁻⁸ (two bf16 roundings of some intermediates; 1.2e-4
-# measured; its distance from float64 is the bf16 route's, 1.27 relative
-# on both routes; NVIDIA H100 80GB HBM3 at 700 W).
+# measured on the flow step), bf16 2⁻⁸ (two bf16 roundings of some
+# intermediates; 1.2e-4 measured; its distance from float64 is the bf16
+# route's, 1.27 relative on both routes; NVIDIA H100 80GB HBM3 at 700 W).
 SPACE_METRIC_FLOORS = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+# Adam's first step moves a weight by lr·g/(|g| + eps): where |g| is near
+# eps (1e-8) the update's slope eps/(|g| + eps)² turns a gradient
+# difference δg ≤ |g| into up to eps/|g|·lr, so the sharded update is held
+# to the bare one only where |g| > 1e3·eps as well (1e-3·lr at most).
+ADAM_FIRM = 1e3 * 1e-8
 
 
 def _rel_metric(a, b):
-    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in b)
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in b
+               if not math.isnan(b[k]))
 
 
-def _flow_step64(vgg, grams, batch):
-    """The bare RECONET_CANDY flow step in float64 through the plain
-    versions, from init_reconet(1): (metrics, gradients)."""
-    state = create(init_reconet(1, device="cuda"), RECONET_CANDY.lr)
+@dataclasses.dataclass
+class SpaceCase:
+    """One step of [8]'s data × space part: ``build(cfg, mesh)`` → the
+    step, from ``new_model()``; ``per_step`` its K1-K5 launches, K1's all
+    in the halo-rows mode when sharded; ``keys(name)``: the parameters
+    whose gradients are compared; ``ref64``: the float64 bare step's
+    (metrics, gradients), or None (AdaAttN: held to two bare runs)."""
+    label: str
+    cfg: object
+    new_model: object
+    build: object
+    batch: object
+    per_step: tuple
+    keys: object
+    ref64: object = None
+
+
+def _step64(cfg, new_model, build, batch):
+    """The bare step of ``build`` in float64 through the plain versions:
+    (metrics, gradients)."""
+    state = create(new_model(), cfg.lr)
     with _float64_steps(), plain_kernels():
-        step = make_reconet_flow_step(
-            dataclasses.replace(RECONET_CANDY, dtype="float64"), vgg, grams)
+        step = build(dataclasses.replace(cfg, dtype="float64"), None)
         _, m = step(state, batch)
     return ({k: float(v) for k, v in m.items()}, _grads(state))
 
 
-def _space_step(label, dtype, mesh, vgg, grams, batch, ref64, timed=6):
-    """One RECONET_CANDY flow step at ``dtype`` on the world-1 ("data",
-    "space") ``mesh`` (the batch placed by ``shard_batch_spatial``) against
-    two bare steps, each from the same seeded state, and all three against
-    ``ref64`` (``_flow_step64``): the sharded step's metrics and gradients
-    within SPACE_FLOORS or 2 × the bare step's own distance from float64
-    (the biases an instance norm follows aside), its metrics within
-    SPACE_METRIC_FLOORS or 4 × two bare runs' distance of the bare step's;
-    Adam's update: the
-    sharded step's is Adam's first step on its own gradient within
-    1e-3·lr everywhere, the bare step's within 1e-3·lr wherever the
-    float64 gradient lies above the gradient tolerance, and within 2.1·lr
-    everywhere (float32 rounding decides the sign of a ±lr step below
-    it); K1 10 launches a step, all in the halo-rows mode, K2 2.  Then 2 +
-    ``timed`` steps alternating bare and sharded (host clock after a
-    synchronize; median), each step's launches counted; the peak memory
-    of one step each; and one step of each profiled: the sharded step's
-    device time in "vst::exchange_rows" and "vst::exchange_rows_bwd", the
-    bare step's in "vst::reflection_pad2d".  Returns the sharded runs'
-    launches (K1-K5) and the numbers."""
+def _space_step(case, mesh, timed=6):
+    """One step of ``case`` on the world-1 ("data", "space") ``mesh`` (the
+    batch placed by ``shard_batch_spatial``) against two bare steps, each
+    from the same seeded state.  With ``case.ref64``, all three against it:
+    the sharded step's metrics and gradients within SPACE_FLOORS or 2 × the
+    bare step's own distance from float64 (the keys ``case.keys`` names);
+    without, the sharded step's gradients within the gradient floor or 4 ×
+    two bare runs' distance of the bare step's.  Its metrics within
+    SPACE_METRIC_FLOORS or 4 × two bare runs' distance of the bare step's
+    (NaN where the bare step's is).  Adam's update: the sharded step's is
+    Adam's first step on its own gradient within 1e-3·lr everywhere, the
+    bare step's within 1e-3·lr wherever the reference gradient (float64,
+    else the bare step's) lies above the gradient tolerance and ADAM_FIRM,
+    and within 2.1·lr everywhere (float32 rounding decides the sign of a
+    ±lr step below it); launches ``case.per_step`` a step, the sharded
+    step's K1 all in the halo-rows mode.  Then 2 + ``timed`` steps
+    alternating bare and sharded (host clock after a synchronize;
+    median), each step's launches counted; the peak memory of one step
+    each; and one step of each profiled: the sharded step's device time
+    in "vst::exchange_rows" and "vst::exchange_rows_bwd", the bare step's
+    in "vst::reflection_pad2d".  Returns the sharded runs' launches
+    (K1-K5) and the numbers."""
     from vst_tpu_torch.parallel import shard_batch_spatial
 
-    cfg = dataclasses.replace(RECONET_CANDY, dtype=dtype)
-    sharded_batch = shard_batch_spatial(mesh, batch)
+    label, cfg, per_step = case.label, case.cfg, case.per_step
+    sharded_batch = shard_batch_spatial(mesh, case.batch)
     runs = {}
-    p0 = {k: v.detach().clone() for k, v in
-          init_reconet(1, device="cuda").named_parameters()}
-    for tag, m, b in (("bare", None, batch), ("again", None, batch),
+    p0 = {k: v.detach().clone()
+          for k, v in case.new_model().named_parameters()}
+    for tag, m, b in (("bare", None, case.batch), ("again", None, case.batch),
                       ("sharded", mesh, sharded_batch)):
-        state = create(init_reconet(1, device="cuda"), cfg.lr)
-        step = make_reconet_flow_step(cfg, vgg, grams, m)
+        state = create(case.new_model(), cfg.lr)
+        step = case.build(cfg, m)
         reset_counts()
         state, metrics = step(state, b)
         torch.cuda.synchronize()
@@ -3456,31 +3529,44 @@ def _space_step(label, dtype, mesh, vgg, grams, batch, ref64, timed=6):
     (m0, g0, n0, h0, q0, s0, f0, b0), (ma, ga, _, _, _, _, _, _) = (
         runs["bare"], runs["again"])
     m1, g1, n1, h1, q1, s1, f1, b1 = runs["sharded"]
-    m64, g64 = ref64
-    per_step = (10, 2, 0, 0, 0)
-    if n0 != per_step or n1 != per_step or h0 != 0 or h1 != 10:
+    if (n0 != per_step or n1 != per_step or h0 != 0
+            or h1 != per_step[0]):
         raise AssertionError(f"{label}: launches bare {n0} (halo {h0}), "
                              f"sharded {n1} (halo {h1}); expected {per_step}"
                              f", the sharded K1 all in the halo-rows mode")
-    keys = [k for k in g0 if not _before_norm(k)]
+    keys = [k for k in g0 if case.keys(k)]
 
     def gdist(a, ref):
         return max(((a[k] - ref[k].to(a[k].dtype)).abs().max().item()
                     / max(ref[k].abs().max().item(), 1e-30), k)
                    for k in keys)
 
-    dist = {"metrics": {t: _rel_metric(m, r) for t, (m, r) in (
-                ("sharded-bare", (m1, m0)), ("bare-bare", (ma, m0)),
-                ("sharded-f64", (m1, m64)), ("bare-f64", (m0, m64)))},
-            "grads": {t: gdist(a, r) for t, (a, r) in (
-                ("sharded-bare", (g1, g0)), ("bare-bare", (ga, g0)),
-                ("sharded-f64", (g1, g64)), ("bare-f64", (g0, g64)))}}
-    tol_m = max(SPACE_FLOORS[0], 2 * dist["metrics"]["bare-f64"])
-    tol_mb = max(SPACE_METRIC_FLOORS[dtype], 4 * dist["metrics"]["bare-bare"])
-    tol_g = max(SPACE_FLOORS[1], 2 * dist["grads"]["bare-f64"][0])
-    err_m, (err_g, worst) = (dist["metrics"]["sharded-f64"],
-                             dist["grads"]["sharded-f64"])
+    pairs = {"sharded-bare": (1, 0), "bare-bare": (2, 0)}
+    if case.ref64 is not None:
+        pairs.update({"sharded-f64": (1, 3), "bare-f64": (0, 3)})
+    ms_, gs_ = [m0, m1, ma], [g0, g1, ga]
+    if case.ref64 is not None:
+        ms_.append(case.ref64[0])
+        gs_.append(case.ref64[1])
+    dist = {"metrics": {t: _rel_metric(ms_[a], ms_[b])
+                        for t, (a, b) in pairs.items()},
+            "grads": {t: gdist(gs_[a], gs_[b])
+                      for t, (a, b) in pairs.items()}}
+    tol_mb = max(SPACE_METRIC_FLOORS[cfg.dtype],
+                 4 * dist["metrics"]["bare-bare"])
     err_mb = dist["metrics"]["sharded-bare"]
+    nan_ok = all(math.isnan(m1[k]) == math.isnan(m0[k]) for k in m0)
+    if case.ref64 is not None:
+        tol_m = max(SPACE_FLOORS[0], 2 * dist["metrics"]["bare-f64"])
+        err_m = dist["metrics"]["sharded-f64"]
+        tol_g = max(SPACE_FLOORS[1], 2 * dist["grads"]["bare-f64"][0])
+        err_g, worst = dist["grads"]["sharded-f64"]
+        gref = case.ref64[1]
+    else:
+        tol_m, err_m = tol_mb, err_mb
+        tol_g = max(SPACE_FLOORS[1], 4 * dist["grads"]["bare-bare"][0])
+        err_g, worst = dist["grads"]["sharded-bare"]
+        gref = g0
     lr = cfg.lr
     own = max(((q1[k] - (p0[k] - lr * g1[k] / (g1[k].abs() + 1e-8)))
                .abs().max().item() for k in q1))
@@ -3488,24 +3574,24 @@ def _space_step(label, dtype, mesh, vgg, grams, batch, ref64, timed=6):
     for k in q1:
         loose = max(loose, (q1[k] - q0[k]).abs().max().item())
         if k in keys:
-            sure = g64[k].abs() > tol_g * g64[k].abs().max()
-            firm = max(firm, (q1[k] - q0[k])[sure].abs().max().item())
+            r = gref[k].abs()
+            sure = r > max(tol_g * r.max().item(), ADAM_FIRM)
+            if sure.any():
+                firm = max(firm, (q1[k] - q0[k])[sure].abs().max().item())
     log(f"  {label}: launches K1-K5 {n1} a step, K1 all {h1} in the "
         f"halo-rows mode (bare {n0}); metrics' max rel distance "
         + ", ".join(f"{t} {v:.2e}" for t, v in dist["metrics"].items())
-        + f" (tol on sharded-f64 {tol_m:.2e}, on sharded-bare "
-        f"{tol_mb:.2e}); gradients' "
+        + f" (tol {tol_m:.2e}, on sharded-bare {tol_mb:.2e}); gradients' "
         + ", ".join(f"{t} {v:.2e} ({k})" for t, (v, k)
                     in dist["grads"].items())
-        + f" (tol on sharded-f64 {tol_g:.2e}); Adam's update: on its own "
-        f"gradient {own / lr:.2e}·lr (tol 1e-3·lr), against the bare "
-        f"step's where the float64 gradient is above the tolerance "
-        f"{firm / lr:.2e}·lr (tol 1e-3·lr), everywhere {loose / lr:.2f}·lr "
-        f"(tol 2.1·lr)")
-    if (err_m > tol_m or err_mb > tol_mb or err_g > tol_g
+        + f" (tol {tol_g:.2e}); Adam's update: on its own gradient "
+        f"{own / lr:.2e}·lr (tol 1e-3·lr), against the bare step's where "
+        f"the reference gradient is above the tolerance {firm / lr:.2e}·lr "
+        f"(tol 1e-3·lr), everywhere {loose / lr:.2f}·lr (tol 2.1·lr)")
+    if (err_m > tol_m or err_mb > tol_mb or err_g > tol_g or not nan_ok
             or own > 1e-3 * lr or firm > 1e-3 * lr or loose > 2.1 * lr):
         raise AssertionError(f"{label}: sharded step: metrics {err_m}, "
-                             f"{err_mb}, "
+                             f"{err_mb}, NaN alike {nan_ok}, "
                              f"gradients {err_g} ({worst}), update {own}, "
                              f"{firm}, {loose}")
     del runs, ga, g1, q0, q1
@@ -3551,7 +3637,8 @@ def _space_step(label, dtype, mesh, vgg, grams, batch, ref64, timed=6):
     ms = {t: float(np.median(v)) for t, v in times.items()}
     share = {r: v / prof_s["device_ms"] for r, v in prof_s["by_range"].items()}
     log(f"  {label}: {ms['bare']:.3f} ms/step bare, {ms['sharded']:.3f} "
-        f"sharded (median of {timed}, alternating; {ms['sharded'] / ms['bare'] - 1:+.2%}); "
+        f"sharded (median of {timed}, alternating; "
+        f"{ms['sharded'] / ms['bare'] - 1:+.2%}); "
         f"peak {peak['bare']['peak_gib']:.2f} / "
         f"{peak['sharded']['peak_gib']:.2f} GiB (the step's own "
         f"{peak['bare']['step_gib']:.2f} / {peak['sharded']['step_gib']:.2f}"
@@ -3573,38 +3660,159 @@ def _space_step(label, dtype, mesh, vgg, grams, batch, ref64, timed=6):
            "device_ms_bare": prof_b["device_ms"],
            "exchange_ms": prof_s["by_range"], "exchange_share": share,
            "bare_pad_share": prof_b["copies_share"],
-           "launches_per_step": dict(zip(("K1", "K2"), per_step[:2]))}
+           "launches_per_step": dict(zip(("K1", "K2", "K3", "K4", "K5"),
+                                         per_step))}
     del s0, s1, f0, f1
     return launches, res
+
+
+def _space_cases():
+    """[8]'s data × space steps, each at its config's own size, f32 (the
+    configs' default) but the flow step's bf16 run: RECONET_CANDY's flow
+    step (360×640 b2, [5c]'s seeded state, grams and batch) in f32 and
+    bf16; the coco step (ReCoNetCocoConfig 256² b4); the SD1 and SD2
+    distillation stages (360×640 b2, the flow batch; teachers ReCoNet seed
+    0 and SD1 seed 2); RTNSTV (RTNSTVConfig 360×640 b2, RTNSTV seed 1,
+    VGG19 seed 0); the AdaAttN image step (256² b8 softmax) and video step
+    (256×512 b4 cosine; VGG19 seed 0, AdaAttN seed 1).  The ReCoNet and
+    RTNSTV cases carry their float64 bare step.  Yields one case at a
+    time, so that each one's models and batch are freed before the next."""
+    rng = np.random.default_rng(20)
+    vgg = init_vgg16_reconet(0, device="cuda")
+    grams = _style_grams(vgg, RECONET_CANDY, rng)
+    batch = _flow_batch(rng, RECONET_CANDY)
+
+    def flow(cfg, m):
+        return make_reconet_flow_step(cfg, vgg, grams, m)
+
+    def reconet1():
+        return init_reconet(1, device="cuda")
+
+    ref = _step64(RECONET_CANDY, reconet1, flow, batch)
+    for dtype in ("float32", "bfloat16"):
+        tag = "f32" if dtype == "float32" else "bf16"
+        yield SpaceCase(f"flow step 360×640 b2 {tag}",
+                        dataclasses.replace(RECONET_CANDY, dtype=dtype),
+                        reconet1, flow, batch, (10, 2, 0, 0, 0),
+                        lambda k: not _before_norm(k), ref)
+    ccfg = ReCoNetCocoConfig()
+    cgrams = _style_grams(vgg, ccfg, rng)
+    cbatch = torch.from_numpy(rng.integers(0, 256, (
+        ccfg.batch_size, *ccfg.img_size, 3)).astype(np.float32)).cuda()
+
+    def coco(cfg, m):
+        return make_reconet_coco_step(cfg, vgg, cgrams, m)
+
+    yield SpaceCase("coco step 256² b4 f32", ccfg, reconet1, coco, cbatch,
+                    (10, 2, 0, 0, 0), lambda k: not _coco_zero_grad(k),
+                    _step64(ccfg, reconet1, coco, cbatch))
+    del cgrams, cbatch
+    for dcfg, teacher, init in (
+            (DISTILL_SD1, init_reconet(0, device="cuda"), init_reconet_sd1),
+            (DISTILL_SD2, init_reconet_sd1(2, device="cuda"),
+             init_reconet_sd2)):
+
+        def distill(cfg, m, teacher=teacher):
+            return make_reconet_distill_step(cfg, vgg, grams, teacher, m)
+
+        def student(init=init):
+            return init(1, device="cuda")
+
+        yield SpaceCase(f"distill {dcfg.teacher}->{dcfg.student} 360×640 "
+                        f"b2 f32", dcfg, student, distill, batch,
+                        (20, 4, 0, 0, 0), lambda k: not _sd_before_norm(k),
+                        _step64(dcfg, student, distill, batch))
+    del vgg, grams, teacher
+    apply_precision(torch.float32)
+    rcfg = RTNSTVConfig()
+    vgg19 = init_vgg19_rtnstv(0, device="cuda")
+    rgrams = _rtnstv_grams(vgg19, rng)
+
+    def rtnstv(cfg, m):
+        return make_rtnstv_step(cfg, vgg19, rgrams, m)
+
+    def rtnstv1():
+        return rtnstv_m.init_stylizing_network(1, device="cuda")
+
+    yield SpaceCase("RTNSTV step 360×640 b2 f32", rcfg, rtnstv1, rtnstv,
+                    batch, (10, 0, 0, 0, 0),
+                    lambda k: not _rtnstv_before_norm(k),
+                    _step64(rcfg, rtnstv1, rtnstv, batch))
+    del vgg19, rgrams, batch
+    apply_precision(torch.float32)
+    vgg19 = init_vgg19_adaattn(0, device="cuda")
+
+    def ada1():
+        return init_stylizing_network(1, device="cuda")
+
+    icfg, vcfg = AdaAttNImageConfig(), AdaAttNVideoConfig()
+    yield SpaceCase(
+        "AdaAttN image step 256² b8 softmax f32", icfg, ada1,
+        lambda cfg, m: make_adaattn_image_step(cfg, vgg19, m),
+        _image_batch(rng, icfg.batch_size, icfg.crop_size), (0, 0, 6, 3, 3),
+        lambda k: k.startswith("decoder."))
+    h, w = vcfg.frame_size
+    vbatch = tuple(torch.from_numpy(rng.integers(
+        0, 256, (vcfg.batch_size, h, w, 3)).astype(np.float32)).cuda()
+        for _ in range(3))
+    yield SpaceCase(
+        "AdaAttN video step 256×512 b4 cosine f32", vcfg, ada1,
+        lambda cfg, m: make_adaattn_video_step(cfg, vgg19, m), vbatch,
+        (0, 0, 0, 0, 0), lambda k: k.startswith("decoder."))
+
+
+def _coco_zero_grad(key):
+    """The coco step's parameters whose true gradient is 0: the biases an
+    instance norm follows, and the residual blocks' second instance-norm
+    biases. Each block adds its output to its input, and every path from
+    there meets an instance norm (the next block's first, deconv1's) that
+    removes a per-channel constant; the coco loss reads no tap in between
+    (the flow step's FTL reads res5's output). Their float64 gradients are
+    about 1e-18 of the largest."""
+    return _before_norm(key) or (key.startswith("res")
+                                 and key.endswith("in2.bias"))
+
+
+def _sd_before_norm(key):
+    """Every ReCoNet-family conv but the last (the tanh head) feeds an
+    instance norm (ReCoNet's, SD1's and SD2's names alike)."""
+    return key.endswith("conv2d.bias") and not key.startswith("deconv3")
+
+
+SPACE_KEYS = {"flow step 360×640 b2 f32": "flow_f32",
+              "flow step 360×640 b2 bf16": "flow_bf16",
+              "coco step 256² b4 f32": "coco",
+              "distill reconet->sd1 360×640 b2 f32": "sd1",
+              "distill sd1->sd2 360×640 b2 f32": "sd2",
+              "RTNSTV step 360×640 b2 f32": "rtnstv",
+              "AdaAttN image step 256² b8 softmax f32": "adaattn_image",
+              "AdaAttN video step 256×512 b4 cosine f32": "adaattn_video"}
 
 
 def _spatial_training(mesh):
     """The data × space part of [8] at world 1 (``mesh``: a (1, 1) ("data",
     "space") mesh on cuda:0): K1's halo-rows Function against float64 at
-    the step's shape (``_k1_halo_grad_checks``), then RECONET_CANDY's flow
-    step (360×640 b2, ReCoNet seed 1, VGG16 seed 0, [5c]'s seeded grams
-    and batch) sharded against bare in f32 and bf16 (``_space_step``).
-    Every K1 and K2 launch must fall on a shape [3] held (CHECKED).
-    Returns the launches (K1-K5) of its sharded runs and its numbers."""
+    the flow step's shape (``_k1_halo_grad_checks``), then every step
+    builder's step sharded against bare (``_space_cases``,
+    ``_space_step``).  Every K1, K2, K3, K4 and K5 launch must fall on a
+    shape [3] held (CHECKED).  Returns the launches (K1-K5) of its sharded
+    runs and its numbers."""
     t0 = time.perf_counter()
     res = {"k1_halo_vjp": _k1_halo_grad_checks(
         torch.Generator(device="cuda").manual_seed(36))}
     apply_precision(torch.float32)
-    rng = np.random.default_rng(20)
-    vgg = init_vgg16_reconet(0, device="cuda")
-    grams = _style_grams(vgg, RECONET_CANDY, rng)
-    batch = _flow_batch(rng, RECONET_CANDY)
-    ref64 = _flow_step64(vgg, grams, batch)
     total = [0] * 5
     with recording_launches() as seen:
-        for dtype in ("float32", "bfloat16"):
-            tag = "f32" if dtype == "float32" else "bf16"
-            n, res[tag] = _space_step(
-                f"data × space flow step 360×640 b2 {tag}", dtype, mesh, vgg,
-                grams, batch, ref64)
+        t_case = time.perf_counter()
+        for case in _space_cases():
+            n, res[SPACE_KEYS[case.label]] = _space_step(case, mesh)
             total = [a + b for a, b in zip(total, n)]
+            log(f"  {case.label}: wall {time.perf_counter() - t_case:.1f} s "
+                f"(its float64 step included)")
+            del case
+            t_case = time.perf_counter()
     unchecked = sorted(map(str, seen - CHECKED))
-    log(f"  data × space: launched K1/K2 at {len(seen)} shapes, all held "
+    log(f"  data × space: launched K1-K5 at {len(seen)} shapes, all held "
         f"against the plain versions in [3]" if not unchecked else
         f"  data × space: launched at shapes [3] did not check: {unchecked}")
     if unchecked:
@@ -3714,7 +3922,7 @@ def phase_scale_out():
         log("  [8] spatial: H-sharded serving at world 1, a 2160×3840 frame")
         res["spatial_launches"], res["spatial"] = _spatial_serving(
             make_mesh(None, ("space",)))
-        log("  [8] data × space: the ReCoNet flow step on a world-1 "
+        log("  [8] data × space: every step builder on a world-1 "
             "(data, space) mesh")
         res["space_train_launches"], res["space_train"] = _spatial_training(
             make_mesh(1, ("data", "space")))
@@ -3750,7 +3958,7 @@ def phase_spatial_alone():
     multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda")
     try:
         launches, res = _spatial_serving(make_mesh(None, ("space",)))
-        log("[8] data × space: the ReCoNet flow step on a world-1 (data, "
+        log("[8] data × space: every step builder on a world-1 (data, "
             "space) mesh")
         t_launches, t_res = _spatial_training(make_mesh(1, ("data",
                                                             "space")))
@@ -4441,18 +4649,20 @@ def main(argv):
         launches[f"{k} by path"]["data × space training"] = st[k]
     by_path = {"serving": launches["K3"], "training": train["K3"],
                "training loop": loop["K3"], "evaluation": ev["K3"],
-               "scale-out": so["K3"], "spatial": sp["K3"]}
+               "scale-out": so["K3"], "spatial": sp["K3"],
+               "data × space training": st["K3"]}
     launches["K3"] += (train["K3"] + loop["K3"] + ev["K3"] + so["K3"]
-                       + sp["K3"])
-    launches.update(K4=train["K4"] + loop["K4"] + so["K4"],
-                    K5=train["K5"] + loop["K5"] + so["K5"])
+                       + sp["K3"] + st["K3"])
+    launches.update(K4=train["K4"] + loop["K4"] + so["K4"] + st["K4"],
+                    K5=train["K5"] + loop["K5"] + so["K5"] + st["K5"])
     k45_rows, k3_f32 = timing_k45(launches, errs, slices)
     kernels = phase_timing(launches, errs, slices["K3"]) + k45_rows
     kernels[2]["launches_by_path"] = by_path
     for row, k in ((kernels[3], "K4"), (kernels[4], "K5")):
         row["launches_by_path"] = {"training": train[k],
                                    "training loop": loop[k],
-                                   "scale-out": so[k]}
+                                   "scale-out": so[k],
+                                   "data × space training": st[k]}
     kernels[2]["scale_out"] = {
         "per": "[8]: the ring's fold of 4 key blocks through K3 against one "
                "K3 call, per level",
@@ -4509,20 +4719,24 @@ def main(argv):
                   v["profile_unsharded"]["copies_share"]}
            for k, v in so_res["spatial"].items() if isinstance(v, dict)}}
     train = so_res["space_train"]
-    space_train = {
-        "per": "[8] data x space: one RECONET_CANDY flow step (360x640 b2) "
-               "on a world-1 (data, space) mesh against the bare step; K1 "
-               "every launch in its halo-rows mode (4, 92, 162, 192)",
+    steps = {tag: {f: train[tag][f] for f in (
+        "ms_bare", "ms_sharded", "memory", "exchange_share",
+        "metrics_max_rel", "grad_max_rel", "launches_per_step")}
+        for tag in SPACE_KEYS.values()}
+    per = ("[8] data x space: one step of each builder at its config's size "
+           "on a world-1 (data, space) mesh against the bare step")
+    kernels[0]["space_train"] = {
+        "per": per + "; K1 every launch in its halo-rows mode",
         "halo_vjp_err_vs_f64": train["k1_halo_vjp"],
-        **{tag: {f: train[tag][f] for f in (
-            "ms_bare", "ms_sharded", "memory", "exchange_share",
-            "metrics_max_rel", "grad_max_rel", "launches_per_step")}
-           for tag in ("f32", "bf16")}}
-    kernels[0]["space_train"] = space_train
+        **{t: v for t, v in steps.items() if v["launches_per_step"]["K1"]}}
     kernels[1]["space_train"] = {
-        "per": space_train["per"] + "; K2 the packed stem and head "
-               "(4, 92, 162, .)",
-        **{tag: space_train[tag] for tag in ("f32", "bf16")}}
+        "per": per + "; K2 the packed stems and heads",
+        **{t: v for t, v in steps.items() if v["launches_per_step"]["K2"]}}
+    for row, k in ((kernels[2], "K3"), (kernels[3], "K4"),
+                   (kernels[4], "K5")):
+        row["space_train"] = {
+            "per": per + "; the block's queries against the whole style",
+            **{t: v for t, v in steps.items() if v["launches_per_step"][k]}}
     kernels[0]["rtnstv"] = timing_k1_rtnstv(
         torch.Generator(device="cuda").manual_seed(15))
     kernels[0]["rtnstv"].update(

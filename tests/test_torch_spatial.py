@@ -8,10 +8,12 @@ gradients.
   zero-padded conv, max pool, the feature pyramid, bilinear ×2, instance
   norm, the K1 residual block in its halo-rows mode, the warp over the
   gathered source) on 2 and 4 ranks against the same layer unsharded;
-- in the same spawns, each layer kind's gradient and the ReCoNet flow
-  step's loss shares' (Gram, content, TV, FTL, OTL) in float64 against
-  the unsharded autograd: the input gradient stitched across ranks, the
-  parameter gradient summed over them; and the exchange's adjoint,
+- in the same spawns, each layer kind's gradient and the train steps'
+  loss shares' (ReCoNet's Gram, content, TV, FTL, OTL; RTNSTV's content,
+  style, TV, temporal and Gram; AdaAttN's mean and std, global stylized,
+  cosine distance, image similarity) in float64 against the unsharded
+  autograd: the input gradient stitched across ranks, the parameter
+  gradient summed over them; and the exchange's adjoint,
   Σ ⟨exchange(x), g⟩ = Σ ⟨x, exchangeᵀ(g)⟩, for each edge mode;
 - ``stylize_spatial_sharded`` of ReCoNet, SD1, SD2 and RTNSTV at (1, 64,
   32, 3) on 2 and 4 ranks against JAX's ``stylize_reconet`` /
@@ -22,9 +24,9 @@ gradients.
 - K1's halo-rows plain version, split 4 ways, against JAX's
   ``conv3x3_in_stats`` (interpret mode) on the whole tensor;
 - a world-1 sharded forward against the unsharded one (and its
-  gradient), the size rules, and the guards that remain (the
-  sequence-parallel attention, the step builders not ported over a space
-  axis).
+  gradient), the size rules (every step builder's rows multiple over a
+  space axis), and the guard that remains (the sequence-parallel
+  attention).
 
 Each world's ranks are spawned once for all their cases (module-scoped
 caches); the JAX references are computed once each."""
@@ -165,9 +167,11 @@ def test_layer_kind_gradient_matches_unsharded(layers, world, kind):
     the ranks and the parameters' gradients summed over them equal the
     unsharded layer's autograd to 1e-10 of their scale.  This holds the
     exchange's adjoint, the all-reduce's and the gather's backward, K1's
-    halo-rows VJP (the residual block) and the loss shares' factors (the
-    style loss of the all-reduced Grams enters each share divided by the
-    axis size)."""
+    halo-rows VJP (the residual block) and the loss shares' factors (a
+    term of all-reduced or whole quantities, the style losses of the
+    all-reduced Grams, the global stylized and image similarity losses,
+    enters each share divided by the axis size: without it the shares'
+    sum and its gradient come out that many times too large)."""
     if kind in td.spatial_layer_cases():
         fn, x, params = td.spatial_layer_cases(dtype=torch.float64)[kind]
         idx, cot = None, td.rows_cotangent(kind, 0, 1)
@@ -316,8 +320,8 @@ def test_size_rules_and_serving_only(tmp_path):
     """H that the layers cannot split raises ValueError naming the
     multiple, the ReCoNet flow step's too (8·D, VGG16's pools); a world-1
     sharded forward differentiates to the unsharded forward's gradients;
-    the guards that remain raise: the sequence-parallel attention with a
-    gradient, and the step builders not yet ported over a space axis."""
+    the guard that remains raises: the sequence-parallel attention with a
+    gradient."""
     from vst_tpu_torch.ops.conv import conv2d_reflect
     from vst_tpu_torch.parallel.attention import (
         sharded_cosine_attention_moments)
@@ -371,15 +375,40 @@ def test_size_rules_and_serving_only(tmp_path):
             np.ones((1, 28, 24), np.float32))
         with pytest.raises(ValueError, match=r"multiple of 8·1 = 8"):
             step(create(td._seeded(0), cfg.lr), batch)
-        for build, args in (
-                (pst.make_reconet_coco_step, (pc.ReCoNetCocoConfig(), v16,
-                                              grams)),
-                (pst.make_reconet_distill_step, (pc.DISTILL_SD1, v16, grams,
-                                                 model)),
-                (pst.make_rtnstv_step, (pc.RTNSTVConfig(), None, grams)),
-                (pst.make_adaattn_image_step, (pc.AdaAttNImageConfig(),
-                                               vgg)),
-                (pst.make_adaattn_video_step, (pc.AdaAttNVideoConfig(),
-                                               vgg))):
-            with pytest.raises(ValueError, match="slice 7d"):
-                build(*args, grid)
+
+
+# builder kind → (the row multiple its VGG's pools ask for, the batch's
+# entries (ReCoNet's flow pair: two frames, a flow, a mask))
+ROW_RULES = {"coco": (8, 1), "sd1": (8, 4), "sd2": (8, 4), "rtnstv": (8, 4),
+             "adaattn_image": (16, 2), "adaattn_video": (16, 3)}
+
+
+@pytest.mark.parametrize("kind", sorted(ROW_RULES))
+def test_step_builder_rows_multiple(tmp_path, kind):
+    """Every step builder on a world-1 ("data", "space") mesh: a block
+    whose rows do not divide by its VGG's row multiple (8: VGG16's pools
+    before relu4_3 and RTNSTV's VGG19's before relu4_2; 16: AdaAttN's
+    VGG19's before relu5_1) raises ValueError naming the builder and the
+    multiple, before any collective."""
+    from vst_tpu_torch.train import config as pc
+    from vst_tpu_torch.train.state import create
+
+    multiple, entries = ROW_RULES[kind]
+    h = multiple + multiple // 2
+    cfg = {"coco": pc.ReCoNetCocoConfig(), "sd1": pc.DISTILL_SD1,
+           "sd2": pc.DISTILL_SD2, "rtnstv": pc.RTNSTVConfig(),
+           "adaattn_image": pc.AdaAttNImageConfig(),
+           "adaattn_video": pc.AdaAttNVideoConfig()}[kind]
+    frame = np.zeros((1, h, 16, 3), np.float32)
+    batch = (frame,) * entries if entries != 4 else (
+        frame, frame, np.zeros((1, h, 16, 2), np.float32),
+        np.ones((1, h, 16), np.float32))
+    new_model, build = td.train_setup(kind, cfg, frame[:, :8])
+    builder = ("make_reconet_distill_step" if kind in ("sd1", "sd2") else
+               f"make_{'reconet_' * (kind == 'coco')}{kind}_step")
+    with td.world1(tmp_path):
+        step = build(make_mesh(None, ("data", "space"), (1, 1)))
+        with pytest.raises(ValueError, match=(
+                rf"{builder} .*: a block of {h} rows does not divide by "
+                rf"{multiple}; H must be a multiple of {multiple}·1")):
+            step(create(new_model(), cfg.lr), batch)

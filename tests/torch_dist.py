@@ -237,6 +237,215 @@ def spatial_flow_steps(rank, world, cases, style, seed=0):
     return out
 
 
+# Seeds of the data × space step cases, the JAX tests' own: VGG 0, the
+# trained network 1, a distillation teacher 2.
+SEED_VGG, SEED_NET, SEED_TEACHER = 0, 1, 2
+TEACHER = {"sd1": "reconet", "sd2": "sd1"}
+
+
+@contextlib.contextmanager
+def _step_dtype(name):
+    """Let a step builder take ``dtype="float64"`` (the exact evaluation
+    of a check; the package offers float32 and bfloat16) in the block."""
+    from vst_tpu_torch.train import steps as pst
+
+    if name in pst.DTYPES:
+        yield
+        return
+    pst.DTYPES[name] = getattr(torch, name)
+    try:
+        yield
+    finally:
+        del pst.DTYPES[name]
+
+
+def train_setup(kind, cfg, style=None):
+    """(a fresh seeded model, ``build(mesh)`` → the step) of a builder
+    kind: "coco", "sd1" / "sd2" (the distillation stages, the teacher
+    seeded ``SEED_TEACHER``), "rtnstv", "adaattn_image" or
+    "adaattn_video"; ``style`` (1, H, W, 3) gives the ReCoNet and RTNSTV
+    grams.  ``cfg.dtype`` may also be "float64"."""
+    new_model, build = _train_setup(kind, cfg, style)
+
+    def build_at_dtype(mesh):
+        with _step_dtype(cfg.dtype):
+            return build(mesh)
+
+    return new_model, build_at_dtype
+
+
+def _train_setup(kind, cfg, style):
+    from vst_tpu_torch.models import adaattn as pa
+    from vst_tpu_torch.models import reconet, rtnstv
+    from vst_tpu_torch.models import vgg as pv
+    from vst_tpu_torch.train import steps as pst
+
+    if kind.startswith("adaattn"):
+        vgg = pv.init_vgg19_adaattn(SEED_VGG, device="cpu")
+        build = {"adaattn_image": pst.make_adaattn_image_step,
+                 "adaattn_video": pst.make_adaattn_video_step}[kind]
+        return (lambda: pa.init_stylizing_network(SEED_NET, device="cpu"),
+                lambda mesh: build(cfg, vgg, mesh))
+    if kind == "rtnstv":
+        vgg = pv.init_vgg19_rtnstv(SEED_VGG, device="cpu")
+        grams = pst.rtnstv_style_grams(vgg, style)
+        return (lambda: rtnstv.init_stylizing_network(SEED_NET, device="cpu"),
+                lambda mesh: pst.make_rtnstv_step(cfg, vgg, grams, mesh))
+    vgg = pv.init_vgg16_reconet(SEED_VGG, device="cpu")
+    grams = pst.reconet_style_grams(vgg, style)
+    if kind == "coco":
+        return (lambda: reconet.init_reconet(SEED_NET, device="cpu"),
+                lambda mesh: pst.make_reconet_coco_step(cfg, vgg, grams,
+                                                        mesh))
+    init = {"reconet": reconet.init_reconet, "sd1": reconet.init_reconet_sd1,
+            "sd2": reconet.init_reconet_sd2}
+    teacher = init[TEACHER[kind]](SEED_TEACHER, device="cpu")
+    return (lambda: init[kind](SEED_NET, device="cpu"),
+            lambda mesh: pst.make_reconet_distill_step(cfg, vgg, grams,
+                                                       teacher, mesh))
+
+
+def _step_result(state, metrics, grads=True):
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: _np(p.grad) for k, p in state.model.named_parameters()}
+            if grads else None,
+            {k: _np(v) for k, v in state.model.state_dict().items()})
+
+
+def single_train_step(kind, cfg, batch, style=None):
+    """One step of ``kind`` in this process on the whole batch, no mesh:
+    (metrics, gradients, updated parameters)."""
+    from vst_tpu_torch.train import state as ps
+
+    new_model, build = train_setup(kind, cfg, style)
+    state, metrics = build(None)(ps.create(new_model(), cfg.lr), batch)
+    return _step_result(state, metrics)
+
+
+def mesh_world(shape):
+    """The ranks of a step case's mesh shape: a pair (data, space) for a
+    ("data", "space") mesh, one number for a "space" axis alone."""
+    return shape if isinstance(shape, int) else shape[0] * shape[1]
+
+
+def spatial_train_steps(rank, world, cases):
+    """One step for each case (kind, cfg, global batch, mesh shape, style)
+    on a mesh of that shape (``mesh_world``), the batch placed by
+    ``shard_batch_spatial``: this rank's (metrics, gradients (rank 0's
+    only; every rank's are equal after the step's reductions), updated
+    parameters)."""
+    from vst_tpu_torch.parallel import (make_mesh, replicate,
+                                        shard_batch_spatial)
+    from vst_tpu_torch.train import state as ps
+
+    out = []
+    for kind, cfg, batch, shape, style in cases:
+        mesh = (make_mesh(None, ("space",)) if isinstance(shape, int)
+                else make_mesh(None, ("data", "space"), shape))
+        new_model, build = train_setup(kind, cfg, style)
+        state = ps.create(new_model(), cfg.lr)
+        replicate(mesh, state)
+        state, metrics = build(mesh)(state, shard_batch_spatial(mesh, batch))
+        out.append(_step_result(state, metrics, grads=rank == 0))
+    return out
+
+
+def spatial_step_cache(tmp_path_factory, cases, timeout=240.0):
+    """``get(name)`` → every rank's (metrics, gradients (rank 0),
+    parameters) of ``cases[name]`` = (kind, cfg, global batch, mesh
+    shape, style); each world's ranks spawned once, for all of its cases,
+    at the first ``get`` of one of them."""
+    worlds = {}
+
+    def get(name):
+        world = mesh_world(cases[name][3])
+        if world not in worlds:
+            names = [k for k, v in cases.items()
+                     if mesh_world(v[3]) == world]
+            ranks = spawn(spatial_train_steps, world,
+                          tmp_path_factory.mktemp(f"steps{world}"),
+                          [cases[k] for k in names], timeout=timeout)
+            worlds[world] = {k: [r[i] for r in ranks]
+                             for i, k in enumerate(names)}
+        return worlds[world][name]
+
+    return get
+
+
+def assert_matches_jax(result, ref, lr):
+    """A sharded step's (metrics, _, parameters) against JAX's
+    single-device step's (metrics, JAX-layout parameters) on the global
+    batch: every metric within rtol 1e-4 (NaN where it is NaN), the
+    parameters within Adam's ±lr envelope (atol 2.1·lr): JAX's own bounds
+    for its (4 × 2) step (tests/test_parallel.py)."""
+    from vst_tpu_torch.compat import params_to_jax
+
+    (m, _, p), (m_j, p_j) = result, ref
+    assert set(m) == set(m_j)
+    for key in m_j:
+        if np.isnan(m_j[key]):
+            assert np.isnan(m[key]), key
+        else:
+            np.testing.assert_allclose(m[key], m_j[key], rtol=1e-4,
+                                       err_msg=key)
+    ours = params_to_jax({k: torch.from_numpy(v) for k, v in p.items()})
+    for key, want in p_j.items():
+        np.testing.assert_allclose(ours[key], want, atol=2.1 * lr,
+                                   err_msg=key)
+
+
+def assert_ranks_agree(ranks):
+    """Every rank logs the same metrics and holds the same parameters, bit
+    for bit, after a step."""
+    m0, _, p0 = ranks[0]
+    for m, _, p in ranks[1:]:
+        assert set(m) == set(m0)
+        for key in m0:   # NaN (SD1's SD loss) equals NaN here
+            np.testing.assert_array_equal(m[key], m0[key], err_msg=key)
+        for key in p0:
+            np.testing.assert_array_equal(p[key], p0[key], err_msg=key)
+
+
+def assert_matches_single(result, single, p0, lr, keys=None, grad_tol=1e-4):
+    """A sharded step's (metrics, gradients, parameters) against the
+    single-process step's on the global batch: the metrics within rtol
+    1e-5 (NaN where it is NaN); the gradients within ``grad_tol`` of each
+    key's largest (the conv biases an instance norm follows, whose true
+    gradient is 0, aside); the update Adam's first step on its own
+    gradient, p0 − lr·g/(|g| + eps), within 1e-3·lr everywhere; and within
+    1e-3·lr of the single-process parameters wherever that step's gradient
+    lies above the gradient tolerance and above 1e3·eps, within 2.1·lr
+    everywhere.  Below the tolerance float32 rounding decides the sign of
+    a ±lr step; and the update's slope, eps/(|g| + eps)², turns a gradient
+    difference δg ≤ |g| into one of at most eps/|g|·lr, 1e-3·lr at |g| =
+    1e3·eps.  ``keys``: the parameters whose gradients and update are
+    compared (default all)."""
+    (m, g, p), (m_1, g_1, p_1) = result, single
+    assert set(m) == set(m_1)
+    for key in m_1:
+        if np.isnan(m_1[key]):
+            assert np.isnan(m[key]), key
+        else:
+            np.testing.assert_allclose(m[key], m_1[key], rtol=1e-5,
+                                       err_msg=key)
+    top = max(np.abs(v).max() for v in g_1.values())
+    for key in (g_1 if keys is None else keys):
+        ref = g_1[key]
+        np.testing.assert_allclose(
+            p[key], p0[key] - lr * g[key] / (np.abs(g[key]) + 1e-8),
+            rtol=0, atol=1e-3 * lr, err_msg=key)
+        np.testing.assert_allclose(p[key], p_1[key], rtol=0, atol=2.1 * lr,
+                                   err_msg=key)
+        scale = np.abs(ref).max()
+        if scale < 1e-6 * top:   # a bias before an instance norm
+            continue
+        np.testing.assert_allclose(g[key], ref, rtol=0,
+                                   atol=grad_tol * scale, err_msg=key)
+        firm = np.abs(ref) > max(grad_tol * scale, 1e3 * 1e-8)
+        np.testing.assert_allclose(p[key][firm], p_1[key][firm], rtol=0,
+                                   atol=1e-3 * lr, err_msg=key)
+
+
 def adaattn_step(rank, world, kind, cfg, batch, shard):
     """One AdaAttN image or video step, as ``reconet_flow_step``."""
     from vst_tpu_torch.models import adaattn as pa
@@ -391,13 +600,24 @@ def spatial_layer_cases(seed=3, dtype=torch.float32):
 
 
 def spatial_loss_cases(seed=4, dtype=torch.float64):
-    """The ReCoNet flow step's losses over row blocks: name → (fn(x,
-    spatial), the full-frame inputs (a list), the indices of the inputs
-    that take a gradient).  ``fn(x, None)`` is the unsharded loss; on a
-    rank, this rank's share (the shares sum to it over the axis).  The
-    temporal losses' mask counts are totalled over the spatial context's
-    mesh."""
+    """The train steps' losses over row blocks: name → (fn(x, spatial),
+    the full-frame inputs (a list), the indices of the inputs that take a
+    gradient).  ``fn(x, None)`` is the unsharded loss; on a rank, this
+    rank's share (the shares sum to it over the axis).  The temporal
+    losses' mask counts are totalled over the spatial context's mesh.
+    ReCoNet's (Gram style, content, TV, FTL, OTL), RTNSTV's (content,
+    style, TV, temporal) and AdaAttN's (global stylized, image similarity);
+    and, each as a seeded weighted sum taken as a whole term
+    (``losses/perceptual.py::_share``), the sums of an all-reduce they
+    build on: RTNSTV's Gram,
+    AdaAttN's mean and Bessel std and cosine distance.  Those that divide
+    by the axis size themselves (the style losses, the global stylized
+    and image similarity losses) would give the sum of the shares, and
+    their gradients, that many times too large without it."""
     from vst_tpu_torch import losses
+    from vst_tpu_torch.losses.adaattn import _spatial_mean_std
+    from vst_tpu_torch.losses.perceptual import _share
+    from vst_tpu_torch.ops.image import gram_matrix_hw
 
     g = np.random.default_rng(seed)
 
@@ -407,6 +627,27 @@ def spatial_loss_cases(seed=4, dtype=torch.float64):
     grams = [a(1, 4, 4, scale=1e-2), a(1, 8, 8, scale=1e-2)]
     mask = torch.from_numpy(g.random((2, 16, 12)) > 0.3).to(dtype)
     flow = a(2, 16, 12, 2, scale=3.0)
+    # the RTNSTV and AdaAttN cases draw from a generator of their own
+    g2 = np.random.default_rng(seed + 1)
+
+    def b(*shape, scale=1.0):
+        return torch.from_numpy(g2.standard_normal(shape) * scale).to(dtype)
+
+    # RTNSTV's spatial loss: content and styled relu4_2 taps, a styled
+    # relu1_2 tap (the Grams pair with the styled taps in order), the
+    # 0–255 styled frame
+    rt_grams = [b(1, 3, 3, scale=0.5), b(1, 4, 4, scale=0.5)]
+    rt_inputs = [b(2, 8, 3, 4), b(2, 16, 6, 3), b(2, 8, 3, 4),
+                 b(2, 16, 7, 3, scale=50.0)]
+
+    def rtnstv(x, s):
+        return losses.rtnstv_spatial_loss(
+            {"relu4_2": x[0]}, {"relu1_2": x[1], "relu4_2": x[2]}, rt_grams,
+            x[3], 2.0, 3.0, 5.0, s)
+
+    wgram, wcos = b(2, 4, 4), b(2, 4, 4)
+    wms = [b(2, 4), b(2, 4)]
+    style_tap = b(2, 4, 5, 4, scale=2.0) + 0.5
     return {
         "style_gram": (lambda x, s: losses.reconet_style_loss(
             x, grams, spatial=s), [a(2, 16, 6, 4), a(2, 8, 3, 8)], [0, 1]),
@@ -421,6 +662,30 @@ def spatial_loss_cases(seed=4, dtype=torch.float64):
         "output_temporal": (lambda x, s: losses.reconet_output_temporal_loss(
             *x, spatial=s), [a(2, 16, 12, 3) for _ in range(4)]
             + [flow, mask], [0, 1, 2, 3]),
+        "rtnstv_content": (lambda x, s: rtnstv(x, s)[0], rt_inputs,
+                           [0, 2]),
+        "rtnstv_style": (lambda x, s: rtnstv(x, s)[1], rt_inputs, [1, 2]),
+        "rtnstv_total_variation": (lambda x, s: rtnstv(x, s)[2], rt_inputs,
+                                   [3]),
+        "rtnstv_temporal": (lambda x, s: losses.rtnstv_temporal_loss(
+            *x, spatial=s), [b(2, 16, 12, 3, scale=50.0),
+                             b(2, 16, 12, 3, scale=50.0), flow, mask],
+            [0, 1]),
+        "gram_hw": (lambda x, s: _share(
+            (gram_matrix_hw(x[0], s) * wgram).sum(), s), [b(2, 16, 5, 4)],
+            [0]),
+        "mean_std": (lambda x, s: _share(sum(
+            (t * wt).sum() for t, wt in zip(_spatial_mean_std(x[0], s),
+                                            wms)), s),
+            [b(2, 16, 5, 4, scale=2.0) + 1.0], [0]),
+        "global_stylized": (lambda x, s: losses.global_stylized_loss(
+            x[0], style_tap, s), [b(2, 16, 5, 4, scale=2.0)], [0]),
+        "cosine_distance": (lambda x, s: _share(
+            (losses.cosine_distance(x[0], x[1], s) * wcos).sum(), s),
+            [b(2, 16, 5, 4), b(2, 16, 5, 4)], [0, 1]),
+        "image_similarity": (lambda x, s: losses.image_similarity_loss(
+            *x, spatial=s), [b(2, 16, 5, 4).abs() for _ in range(4)],
+            [0, 1, 2, 3]),
     }
 
 

@@ -10,10 +10,10 @@
 
 NHWC, taken in float32 (float64 for float64 inputs).
 
-ReCoNet's take ``spatial=`` (``parallel/spatial.py``): the inputs are this
+Each takes ``spatial=`` (``parallel/spatial.py``): the inputs are this
 rank's row blocks of an H-sharded frame and each returns this rank's
 share, the shares summing over the axis to the frame's loss (the ReCoNet
-flow step over a data × space mesh)."""
+and RTNSTV steps over a data × space mesh)."""
 
 import torch
 
@@ -23,6 +23,14 @@ from vst_tpu_torch.parallel.mesh import batch_shards
 
 def _acc(x):
     return x.double() if x.dtype == torch.float64 else x.float()
+
+
+def _share(loss, spatial):
+    """A loss that every rank computes whole (of all-reduced or whole
+    quantities) → this rank's share: divided by the axis size, so that
+    the shares sum to it (in full, its gradient would come out that many
+    times too large)."""
+    return loss if spatial is None else loss / spatial.size
 
 
 def mse(a: torch.Tensor, b: torch.Tensor, spatial=None) -> torch.Tensor:
@@ -49,13 +57,32 @@ def reconet_style_loss(styled_feats, style_grams, spatial=None):
     each style gram (1, C, C) broadcasts over the batch, as the
     reference's ``gram_s.expand``.  ``spatial``: the Grams are the
     frame's (all-reduced), so every rank would compute the whole loss;
-    each rank's share is that divided by the axis size (in full, its
-    gradient would come out that many times too large)."""
+    each rank's is its share (``_share``)."""
     loss = 0.0
     for feat, gs in zip(styled_feats, style_grams):
         gf = gram_matrix(feat, spatial)
         loss = loss + mse(gf, gs.expand_as(gf))
-    return loss if spatial is None else loss / spatial.size
+    return _share(loss, spatial)
+
+
+def _tv_terms(x, spatial=None):
+    """The squared horizontal and vertical neighbour differences that both
+    TVs sum, (N, H − 1, W − 1, C) each: the frame's last row and column
+    drop out.  ``spatial``: x is a row block; the vertical differences of
+    its last row take the next block's first row (``exchange_rows``, one
+    row from below, zero under the frame), and the frame's last row drops
+    out on the last rank only, which masks out the zero edge's terms."""
+    if spatial is None:
+        reg1 = torch.square(x[:, :-1, 1:, :] - x[:, :-1, :-1, :])
+        reg2 = torch.square(x[:, 1:, :-1, :] - x[:, :-1, :-1, :])
+        return reg1, reg2
+    from vst_tpu_torch.parallel.spatial import exchange_rows
+
+    xe = exchange_rows(spatial, x, 0, 1, "zero")
+    n = x.shape[1] - int(spatial.last)
+    reg1 = torch.square(x[:, :n, 1:, :] - x[:, :n, :-1, :])
+    reg2 = torch.square(xe[:, 1:n + 1, :-1, :] - xe[:, :n, :-1, :])
+    return reg1, reg2
 
 
 def reconet_reg_loss(styled, mesh=None, spatial=None):
@@ -63,40 +90,36 @@ def reconet_reg_loss(styled, mesh=None, spatial=None):
     (train_candy.py:140-145: torch.sum, not mean).  With a ``mesh``,
     ``styled`` is this rank's shard of the batch and the sum is multiplied
     by the number of shards (the mean over ranks is the global sum).
-
-    ``spatial``: styled is a row block; the vertical differences of its
-    last row take the next block's first row (``exchange_rows``, one row
-    from below, zero under the frame), and the frame's last row drops out
-    of both sums, as ``x[:, :-1]`` drops it unsharded: on the last rank
-    only, which masks out the zero edge's terms."""
-    x = _acc(styled)
-    if spatial is None:
-        reg1 = torch.square(x[:, :-1, 1:, :] - x[:, :-1, :-1, :])
-        reg2 = torch.square(x[:, 1:, :-1, :] - x[:, :-1, :-1, :])
-    else:
-        from vst_tpu_torch.parallel.spatial import exchange_rows
-
-        xe = exchange_rows(spatial, x, 0, 1, "zero")
-        n = x.shape[1] - int(spatial.last)
-        reg1 = torch.square(x[:, :n, 1:, :] - x[:, :n, :-1, :])
-        reg2 = torch.square(xe[:, 1:n + 1, :-1, :] - xe[:, :n, :-1, :])
+    ``spatial``: styled is a row block and the sum its share
+    (``_tv_terms``)."""
+    reg1, reg2 = _tv_terms(_acc(styled), spatial)
     return torch.sum(reg1 + reg2) * batch_shards(mesh)
 
 
 def rtnstv_spatial_loss(content_feats, styled_feats, style_grams, styled,
-                        alpha, beta, gamma):
+                        alpha, beta, gamma, spatial=None):
     """(content, style, reg) of one frame, scaled by alpha, beta, gamma.
     ``content_feats`` / ``styled_feats``: ``vgg19_rtnstv_features`` tap
     dicts; ``style_grams``: (1, C, C) H·W-normalized grams in tap order,
     broadcast over the batch; ``styled``: the 0–255 frames, whose TV is
-    the mean of sqrt(max(dx² + dy², 1e-8))."""
-    content = mse(content_feats["relu4_2"], styled_feats["relu4_2"]) * alpha
+    the mean of sqrt(max(dx² + dy², 1e-8)).
+
+    ``spatial``: the inputs are row blocks and each term this rank's
+    share: the content MSE's and the TV's block sums over the frame's
+    counts (the TV's N·(H − 1)·(W − 1)·C), the style MSE of the all-reduced
+    Grams as ``reconet_style_loss``'s (``_share``)."""
+    content = mse(content_feats["relu4_2"], styled_feats["relu4_2"],
+                  spatial) * alpha
     style = 0.0
     for gs, feat in zip(style_grams, styled_feats.values()):
-        gf = gram_matrix_hw(feat)
+        gf = gram_matrix_hw(feat, spatial)
         style = style + mse(gf, gs.expand_as(gf))
     x = _acc(styled)
-    reg1 = torch.square(x[:, :-1, 1:, :] - x[:, :-1, :-1, :])
-    reg2 = torch.square(x[:, 1:, :-1, :] - x[:, :-1, :-1, :])
-    reg = torch.mean(torch.sqrt(torch.clamp(reg1 + reg2, min=1e-8))) * gamma
-    return content, style * beta, reg
+    reg1, reg2 = _tv_terms(x, spatial)
+    tv = torch.sqrt(torch.clamp(reg1 + reg2, min=1e-8))
+    if spatial is None:
+        reg = torch.mean(tv)
+    else:
+        n, r, w, c = x.shape
+        reg = torch.sum(tv) / (n * (r * spatial.size - 1) * (w - 1) * c)
+    return content, _share(style, spatial) * beta, reg * gamma

@@ -18,13 +18,13 @@ batch's count (``parallel/mesh.py::batch_total``) and the loss is
 multiplied by the number of shards, so that the mean over ranks is the
 global batch's loss.
 
-ReCoNet's FTL and OTL take ``spatial=`` (``parallel/spatial.py``): the
-inputs are this rank's row blocks of H-sharded frames (the flow and mask
-too), the flow and mask are resized inside the block (FTL's integer
-factor 4 needs no exchange), the warp gathers its source over the axis
-(``ops/warp.py``), and the mask counts are totals over the data and space
-axes of the mesh (``batch_total``); each returns this rank's share, the
-shares summing over the space axis.
+Each takes ``spatial=`` (``parallel/spatial.py``): the inputs are this
+rank's row blocks of H-sharded frames (the flow and mask too), the flow
+and mask are resized inside the block (FTL's integer factor 4 needs no
+exchange), the warp gathers its source over the axis (``ops/warp.py``),
+and the mask counts are totals over the data and space axes of the mesh
+(``batch_total``); each returns this rank's share, the shares summing
+over the space axis.
 """
 
 import torch
@@ -80,11 +80,14 @@ def reconet_output_temporal_loss(img1n, img2n, styled1n, styled2n, flow,
     return loss * batch_shards(mesh) / count
 
 
-def rtnstv_temporal_loss(styled1, styled2, flow, mask, mesh=None):
+def rtnstv_temporal_loss(styled1, styled2, flow, mask, mesh=None,
+                         spatial=None):
     """The first styled frame warped by ``flow`` against the second, on
     0–255 frames (N, H, W, 3), masked by ``mask`` (N, H, W).  Unweighted:
     the caller scales by lam."""
+    mesh = _count_mesh(mesh, spatial)
     cmask = _acc(mask)[..., None].expand(styled2.shape)
-    err = torch.square(_acc(styled2) - _acc(warp(styled1, flow)))
+    err = torch.square(_acc(styled2) - _acc(warp(styled1, flow,
+                                                 spatial=spatial)))
     total = batch_total(mesh, torch.sum(cmask))
     return torch.sum(cmask * err) * batch_shards(mesh) / (total + 1e-8)

@@ -38,7 +38,8 @@ call of the local queries against the whole style's K/V (one K3 launch a
 level for softmax, the linear form for cosine) needs no collective; the
 content instance norms all-reduce their sums, ``_up2`` takes one row a
 side (repeated at the frame's edges) and the decoder's reflect convs
-theirs.  It serves (the AdaAttN steps over a space axis are slice 7d);
+theirs.  It serves and trains (``train/steps.py``'s AdaAttN steps over a
+data × space mesh: K3 forward, K4/K5 backward on the block's queries);
 H must divide by 16 times the axis size.
 """
 
@@ -271,8 +272,10 @@ def adaattn_module(params, name, c_x, s_x, c_1x, s_1x, activation,
     return _apply_moments(c_x, m1, m2, spatial)
 
 
-def adaattn_no_conv(c_x, s_x, c_1x, s_1x, activation, mode="auto"):
-    return adaattn_module(None, None, c_x, s_x, c_1x, s_1x, activation, mode)
+def adaattn_no_conv(c_x, s_x, c_1x, s_1x, activation, mode="auto",
+                    spatial=None):
+    return adaattn_module(None, None, c_x, s_x, c_1x, s_1x, activation, mode,
+                          spatial=spatial)
 
 
 # ------------------------------------------------- cached-style serving path

@@ -23,8 +23,8 @@ to XLA.
 over this rank's row block of an H-sharded frame, every layer exchanging
 its halo rows and the residual blocks on K1's halo-rows mode; H must
 divide by 4 times the axis size, with at least 8 rows a block.  It
-serves; every layer carries its gradient, but the RTNSTV step over a
-space axis is still to port (slice 7d).
+serves, and every layer carries its gradient: ``train/steps.py``'s
+``make_rtnstv_step`` trains on it over a data × space mesh.
 """
 
 import torch

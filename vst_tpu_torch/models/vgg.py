@@ -18,8 +18,8 @@ row block of an H-sharded frame: each zero-padded conv exchanges one row
 a side, the pools need an even block (R a multiple of 2 to the number of
 pools before the last tap: 8 for VGG16's relu4_3, 16 for VGG19's
 relu5_1), and the taps come back as row blocks.  It differentiates (the
-exchange's backward), so the ReCoNet flow step's losses run on it over a
-space axis; AdaAttN's content side uses it to serve.
+exchange's backward), so the train steps' losses run on it over a space
+axis; AdaAttN's content side also serves on it.
 """
 
 import numpy as np
@@ -162,15 +162,17 @@ class VGG16ReCoNet(_VGGTaps):
 
 
 def vgg19_adaattn_features(vgg: VGG19AdaAttN, x: torch.Tensor,
-                           remat: bool = False) -> dict:
-    """AdaAttN tap set of a 0–255 NHWC RGB batch (normalized here)."""
-    return vgg(x, remat=remat)
+                           remat: bool = False, spatial=None) -> dict:
+    """AdaAttN tap set of a 0–255 NHWC RGB batch (normalized here); with
+    ``spatial``, of this rank's row block (R a multiple of 16)."""
+    return vgg(x, remat=remat, spatial=spatial)
 
 
 def vgg19_rtnstv_features(vgg: VGG19RTNSTV, x: torch.Tensor,
-                          remat: bool = False) -> dict:
-    """RTNSTV tap set of a 0–255 NHWC RGB batch (normalized here)."""
-    return vgg(x, remat=remat)
+                          remat: bool = False, spatial=None) -> dict:
+    """RTNSTV tap set of a 0–255 NHWC RGB batch (normalized here); with
+    ``spatial``, of this rank's row block (R a multiple of 8)."""
+    return vgg(x, remat=remat, spatial=spatial)
 
 
 def vgg16_features(vgg: VGG16ReCoNet, x: torch.Tensor,

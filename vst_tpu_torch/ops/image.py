@@ -35,24 +35,29 @@ def _gram(y: torch.Tensor) -> torch.Tensor:
     return torch.matmul(f.transpose(1, 2), f)
 
 
-def gram_matrix(y: torch.Tensor, spatial=None) -> torch.Tensor:
-    """(N, C, C) Gram matrix of NHWC features / (C·H·W), ReCoNet's.
-    ``spatial`` (``parallel/spatial.py``): y is this rank's row block; its
-    FᵀF divided by the frame's C·H·W, all-reduced over the axis, so every
-    rank holds the frame's Gram (the all-reduce's backward gives each
-    block its gradient)."""
-    _, h, w, c = y.shape
+def _gram_over(y: torch.Tensor, scale: int, spatial) -> torch.Tensor:
+    """FᵀF / (scale·H·W); with ``spatial`` (``parallel/spatial.py``) y is
+    this rank's row block: its FᵀF divided by the frame's scale·H·W and
+    all-reduced over the axis, so every rank holds the frame's Gram (the
+    all-reduce's backward gives each block its gradient)."""
+    _, h, w, _ = y.shape
     if spatial is None:
-        return _gram(y) / (c * h * w)
+        return _gram(y) / (scale * h * w)
     from vst_tpu_torch.parallel.spatial import all_reduce_sum
 
-    return all_reduce_sum(spatial, _gram(y) / (c * h * spatial.size * w))
+    return all_reduce_sum(spatial, _gram(y) / (scale * h * spatial.size * w))
 
 
-def gram_matrix_hw(y: torch.Tensor) -> torch.Tensor:
-    """(N, C, C) Gram matrix of NHWC features / (H·W), RTNSTV's."""
-    _, h, w, _ = y.shape
-    return _gram(y) / (h * w)
+def gram_matrix(y: torch.Tensor, spatial=None) -> torch.Tensor:
+    """(N, C, C) Gram matrix of NHWC features / (C·H·W), ReCoNet's; of
+    the frame with ``spatial`` (``_gram_over``)."""
+    return _gram_over(y, y.shape[3], spatial)
+
+
+def gram_matrix_hw(y: torch.Tensor, spatial=None) -> torch.Tensor:
+    """(N, C, C) Gram matrix of NHWC features / (H·W), RTNSTV's; of the
+    frame with ``spatial`` (``_gram_over``)."""
+    return _gram_over(y, 1, spatial)
 
 
 def rgb_to_luma709(x: torch.Tensor) -> torch.Tensor:

@@ -22,8 +22,8 @@ which a caller gets only by asking for the CPU.
 Spatial parallelism: ``shard_spatial`` gives each rank its contiguous H
 rows (dim 1) of every NHWC leaf; the layers then exchange their halo rows
 themselves (``parallel/spatial.py``).  ``shard_batch_spatial`` shards a
-batch on both axes of a ("data", "space") mesh for training: the ReCoNet
-flow step then sums its gradients and metrics over "space" and averages
+batch on both axes of a ("data", "space") mesh for training: every
+train step then sums its gradients and metrics over "space" and averages
 them over "data" (``all_reduce_sum``, ``all_reduce_mean``), and its mask
 counts are totals over both axes (``batch_total``).
 """
@@ -172,9 +172,10 @@ def shard_batch_spatial(mesh: Mesh, tree, batch_axis: str = "data",
     that, its contiguous dim-1 rows over ``space_axis``, of every leaf
     with ndim >= 2 (the NHWC frames, the (N, H, W, 2) flow, the (N, H, W)
     mask), on the rank's device: JAX's placement P(batch_axis,
-    space_axis).  Only those rows are copied to the device.  Raises
-    ``ValueError`` when a dimension does not divide."""
-    nb, ib = mesh.shape[batch_axis], mesh.index[batch_axis]
+    space_axis).  Only those rows are copied to the device.  A mesh
+    without ``batch_axis`` (a "space" axis alone) leaves dim 0 whole.
+    Raises ``ValueError`` when a dimension does not divide."""
+    nb, ib = mesh.shape.get(batch_axis, 1), mesh.index.get(batch_axis, 0)
     ns, js = mesh.shape[space_axis], mesh.index[space_axis]
 
     def take(x):

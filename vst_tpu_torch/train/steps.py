@@ -28,15 +28,23 @@ gradients (``kernels/res_block.py``,
 ``kernels/head_conv.py``); the softmax attention trains through K3 forward
 and K4/K5 backward (``models/adaattn.py``).
 
-Data × space training: ``make_reconet_flow_step`` given a mesh with a
-"space" axis (a ("data", "space") mesh, the batch placed by
-``parallel.shard_batch_spatial``) runs the stylizer, the VGG16 and the
+Data × space training: every builder given a mesh with a "space" axis
+(a ("data", "space") mesh, or "space" alone; the batch placed by
+``parallel.shard_batch_spatial``) runs the stylizer, the VGG and the
 losses on this rank's row blocks (``spatial=``, ``parallel/spatial.py``):
 each rank's loss is its share of its data shard's loss, the gradients and
 metrics are summed over "space" and averaged over "data", and the step is
-the single-device step on the global batch.  H must divide by 8 times the
-space axis's size (VGG16's three pools before relu4_3).  The other
-builders raise on such a mesh (slice 7d).
+the single-device step on the global batch.  A share: a sum over pixels
+enters as the block's sum over the frame's count; a term of all-reduced
+or whole quantities (Grams, the frame's mean and std, the cosine-distance
+matrices, the style's features) divided by the space axis's size.  The
+AdaAttN steps gather the style's rows back (``gather_rows``) and encode
+it whole on every rank, as JAX replicates it; each attention level runs
+the block's queries against the whole style (K3, K4, K5).  H must divide
+by the VGG's row multiple times the space axis's size: 8 for ReCoNet's
+VGG16 (three pools before relu4_3) and RTNSTV's VGG19 (before relu4_2),
+16 for AdaAttN's VGG19 (four before relu5_1); a builder raises
+``ValueError`` naming it.
 """
 
 import copy
@@ -51,7 +59,8 @@ from vst_tpu_torch.models.remat import segment
 from vst_tpu_torch.ops.features import feature_down_sample
 from vst_tpu_torch.ops.image import gram_matrix, gram_matrix_hw, vgg_normalize
 from vst_tpu_torch.parallel.mesh import all_reduce_mean, all_reduce_sum
-from vst_tpu_torch.parallel.spatial import SpatialContext, check_rows
+from vst_tpu_torch.parallel.spatial import (SpatialContext, check_rows,
+                                            gather_rows)
 from vst_tpu_torch.train.state import TrainState, apply_gradients
 
 # family name → model class (in JAX: → forward function)
@@ -124,13 +133,13 @@ def _space(mesh):
     return SpatialContext(mesh)
 
 
-def _no_space(mesh, what):
-    """Raise for a builder that does not train over a space axis yet."""
-    if _space(mesh) is not None:
-        raise ValueError(
-            f"{what} over a mesh with a 'space' axis is not ported yet "
-            f"(slice 7d); make_reconet_flow_step is the one step that "
-            f"trains H-sharded")
+def _check_block(spatial, x, vgg, what):
+    """With ``spatial``: raise ``ValueError`` unless the block's rows of
+    the batch image ``x`` divide by the VGG's row multiple (2 to its pools
+    before the last tap)."""
+    if spatial is not None:
+        check_rows(spatial, x.shape[1], vgg.row_multiple(),
+                   f"{what} ({type(vgg).__name__}'s pools)")
 
 
 def _reconet_losses(cfg, vgg, style_grams, outs1, outs2, img1, img2, flow,
@@ -198,10 +207,7 @@ def make_reconet_flow_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
     fwd = _stylizer(cfg, spatial)
 
     def loss_fn(net, vgg, img1, img2, flow, mask):
-        if spatial is not None:
-            check_rows(spatial, img1.shape[1], vgg.row_multiple(),
-                       "make_reconet_flow_step (VGG16's pools before "
-                       "relu4_3)")
+        _check_block(spatial, img1, vgg, "make_reconet_flow_step")
         # one stylizer pass over both frames (instance norm is per sample)
         n = img1.shape[0]
         _, fmap, styled = fwd(net, torch.cat([img1, img2]))
@@ -215,22 +221,26 @@ def make_reconet_flow_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
 def make_reconet_coco_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
                            mesh=None):
     """Image-only content + style trainer (train_coco2014.py:28-105);
-    batch: the images."""
-    _no_space(mesh, "make_reconet_coco_step")
+    batch: the images.  A ``mesh`` with a "space" axis trains data × space
+    (module docstring; rows a multiple of 8)."""
     grams = _grams_on(style_grams, vgg)
-    fwd = _stylizer(cfg)
+    spatial = _space(mesh)
+    fwd = _stylizer(cfg, spatial)
 
     def loss_fn(net, vgg, img):
+        _check_block(spatial, img, vgg, "make_reconet_coco_step")
         styled = fwd(net, img)[-1]
         sn, inorm = vgg_normalize(styled), vgg_normalize(img)
         # one batched VGG pass over [styled, content]
         n = sn.shape[0]
         feats = vgg_m.vgg16_features(vgg, torch.cat([sn, inorm]),
-                                     remat=cfg.remat).values()
+                                     remat=cfg.remat,
+                                     spatial=spatial).values()
         sf = [f[:n] for f in feats]
         cf = [f[n:] for f in feats]
-        content = losses.reconet_content_loss(sf, cf) * cfg.alpha
-        style = losses.reconet_style_loss(sf, grams) * cfg.beta
+        content = losses.reconet_content_loss(sf, cf,
+                                              spatial=spatial) * cfg.alpha
+        style = losses.reconet_style_loss(sf, grams, spatial) * cfg.beta
         total = content + style
         return total, {"CL": content, "SL": style, "loss": total}
 
@@ -246,25 +256,29 @@ def make_reconet_distill_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
     The symmetric distillation loss, scaled by sd_weight_scale·beta, is
     logged as ``SDL`` and left out of the total unless
     ``cfg.include_sd_in_total``; where the taps' shapes differ (the SD1
-    stage) it is NaN."""
-    _no_space(mesh, "make_reconet_distill_step")
+    stage) it is NaN.  A ``mesh`` with a "space" axis trains data × space
+    (module docstring; rows a multiple of 8), the teacher on the same row
+    blocks; the SD loss is then each rank's share."""
     grams = _grams_on(style_grams, vgg)
     frozen_teacher = _frozen(teacher, DTYPES[cfg.dtype])
-    fwd = _stylizer(cfg)
+    spatial = _space(mesh)
+    fwd = _stylizer(cfg, spatial)
 
     def loss_fn(net, vgg, img1, img2, flow, mask):
+        _check_block(spatial, img1, vgg, "make_reconet_distill_step")
         # frame-pair forwards in one batch (instance norm is per sample)
         n = img1.shape[0]
         pair = torch.cat([img1, img2])
         with torch.no_grad():
-            t = frozen_teacher(pair)[cfg.teacher_tap]
+            t = frozen_teacher(pair, spatial=spatial)[cfg.teacher_tap]
         s = fwd(net, pair)
         total, metrics = _reconet_losses(
             cfg, vgg, grams, (s[-2][:n], s[-1][:n]), (s[-2][n:], s[-1][n:]),
-            img1, img2, flow, mask, mesh)
+            img1, img2, flow, mask, mesh, spatial)
         feat_s = s[cfg.student_tap]
         if t.shape == feat_s.shape:
-            sd = (losses.mse(t[:n], feat_s[:n]) + losses.mse(t[n:], feat_s[n:]))
+            sd = (losses.mse(t[:n], feat_s[:n], spatial)
+                  + losses.mse(t[n:], feat_s[n:], spatial))
             sd = sd * (cfg.sd_weight_scale * cfg.beta)
             if cfg.include_sd_in_total:
                 total = total + sd
@@ -294,25 +308,31 @@ def make_rtnstv_step(cfg, vgg: vgg_m.VGG19RTNSTV, style_grams, mesh=None):
     mask).  One stylizer pass over both frames and one VGG19 pass over
     [img1, img2, styled1, styled2] (instance norm is per sample, VGG has
     no cross-batch op); each frame's spatial loss, the temporal loss on
-    the 0–255 styled pair."""
-    _no_space(mesh, "make_rtnstv_step")
+    the 0–255 styled pair.  A ``mesh`` with a "space" axis trains data ×
+    space (module docstring; rows a multiple of 8, which covers RTNSTV's
+    own 4)."""
     grams = _grams_on(style_grams, vgg)
-    fwd = _stylizer(cfg)
+    spatial = _space(mesh)
+    fwd = _stylizer(cfg, spatial)
 
     def loss_fn(net, vgg, img1, img2, flow, mask):
+        _check_block(spatial, img1, vgg, "make_rtnstv_step")
         n = img1.shape[0]
         styled = fwd(net, torch.cat([img1, img2]))
         styled1, styled2 = styled[:n], styled[n:]
         feats = vgg_m.vgg19_rtnstv_features(
-            vgg, torch.cat([img1, img2, styled1, styled2]), remat=cfg.remat)
+            vgg, torch.cat([img1, img2, styled1, styled2]), remat=cfg.remat,
+            spatial=spatial)
         cf1, cf2, sf1, sf2 = _split(feats, *((i * n, (i + 1) * n)
                                              for i in range(4)))
         cl1, sl1, rl1 = losses.rtnstv_spatial_loss(
-            cf1, sf1, grams, styled1, cfg.alpha, cfg.beta, cfg.gamma)
+            cf1, sf1, grams, styled1, cfg.alpha, cfg.beta, cfg.gamma,
+            spatial)
         cl2, sl2, rl2 = losses.rtnstv_spatial_loss(
-            cf2, sf2, grams, styled2, cfg.alpha, cfg.beta, cfg.gamma)
+            cf2, sf2, grams, styled2, cfg.alpha, cfg.beta, cfg.gamma,
+            spatial)
         tl = losses.rtnstv_temporal_loss(styled1, styled2, flow, mask,
-                                         mesh) * cfg.lam
+                                         mesh, spatial) * cfg.lam
         content, style, reg = cl1 + cl2, sl1 + sl2, rl1 + rl2
         total = content + style + reg + tl
         return total, {"CL": content, "SL": style, "RL": reg, "TL": tl,
@@ -323,36 +343,43 @@ def make_rtnstv_step(cfg, vgg: vgg_m.VGG19RTNSTV, style_grams, mesh=None):
 
 # ------------------------------------------------------------ AdaAttN
 
-def _adaattn_fwds(cfg):
+def _adaattn_fwds(cfg, spatial=None):
     """The step's memory-heavy forwards, optionally rematerialized
     (``cfg.remat``), segmented as in JAX: the VGG19 encoder per inter-tap
     slice, the stylizer per attention module and decoder, and the conv-free
-    attention target."""
+    attention target.  ``spatial``: the content side is this rank's row
+    blocks (``vgg_feats(vgg, x, spatial)`` encodes a block), the style
+    whole."""
     remat, mode = cfg.remat, cfg.attention_mode
 
-    def vgg_feats(vgg, x):
-        return vgg_m.vgg19_adaattn_features(vgg, x, remat=remat)
+    def vgg_feats(vgg, x, spatial=None):
+        return vgg_m.vgg19_adaattn_features(vgg, x, remat=remat,
+                                            spatial=spatial)
 
     def stylize(net, fc, fs):
         return adaattn_m.stylizing_network(net, fc, fs, cfg.activation,
-                                           mode=mode, remat=remat)
+                                           mode=mode, remat=remat,
+                                           spatial=spatial)
 
     no_conv_target = segment(
         lambda c_x, s_x, c_1x, s_1x: adaattn_m.adaattn_no_conv(
-            c_x, s_x, c_1x, s_1x, cfg.activation, mode=mode), remat)
+            c_x, s_x, c_1x, s_1x, cfg.activation, mode=mode,
+            spatial=spatial), remat)
     return vgg_feats, stylize, no_conv_target
 
 
 def _adaattn_gs_lf(cfg, vgg, fc, fs, cs, vgg_feats, no_conv_target,
-                   fcs=None):
+                   fcs=None, spatial=None):
     """Global-stylized + local-feature losses (train_image.py:84-106).
     ``fcs``: the VGG taps of ``cs`` if already computed (the video step
-    encodes both stylized frames in one pass)."""
+    encodes both stylized frames in one pass); ``spatial``: fc, cs and
+    fcs are row blocks, fs whole, and the losses this rank's shares."""
     if fcs is None:
-        fcs = vgg_feats(vgg, cs)
+        fcs = vgg_feats(vgg, cs, spatial)
     loss_gs = 0.0
     for tap in ("relu2_1", "relu3_1", "relu4_1", "relu5_1"):
-        loss_gs = loss_gs + losses.global_stylized_loss(fcs[tap], fs[tap])
+        loss_gs = loss_gs + losses.global_stylized_loss(fcs[tap], fs[tap],
+                                                        spatial)
     loss_gs = loss_gs * cfg.lambda_g
 
     fcl = list(fc.values())
@@ -361,10 +388,10 @@ def _adaattn_gs_lf(cfg, vgg, fc, fs, cs, vgg_feats, no_conv_target,
     for i in range(3):
         idx = i + 2
         target = no_conv_target(fcl[idx], fsl[idx],
-                                feature_down_sample(fcl, idx),
+                                feature_down_sample(fcl, idx, spatial),
                                 feature_down_sample(fsl, idx))
         loss_lf = loss_lf + losses.local_feature_loss(fcs[f"relu{i + 3}_1"],
-                                                      target)
+                                                      target, spatial)
     loss_lf = loss_lf * cfg.lambda_l
     return fcs, loss_gs, loss_lf
 
@@ -433,18 +460,24 @@ def _make_step(cfg, vgg, loss_fn, n_images=None, mesh=None):
 
 def make_adaattn_image_step(cfg, vgg: vgg_m.VGG19AdaAttN, mesh=None):
     """AdaAttN image-mode trainer (AdaAttN/train_image.py:25-125); batch
-    (content, style)."""
-    _no_space(mesh, "make_adaattn_image_step")
-    vgg_feats, stylize, no_conv_target = _adaattn_fwds(cfg)
+    (content, style).  A ``mesh`` with a "space" axis trains data × space
+    (module docstring; rows a multiple of 16)."""
+    spatial = _space(mesh)
+    vgg_feats, stylize, no_conv_target = _adaattn_fwds(cfg, spatial)
 
     def loss_fn(net, vgg, content, style):
-        # one batched VGG pass over [content, style] (same crop size)
-        n = content.shape[0]
-        fc, fs = _split(vgg_feats(vgg, torch.cat([content, style])),
-                        (0, n), (n, None))
+        if spatial is None:
+            # one batched VGG pass over [content, style] (same crop size)
+            n = content.shape[0]
+            fc, fs = _split(vgg_feats(vgg, torch.cat([content, style])),
+                            (0, n), (n, None))
+        else:
+            _check_block(spatial, content, vgg, "make_adaattn_image_step")
+            fc = vgg_feats(vgg, content, spatial)
+            fs = vgg_feats(vgg, gather_rows(spatial, style))
         cs = stylize(net, fc, fs)
         _, loss_gs, loss_lf = _adaattn_gs_lf(cfg, vgg, fc, fs, cs, vgg_feats,
-                                             no_conv_target)
+                                             no_conv_target, spatial=spatial)
         total = loss_gs + loss_lf
         return total, {"loss_gs": loss_gs, "loss_lf": loss_lf, "loss": total}
 
@@ -455,29 +488,36 @@ def make_adaattn_video_step(cfg, vgg: vgg_m.VGG19AdaAttN, mesh=None):
     """AdaAttN video-mode trainer (AdaAttN/train_video.py:26-138); batch
     (content1, content2, style).  Global and local losses on frame 1 only;
     the image-similarity loss across the frame pair on relu2_1/3_1/4_1
-    (:110-115)."""
-    _no_space(mesh, "make_adaattn_video_step")
-    vgg_feats, stylize, no_conv_target = _adaattn_fwds(cfg)
+    (:110-115).  A ``mesh`` with a "space" axis trains data × space
+    (module docstring; rows a multiple of 16)."""
+    spatial = _space(mesh)
+    vgg_feats, stylize, no_conv_target = _adaattn_fwds(cfg, spatial)
 
     def loss_fn(net, vgg, content1, content2, style):
-        # one batched VGG pass over [content1, content2, style]
         n = content1.shape[0]
-        fc1, fc2, fs = _split(
-            vgg_feats(vgg, torch.cat([content1, content2, style])),
-            (0, n), (n, 2 * n), (2 * n, None))
+        if spatial is None:
+            # one batched VGG pass over [content1, content2, style]
+            fc1, fc2, fs = _split(
+                vgg_feats(vgg, torch.cat([content1, content2, style])),
+                (0, n), (n, 2 * n), (2 * n, None))
+        else:
+            _check_block(spatial, content1, vgg, "make_adaattn_video_step")
+            fc1, fc2 = _split(vgg_feats(vgg, torch.cat([content1, content2]),
+                                        spatial), (0, n), (n, None))
+            fs = vgg_feats(vgg, gather_rows(spatial, style))
         # one stylizer pass over the frame pair (the style taps tiled;
         # attention, instance norm and decoder are per sample) and one VGG
         # pass over both stylized frames
         cs = stylize(net, {k: torch.cat([fc1[k], fc2[k]]) for k in fc1},
                      {k: torch.cat([v, v]) for k, v in fs.items()})
-        fcs1, fcs2 = _split(vgg_feats(vgg, cs), (0, n), (n, None))
+        fcs1, fcs2 = _split(vgg_feats(vgg, cs, spatial), (0, n), (n, None))
         _, loss_gs, loss_lf = _adaattn_gs_lf(cfg, vgg, fc1, fs, cs[:n],
                                              vgg_feats, no_conv_target,
-                                             fcs=fcs1)
+                                             fcs=fcs1, spatial=spatial)
         loss_is = 0.0
         for tap in ("relu2_1", "relu3_1", "relu4_1"):
             loss_is = loss_is + losses.image_similarity_loss(
-                fc1[tap], fc2[tap], fcs1[tap], fcs2[tap], mesh)
+                fc1[tap], fc2[tap], fcs1[tap], fcs2[tap], mesh, spatial)
         loss_is = loss_is * cfg.lambda_is
         total = loss_gs + loss_lf + loss_is
         return total, {"loss_gs": loss_gs, "loss_lf": loss_lf,
