@@ -58,7 +58,15 @@ result line):
    its border) and split in 2, and K2 on the packed (4,92,162,·) ReCoNet,
    SD1 and SD2 and (4,66,66,·) coco stems and heads, bf16 and f32; the
    f32 K3, K4 and K5 at the AdaAttN training levels where [3] has not
-   held them yet (``--spatial``);
+   held them yet; and at uneven row blocks (``row_layout``), bf16 and
+   f32: K1's halo-rows mode at a 1080×1920 ReCoNet frame's residual level
+   over 4 ranks (68, 68, 67, 67 rows) and whole, at the 360×640 b2 flow
+   step's over 4 (24, 22, 22, 22) at C = 192 and RTNSTV's 48, and at a
+   356×640 flow step's whole (89 rows), the stitched y bit for bit one
+   reflect-mode launch's; K2 on those blocks' packed stems and heads; K3,
+   K4 and K5 at the query shards of a 272×256 b8 AdaAttN image step over
+   2 ranks (144 and 128 rows) at its three attention levels
+   (``--spatial``);
 4. model: the f32 ReCoNet and RTNSTV forwards through the kernels against
    the same forwards through the plain versions at 1×256×256 (and, with
    grad mode on, the same kernels' outputs bit for bit), the f32 AdaAttN
@@ -151,13 +159,15 @@ result line):
    (``--spatial`` runs it alone, after the build and [3]'s spatial cases,
    in a world-1 group of its own): a "space" mesh of one rank and one
    2160×3840 uint8 frame on the card through ``stylize_spatial_sharded``
-   (ReCoNet bf16 and f32, SD2 bf16, RTNSTV bf16) and
+   (ReCoNet bf16 and f32, SD2 bf16, RTNSTV bf16; and ReCoNet bf16 on a
+   1078×1920 frame, an H the even rule refused) and
    ``stylize_adaattn_sharded`` (softmax bf16, cosine f32, a 512² style),
    each against the unsharded ``stylize_*``: the network outputs' max
    error and whether the bits are equal, ms per frame sharded and
    unsharded (median of 5, alternating), launches per frame (K1 10, all
    in the halo-rows mode, K2 2 or 0, K3 3 or 0), each forward's share of
-   device time in padded copies (pad, cat and copy kernels), and every
+   device time in padded copies (pad, cat and copy kernels) and in
+   ``vst::relayout_rows`` (none at world 1), and every
    launch at a shape [3] held; then the data × space part (in the same
    group): K1's halo-rows autograd Function against its plain route in
    float64 at (4,92,162,192), without and with the prologue, f32 (1e-4 of
@@ -165,7 +175,8 @@ result line):
    (1, 1) ("data", "space") mesh, its batch placed by
    ``shard_batch_spatial``, against two bare steps (``_space_cases``):
    ``RECONET_CANDY``'s flow step (360×640 b2, [5c]'s seeded state, grams
-   and batch) in f32 and bf16, the coco step (256² b4), the SD1 and SD2
+   and batch) in f32 and bf16, and at 356×640 in f32 (an H the even rule
+   refused), the coco step (256² b4), the SD1 and SD2
    distillation stages (360×640 b2) and RTNSTV (``RTNSTVConfig()``,
    360×640 b2), all f32 but the flow step's bf16 run, held to their plain
    float64 bare step: the sharded step's metrics and gradients within the
@@ -182,7 +193,8 @@ result line):
    6, K4 3 and K5 3 (image), none (video), each at a shape [3] held; ms
    per step sharded and bare (median of 6, alternating), the peak memory
    of one step each, and the sharded step's device time in
-   ``vst::exchange_rows`` and ``vst::exchange_rows_bwd``;
+   ``vst::exchange_rows``, ``vst::exchange_rows_bwd`` and
+   ``vst::relayout_rows`` (none at world 1);
 6. timing: each kernel, its plain version and a library yardstick the
    port never calls (cuDNN ``F.conv2d`` of the same conv for K1/K2, in
    benchmark mode and the faster of NCHW and channels_last, bf16 and f32,
@@ -3044,6 +3056,37 @@ K2_TRAIN = {"coco stem": (4, 66, 66, 48, 768),
             "SD2 stem": (4, 92, 162, 48, 256),
             "SD2 head": (4, 92, 162, 256, 48)}
 FLOW_SPLITS = (2, 1)
+# Uneven row blocks (``parallel/spatial.py::row_layout``) as 4 ranks hold
+# them: a 1080×1920 ReCoNet frame in 4-row units (272, 272, 268, 268 rows;
+# 68, 68, 67, 67 at the residual level) and the 360×640 b2 flow step's
+# frame pair in 8-row units (96, 88, 88, 88; 24, 22, 22, 22), K1's halo
+# mode at both residual levels (RTNSTV's 48 channels at the flow split)
+# and whole, and at the whole residual level of a 356×640 flow step (89
+# rows); K2 on the blocks' packed stems and heads (⌈R/4⌉ + 2 rows) and on
+# the whole 1078×1920 frame's and the 356×640 step's, which [8] serves and
+# trains at world 1; K3-K5 at the query shards of a 272×256 b8 AdaAttN
+# image step over 2 ranks (17 units of 16 rows: 144 and 128) at its three
+# attention levels against the whole 272×256 style's keys.
+RECONET_1080 = (68, 68, 67, 67)
+FLOW_UNEVEN = (24, 22, 22, 22)
+K1_UNEVEN = {"ReCoNet 1080p": ((1, 270, 480, 192), (RECONET_1080, (270,))),
+             "flow step": ((4, 90, 160, 192), (FLOW_UNEVEN,)),
+             "RTNSTV step": ((4, 90, 160, 48), (FLOW_UNEVEN,)),
+             "flow step 356": ((4, 89, 160, 192), ((89,),))}
+K2_UNEVEN = {f"{what} {rows} rows {kind}": (n, -(-rows // 4) + 2, wp, *ch)
+             for what, n, wp, all_rows in (
+                 ("1080p block", 1, 482, (272, 268)),
+                 ("1078p whole", 1, 482, (1080,)),
+                 ("flow block", 4, 162, (96, 88)),
+                 ("356 flow whole", 4, 162, (356,)))
+             for rows in all_rows
+             for kind, ch in (("stem", (48, 768)), ("head", (768, 48)))}
+UNEVEN_FRAME = (1078, 1920)
+FLOW_356 = (356, 640)
+ATTN_UNEVEN = [(TRAIN_BATCH, (rows >> lv) * (256 >> lv),
+                (272 >> lv) * (256 >> lv), d, c)
+               for rows in (144, 128)
+               for lv, (_, d, c) in zip((2, 3, 4), TRAIN_LEVELS)]
 
 
 def _k1_halo_check(g, dtype, label, shape, tol,
@@ -3051,8 +3094,8 @@ def _k1_halo_check(g, dtype, label, shape, tol,
     """K1's halo-rows mode at ``shape`` (N, H, W, C), without and with its
     prologue: the tensor reflect-padded and cut into each of ``splits``
     row shards that carry their neighbours' rows (what the exchange hands
-    over; 1: a world-1 rank's); every shard launched twice for the same
-    bits.
+    over; 1: a world-1 rank's; a tuple: blocks of those rows, an uneven
+    layout's); every shard launched twice for the same bits.
     The stitched y and the summed statistics are held against the halo
     mode's plain version and against one reflect-mode launch on the whole
     tensor (itself held against the plain version).  Returns (the worst
@@ -3068,10 +3111,11 @@ def _k1_halo_check(g, dtype, label, shape, tol,
         yr, sr = res_block.conv3x3_in_stats(xin, wt, b, **kw)
         xp = ops_conv.reflection_pad2d(xin, 1)
         for parts in splits:
-            r = h // parts
+            rows = ((h // parts,) * parts if isinstance(parts, int)
+                    else parts)
             ys, yps, sums, psums = [], [], 0, 0
-            for i in range(parts):
-                xh = xp[:, i * r:i * r + r + 2].contiguous()
+            for start, r in zip(np.cumsum((0,) + rows[:-1]), rows):
+                xh = xp[:, start:start + r + 2].contiguous()
                 CHECKED.add(("K1h", dtype, tuple(xh.shape), co))
                 y, sm = res_block.conv3x3_in_stats_halo(xh, wt, b, **kw)
                 again = res_block.conv3x3_in_stats_halo(xh, wt, b, **kw)
@@ -3102,16 +3146,19 @@ def _k1_halo_check(g, dtype, label, shape, tol,
 
 def phase_kernels_spatial(g):
     """[3]'s cases of the spatial and data × space parts of [8]: K1's
-    halo-rows mode at K1_SPATIAL and K1_FLOW in bf16 and f32
-    (``_k1_halo_check``), K2 at K2_SPATIAL, RC_K2 and K2_TRAIN and K3 at
-    K3_SPATIAL against their plain versions, each launched twice for the
-    same bits; and the f32 K3, K4 and K5 at the AdaAttN image step's
-    training levels against float64, where [3]'s K3-K5 phases have not
-    held them yet (``--spatial`` runs this phase alone).  Tolerances as
+    halo-rows mode at K1_SPATIAL, K1_FLOW and the uneven blocks of
+    K1_UNEVEN in bf16 and f32 (``_k1_halo_check``; the uneven blocks'
+    stitched y must be one reflect launch's bits), K2 at K2_SPATIAL,
+    RC_K2, K2_TRAIN and K2_UNEVEN, K3, K4 and K5 at ATTN_UNEVEN's query
+    shards in bf16 and f32, and K3 at K3_SPATIAL against their plain
+    versions, each launched twice for the same bits; and the f32 K3, K4
+    and K5 at the AdaAttN image step's training levels against float64,
+    where [3]'s K3-K5 phases have not held them yet (``--spatial`` runs
+    this phase alone).  Tolerances as
     [3]'s: bf16 one bf16 ulp of the output's scale, f32 1e-4 of it, the
     statistics 1e-4."""
     log("[3] K1's halo-rows mode, K2 and K3 at the spatial part's 4K shapes "
-        "and the data × space steps'")
+        "and the data × space steps', and K1-K5 at uneven row blocks")
     errs, same = {}, {}
     for dtype, key, tol in ((torch.float32, "K1 halo f32", 1e-4),
                             (torch.bfloat16, "K1 halo", BF16_ULP)):
@@ -3127,6 +3174,27 @@ def phase_kernels_spatial(g):
             errs[key] = max(errs[key], e)
         for label, shape in {**K2_SPATIAL, **RC_K2, **K2_TRAIN}.items():
             _k2_check(g, dtype, label, shape, tol)
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for label, (shape, splits) in K1_UNEVEN.items():
+            e, exact = _k1_halo_check(g, dtype, label, shape, tol, splits)
+            same[f"{key} {label} uneven"] = exact
+            errs[key] = max(errs[key], e)
+            if not exact:
+                raise AssertionError(f"K1 halo {label} {splits}: the "
+                                     f"stitched blocks differ from one "
+                                     f"reflect launch")
+        errs[f"K2 uneven {tag}"] = max(
+            _k2_check(g, dtype, label, shape, tol)
+            for label, shape in K2_UNEVEN.items())
+        k3, k45 = [], []
+        for shape in ATTN_UNEVEN:
+            k3.append(_k3_check(g, f"{tag} uneven query shard", dtype, shape,
+                                1.0, ""))
+            k45 += _k45_check(g, f"{tag} uneven query shard", dtype, shape,
+                              1.0, "")
+        errs[f"K3 uneven {tag}"], errs[f"K4/K5 uneven {tag}"] = (max(k3),
+                                                                 max(k45))
+        apply_precision(dtype)
     for case in K3_SPATIAL:
         _k3_check(g, *case)
     for n, d, c in TRAIN_LEVELS:
@@ -3274,12 +3342,15 @@ def _spatial_case(label, mesh, sharded, unsharded, network, expect, tol,
            "ms_sharded_runs": ms_s, "ms_unsharded_runs": ms_u,
            "launches_per_frame": dict(zip(("K1", "K2", "K3"), per)),
            "launches": dict(zip(("K1", "K2", "K3", "K4", "K5"), n)),
-           "profile_sharded": _copy_share(sharded, top=6),
+           "profile_sharded": _copy_share(
+               sharded, top=6, ranges=PAD_RANGES + ("vst::relayout_rows",)),
            "profile_unsharded": _copy_share(unsharded, top=4)}
     log(f"  {label}: max_abs_err {err:.3e} (bits {'equal' if same else 'differ'}"
         f"); ms per frame sharded {res['ms_sharded']:.3f}, unsharded "
         f"{res['ms_unsharded']:.3f}; launches per frame {per} (K1 all in the "
-        f"halo mode); padded copies {100 * res['profile_sharded']['copies_share']:.1f}% "
+        f"halo mode); relayout_rows "
+        f"{res['profile_sharded']['by_range']['vst::relayout_rows']:.3f} "
+        f"device ms; padded copies {100 * res['profile_sharded']['copies_share']:.1f}% "
         f"of {res['profile_sharded']['device_ms']:.3f} device ms sharded, "
         f"{100 * res['profile_unsharded']['copies_share']:.1f}% of "
         f"{res['profile_unsharded']['device_ms']:.3f} unsharded")
@@ -3290,7 +3361,8 @@ def _spatial_serving(mesh_space):
     """The spatial part of [8] at world 1 (``mesh_space``, a 1-rank
     "space" mesh on cuda:0): one 2160×3840 uint8 frame (batch 1, on the
     card) through ``stylize_spatial_sharded`` (ReCoNet bf16 and f32, SD2
-    bf16, RTNSTV bf16) and ``stylize_adaattn_sharded`` (softmax bf16,
+    bf16, RTNSTV bf16; and ReCoNet bf16 on its top-left 1078×1920, an H
+    that is not a multiple of 4) and ``stylize_adaattn_sharded`` (softmax bf16,
     cosine f32, against a 512² style), each against its unsharded
     ``stylize_*`` (``_spatial_case``).  Every K1, K2 and K3 launch must
     fall on a shape [3] held (CHECKED).  Returns its launches (K1-K5, the
@@ -3343,6 +3415,31 @@ def _spatial_serving(mesh_space):
                 None if dtype == torch.float32 else network32)
             total = [t + k for t, k in zip(total, res[label]["launches"].values())]
             del model, xin
+        # 1078 rows: not a multiple of 4, which the even rule refused at
+        # world 1; the model's output has 1080, as the unsharded model's
+        apply_precision(torch.bfloat16)
+        model = init_reconet(0, device="cuda", dtype=torch.bfloat16)
+        small = frame[:, :UNEVEN_FRAME[0], :UNEVEN_FRAME[1]].contiguous()
+        x16 = small.to(torch.bfloat16)
+
+        def network(ctx, model=model, xin=x16):
+            return model(xin if ctx is None else shard_spatial(
+                ctx.mesh, xin, ctx.axis), spatial=ctx)[-1]
+
+        def network32():
+            apply_precision(torch.float32)
+            y = init_reconet(0, device="cuda")(small.float())[-1]
+            apply_precision(torch.bfloat16)
+            return y
+
+        label = "ReCoNet bf16 1078×1920"
+        res[label] = _spatial_case(
+            label, mesh_space,
+            lambda: stylize_spatial_sharded(model, small, mesh_space),
+            lambda: stylize_reconet(model, small), network, (10, 2, 0),
+            2 * BF16_ULP, network32)
+        total = [t + k for t, k in zip(total, res[label]["launches"].values())]
+        del model, small, x16
         for act, dtype in (("softmax", torch.bfloat16),
                            ("cosine", torch.float32)):
             apply_precision(dtype)
@@ -3630,7 +3727,8 @@ def _space_step(case, mesh, timed=6):
     reset_counts()
     prof_s = _copy_share(lambda: f1(s1, b1), top=6,
                          ranges=("vst::exchange_rows",
-                                 "vst::exchange_rows_bwd"))
+                                 "vst::exchange_rows_bwd",
+                                 "vst::relayout_rows"))
     launches = [a + c for a, c in zip(launches, counts())]
     prof_b = _copy_share(lambda: f0(s0, b0), top=4,
                          ranges=("vst::reflection_pad2d",))
@@ -3695,6 +3793,13 @@ def _space_cases():
                         dataclasses.replace(RECONET_CANDY, dtype=dtype),
                         reconet1, flow, batch, (10, 2, 0, 0, 0),
                         lambda k: not _before_norm(k), ref)
+    # 356 rows: not a multiple of 8, which the even rule refused at world 1
+    cfg356 = dataclasses.replace(RECONET_CANDY, img_size=FLOW_356)
+    batch356 = tuple(t[:, :FLOW_356[0]].contiguous() for t in batch)
+    yield SpaceCase("flow step 356×640 b2 f32", cfg356, reconet1, flow,
+                    batch356, (10, 2, 0, 0, 0), lambda k: not _before_norm(k),
+                    _step64(cfg356, reconet1, flow, batch356))
+    del batch356
     ccfg = ReCoNetCocoConfig()
     cgrams = _style_grams(vgg, ccfg, rng)
     cbatch = torch.from_numpy(rng.integers(0, 256, (
@@ -3781,6 +3886,7 @@ def _sd_before_norm(key):
 
 SPACE_KEYS = {"flow step 360×640 b2 f32": "flow_f32",
               "flow step 360×640 b2 bf16": "flow_bf16",
+              "flow step 356×640 b2 f32": "flow_356_f32",
               "coco step 256² b4 f32": "coco",
               "distill reconet->sd1 360×640 b2 f32": "sd1",
               "distill sd1->sd2 360×640 b2 f32": "sd2",

@@ -317,11 +317,14 @@ def test_world1_adaattn_matches_unsharded(tmp_path):
 
 
 def test_size_rules_and_serving_only(tmp_path):
-    """H that the layers cannot split raises ValueError naming the
-    multiple, the ReCoNet flow step's too (8·D, VGG16's pools); a world-1
-    sharded forward differentiates to the unsharded forward's gradients;
-    the guard that remains raises: the sequence-parallel attention with a
-    gradient."""
+    """At world 1 a sharded entry takes every H the unsharded model takes:
+    a 62-row frame (not a multiple of 4) serves to the unsharded model's
+    64 rows, and a 28-row ReCoNet flow step (not a multiple of 8) equals
+    the unsharded step; below the least block (8 rows) both raise
+    ValueError naming the least H; ``stylize_adaattn_sharded`` keeps
+    JAX's own 16·D; a world-1 sharded forward differentiates to the
+    unsharded forward's gradients; the guard that remains raises: the
+    sequence-parallel attention with a gradient."""
     from vst_tpu_torch.ops.conv import conv2d_reflect
     from vst_tpu_torch.parallel.attention import (
         sharded_cosine_attention_moments)
@@ -334,8 +337,13 @@ def test_size_rules_and_serving_only(tmp_path):
     net = pa.init_stylizing_network(1, device="cpu")
     with td.world1(tmp_path):
         mesh = make_mesh(None, ("space",))
-        with pytest.raises(ValueError, match="multiple of 4"):
-            pim.stylize_spatial_sharded(model, FRAME[:, :62], mesh)
+        got = pim.stylize_spatial_sharded(model, FRAME[:, :62], mesh)
+        assert got.shape == (1, 64, 32, 3)
+        torch.testing.assert_close(
+            got, pim.stylize_reconet(model, FRAME[:, :62]), rtol=0,
+            atol=1e-4)
+        with pytest.raises(ValueError, match="must be at least 8 for 1"):
+            pim.stylize_spatial_sharded(model, FRAME[:, :4], mesh)
         with pytest.raises(ValueError, match="divide by 16"):
             pim.stylize_adaattn_sharded(vgg, net, ADA[0][:, :120], ADA[1],
                                         mesh)
@@ -369,46 +377,92 @@ def test_size_rules_and_serving_only(tmp_path):
         cfg = dataclasses.replace(pc.RECONET_CANDY, img_size=(28, 24))
         v16 = pv.init_vgg16_reconet(0, device="cpu")
         grams = [torch.zeros(1, c, c) for c in (64, 128, 256, 512)]
+        g = np.random.default_rng(3)
+        batch = ((g.random((1, 28, 24, 3)) * 255).astype(np.float32),
+                 (g.random((1, 28, 24, 3)) * 255).astype(np.float32),
+                 g.standard_normal((1, 28, 24, 2)).astype(np.float32),
+                 np.ones((1, 28, 24), np.float32))
         step = pst.make_reconet_flow_step(cfg, v16, grams, grid)
-        batch = (np.zeros((1, 28, 24, 3), np.float32),) * 2 + (
-            np.zeros((1, 28, 24, 2), np.float32),
-            np.ones((1, 28, 24), np.float32))
-        with pytest.raises(ValueError, match=r"multiple of 8·1 = 8"):
-            step(create(td._seeded(0), cfg.lr), batch)
+        _, metrics = step(create(td._seeded(0), cfg.lr), batch)
+        with pytest.raises(ValueError, match="must be at least 8 for 1"):
+            step(create(td._seeded(0), cfg.lr), tuple(b[:, :4]
+                                                       for b in batch))
+    _, plain = pst.make_reconet_flow_step(cfg, v16, grams)(
+        create(td._seeded(0), cfg.lr), batch)
+    for k, v in plain.items():
+        np.testing.assert_allclose(float(metrics[k]), float(v), rtol=1e-5,
+                                   err_msg=k)
 
 
-# builder kind → (the row multiple its VGG's pools ask for, the batch's
+# builder kind → (its row unit over a space axis (8: the stylizer's
+# stride-2 layers and VGG16's pools before relu4_3 or RTNSTV's VGG19's
+# before relu4_2; 16: AdaAttN's VGG19's before relu5_1), the batch's
 # entries (ReCoNet's flow pair: two frames, a flow, a mask))
 ROW_RULES = {"coco": (8, 1), "sd1": (8, 4), "sd2": (8, 4), "rtnstv": (8, 4),
              "adaattn_image": (16, 2), "adaattn_video": (16, 3)}
 
 
-@pytest.mark.parametrize("kind", sorted(ROW_RULES))
-def test_step_builder_rows_multiple(tmp_path, kind):
-    """Every step builder on a world-1 ("data", "space") mesh: a block
-    whose rows do not divide by its VGG's row multiple (8: VGG16's pools
-    before relu4_3 and RTNSTV's VGG19's before relu4_2; 16: AdaAttN's
-    VGG19's before relu5_1) raises ValueError naming the builder and the
-    multiple, before any collective."""
+def _rules_case(kind, h):
+    """(config in float64, batch of 1 at H = h, the make_*_step name) of a
+    ``ROW_RULES`` kind; AdaAttN at 32 columns (relu5_1 keeps two)."""
     from vst_tpu_torch.train import config as pc
-    from vst_tpu_torch.train.state import create
 
-    multiple, entries = ROW_RULES[kind]
-    h = multiple + multiple // 2
     cfg = {"coco": pc.ReCoNetCocoConfig(), "sd1": pc.DISTILL_SD1,
            "sd2": pc.DISTILL_SD2, "rtnstv": pc.RTNSTVConfig(),
            "adaattn_image": pc.AdaAttNImageConfig(),
            "adaattn_video": pc.AdaAttNVideoConfig()}[kind]
-    frame = np.zeros((1, h, 16, 3), np.float32)
-    batch = (frame,) * entries if entries != 4 else (
-        frame, frame, np.zeros((1, h, 16, 2), np.float32),
-        np.ones((1, h, 16), np.float32))
-    new_model, build = td.train_setup(kind, cfg, frame[:, :8])
+    cfg = dataclasses.replace(cfg, dtype="float64")
+    entries = ROW_RULES[kind][1]
+    g = np.random.default_rng(h)
+    width = 32 if kind.startswith("adaattn") else 16
+    frames = [(g.random((1, h, width, 3)) * 255).astype(np.float32)
+              for _ in range(min(entries, 3))]
+    batch = tuple(frames) if entries != 4 else (
+        *frames[:2], g.standard_normal((1, h, width, 2)).astype(np.float32),
+        (g.random((1, h, width)) > 0.2).astype(np.float32))
     builder = ("make_reconet_distill_step" if kind in ("sd1", "sd2") else
                f"make_{'reconet_' * (kind == 'coco')}{kind}_step")
+    return cfg, batch, builder
+
+
+@pytest.mark.parametrize("kind", sorted(ROW_RULES))
+def test_step_builder_rows_multiple(tmp_path, kind):
+    """Every step builder on a world-1 ("data", "space") mesh at an H
+    that is not a multiple of its row unit but that the unsharded step
+    takes (12 rows for the 8-row unit; 18 for AdaAttN's 16, whose decoder
+    asks H mod 16 < 4 of the unsharded step too): the step runs and
+    equals the unsharded step (float64; ``td.assert_matches_single``)."""
+    from vst_tpu_torch.train.state import create
+
+    unit = ROW_RULES[kind][0]
+    h = unit + (4 if unit == 8 else 2)
+    cfg, batch, _ = _rules_case(kind, h)
+    new_model, build = td.train_setup(kind, cfg, batch[0][:, :8])
+    with td.world1(tmp_path):
+        step = build(make_mesh(None, ("data", "space"), (1, 1)))
+        state, metrics = step(create(new_model(), cfg.lr), batch)
+        result = td._step_result(state, metrics)
+    p0 = {k: v.numpy() for k, v in new_model().state_dict().items()}
+    td.assert_matches_single(result, td.single_train_step(
+        kind, cfg, batch, batch[0][:, :8]), p0, cfg.lr)
+
+
+@pytest.mark.parametrize("kind", sorted(ROW_RULES))
+def test_step_builder_least_height(tmp_path, kind):
+    """Below the least block (a whole unit and at least 8 rows) every
+    builder raises ValueError naming itself and the least H for the axis
+    size: 8 at world 1 for the 8-row unit, 16 for AdaAttN's."""
+    from vst_tpu_torch.train.state import create
+
+    unit = ROW_RULES[kind][0]
+    h = unit // 2
+    cfg, batch, builder = _rules_case(kind, h)
+    style = np.full((1, 16, 16, 3), 128.0, np.float32)
+    new_model, build = td.train_setup(kind, cfg, style)
     with td.world1(tmp_path):
         step = build(make_mesh(None, ("data", "space"), (1, 1)))
         with pytest.raises(ValueError, match=(
-                rf"{builder} .*: a block of {h} rows does not divide by "
-                rf"{multiple}; H must be a multiple of {multiple}·1")):
+                rf"{builder}: H {h} over the 1-way 'space' axis leaves a "
+                rf"block of {h} rows; .* H must be at least {unit} for 1 "
+                rf"ranks")):
             step(create(new_model(), cfg.lr), batch)

@@ -261,9 +261,9 @@ def _step_dtype(name):
 
 def train_setup(kind, cfg, style=None):
     """(a fresh seeded model, ``build(mesh)`` → the step) of a builder
-    kind: "coco", "sd1" / "sd2" (the distillation stages, the teacher
-    seeded ``SEED_TEACHER``), "rtnstv", "adaattn_image" or
-    "adaattn_video"; ``style`` (1, H, W, 3) gives the ReCoNet and RTNSTV
+    kind: "flow" (ReCoNet's flow step), "coco", "sd1" / "sd2" (the
+    distillation stages, the teacher seeded ``SEED_TEACHER``), "rtnstv",
+    "adaattn_image" or "adaattn_video"; ``style`` (1, H, W, 3) gives the ReCoNet and RTNSTV
     grams.  ``cfg.dtype`` may also be "float64"."""
     new_model, build = _train_setup(kind, cfg, style)
 
@@ -293,6 +293,11 @@ def _train_setup(kind, cfg, style):
                 lambda mesh: pst.make_rtnstv_step(cfg, vgg, grams, mesh))
     vgg = pv.init_vgg16_reconet(SEED_VGG, device="cpu")
     grams = pst.reconet_style_grams(vgg, style)
+    if kind == "flow":
+        return (lambda: reconet.init_reconet(SEED_NET, cfg.input_frame_num,
+                                             device="cpu"),
+                lambda mesh: pst.make_reconet_flow_step(cfg, vgg, grams,
+                                                        mesh))
     if kind == "coco":
         return (lambda: reconet.init_reconet(SEED_NET, device="cpu"),
                 lambda mesh: pst.make_reconet_coco_step(cfg, vgg, grams,
@@ -350,11 +355,14 @@ def spatial_train_steps(rank, world, cases):
     return out
 
 
-def spatial_step_cache(tmp_path_factory, cases, timeout=240.0):
+def spatial_step_cache(tmp_path_factory, cases, timeout=240.0,
+                       worker=None):
     """``get(name)`` → every rank's (metrics, gradients (rank 0),
     parameters) of ``cases[name]`` = (kind, cfg, global batch, mesh
-    shape, style); each world's ranks spawned once, for all of its cases,
-    at the first ``get`` of one of them."""
+    shape, style), or what ``worker`` (``spatial_train_steps``'s
+    signature) gives for it; each world's ranks spawned once, for all of
+    its cases, at the first ``get`` of one of them."""
+    worker = worker or spatial_train_steps
     worlds = {}
 
     def get(name):
@@ -362,7 +370,7 @@ def spatial_step_cache(tmp_path_factory, cases, timeout=240.0):
         if world not in worlds:
             names = [k for k, v in cases.items()
                      if mesh_world(v[3]) == world]
-            ranks = spawn(spatial_train_steps, world,
+            ranks = spawn(worker, world,
                           tmp_path_factory.mktemp(f"steps{world}"),
                           [cases[k] for k in names], timeout=timeout)
             worlds[world] = {k: [r[i] for r in ranks]
@@ -819,3 +827,277 @@ def spatial_stylize(rank, world, x, ada=None):
             out[f"adaattn_{act}"] = _np(stylize_adaattn_sharded(
                 vgg, net, *ada, mesh, activation=act))
     return out, gathered
+
+
+# ------------------------------------- uneven row layouts (row_layout)
+
+# layer kind → (the rows of its input kept, the unit of its row layout):
+# blocks of different rows, an odd bottom block before the stride-2 conv
+# and the pool, and a bottom block that is not a multiple of 4 before K2
+UNEVEN_LAYERS = {"reflect3x3_s1": (32, 1), "reflect3x3_s2": (31, 2),
+                 "polyphase9x9_k2": (30, 4), "nearest_up2_conv": (8, 1),
+                 "conv_transpose_s2": (8, 1), "zero_pad_conv3x3": (16, 1),
+                 "max_pool2x2": (15, 2), "feature_down_sample": (64, 16),
+                 "bilinear_up2_clamp": (8, 1), "instance_norm": (16, 1),
+                 "residual_block_k1": (16, 1), "warp_gather": (16, 1)}
+
+
+def partial_pyramid_case(dtype=torch.float32, seed=5):
+    """AdaAttN's feature pyramid of a 40-row frame (the floor chain 40,
+    20, 10, 5, 2 of VGG19's pools) resized to its last level: the frame's
+    factor 20 is not a block's (16 or 24 rows at 2 ranks in 16-row
+    units), so the resize reads the rows the frame's source index gives
+    (``ops/resize.py::_resize_rows``).  (fn, the pyramid, no params)."""
+    from vst_tpu_torch.ops.features import feature_down_sample
+
+    g = np.random.default_rng(seed)
+    pyramid = [torch.from_numpy(g.standard_normal((1, 40 >> i, 24 >> i, 3))
+                                * 2.0).to(dtype) for i in range(5)]
+    return (lambda x, s: feature_down_sample(x, 4, spatial=s), pyramid, [])
+
+
+def uneven_cases(world, dtype=torch.float32, losses=False):
+    """name → (fn, inputs trimmed to their kept rows, params, the level-0
+    row layout over ``world`` ranks): every layer kind of
+    ``spatial_layer_cases`` (``UNEVEN_LAYERS``), at 2 ranks the partial
+    pyramid, and with ``losses`` every loss share of
+    ``spatial_loss_cases`` (in 1-row units, float64).  An input of H_k
+    rows of a case whose largest input has H_0 takes the layout's bounds
+    divided by H_0/H_k."""
+    from vst_tpu_torch.parallel.spatial import row_layout
+
+    out = {}
+    for name, (fn, x, params) in spatial_layer_cases(dtype=dtype).items():
+        rows, unit = UNEVEN_LAYERS[name]
+        xs = [t[:, :rows] for t in x] if isinstance(x, list) else x[:, :rows]
+        out[name] = (fn, xs, params, row_layout(rows, world, unit))
+    if world == 2:
+        fn, x, params = partial_pyramid_case(dtype)
+        out["feature_down_sample_partial"] = (fn, x, params,
+                                              row_layout(40, 2, 16))
+    if losses:
+        for name, (fn, x, idx) in spatial_loss_cases().items():
+            h0 = max(t.shape[1] for t in x)
+            unit = h0 // min(t.shape[1] for t in x)
+            out[name] = (fn, x, idx, row_layout(h0, world, unit))
+    return out
+
+
+def block_of(x, bounds, index):
+    """Rank ``index``'s rows of x (a tensor or a list) under the level-0
+    ``bounds``, each input's scaled to its own rows."""
+    xs = x if isinstance(x, list) else [x]
+    h0 = max(t.shape[1] for t in xs)
+    s, e = bounds[index]
+    own = []
+    for t in xs:
+        k = h0 // t.shape[1]
+        own.append(t[:, s // k:min(e // k, t.shape[1])])
+    return own if isinstance(x, list) else own[0]
+
+
+def _uneven_cotangent(name, ctx):
+    """``cotangent(y)``: this rank's rows of ``spatial_cotangent`` at the
+    whole output's shape, the blocks' rows gathered (``level_rows``)."""
+    from vst_tpu_torch.parallel.spatial import level_rows
+
+    def cot(y):
+        sizes = [r for r, in level_rows(ctx, y.shape[1])]
+        start = sum(sizes[:ctx.index])
+        whole = spatial_cotangent(name, (y.shape[0], sum(sizes),
+                                         *y.shape[2:]))
+        return whole[:, start:start + y.shape[1]].to(y.dtype)
+
+    return cot
+
+
+def similarity_case(seed=6):
+    """AdaAttN's image-similarity loss in bfloat16 on a frame whose H·W
+    (42·26 = 1092) bfloat16 cannot hold (it rounds to 1088): the four
+    (2, 42, 26, 4) feature maps, and their row layout over 3 ranks in
+    4-row units (16, 12 and 14 rows)."""
+    from vst_tpu_torch.parallel.spatial import row_layout
+
+    g = np.random.default_rng(seed)
+    feats = [torch.from_numpy(g.standard_normal((2, 42, 26, 4))).to(
+        torch.bfloat16) for _ in range(4)]
+    return feats, row_layout(42, 3, 4)
+
+
+def _similarity(feats, spatial):
+    from vst_tpu_torch.losses import image_similarity_loss
+
+    return image_similarity_loss(*feats, spatial=spatial)
+
+
+# relayout cases: world → [(frame rows, source layout, target layout)]:
+# the placement to a step's row layout, and layouts whose rows cross two
+# ranks (rank 0 takes rows from ranks 1 and 2; the last rank from rank 0)
+RELAYOUTS = {
+    3: [(18, ((0, 6), (6, 12), (12, 18)), ((0, 2), (2, 4), (4, 18))),
+        (18, ((0, 6), (6, 12), (12, 18)), ((0, 14), (14, 16), (16, 18)))],
+    4: [(40, ((0, 10), (10, 20), (20, 30), (30, 40)),
+         ((0, 16), (16, 24), (24, 32), (32, 40))),
+        (48, ((0, 12), (12, 24), (24, 36), (36, 48)),
+         ((0, 30), (30, 34), (34, 40), (40, 48)))],
+}
+# gather cases: world → every rank's rows
+GATHERS = {3: (5, 2, 4), 4: (3, 1, 2, 6)}
+
+
+def uneven_layers(rank, world):
+    """On a "space" axis over uneven blocks: "fwd": each layer kind's
+    float32 output rows; "grad": each layer kind's and loss share's
+    float64 (output, inputs' gradients, parameters' gradients)
+    (``spatial_grad``); "relayout": per ``RELAYOUTS`` case, (the moved
+    rows, ⟨relayout(x), g⟩, ⟨x, relayoutᵀ(g)⟩); "gather": the gathered
+    frame of ``GATHERS`` and the gradient its reduce-scatter gives this
+    rank's rows under a cotangent seeded by rank; "similarity": at 3
+    ranks, this rank's share of ``similarity_case``'s bfloat16 loss."""
+    from vst_tpu_torch.parallel import make_mesh
+    from vst_tpu_torch.parallel.spatial import (SpatialContext, gather_rows,
+                                                relayout_rows)
+
+    mesh = make_mesh(None, ("space",))
+    loss_names = set(spatial_loss_cases())
+    fwd, grad = {}, {}
+    with torch.no_grad():
+        for name, (fn, x, _, bounds) in uneven_cases(world).items():
+            ctx = SpatialContext(mesh, bounds=bounds)
+            fwd[name] = _np(fn(block_of(x, bounds, rank), ctx))
+    for name, (fn, x, extra, bounds) in uneven_cases(
+            world, torch.float64, losses=True).items():
+        ctx = SpatialContext(mesh, bounds=bounds)
+        if name in loss_names:
+            grad[name] = spatial_grad(fn, block_of(x, bounds, rank), [],
+                                      extra, ctx, torch.ones_like)
+        else:
+            grad[name] = spatial_grad(fn, block_of(x, bounds, rank), extra,
+                                      None, ctx, _uneven_cotangent(name, ctx))
+    relayout = []
+    for i, (h, src, dst) in enumerate(RELAYOUTS.get(world, [])):
+        ctx = SpatialContext(mesh, bounds=dst)
+        whole = torch.from_numpy(np.random.default_rng(i).standard_normal(
+            (2, h, 3, 2)))
+        x = whole[:, src[rank][0]:src[rank][1]].clone().requires_grad_()
+        y = relayout_rows(ctx, x, src, dst)
+        g = torch.from_numpy(np.random.default_rng((i, rank))
+                             .standard_normal(tuple(y.shape)))
+        (gx,) = torch.autograd.grad(y, x, g)
+        relayout.append((_np(y), float((y * g).sum()), float((x * gx).sum())))
+    similarity = None
+    if world == 3:
+        feats, bounds = similarity_case()
+        ctx = SpatialContext(mesh, bounds=bounds)
+        similarity = float(_similarity(block_of(feats, bounds, rank), ctx))
+    gather = None
+    if world in GATHERS:
+        sizes = GATHERS[world]
+        start = sum(sizes[:rank])
+        whole = torch.arange(2 * sum(sizes) * 3, dtype=torch.float64
+                             ).reshape(2, sum(sizes), 3)
+        x = whole[:, start:start + sizes[rank]].clone().requires_grad_()
+        y = gather_rows(SpatialContext(mesh), x, sizes)
+        g = torch.from_numpy(np.random.default_rng(rank).standard_normal(
+            tuple(y.shape)))
+        (gx,) = torch.autograd.grad(y, x, g)
+        gather = (_np(y), _np(gx))
+    return {"fwd": fwd, "grad": grad, "relayout": relayout,
+            "gather": gather, "similarity": similarity}
+
+
+def uneven_stylize(rank, world, frames):
+    """``stylize_spatial_sharded`` of each seeded family, for each frame
+    of ``frames`` (H a multiple of D that 4·D does not divide): this
+    rank's rows; and the ReCoNet frame assembled by ``gather_rows`` from
+    the blocks of JAX's placement of the output's rows."""
+    from vst_tpu_torch.infer.image import stylize_spatial_sharded
+    from vst_tpu_torch.parallel import gather_rows, make_mesh
+    from vst_tpu_torch.parallel.spatial import SpatialContext, placement
+
+    mesh = make_mesh(None, ("space",))
+    results = []
+    for x in frames:
+        out = {f: stylize_spatial_sharded(spatial_model(f), x, mesh)
+               for f in SPATIAL_FAMILIES}
+        h_out = -(-x.shape[1] // 4) * 4
+        sizes = [e - s for s, e in placement(h_out, world)]
+        gathered = _np(gather_rows(SpatialContext(mesh), out["reconet"],
+                                   sizes))
+        results.append(({f: _np(y) for f, y in out.items()}, gathered))
+    return results
+
+
+@contextlib.contextmanager
+def layout_collectives():
+    """Count, into the dict it yields, the collectives that an uneven row
+    layout adds: "level_rows" (an all-gather of the blocks' rows, read on
+    the host), "frame_count" (an all-reduce of a count) and
+    "relayout_rows" (one ``batch_isend_irecv``).  On an even layout the
+    first two issue none and are not counted."""
+    from vst_tpu_torch.parallel import spatial as sp
+
+    counts = {"level_rows": 0, "frame_count": 0, "relayout_rows": 0}
+    inner = {k: getattr(sp, k) for k in ("level_rows", "frame_count",
+                                         "_relayout")}
+
+    def level_rows(ctx, *rows):
+        counts["level_rows"] += not ctx.even
+        return inner["level_rows"](ctx, *rows)
+
+    def frame_count(ctx, count, like):
+        counts["frame_count"] += not ctx.even
+        return inner["frame_count"](ctx, count, like)
+
+    def relayout(*args):
+        counts["relayout_rows"] += 1
+        return inner["_relayout"](*args)
+
+    sp.level_rows, sp.frame_count, sp._relayout = (level_rows, frame_count,
+                                                   relayout)
+    try:
+        yield counts
+    finally:
+        sp.level_rows = inner["level_rows"]
+        sp.frame_count = inner["frame_count"]
+        sp._relayout = inner["_relayout"]
+
+
+def uneven_train_steps(rank, world, cases):
+    """``spatial_train_steps`` of each case, with the collectives its
+    row layout adds counted (``layout_collectives``): (result, counts)."""
+    out = []
+    for case in cases:
+        with layout_collectives() as counts:
+            (result,) = spatial_train_steps(rank, world, [case])
+        out.append((result, dict(counts)))
+    return out
+
+
+def relayout_calls(rank, world, h_even, h_uneven):
+    """The collectives the row layout adds (``layout_collectives``) while
+    ``stylize_spatial_sharded`` serves a frame of ``h_even`` rows (4·D
+    divides it) and a step's ``_place`` lays out a flow batch of
+    ``h_even`` rows in 8-row units (8·D divides it), then the same of
+    ``h_uneven`` rows; whether ``_place`` handed back the placed tensors
+    themselves; and the step's layout."""
+    from vst_tpu_torch.infer.image import stylize_spatial_sharded
+    from vst_tpu_torch.parallel import make_mesh, shard_batch_spatial
+    from vst_tpu_torch.parallel import spatial as sp
+    from vst_tpu_torch.train import steps as pst
+
+    mesh = make_mesh(None, ("space",))
+    out = []
+    for h in (h_even, h_uneven):
+        g = np.random.default_rng(h)
+        frame = (g.random((1, h, 16, 3)) * 255).astype(np.float32)
+        with layout_collectives() as counts:
+            stylize_spatial_sharded(spatial_model("reconet"), frame, mesh)
+            batch = shard_batch_spatial(mesh, [
+                frame, frame, g.standard_normal((1, h, 16, 2)),
+                np.ones((1, h, 16), np.float32)])
+            ctx = sp.SpatialContext(mesh)
+            placed = pst._place(ctx, batch, 8, "relayout_calls", 4)
+        out.append((dict(counts),
+                    all(a is b for a, b in zip(placed, batch)), ctx.bounds))
+    return out

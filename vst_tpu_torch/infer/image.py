@@ -116,15 +116,35 @@ def stylize_spatial_sharded(model, x, mesh, axis: str = "space"):
     assembles the frame).
 
     ``model`` is a ReCoNet-family model or an RTNSTV ``StylizingNetwork``
-    on this rank's device; only the rank's rows of x cross to it
-    (``shard_spatial``).  The layers exchange their halo rows over the
-    axis and K1 runs in its halo-rows mode (``parallel/spatial.py``).  H
-    must divide by 4 times the axis size, with at least 8 rows a rank."""
-    from vst_tpu_torch.parallel.mesh import shard_spatial
+    on this rank's device.  H must divide by the axis size D, as JAX's
+    placement asks.  The model runs on ``row_layout(H, D, 4)``: blocks of
+    whole 4-row units (its two stride-2 layers line up in each), any
+    remainder on the last, each rank's rows taken straight from x (only
+    they cross to the device); where 4·D divides H that is the H/D rows
+    of JAX's placement.  Otherwise the styled rows move back to JAX's
+    placement in one ``relayout_rows`` before the clamp.  The layers
+    exchange their halo rows over the axis and K1 runs in its halo-rows
+    mode (``parallel/spatial.py``).  A block needs at least 8 rows (the
+    9×9 stem's reflect): ``ValueError`` below that, naming the least H
+    for this D (8·D).  A frame whose H is not a multiple of 4 comes out
+    4·⌈H/4⌉ rows high, as the unsharded model's does, in JAX's placement
+    of those rows (``parallel.spatial.placement``: ⌈4·⌈H/4⌉/D⌉ a rank, the
+    last ones shorter where D does not divide them; pass their rows to
+    ``gather_rows`` as ``sizes``)."""
+    from vst_tpu_torch.parallel import spatial as sp
 
     ctx = _spatial_setup(model, mesh, axis)
-    out = model(_on_model(model, shard_spatial(mesh, x, axis)), spatial=ctx)
-    return _finish(out[-1] if isinstance(out, tuple) else out, False)
+    x = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+    ctx.bounds = sp.layout_for(ctx, x.shape[1], 4, "stylize_spatial_sharded")
+    start, end = ctx.bounds[ctx.index]
+    out = model(_on_model(model, x[:, start:end]), spatial=ctx)
+    out = out[-1] if isinstance(out, tuple) else out
+    # every block but the last holds whole units, so keeps its rows; the
+    # last ends at the output's 4·⌈H/4⌉
+    h_out = -(-x.shape[1] // 4) * 4
+    src = ctx.bounds[:-1] + ((ctx.bounds[-1][0], h_out),)
+    out = sp.relayout_rows(ctx, out, src, sp.placement(h_out, ctx.size))
+    return _finish(out, False)
 
 
 @torch.inference_mode()

@@ -423,7 +423,7 @@ def residual_block_fused(x, w1, b1, g1, bt1, w2, b2, g2, bt2, spatial=None):
     else:
         from vst_tpu_torch.parallel import spatial as sp
 
-        count = x.shape[1] * spatial.size * x.shape[2]
+        count = x.shape[1] * x.shape[2]   # the block's; the frame's below
         # each launch's input: one row a side from the exchange (reflected
         # at a frame edge) and the W border reflected, (N, R+2, W+2, C)
         y1, sums = conv3x3_in_stats_halo(

@@ -44,10 +44,13 @@ def _spatial_mean_std(f, spatial=None):
     _, h, w, _ = x.shape
     if spatial is None:
         m = x.mean(dim=(1, 2))
+        count = h * w
     else:
-        h *= spatial.size
-        m = _sum_hw(x, spatial) / (h * w)
-    var = _sum_hw(torch.square(x - m[:, None, None, :]), spatial) / (h * w - 1)
+        from vst_tpu_torch.parallel.spatial import all_reduce_sum_count
+
+        total, count = all_reduce_sum_count(spatial, x.sum(dim=(1, 2)), h * w)
+        m = total / count
+    var = _sum_hw(torch.square(x - m[:, None, None, :]), spatial) / (count - 1)
     return m, torch.sqrt(var)
 
 
@@ -85,8 +88,11 @@ def image_similarity_loss(fc1, fc2, fcs1, fcs2, mesh=None, spatial=None):
     """Frame-pair similarity-structure preservation
     (AdaAttN/lossfn.py:41-53): a sum over the batch, multiplied by the
     number of shards when the batch is this rank's shard of ``mesh``."""
-    n = fc1.shape[1] * fc1.shape[2] * (1 if spatial is None else
-                                       spatial.size)
+    n = fc1.shape[1] * fc1.shape[2]
+    if spatial is not None:
+        from vst_tpu_torch.parallel.spatial import frame_count
+
+        n = frame_count(spatial, n, fc1)
     d_c = cosine_distance(fc1, fc2, spatial)
     d_cs = cosine_distance(fcs1, fcs2, spatial)
     d_c = d_c / d_c.sum(dim=1, keepdim=True)

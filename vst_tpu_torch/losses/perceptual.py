@@ -36,14 +36,17 @@ def _share(loss, spatial):
 def mse(a: torch.Tensor, b: torch.Tensor, spatial=None) -> torch.Tensor:
     """torch.nn.MSELoss(reduction="mean"), taken in float32 (float64 when
     either input is float64).  ``spatial``: a and b are row blocks; this
-    rank's share Σ(a − b)² / (the frame's element count)."""
+    rank's share Σ(a − b)² / (the frame's element count: the block's
+    times the axis size, summed over the blocks on an uneven layout)."""
     if torch.float64 in (a.dtype, b.dtype):
         d = a.double() - b.double()
     else:
         d = a.float() - b.float()
     if spatial is None:
         return torch.mean(torch.square(d))
-    return torch.sum(torch.square(d)) / (d.numel() * spatial.size)
+    from vst_tpu_torch.parallel.spatial import frame_count
+
+    return torch.sum(torch.square(d)) / frame_count(spatial, d.numel(), d)
 
 
 def reconet_content_loss(styled_feats, content_feats, tap_index: int = 2,
@@ -120,6 +123,9 @@ def rtnstv_spatial_loss(content_feats, styled_feats, style_grams, styled,
     if spatial is None:
         reg = torch.mean(tv)
     else:
+        from vst_tpu_torch.parallel.spatial import frame_count
+
         n, r, w, c = x.shape
-        reg = torch.sum(tv) / (n * (r * spatial.size - 1) * (w - 1) * c)
+        h = frame_count(spatial, r, tv)
+        reg = torch.sum(tv) / (n * (h - 1) * (w - 1) * c)
     return content, _share(style, spatial) * beta, reg * gamma

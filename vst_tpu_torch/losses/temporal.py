@@ -21,10 +21,10 @@ global batch's loss.
 Each takes ``spatial=`` (``parallel/spatial.py``): the inputs are this
 rank's row blocks of H-sharded frames (the flow and mask too), the flow
 and mask are resized inside the block (FTL's integer factor 4 needs no
-exchange), the warp gathers its source over the axis (``ops/warp.py``),
-and the mask counts are totals over the data and space axes of the mesh
-(``batch_total``); each returns this rank's share, the shares summing
-over the space axis.
+exchange; ``ops/resize.py`` handles the rest), the warp gathers its
+source over the axis (``ops/warp.py``), and the mask counts are totals
+over the data and space axes of the mesh (``batch_total``); each returns
+this rank's share, the shares summing over the space axis.
 """
 
 import torch
@@ -55,9 +55,18 @@ def reconet_feature_temporal_loss(feature_map1, feature_map2, flow, mask,
     h, w = flow.shape[1:3]
     acc = _acc(flow).dtype
     scale = torch.tensor([wf / w, hf / h], dtype=acc, device=flow.device)
-    feature_flow = resize_bilinear(_acc(flow), (hf, wf), spatial) * scale
-    warped = warp(feature_map1, feature_flow, spatial=spatial)
-    fmask = resize_bilinear(_acc(mask)[..., None], (hf, wf), spatial)
+    blocks = None
+    if spatial is not None:
+        from vst_tpu_torch.parallel.spatial import level_rows
+
+        # the flow's, the mask's and the feature maps' blocks, for the
+        # resizes and the warp
+        blocks = level_rows(spatial, h, hf)
+    feature_flow = resize_bilinear(_acc(flow), (hf, wf), spatial,
+                                   blocks) * scale
+    warped = warp(feature_map1, feature_flow, spatial=spatial,
+                  sizes=None if blocks is None else [o for _, o in blocks])
+    fmask = resize_bilinear(_acc(mask)[..., None], (hf, wf), spatial, blocks)
     fmask = (fmask > 0).to(acc).expand(feature_map1.shape)
     err = torch.square(_acc(feature_map2) - _acc(warped))
     count = batch_total(mesh, torch.count_nonzero(fmask).to(acc))
@@ -70,9 +79,16 @@ def reconet_output_temporal_loss(img1n, img2n, styled1n, styled2n, flow,
     images are already vgg-normalized, as in the reference, which
     normalizes before warping."""
     mesh = _count_mesh(mesh, spatial)
+    sizes = None
+    if spatial is not None:
+        from vst_tpu_torch.parallel.spatial import level_rows
+
+        # both warps' blocks
+        sizes = [r for r, in level_rows(spatial, img1n.shape[1])]
     output_term = _acc(styled2n) - _acc(warp(styled1n, flow,
-                                             spatial=spatial))
-    input_term = _acc(img2n) - _acc(warp(img1n, flow, spatial=spatial))
+                                             spatial=spatial, sizes=sizes))
+    input_term = _acc(img2n) - _acc(warp(img1n, flow, spatial=spatial,
+                                         sizes=sizes))
     luma = rgb_to_luma709(input_term)[..., None].expand(output_term.shape)
     cmask = _acc(mask)[..., None].expand(output_term.shape)
     loss = torch.sum(cmask * torch.square(output_term - luma))

@@ -53,9 +53,9 @@ from vst_tpu_torch.kernels import adaattn_attention
 from vst_tpu_torch.models.init import as_rng, conv_init
 from vst_tpu_torch.models.remat import segment
 from vst_tpu_torch.ops.conv import conv2d, conv2d_reflect
-from vst_tpu_torch.ops.features import feature_down_sample
+from vst_tpu_torch.ops.features import feature_down_sample, pyramid_rows
 from vst_tpu_torch.ops.norm import instance_norm
-from vst_tpu_torch.ops.resize import resize_bilinear
+from vst_tpu_torch.ops.resize import upsample_bilinear2
 
 V_DIMS = (256, 512, 512)
 QK_DIMS = (64 + 128 + 256, 64 + 128 + 256 + 512, 64 + 128 + 256 + 512 + 512)
@@ -341,7 +341,7 @@ def stylizing_network_cached(params, fc, states, activation="cosine",
 # ----------------------------------------------------------------- decoder
 
 def _up2(x, spatial=None):
-    return resize_bilinear(x, (x.shape[1] * 2, x.shape[2] * 2), spatial)
+    return upsample_bilinear2(x, spatial)
 
 
 def decoder(params, x5, x4, x3, spatial=None):
@@ -385,11 +385,12 @@ def stylizing_network(params, fc: dict, fs: dict, activation="softmax",
         remat)
     run_decoder = segment(
         lambda x5, x4, x3: decoder(params, x5, x4, x3, spatial), remat)
+    rows = pyramid_rows(fcl, spatial)
     outs = []
     for i in range(3):
         idx = i + 2
         outs.append(run_module(i, fcl[idx], fsl[idx],
-                               feature_down_sample(fcl, idx, spatial),
+                               feature_down_sample(fcl, idx, spatial, rows),
                                feature_down_sample(fsl, idx)))
     return run_decoder(outs[2], outs[1], outs[0])
 

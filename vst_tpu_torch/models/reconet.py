@@ -22,8 +22,10 @@ JAX package leaves them to XLA.
 ``forward(x, spatial=ctx)`` (``parallel/spatial.py``) runs the model over
 this rank's row block of an H-sharded frame: every layer exchanges its
 halo rows, the instance norms all-reduce their sums, and the residual
-blocks run K1's halo-rows mode.  H must divide by 4 times the axis size,
-with at least 8 rows a block.  It serves, and differentiates for the data
+blocks run K1's halo-rows mode.  The block starts on a multiple of 4 rows
+and, but for the frame's last block, holds whole 4-row units
+(``parallel/spatial.py::row_layout``, which ``stylize_spatial_sharded``
+and the train steps lay out).  It serves, and differentiates for the data
 × space flow step (``train/steps.py``): the exchanges, all-reduces and
 K1's halo-rows mode carry their gradients.
 """

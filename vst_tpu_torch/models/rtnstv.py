@@ -21,9 +21,9 @@ to XLA.
 
 ``forward(x, spatial=ctx)`` (``parallel/spatial.py``) runs the network
 over this rank's row block of an H-sharded frame, every layer exchanging
-its halo rows and the residual blocks on K1's halo-rows mode; H must
-divide by 4 times the axis size, with at least 8 rows a block.  It
-serves, and every layer carries its gradient: ``train/steps.py``'s
+its halo rows and the residual blocks on K1's halo-rows mode; the block
+starts on a multiple of 4 rows and, but for the frame's last block, holds
+whole 4-row units (``parallel/spatial.py::row_layout``).  It serves, and every layer carries its gradient: ``train/steps.py``'s
 ``make_rtnstv_step`` trains on it over a data × space mesh.
 """
 

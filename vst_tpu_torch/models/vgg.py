@@ -15,9 +15,12 @@ VGG16 takes input the caller has normalized (the ReCoNet trainers call
 
 ``forward(x, spatial=ctx)`` (``parallel/spatial.py``) encodes this rank's
 row block of an H-sharded frame: each zero-padded conv exchanges one row
-a side, the pools need an even block (R a multiple of 2 to the number of
-pools before the last tap: 8 for VGG16's relu4_3, 16 for VGG19's
-relu5_1), and the taps come back as row blocks.  It differentiates (the
+a side, the pools need the block to start on a multiple of 2 to the
+number of pools before the last tap (8 for VGG16's relu4_3, 16 for
+VGG19's relu5_1) and, but for the frame's last block, to hold whole
+units of it (``parallel/spatial.py::row_layout``; the last block floors
+as the unsharded pools floor the frame), and the taps come back as row
+blocks.  It differentiates (the
 exchange's backward), so the train steps' losses run on it over a space
 axis; AdaAttN's content side also serves on it.
 """
@@ -122,8 +125,9 @@ class _VGGTaps(nn.Module):
 
     @classmethod
     def row_multiple(cls) -> int:
-        """2 to the number of pools before the last tap: what a row block's
-        height must divide by."""
+        """2 to the number of pools before the last tap: the row unit a
+        block's start (and, but for the last block, its height) must be a
+        multiple of."""
         last = max(cls.TAPS.values())
         return 2 ** sum(kind == "pool" and idx < last
                         for idx, kind, _, _ in _layer_table(cls.CFG))

@@ -9,18 +9,24 @@ layers keep the JAX package's f=4 polyphase packing, because the packed
 3×3 VALID conv is what kernel K2 (``kernels/head_conv.py``) computes.
 
 Each layer takes ``spatial=``, a ``parallel/spatial.py::SpatialContext``:
-x is then this rank's block of R rows of an H-sharded frame, and the
-layer takes the rows it reads beyond the block from its neighbours,
-padding only at the frame's global edges:
+x is then this rank's block of an H-sharded frame, its first row at level
+0 a multiple of the entry's unit (``row_layout``), and the layer takes the
+rows it reads beyond the block from its neighbours, padding only at the
+frame's global edges.  Every block but the last holds whole units, so
+only the bottom block can hold an odd count of rows at some level, and it
+is padded there as the unsharded layer pads the frame:
 
 - reflect k×k stride 1: k//2 rows a side, reflected at an edge;
-- reflect 3×3 stride 2: 1 row above, none below (R even);
-- 9×9 through K2: 4 rows a side, packed with the block (R a multiple of 4);
+- reflect 3×3 stride 2: 1 row above and none below (every block's start
+  even); an odd bottom block also one row below, reflected at the edge;
+- 9×9 through K2: 4 rows a side, packed with the block (any R, the zero
+  rows the packing adds below feeding only outputs that are cut);
 - nearest ×2 + reflect 3×3: 1 upsampled row a side, repeated at an edge
   (the upsampled frame's reflection);
 - transposed conv k3 s2 p1 op1: 1 row below, zero at the bottom edge;
 - zero-padded conv: p rows above and k−1−p below, zero at an edge;
-- max pool 2×2 s2: none (R even).
+- max pool 2×2 s2: none (every block's start even; an odd bottom block
+  floors at the edge, as the unsharded pool floors the frame).
 
 The W border is padded as in the unsharded layer, in the same copy as the
 rows (``parallel/spatial.py::exchange_rows``), so the conv reads the layout
@@ -52,6 +58,14 @@ def _sp():
     from vst_tpu_torch.parallel import spatial
 
     return spatial
+
+
+def _check_whole(spatial, rows, k, what):
+    """A block other than the bottom one must hold whole windows of ``k``
+    rows (the layout gives it whole units)."""
+    if rows % k and not spatial.last:
+        raise ValueError(f"{what}: a block of {rows} rows that is not the "
+                         f"frame's last must divide by {k}")
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
@@ -103,12 +117,13 @@ def max_pool2d(x: torch.Tensor, window: int = 2, stride: int = 2,
                spatial=None) -> torch.Tensor:
     """``torch.nn.MaxPool2d(window, stride)`` (VALID) on NHWC.  Over a row
     block (``spatial``) each window lies in the block when window ==
-    stride and R divides by it."""
+    stride and the block starts on a multiple of it; the bottom block's
+    rows need not divide (the pool floors at the frame's edge)."""
     if spatial is not None:
         if window != stride:
             raise ValueError("max_pool2d over a row block: window == stride "
                              "only")
-        _sp().check_rows(spatial, x.shape[1], stride, "max_pool2d")
+        _check_whole(spatial, x.shape[1], stride, "max_pool2d")
     return _nhwc(F.max_pool2d(_nchw(x), window, stride))
 
 
@@ -126,10 +141,13 @@ def conv2d_reflect(x: torch.Tensor, w: torch.Tensor,
     if stride == 1:
         above = below = pad
     elif stride == 2 and w.shape[-1] == 3:
-        # output row y reads input rows 2y-1 … 2y+1: with R and the block's
-        # first row even, one row above and none below
-        sp.check_rows(spatial, x.shape[1], 2, "stride-2 conv2d_reflect")
-        above, below = 1, 0
+        # output row y reads input rows 2y-1 … 2y+1: with the block's
+        # first row even, one row above, and none below but on an odd
+        # bottom block, whose last output reads the reflected row under it
+        r = x.shape[1]
+        _check_whole(spatial, r, 2, "stride-2 conv2d_reflect")
+        above = 1
+        below = [0] * (spatial.size - 1) + [r % 2 if spatial.last else 0]
     else:
         raise ValueError("conv2d_reflect over a row block: stride 1, or a "
                          "3×3 kernel at stride 2")
@@ -186,9 +204,11 @@ def conv2d_polyphase_reflect(x: torch.Tensor, w: torch.Tensor,
     padded input; the outputs they feed lie outside (H, W) and are cut
     off, so every size goes through the same kernel.
 
-    ``spatial``: x is a row block of R rows, R a multiple of f; its f rows
-    a side come from the neighbours (reflected at a global edge, which
-    needs R > f) and are packed with it, so K2 runs unchanged."""
+    ``spatial``: x is a row block of R rows, any R; its f rows a side
+    come from the neighbours (reflected at a global edge, which needs
+    R > f) and are packed with it, so K2 runs unchanged; where R is not a
+    multiple of f the packing's zero rows lie below those f rows and feed
+    only outputs that are cut, as in the unsharded frame."""
     f = factor
     cout, cin, k, _ = w.shape
     if k != 2 * f + 1:
@@ -199,9 +219,7 @@ def conv2d_polyphase_reflect(x: torch.Tensor, w: torch.Tensor,
     if spatial is None:
         xp = reflection_pad2d(x, f)
     else:
-        sp = _sp()
-        sp.check_rows(spatial, h, f, "conv2d_polyphase_reflect")
-        xp = sp.exchange_rows(spatial, x, f, f, "reflect", f)
+        xp = _sp().exchange_rows(spatial, x, f, f, "reflect", f)
     if (hq * f, wq * f) != (h, wd):
         xp = F.pad(xp, (0, 0, 0, wq * f - wd, 0, hq * f - h))
     packed = xp.reshape(n, hq + 2, f, wq + 2, f, cin).permute(

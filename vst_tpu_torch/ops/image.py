@@ -37,15 +37,18 @@ def _gram(y: torch.Tensor) -> torch.Tensor:
 
 def _gram_over(y: torch.Tensor, scale: int, spatial) -> torch.Tensor:
     """FᵀF / (scale·H·W); with ``spatial`` (``parallel/spatial.py``) y is
-    this rank's row block: its FᵀF divided by the frame's scale·H·W and
-    all-reduced over the axis, so every rank holds the frame's Gram (the
-    all-reduce's backward gives each block its gradient)."""
+    this rank's row block: its FᵀF all-reduced over the axis, with the
+    block's H·W riding on the same all-reduce where the layout is uneven
+    (``all_reduce_sum_count``), then divided by the frame's scale·H·W, so
+    every rank holds the frame's Gram (the all-reduce's backward gives
+    each block its gradient)."""
     _, h, w, _ = y.shape
     if spatial is None:
         return _gram(y) / (scale * h * w)
-    from vst_tpu_torch.parallel.spatial import all_reduce_sum
+    from vst_tpu_torch.parallel.spatial import all_reduce_sum_count
 
-    return all_reduce_sum(spatial, _gram(y) / (scale * h * spatial.size * w))
+    total, count = all_reduce_sum_count(spatial, _gram(y), h * w)
+    return total / (scale * count)
 
 
 def gram_matrix(y: torch.Tensor, spatial=None) -> torch.Tensor:

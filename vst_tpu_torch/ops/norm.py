@@ -16,7 +16,10 @@ def instance_norm(x: torch.Tensor, scale: torch.Tensor | None = None,
     block's Σx is all-reduced over the axis into the frame's mean, then
     its Σ(x − mean)² into the variance: the unsharded two passes, two
     small all-reduces, whose backward all-reduces the statistics'
-    gradients (``parallel/spatial.py::all_reduce_sum``)."""
+    gradients (``parallel/spatial.py::all_reduce_sum``).  The count is
+    the frame's H·W: the block's times the axis size, or, on an uneven
+    layout, the blocks' summed in the first all-reduce
+    (``all_reduce_sum_count``)."""
     acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     xf = x.to(acc)
     if spatial is None:
@@ -25,9 +28,10 @@ def instance_norm(x: torch.Tensor, scale: torch.Tensor | None = None,
     else:
         from vst_tpu_torch.parallel import spatial as sp
 
-        count = x.shape[1] * spatial.size * x.shape[2]
-        mean = sp.all_reduce_sum(spatial, xf.sum(dim=(1, 2),
-                                                 keepdim=True)) / count
+        total, count = sp.all_reduce_sum_count(
+            spatial, xf.sum(dim=(1, 2), keepdim=True),
+            x.shape[1] * x.shape[2])
+        mean = total / count
         var = sp.all_reduce_sum(spatial, (xf - mean).square().sum(
             dim=(1, 2), keepdim=True)) / count
     out = (xf - mean) * torch.reciprocal(torch.sqrt(var + eps))

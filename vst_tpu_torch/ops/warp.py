@@ -46,7 +46,8 @@ def _normalize(v, h, w):
 
 
 def warp(x: torch.Tensor, flow: torch.Tensor,
-         padding_mode: str = "zeros", spatial=None) -> torch.Tensor:
+         padding_mode: str = "zeros", spatial=None,
+         sizes=None) -> torch.Tensor:
     """Backward-warp ``x`` (N, H, W, C) by ``flow`` (N, H, W, 2), channels
     (fx, fy): sample x at pixel grid + flow (ReCoNet/utilities.py:39-57).
 
@@ -54,17 +55,22 @@ def warp(x: torch.Tensor, flow: torch.Tensor,
     blocks of R rows.  A flow vector may point anywhere in the frame, so
     the source is gathered over the axis (``gather_rows``, whose backward
     reduce-scatters its gradient), and the grid holds this block's rows
-    at the frame's coordinates (from row index·R, normalized by the
-    frame's H); the result is this block's rows."""
+    at the frame's coordinates (from the block's first row, the rows of
+    the blocks before it, normalized by the frame's H); the result is
+    this block's rows.  ``sizes``: every block's rows, where the caller
+    has them; by default from ``level_rows`` (one all-gather where the
+    layout is uneven)."""
     _, h, w, _ = x.shape
     acc = _acc_dtype(x)
     if spatial is None:
         grid = _pixel_grid(h, w, acc, x.device)[None] + flow.to(acc)
         return grid_sample_bilinear(x, _normalize(grid, h, w), padding_mode)
-    from vst_tpu_torch.parallel.spatial import gather_rows
+    from vst_tpu_torch.parallel.spatial import gather_rows, level_rows
 
-    src = gather_rows(spatial, x)
-    grid = (_pixel_grid(h, w, acc, x.device, spatial.index * h)[None]
+    if sizes is None:
+        sizes = [r for r, in level_rows(spatial, h)]
+    src = gather_rows(spatial, x, sizes)
+    grid = (_pixel_grid(h, w, acc, x.device, sum(sizes[:spatial.index]))[None]
             + flow.to(acc))
     return grid_sample_bilinear(src, _normalize(grid, src.shape[1], w),
                                 padding_mode)

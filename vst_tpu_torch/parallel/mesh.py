@@ -20,8 +20,11 @@ The device follows the process group's backend: NCCL on the rank's card
 which a caller gets only by asking for the CPU.
 
 Spatial parallelism: ``shard_spatial`` gives each rank its contiguous H
-rows (dim 1) of every NHWC leaf; the layers then exchange their halo rows
-themselves (``parallel/spatial.py``).  ``shard_batch_spatial`` shards a
+rows (dim 1) of every NHWC leaf, rank i the rows i·H/D … (i+1)·H/D − 1
+(JAX's placement; H must divide by D); the layers then exchange their
+halo rows themselves (``parallel/spatial.py``), on a layout of whole row
+units that the entry points move the rows into where it differs
+(``row_layout``, ``relayout_rows``).  ``shard_batch_spatial`` shards a
 batch on both axes of a ("data", "space") mesh for training: every
 train step then sums its gradients and metrics over "space" and averages
 them over "data" (``all_reduce_sum``, ``all_reduce_mean``), and its mask
@@ -152,7 +155,9 @@ def shard_batch(mesh: Mesh, tree, axis: str = "data"):
 def shard_spatial(mesh: Mesh, tree, axis: str = "space"):
     """This rank's contiguous H slice (dim 1) of every NHWC leaf (tensor
     or array) of ``tree``, on the rank's device: the frame sharded over
-    ``axis``.  Only those rows are copied to the device."""
+    ``axis``, rank i the rows i·H/D … (i+1)·H/D − 1 (JAX's placement;
+    ``ValueError`` where D does not divide H).  Only those rows are copied
+    to the device."""
     n, i = mesh.shape[axis], mesh.index[axis]
 
     def take(x):

@@ -41,13 +41,19 @@ matrices, the style's features) divided by the space axis's size.  The
 AdaAttN steps gather the style's rows back (``gather_rows``) and encode
 it whole on every rank, as JAX replicates it; each attention level runs
 the block's queries against the whole style (K3, K4, K5).  H must divide
-by the VGG's row multiple times the space axis's size: 8 for ReCoNet's
-VGG16 (three pools before relu4_3) and RTNSTV's VGG19 (before relu4_2),
-16 for AdaAttN's VGG19 (four before relu5_1); a builder raises
-``ValueError`` naming it.
+by the space axis's size D, JAX's own rule.  At entry the step moves the
+placed frames (and flow and mask) into its row layout
+(``parallel/spatial.py::row_layout``), blocks of whole units of m rows
+with any remainder on the last, m = 8 for ReCoNet and RTNSTV (the
+stylizer's two stride-2 layers and the VGG's three pools before relu4_3
+or relu4_2), 16 for AdaAttN (VGG19's four pools before relu5_1): one
+``relayout_rows``, which moves nothing where m·D divides H.  A block
+needs at least max(m, 8) rows; below that a builder raises
+``ValueError`` naming the least H for D (m·D, and 8·D where m = 4).
 """
 
 import copy
+import math
 
 import torch
 
@@ -56,11 +62,12 @@ from vst_tpu_torch.models import adaattn as adaattn_m
 from vst_tpu_torch.models import reconet as reconet_m
 from vst_tpu_torch.models import vgg as vgg_m
 from vst_tpu_torch.models.remat import segment
-from vst_tpu_torch.ops.features import feature_down_sample
+from vst_tpu_torch.ops.features import feature_down_sample, pyramid_rows
 from vst_tpu_torch.ops.image import gram_matrix, gram_matrix_hw, vgg_normalize
 from vst_tpu_torch.parallel.mesh import all_reduce_mean, all_reduce_sum
-from vst_tpu_torch.parallel.spatial import (SpatialContext, check_rows,
-                                            gather_rows)
+from vst_tpu_torch.parallel.spatial import (SpatialContext, gather_rows,
+                                            layout_for, placement,
+                                            relayout_rows)
 from vst_tpu_torch.train.state import TrainState, apply_gradients
 
 # family name → model class (in JAX: → forward function)
@@ -133,13 +140,24 @@ def _space(mesh):
     return SpatialContext(mesh)
 
 
-def _check_block(spatial, x, vgg, what):
-    """With ``spatial``: raise ``ValueError`` unless the block's rows of
-    the batch image ``x`` divide by the VGG's row multiple (2 to its pools
-    before the last tap)."""
-    if spatial is not None:
-        check_rows(spatial, x.shape[1], vgg.row_multiple(),
-                   f"{what} ({type(vgg).__name__}'s pools)")
+def _unit(vgg, stylizer=4):
+    """A step's row unit: 2 to the stylizer's stride-2 layers (ReCoNet's
+    and RTNSTV's two; AdaAttN's content meets none: ``stylizer=1``) and
+    to the VGG's pools before its last tap, whichever needs more."""
+    return math.lcm(stylizer, vgg.row_multiple())
+
+
+def _place(spatial, batch, unit, what, n):
+    """The frame's row layout over ``spatial`` (``row_layout`` of H, the
+    placed block's rows times the axis size, in units of ``unit`` rows;
+    ``ValueError`` below its least H), set on it for the step, and the
+    first ``n`` batch entries moved into it from JAX's placement, all in
+    one ``relayout_rows`` (nothing moves where unit·D divides H)."""
+    h = batch[0].shape[1] * spatial.size
+    spatial.bounds = layout_for(spatial, h, unit, what)
+    moved = relayout_rows(spatial, list(batch[:n]),
+                          placement(h, spatial.size), spatial.bounds)
+    return [*moved, *batch[n:]]
 
 
 def _reconet_losses(cfg, vgg, style_grams, outs1, outs2, img1, img2, flow,
@@ -201,13 +219,12 @@ def make_reconet_flow_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
     """ReCoNet single- and multi-frame flow trainer (train_candy.py:32-170);
     batch (img1, img2, flow, mask).  A ``mesh`` with a "space" axis trains
     data × space (module docstring): the batch is this rank's
-    ``shard_batch_spatial`` block, whose rows must divide by 8."""
+    ``shard_batch_spatial`` block, moved into 8-row units at entry."""
     grams = _grams_on(style_grams, vgg)
     spatial = _space(mesh)
     fwd = _stylizer(cfg, spatial)
 
     def loss_fn(net, vgg, img1, img2, flow, mask):
-        _check_block(spatial, img1, vgg, "make_reconet_flow_step")
         # one stylizer pass over both frames (instance norm is per sample)
         n = img1.shape[0]
         _, fmap, styled = fwd(net, torch.cat([img1, img2]))
@@ -215,20 +232,21 @@ def make_reconet_flow_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
                                (fmap[n:], styled[n:]), img1, img2, flow,
                                mask, mesh, spatial)
 
-    return _make_step(cfg, vgg, loss_fn, n_images=2, mesh=mesh)
+    return _make_step(cfg, vgg, loss_fn, n_images=2, mesh=mesh,
+                      spatial=spatial,
+                      place=(_unit(vgg), "make_reconet_flow_step", 4))
 
 
 def make_reconet_coco_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
                            mesh=None):
     """Image-only content + style trainer (train_coco2014.py:28-105);
     batch: the images.  A ``mesh`` with a "space" axis trains data × space
-    (module docstring; rows a multiple of 8)."""
+    (module docstring; 8-row units)."""
     grams = _grams_on(style_grams, vgg)
     spatial = _space(mesh)
     fwd = _stylizer(cfg, spatial)
 
     def loss_fn(net, vgg, img):
-        _check_block(spatial, img, vgg, "make_reconet_coco_step")
         styled = fwd(net, img)[-1]
         sn, inorm = vgg_normalize(styled), vgg_normalize(img)
         # one batched VGG pass over [styled, content]
@@ -244,7 +262,9 @@ def make_reconet_coco_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
         total = content + style
         return total, {"CL": content, "SL": style, "loss": total}
 
-    return _make_step(cfg, vgg, loss_fn, mesh=mesh)
+    return _make_step(cfg, vgg, loss_fn, mesh=mesh,
+                      spatial=spatial,
+                      place=(_unit(vgg), "make_reconet_coco_step", 1))
 
 
 def make_reconet_distill_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
@@ -257,15 +277,14 @@ def make_reconet_distill_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
     logged as ``SDL`` and left out of the total unless
     ``cfg.include_sd_in_total``; where the taps' shapes differ (the SD1
     stage) it is NaN.  A ``mesh`` with a "space" axis trains data × space
-    (module docstring; rows a multiple of 8), the teacher on the same row
-    blocks; the SD loss is then each rank's share."""
+    (module docstring; 8-row units), the teacher on the same row blocks;
+    the SD loss is then each rank's share."""
     grams = _grams_on(style_grams, vgg)
     frozen_teacher = _frozen(teacher, DTYPES[cfg.dtype])
     spatial = _space(mesh)
     fwd = _stylizer(cfg, spatial)
 
     def loss_fn(net, vgg, img1, img2, flow, mask):
-        _check_block(spatial, img1, vgg, "make_reconet_distill_step")
         # frame-pair forwards in one batch (instance norm is per sample)
         n = img1.shape[0]
         pair = torch.cat([img1, img2])
@@ -288,7 +307,9 @@ def make_reconet_distill_step(cfg, vgg: vgg_m.VGG16ReCoNet, style_grams,
         metrics["SDL"] = sd
         return total, metrics
 
-    return _make_step(cfg, vgg, loss_fn, n_images=2, mesh=mesh)
+    return _make_step(cfg, vgg, loss_fn, n_images=2, mesh=mesh,
+                      spatial=spatial,
+                      place=(_unit(vgg), "make_reconet_distill_step", 4))
 
 
 # ------------------------------------------------------------ RTNSTV
@@ -309,14 +330,12 @@ def make_rtnstv_step(cfg, vgg: vgg_m.VGG19RTNSTV, style_grams, mesh=None):
     [img1, img2, styled1, styled2] (instance norm is per sample, VGG has
     no cross-batch op); each frame's spatial loss, the temporal loss on
     the 0–255 styled pair.  A ``mesh`` with a "space" axis trains data ×
-    space (module docstring; rows a multiple of 8, which covers RTNSTV's
-    own 4)."""
+    space (module docstring; 8-row units, which cover RTNSTV's own 4)."""
     grams = _grams_on(style_grams, vgg)
     spatial = _space(mesh)
     fwd = _stylizer(cfg, spatial)
 
     def loss_fn(net, vgg, img1, img2, flow, mask):
-        _check_block(spatial, img1, vgg, "make_rtnstv_step")
         n = img1.shape[0]
         styled = fwd(net, torch.cat([img1, img2]))
         styled1, styled2 = styled[:n], styled[n:]
@@ -338,7 +357,9 @@ def make_rtnstv_step(cfg, vgg: vgg_m.VGG19RTNSTV, style_grams, mesh=None):
         return total, {"CL": content, "SL": style, "RL": reg, "TL": tl,
                        "loss": total}
 
-    return _make_step(cfg, vgg, loss_fn, n_images=2, mesh=mesh)
+    return _make_step(cfg, vgg, loss_fn, n_images=2, mesh=mesh,
+                      spatial=spatial,
+                      place=(_unit(vgg), "make_rtnstv_step", 4))
 
 
 # ------------------------------------------------------------ AdaAttN
@@ -384,16 +405,23 @@ def _adaattn_gs_lf(cfg, vgg, fc, fs, cs, vgg_feats, no_conv_target,
 
     fcl = list(fc.values())
     fsl = list(fs.values())
+    rows = pyramid_rows(fcl, spatial)
     loss_lf = 0.0
     for i in range(3):
         idx = i + 2
         target = no_conv_target(fcl[idx], fsl[idx],
-                                feature_down_sample(fcl, idx, spatial),
+                                feature_down_sample(fcl, idx, spatial, rows),
                                 feature_down_sample(fsl, idx))
         loss_lf = loss_lf + losses.local_feature_loss(fcs[f"relu{i + 3}_1"],
                                                       target, spatial)
     loss_lf = loss_lf * cfg.lambda_l
     return fcs, loss_gs, loss_lf
+
+
+def _gather_style(spatial, style):
+    """The whole style from its blocks in JAX's placement, H/D rows each
+    (``gather_rows`` with those sizes: no collective to learn them)."""
+    return gather_rows(spatial, style, [style.shape[1]] * spatial.size)
 
 
 def _split(f, *bounds):
@@ -411,11 +439,14 @@ def _reduce(mesh, tensors):
     return tensors
 
 
-def _make_step(cfg, vgg, loss_fn, n_images=None, mesh=None):
+def _make_step(cfg, vgg, loss_fn, n_images=None, mesh=None, spatial=None,
+               place=None):
     """``step(state, batch)`` around ``loss_fn(net, vgg, *batch)``; the
     first ``n_images`` batch entries (all by default) are cast to
     ``cfg.dtype``, the others only moved to the device.  A batch that is
-    one array is a batch of one entry.
+    one array is a batch of one entry.  ``spatial``, the loss's context
+    over the mesh's "space" axis, and ``place`` = (unit, name, n): the
+    first n entries move into the step's row layout first (``_place``).
 
     With a ``mesh`` (data parallelism, ``parallel/mesh.py``) the batch is
     this rank's shard of the global batch.  After the backward the float32
@@ -441,6 +472,8 @@ def _make_step(cfg, vgg, loss_fn, n_images=None, mesh=None):
         k = len(batch) if n_images is None else n_images
         batch = ([_cast_tree(x, dtype).to(dev) for x in batch[:k]]
                  + [torch.as_tensor(x).to(dev) for x in batch[k:]])
+        if spatial is not None:
+            batch = _place(spatial, batch, *place)
         state.optimizer.zero_grad(set_to_none=True)
         total, metrics = loss_fn(cast(state.model), frozen, *batch)
         total.backward()
@@ -461,7 +494,7 @@ def _make_step(cfg, vgg, loss_fn, n_images=None, mesh=None):
 def make_adaattn_image_step(cfg, vgg: vgg_m.VGG19AdaAttN, mesh=None):
     """AdaAttN image-mode trainer (AdaAttN/train_image.py:25-125); batch
     (content, style).  A ``mesh`` with a "space" axis trains data × space
-    (module docstring; rows a multiple of 16)."""
+    (module docstring; 16-row units)."""
     spatial = _space(mesh)
     vgg_feats, stylize, no_conv_target = _adaattn_fwds(cfg, spatial)
 
@@ -472,16 +505,16 @@ def make_adaattn_image_step(cfg, vgg: vgg_m.VGG19AdaAttN, mesh=None):
             fc, fs = _split(vgg_feats(vgg, torch.cat([content, style])),
                             (0, n), (n, None))
         else:
-            _check_block(spatial, content, vgg, "make_adaattn_image_step")
             fc = vgg_feats(vgg, content, spatial)
-            fs = vgg_feats(vgg, gather_rows(spatial, style))
+            fs = vgg_feats(vgg, _gather_style(spatial, style))
         cs = stylize(net, fc, fs)
         _, loss_gs, loss_lf = _adaattn_gs_lf(cfg, vgg, fc, fs, cs, vgg_feats,
                                              no_conv_target, spatial=spatial)
         total = loss_gs + loss_lf
         return total, {"loss_gs": loss_gs, "loss_lf": loss_lf, "loss": total}
 
-    return _make_step(cfg, vgg, loss_fn, mesh=mesh)
+    return _make_step(cfg, vgg, loss_fn, mesh=mesh, spatial=spatial,
+                      place=(_unit(vgg, 1), "make_adaattn_image_step", 1))
 
 
 def make_adaattn_video_step(cfg, vgg: vgg_m.VGG19AdaAttN, mesh=None):
@@ -489,7 +522,7 @@ def make_adaattn_video_step(cfg, vgg: vgg_m.VGG19AdaAttN, mesh=None):
     (content1, content2, style).  Global and local losses on frame 1 only;
     the image-similarity loss across the frame pair on relu2_1/3_1/4_1
     (:110-115).  A ``mesh`` with a "space" axis trains data × space
-    (module docstring; rows a multiple of 16)."""
+    (module docstring; 16-row units)."""
     spatial = _space(mesh)
     vgg_feats, stylize, no_conv_target = _adaattn_fwds(cfg, spatial)
 
@@ -501,10 +534,9 @@ def make_adaattn_video_step(cfg, vgg: vgg_m.VGG19AdaAttN, mesh=None):
                 vgg_feats(vgg, torch.cat([content1, content2, style])),
                 (0, n), (n, 2 * n), (2 * n, None))
         else:
-            _check_block(spatial, content1, vgg, "make_adaattn_video_step")
             fc1, fc2 = _split(vgg_feats(vgg, torch.cat([content1, content2]),
                                         spatial), (0, n), (n, None))
-            fs = vgg_feats(vgg, gather_rows(spatial, style))
+            fs = vgg_feats(vgg, _gather_style(spatial, style))
         # one stylizer pass over the frame pair (the style taps tiled;
         # attention, instance norm and decoder are per sample) and one VGG
         # pass over both stylized frames
@@ -523,4 +555,5 @@ def make_adaattn_video_step(cfg, vgg: vgg_m.VGG19AdaAttN, mesh=None):
         return total, {"loss_gs": loss_gs, "loss_lf": loss_lf,
                        "loss_is": loss_is, "loss": total}
 
-    return _make_step(cfg, vgg, loss_fn, mesh=mesh)
+    return _make_step(cfg, vgg, loss_fn, mesh=mesh, spatial=spatial,
+                      place=(_unit(vgg, 1), "make_adaattn_video_step", 2))
