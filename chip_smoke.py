@@ -66,7 +66,12 @@ result line):
    reflect-mode launch's; K2 on those blocks' packed stems and heads; K3,
    K4 and K5 at the query shards of a 272×256 b8 AdaAttN image step over
    2 ranks (144 and 128 rows) at its three attention levels
-   (``--spatial``);
+   (``--spatial``); and K4 and K5 at the ring backward's hop shapes, the
+   levels of the 512² b2 bf16 serving and the 256² b8 f32 training with
+   n and m cut by 4 (``ring_hop_shapes``: (2, 4096 / 1024 / 256 tokens,
+   ·) bf16 against the plain version, (8, 1024 / 256 / 64 tokens, ·) f32
+   against the float64 evaluation), each launched twice for the same
+   bits (``--scale-out`` runs these with the spatial cases);
 4. model: the f32 ReCoNet and RTNSTV forwards through the kernels against
    the same forwards through the plain versions at 1×256×256 (and, with
    grad mode on, the same kernels' outputs bit for bit), the f32 AdaAttN
@@ -151,8 +156,26 @@ result line):
    512×256 b4, within one uint8 step); the ring's ``fold_block`` of 4 key
    blocks through K3 against one K3 call at the 512² b2 bf16 levels (2 ×
    bf16's spacing of the largest M) and the 256² b8 f32 levels (1e-4),
-   L within 1e-5, 4 K3 launches a level; the world-1 sharded softmax and
-   cosine moments bit for bit the single-device ones; and a Chrome trace
+   L within 1e-5, 4 K3 launches a level; the ring's backward over 4 × 4
+   (query shard, key block) pairs in one process (``block_grads`` with
+   the global L and D of one K3 call over all keys, the dQ parts summed
+   over the blocks and the dK, dV parts over the shards in float32)
+   against one K4 + K5 call over all keys at the same levels (each
+   gradient within 1e-4 of its largest in f32 and 4 × bf16's spacing in
+   bf16, four bf16 parts summed), 16 K4 and 16 K5 launches a level, its
+   time beside the one call's; the world-1 sharded softmax and cosine
+   moments on ``requires_grad`` inputs at the 512² b2 bf16 levels, M1,
+   M2, dQ, dK and dV bit for bit the single-device ones (K3 1, K4 1, K5
+   1 a softmax level, none for cosine); one f32 gradient of a fixed loss
+   (the mean square of the output times a seeded cotangent) through
+   ``stylizing_network(..., mesh=make_mesh(1))`` at 256² b8 softmax
+   (AdaAttN seed 1, VGG19 seed 0) against ``mesh=None``, cuDNN
+   deterministic: the output and the attention outputs bit for bit, the
+   attention convs' gradients bit for bit for one cotangent of the
+   decoder's inputs (torch's bilinear and reflect-pad backwards in the
+   decoder accumulate with atomics, so two backwards differ), the decoder
+   gradients through ``backward()`` within 4 × the spread of three bare
+   runs, K3 3, K4 3 and K5 3 launches; and a Chrome trace
    of one 512² bf16 ReCoNet forward from ``utils.profiling.trace_context``
    that names K1's (``conv3x3_wgmma<true, …>``) and K2's
    (``conv3x3_wgmma<false, …>``) kernels, 10 and 2; then the spatial part
@@ -911,6 +934,34 @@ def phase_kernels_k45(g, parent=None):
         errs["K5" + suffix] = max(errs["K5" + suffix], e5)
     log("  K4 and K5, bf16 and f32: a second launch gives the same bits at "
         "every shape")
+    torch.cuda.synchronize()
+    return errs
+
+
+def ring_hop_shapes():
+    """The (query shard, key block) shapes of the ring's backward over
+    RING_BLOCKS ranks: K3_LEVELS (bf16, batch K3_BATCH) and TRAIN_LEVELS
+    (f32, batch TRAIN_BATCH) with n and m cut by RING_BLOCKS."""
+    return ([(torch.bfloat16, (K3_BATCH, n // RING_BLOCKS, n // RING_BLOCKS,
+                               d, c)) for n, d, c in K3_LEVELS]
+            + [(torch.float32, (TRAIN_BATCH, n // RING_BLOCKS,
+                                n // RING_BLOCKS, d, c))
+               for n, d, c in TRAIN_LEVELS])
+
+
+def phase_kernels_ring(g):
+    """[3]'s K4 and K5 at the ring backward's hop shapes
+    (``ring_hop_shapes``), launched twice for the same bits, against the
+    plain version (bf16, 2^-6 of each output's scale) and the float64
+    evaluation (f32, 1e-4), as ``phase_kernels_k45``."""
+    log("[3] K4 and K5 at the ring backward's hop shapes")
+    errs = {"K4/K5 ring hop": 0.0, "K4/K5 ring hop f32": 0.0}
+    for dtype, shape in ring_hop_shapes():
+        key = "K4/K5 ring hop" + ("" if dtype == torch.bfloat16 else " f32")
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        errs[key] = max(errs[key], *_k45_check(g, f"{tag} ring hop", dtype,
+                                               shape, 1.0, ""))
+    apply_precision(torch.bfloat16)
     torch.cuda.synchronize()
     return errs
 
@@ -2982,6 +3033,230 @@ def _ring_fold(g, tag, dtype, b, levels, tol):
     return max(errs), rows
 
 
+def _ring_backward(g, tag, dtype, b, levels, tol):
+    """The ring's backward over RING_BLOCKS × RING_BLOCKS (query shard,
+    key block) pairs in one process: each level's q split into
+    RING_BLOCKS shards and k, v into RING_BLOCKS blocks, every pair
+    through ``block_grads`` (K4 and K5) with the global L and D of one K3
+    call over all keys, the dQ parts summed over the blocks and the dK,
+    dV parts over the shards in float32, against one K4 + K5 call over
+    all keys: each gradient within ``tol`` of its largest (f32 1e-4;
+    bf16 4 × BF16_ULP, four bf16 parts summed); RING_BLOCKS² K4 and K5
+    launches a level.  Times the 4 × 4 backward beside the one call."""
+    from vst_tpu_torch.parallel.attention import block_grads
+
+    att = adaattn_attention
+    apply_precision(dtype)
+    errs, rows = [], []
+    for n, d, c in levels:
+        q, k, v = k3_inputs(g, b, n, n, d, c, dtype)
+        m1, m2, lse = att.softmax_attention_moments(q, k, v)
+        dm1, dm2 = rnd(g, (b, n, c), 1.0, dtype), rnd(g, (b, n, c), 1.0, dtype)
+        dd = att.row_term(m1, m2, dm1, dm2)
+        shards = [[t.contiguous() for t in ts] for ts in zip(
+            *(x.chunk(RING_BLOCKS, 1) for x in (q, lse, dd, dm1, dm2)))]
+        blocks = [(kb.contiguous(), vb.contiguous()) for kb, vb in
+                  zip(k.chunk(RING_BLOCKS, 1), v.chunk(RING_BLOCKS, 1))]
+
+        def one_call():
+            return (att.softmax_attention_dq(q, k, v, lse, dd, dm1, dm2),
+                    *att.softmax_attention_dkv(q, k, v, lse, dd, dm1, dm2))
+
+        def ring():
+            dq = [None] * RING_BLOCKS
+            dk, dv = [None] * RING_BLOCKS, [None] * RING_BLOCKS
+            for i, (qs, ls, ds, d1, d2) in enumerate(shards):
+                for j, (kb, vb) in enumerate(blocks):
+                    pq, pk, pv = block_grads(qs, kb, vb, ls, ds, d1, d2)
+                    for acc, idx, part in ((dq, i, pq), (dk, j, pk),
+                                           (dv, j, pv)):
+                        acc[idx] = (part.float() if acc[idx] is None
+                                    else acc[idx] + part.float())
+            return (torch.cat(dq, 1).to(dtype), torch.cat(dk, 1).to(dtype),
+                    torch.cat(dv, 1).to(dtype))
+
+        ref = one_call()
+        reset_counts()
+        ours = ring()
+        n_ring = counts()
+        pairs = RING_BLOCKS * RING_BLOCKS
+        if n_ring != (0, 0, 0, pairs, pairs):
+            raise AssertionError(f"ring backward {tag}: launches {n_ring}, "
+                                 f"not K4 {pairs} and K5 {pairs}")
+        name = (f"ring backward {tag} ({b},{n},{n},{d},{c}) / "
+                f"{RING_BLOCKS}×{RING_BLOCKS}")
+        errs.append(max(check(f"{name} {w}", a, r, tol)
+                        for w, a, r in zip(("dQ", "dK", "dV"), ours, ref)))
+        t_ring = event_ms(ring, 3, 1)
+        t_one = event_ms(one_call, 3, 1)
+        log(f"  {name}: {pairs} K4 + {pairs} K5 {t_ring:.3f} ms, one K4 + K5 "
+            f"call {t_one:.3f} ms")
+        rows.append({"shape": [b, n, n, d, c], "ring_bwd_ms": t_ring,
+                     "one_call_ms": t_one})
+        del q, k, v, shards, blocks, ours, ref
+    return max(errs), rows
+
+
+def _moment_grads(fn, q, k, v, cot):
+    """(M1, M2) of ``fn`` on fresh leaves of q, k, v and their gradients
+    for the cotangents ``cot``."""
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*ins)
+    return [t.detach() for t in out] + list(torch.autograd.grad(
+        out, ins, [c.to(out[0].dtype) for c in cot]))
+
+
+def _world1_moment_grads(g, mesh):
+    """``sharded_softmax_attention_moments`` and
+    ``sharded_cosine_attention_moments`` in the world-1 group on
+    ``requires_grad`` inputs at the 512² b2 bf16 levels: M1, M2 and dQ,
+    dK, dV bit for bit those of ``attention_moments`` without a mesh;
+    the sharded runs' launches (K3 1, K4 1, K5 1 a softmax level, none for
+    cosine) returned."""
+    from vst_tpu_torch.models.adaattn import attention_moments
+    from vst_tpu_torch.parallel.attention import (
+        sharded_cosine_attention_moments, sharded_softmax_attention_moments)
+
+    apply_precision(torch.bfloat16)
+    total = [0] * 5
+    for n, d, c in K3_LEVELS:
+        q, k, v = k3_inputs(g, K3_BATCH, n, n, d, c, torch.bfloat16)
+        cot = [rnd(g, (K3_BATCH, n, c), 1.0, torch.bfloat16)
+               for _ in range(2)]
+        for act, fn in (("softmax", sharded_softmax_attention_moments),
+                        ("cosine", sharded_cosine_attention_moments)):
+            reset_counts()
+            ours = _moment_grads(lambda *t: fn(mesh, *t), q, k, v, cot)
+            total = [a + b for a, b in zip(total, counts())]
+            ref = _moment_grads(lambda *t: attention_moments(*t, act),
+                                q, k, v, cot)
+            if not all(a.dtype == b.dtype and torch.equal(a, b)
+                       for a, b in zip(ours, ref)):
+                raise AssertionError(f"world-1 sharded {act} moments or "
+                                     f"gradients at {(n, d, c)} differ from "
+                                     f"single-device")
+        del q, k, v, cot, ours, ref
+    total = tuple(total)
+    levels = len(K3_LEVELS)
+    log(f"  world-1 sharded softmax and cosine moments and their dQ, dK, dV "
+        f"at the 512² b2 bf16 levels: bit for bit the single-device ones; "
+        f"launches K1-K5 {total}")
+    if total != (0, 0, levels, levels, levels):
+        raise AssertionError(f"sharded moments' gradients: launches {total}")
+    return total
+
+
+STYLIZER_GRAD_RUNS = 3   # full backwards of the bare route: its spread
+
+
+def _stylizer_param_grads(mesh):
+    """One f32 gradient of a fixed loss (the mean square of the output
+    times a seeded cotangent) through ``stylizing_network(...,
+    mesh=make_mesh(1))`` of the seeded AdaAttN (VGG19 seed 0, AdaAttN
+    seed 1) at the training shapes (256² b8, softmax) against
+    ``mesh=None`` on the same inputs, cuDNN deterministic.  The output
+    and the three attention outputs the decoder reads must be bit for
+    bit the bare ones.  torch's bilinear ×2 and reflect-pad backwards in
+    the decoder accumulate with atomics, so two backwards of one graph
+    differ in the last bits; the attention parameters' (f, g, h)
+    gradients are therefore taken from both graphs for one cotangent of
+    the decoder's inputs (one decoder backward) and must be bit for bit,
+    with K3 3, K4 3 and K5 3 launches in the mesh route (forward and
+    backward).  A whole ``backward()`` with the mesh launches the same,
+    and its decoder gradients (the attention convs' true gradients at
+    the seeded variance clamp are float32 noise, up to 0.23 of their
+    scale between two bare runs) must lie within 4 × the spread of
+    STYLIZER_GRAD_RUNS bare ones (bit for bit where they are), each
+    relative to its key's largest.  Returns those launches and the
+    numbers."""
+    from vst_tpu_torch.models import adaattn as ada_m
+
+    apply_precision(torch.float32)
+    vgg, net = _ada_models(0, 1, torch.float32)
+    rng = np.random.default_rng(35)
+    c, s = _image_batch(rng, TRAIN_BATCH, (256, 256))
+    with torch.no_grad():
+        fc, fs = vgg(c), vgg(s)
+    cot = torch.from_numpy(rng.standard_normal((TRAIN_BATCH, 256, 256, 3))
+                           .astype(np.float32)).cuda()
+    names = [k for k, _ in net.named_parameters()]
+    attn = [p for k, p in net.named_parameters() if k.startswith("adaattn.")]
+    taps, decoder = [], ada_m.decoder
+
+    def recording(params, x5, x4, x3, spatial=None):
+        taps.append((x5, x4, x3))
+        return decoder(params, x5, x4, x3, spatial)
+
+    def forward(m):
+        out = ada_m.stylizing_network(net, fc, fs, "softmax", mesh=m)
+        return out, (out * cot).square().mean()
+
+    def full(m):
+        net.zero_grad()
+        forward(m)[1].backward()
+        torch.cuda.synchronize()
+        return {k: p.grad.detach().clone()
+                for k, p in net.named_parameters()}
+
+    def dist_(a, b):
+        return max((a[k] - b[k]).abs().max().item()
+                   / max(b[k].abs().max().item(), 1e-30)
+                   for k in b if k.startswith("decoder."))
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ada_m.decoder = recording
+    try:
+        out_b, loss_b = forward(None)
+        reset_counts()
+        out_m, _ = forward(mesh)
+        (taps_b, taps_m), taps[:] = taps, []
+        same_fwd = torch.equal(out_m, out_b) and all(
+            torch.equal(a, b) for a, b in zip(taps_m, taps_b))
+        g_taps = torch.autograd.grad(loss_b, taps_b, retain_graph=True)
+        g_m = torch.autograd.grad(taps_m, attn, g_taps)
+        launches = counts()
+        g_b = torch.autograd.grad(taps_b, attn, g_taps)
+        del out_b, loss_b, out_m, taps_b, taps_m, g_taps
+        bare = [full(None) for _ in range(STYLIZER_GRAD_RUNS)]
+        reset_counts()
+        ours = full(mesh)
+        if counts() != launches:
+            raise AssertionError(f"stylizer backward(): launches "
+                                 f"{counts()}, not {launches}")
+    finally:
+        ada_m.decoder = decoder
+        torch.backends.cudnn.deterministic = saved
+    attn_bitwise = all(torch.equal(a, b) for a, b in zip(g_m, g_b))
+    ref = bare[0]
+    bare_bitwise = all(torch.equal(b[k], ref[k]) for b in bare[1:]
+                       for k in ref if k.startswith("decoder."))
+    spread = max(dist_(b, ref) for b in bare[1:])
+    err = dist_(ours, ref)
+    log(f"  stylizing_network(mesh=make_mesh(1)) f32 256² b8 softmax: "
+        f"output and attention outputs {'bit for bit' if same_fwd else 'DIFFER'}"
+        f"; the {len(attn)} attention-parameter gradients for one decoder "
+        f"cotangent {'bit for bit' if attn_bitwise else 'DIFFER'}; the "
+        f"{len(names) - len(attn)} decoder gradients through backward() max "
+        f"rel {err:.3e} against mesh=None "
+        f"({STYLIZER_GRAD_RUNS} bare runs "
+        f"{'bit for bit' if bare_bitwise else f'within {spread:.3e}'}); "
+        f"launches K1-K5 {launches}")
+    if launches != (0, 0, 3, 3, 3):
+        raise AssertionError(f"stylizer gradients: launches {launches}")
+    if not (same_fwd and attn_bitwise) or (
+            bare_bitwise and err > 0) or err > 4 * spread:
+        raise AssertionError(f"stylizer gradients with the mesh: forward "
+                             f"equal {same_fwd}, attention gradients equal "
+                             f"{attn_bitwise}, max rel {err} (bare runs "
+                             f"{spread})")
+    del vgg, net, fc, fs, bare, ours
+    return launches, {"attention_grads_bitwise": attn_bitwise,
+                      "forward_bitwise": same_fwd,
+                      "bare_runs_bitwise": bare_bitwise,
+                      "max_rel_diff": err, "bare_runs_max_rel_diff": spread}
+
+
 def _profile_names(log_dir):
     """The Chrome trace of one 512² bf16 ReCoNet forward under
     ``utils.profiling.trace_context``: the kernel events must name K1's
@@ -3938,14 +4213,14 @@ def phase_scale_out():
     ``tcp://127.0.0.1:<port>``) with ``make_mesh(1)``: the f32 ReCoNet
     flow step and the bf16 AdaAttN image step with and without the mesh,
     ``AdaAttNVideoStylizer(mesh=)`` against ``mesh=None``, the ring's
-    ``fold_block`` through K3 at the 512² b2 bf16 and 256² b8 f32 levels,
-    the world-1 sharded softmax and cosine moments against the
-    single-device ones, and a Chrome trace from ``trace_context``.
+    ``fold_block`` through K3 and its backward (``block_grads``, K4 and
+    K5, over 4 × 4 pairs) at the 512² b2 bf16 and 256² b8 f32 levels,
+    the world-1 sharded softmax and cosine moments and their gradients
+    against the single-device ones, the full stylizer's parameter
+    gradients with ``mesh=make_mesh(1)`` against ``mesh=None``, and a
+    Chrome trace from ``trace_context``.
     Returns the launches (K1-K5) of its main-path runs and its numbers."""
-    from vst_tpu_torch.models.adaattn import attention_moments
     from vst_tpu_torch.parallel import make_mesh, multihost
-    from vst_tpu_torch.parallel.attention import (
-        sharded_cosine_attention_moments, sharded_softmax_attention_moments)
 
     log("[8] scale-out: torch.distributed at world 1 (NCCL on cuda:0)")
     t_phase = time.perf_counter()
@@ -4004,25 +4279,13 @@ def phase_scale_out():
             g, "bf16", torch.bfloat16, K3_BATCH, K3_LEVELS, 2 * BF16_ULP)
         res["ring_err_f32"], res["ring_f32"] = _ring_fold(
             g, "f32", torch.float32, TRAIN_BATCH, TRAIN_LEVELS, 1e-4)
-        apply_precision(torch.bfloat16)
-        reset_counts()
-        for n, d, c in K3_LEVELS:
-            q, k, v = k3_inputs(g, K3_BATCH, n, n, d, c, torch.bfloat16)
-            for act, fn in (("softmax", sharded_softmax_attention_moments),
-                            ("cosine", sharded_cosine_attention_moments)):
-                ours = fn(mesh, q, k, v)
-                ref = attention_moments(q, k, v, act)
-                if not all(torch.equal(a, b) for a, b in zip(ours, ref)):
-                    raise AssertionError(f"world-1 sharded {act} moments at "
-                                         f"{(n, d, c)} differ from "
-                                         f"single-device")
-        n_sharded = counts()
-        log(f"  world-1 sharded softmax and cosine moments at the 512² b2 "
-            f"bf16 levels: bit for bit the single-device ones; launches "
-            f"K1-K5 {n_sharded}")
-        if n_sharded != (0, 0, 2 * len(K3_LEVELS), 0, 0):
-            raise AssertionError(f"sharded moments: launches {n_sharded}")
-        total = [t + n for t, n in zip(total, n_sharded)]
+        res["ring_bwd_err_bf16"], res["ring_bwd_bf16"] = _ring_backward(
+            g, "bf16", torch.bfloat16, K3_BATCH, K3_LEVELS, 4 * BF16_ULP)
+        res["ring_bwd_err_f32"], res["ring_bwd_f32"] = _ring_backward(
+            g, "f32", torch.float32, TRAIN_BATCH, TRAIN_LEVELS, 1e-4)
+        n_sharded = _world1_moment_grads(g, mesh)
+        n_stylizer, res["stylizer_grads"] = _stylizer_param_grads(mesh)
+        total = [t + a + b for t, a, b in zip(total, n_sharded, n_stylizer)]
         res["trace"] = _profile_names(
             os.path.join(ROOT, "build", "chip_smoke_trace"))
         log("  [8] spatial: H-sharded serving at world 1, a 2160×3840 frame")
@@ -4046,9 +4309,11 @@ def phase_scale_out():
 
 def phase_scale_out_alone():
     """``--scale-out``: the kernels' build ([2]), [3]'s spatial cases and
-    [8]."""
+    its K4/K5 at the ring backward's hop shapes, and [8]."""
     log(f"  build: {_build.build_all():.2f} s")
-    phase_kernels_spatial(torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    phase_kernels_spatial(g)
+    phase_kernels_ring(g)
     phase_scale_out()
 
 
@@ -4723,6 +4988,7 @@ def main(argv):
     errs.update(phase_kernels_k3(g))
     errs.update(phase_kernels_k45(g, started and parent_k5(started)))
     errs.update(phase_kernels_spatial(g))
+    errs.update(phase_kernels_ring(g))
     phase_model()
     bf16, f32 = phase_main_path(), phase_main_f32()
     launches = {k: bf16[k] + f32[k] for k in ("K1", "K2")}
@@ -4775,6 +5041,18 @@ def main(argv):
         "fold_bf16": so_res["ring_bf16"], "fold_f32": so_res["ring_f32"],
         "max_abs_err_fold_bf16": so_res["ring_err_bf16"],
         "max_abs_err_fold_f32": so_res["ring_err_f32"]}
+    ring_bwd = {
+        "per": "[8]: the ring's backward over 4 x 4 (query shard, key "
+               "block) pairs through block_grads (16 K4 and 16 K5 "
+               "launches a level) against one K4 + K5 call, per level",
+        "ring_bwd_bf16": so_res["ring_bwd_bf16"],
+        "ring_bwd_f32": so_res["ring_bwd_f32"],
+        "max_abs_err_ring_bwd_bf16": so_res["ring_bwd_err_bf16"],
+        "max_abs_err_ring_bwd_f32": so_res["ring_bwd_err_f32"],
+        "max_abs_err_hop_shapes": errs["K4/K5 ring hop"],
+        "max_abs_err_hop_shapes_f32": errs["K4/K5 ring hop f32"],
+        "stylizer_grads_world1": so_res["stylizer_grads"]}
+    kernels[3]["scale_out"] = kernels[4]["scale_out"] = ring_bwd
     kernels[2]["ms_f32"] = sum(k3_f32["ms"])
     kernels[2]["plain_ms_f32"] = k3_f32["plain_ms"]
     kernels[2]["ms_f32_per_launch"] = k3_f32["ms"]

@@ -213,6 +213,30 @@ def test_cli_video_adaattn(tmp_path, capsys, weights):
                           "--video", video, "--device", "cpu"])
 
 
+def test_cli_video_adaattn_ignores_weights2(tmp_path, capsys, weights):
+    """``--weights2`` with ``--model adaattn`` serves the video, as JAX's
+    AdaAttN branch (which never reads the flag) does, with a warning on
+    stderr."""
+    cv2 = pytest.importorskip("cv2")
+    from vst_tpu_torch.cli import infer_video
+
+    video = str(tmp_path / "in.avi")
+    rng = np.random.default_rng(1)
+    vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 10, (48, 32))
+    for _ in range(3):
+        vw.write(rng.integers(0, 256, (32, 48, 3)).astype(np.uint8))
+    vw.release()
+    out_dir = tmp_path / "frames"
+    infer_video.main(["--model", "adaattn", "--weights", weights, "--style",
+                      STYLE, "--video", video, "--size", "48", "32",
+                      "--batch-size", "2", "--frames-dir", str(out_dir),
+                      "--weights2", weights, "--device", "cpu"])
+    out, err = capsys.readouterr()
+    assert "3 frames" in out
+    assert "--weights2 is ignored" in err
+    assert len(list(out_dir.glob("*.jpg"))) == 3
+
+
 def test_no_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -323,8 +323,9 @@ def test_size_rules_and_serving_only(tmp_path):
     the unsharded step; below the least block (8 rows) both raise
     ValueError naming the least H; ``stylize_adaattn_sharded`` keeps
     JAX's own 16·D; a world-1 sharded forward differentiates to the
-    unsharded forward's gradients; the guard that remains raises: the
-    sequence-parallel attention with a gradient."""
+    unsharded forward's gradients; and the sequence-parallel attention on
+    the "space" axis, whose guard is gone, differentiates to the
+    unsharded linear form's gradient bit for bit."""
     from vst_tpu_torch.ops.conv import conv2d_reflect
     from vst_tpu_torch.parallel.attention import (
         sharded_cosine_attention_moments)
@@ -370,9 +371,13 @@ def test_size_rules_and_serving_only(tmp_path):
                                        msg=k)
         with torch.no_grad():
             assert conv2d_reflect(x, w, spatial=ctx).shape == (1, 64, 32, 4)
-        q = torch.zeros(1, 8, 4, requires_grad=True)
-        with pytest.raises(NotImplementedError, match="serves only"):
-            sharded_cosine_attention_moments(mesh, q, q, q, axis="space")
+        q = torch.linspace(-1, 1, 32).reshape(1, 8, 4).requires_grad_()
+        grads = [torch.autograd.grad(sum(t.sum() for t in fn(q)), q)[0]
+                 for fn in (lambda t: sharded_cosine_attention_moments(
+                                mesh, t, t, t, axis="space"),
+                            lambda t: pa.attention_moments(t, t, t,
+                                                           "cosine"))]
+        assert torch.equal(*grads)
         grid = make_mesh(None, ("data", "space"), (1, 1))
         cfg = dataclasses.replace(pc.RECONET_CANDY, img_size=(28, 24))
         v16 = pv.init_vgg16_reconet(0, device="cpu")

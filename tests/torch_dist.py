@@ -511,6 +511,83 @@ def stylizer_with_mesh(rank, world, activation, content, style):
         return _np(pa.stylizing_network(net, fc, fs, activation, mesh=mesh))
 
 
+def rows_of(x, rank, world):
+    """This rank's token rows (dim 1) of a full array."""
+    n = x.shape[1] // world
+    return x[:, rank * n:(rank + 1) * n]
+
+
+def stylizer_loss(out, cot):
+    """The fixed loss of the stylizer gradient checks: the mean square of
+    the output times a seeded cotangent."""
+    return (out * cot).square().mean()
+
+
+def _stylizer_grads(net, fc, fs, activation, cot, mesh, remat):
+    from vst_tpu_torch.models import adaattn as pa
+
+    net.zero_grad()
+    out = pa.stylizing_network(net, fc, fs, activation, mesh=mesh,
+                               remat=remat)
+    stylizer_loss(out, cot).backward()
+    return {k: _np(p.grad) for k, p in net.named_parameters()}
+
+
+def sharded_grads(rank, world, cases):
+    """The gradients of the sequence-parallel attention for each case,
+    in one group:
+    - ("shard", activation, dtype, q, k, v, c1, c2): this rank's dQ, dK,
+      dV from the shard-level function on its token rows of q, k, v, for
+      its rows of the cotangents (c1, c2) of (M1, M2);
+    - ("full", activation, q, k, v, c1, c2): dQ, dK, dV of the full
+      tensors through ``attention_moments(mesh=)``;
+    - ("stylizer", activation, dtype, content, style, cot, remat): the
+      parameter gradients of ``stylizer_loss`` through ``stylizing_network(...,
+      mesh=)`` of the seeded AdaAttN (VGG19 seed 0, AdaAttN seed 1), and
+      the same without the mesh (once per activation and dtype: the
+      content, style and cotangent are the same for every such case)."""
+    from vst_tpu_torch.models import adaattn as pa
+    from vst_tpu_torch.models import vgg as pv
+    from vst_tpu_torch.parallel import attention as sp
+    from vst_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    fns = {"cosine": sp.sharded_cosine_attention_moments,
+           "softmax": sp.sharded_softmax_attention_moments}
+    out, unsharded = [], {}
+    for kind, activation, *args in cases:
+        if kind == "shard":
+            dtype, *arrays = args
+            q, k, v, c1, c2 = (torch.from_numpy(rows_of(a, rank, world))
+                               .to(dtype) for a in arrays)
+            ins = [t.requires_grad_() for t in (q, k, v)]
+            m1, m2 = fns[activation](mesh, *ins)
+            grads = torch.autograd.grad((m1, m2), ins,
+                                        (c1.to(m1.dtype), c2.to(m2.dtype)))
+            out.append([_np(g.float()) for g in grads])
+        elif kind == "full":
+            ins = [torch.from_numpy(a).requires_grad_() for a in args[:3]]
+            cot = [torch.from_numpy(a) for a in args[3:]]
+            moments = pa.attention_moments(*ins, activation, mesh=mesh)
+            out.append([_np(g) for g in torch.autograd.grad(moments, ins,
+                                                            cot)])
+        else:
+            dtype, content, style, cot, remat = args
+            vgg = pv.init_vgg19_adaattn(0, device="cpu", dtype=dtype)
+            net = pa.init_stylizing_network(1, device="cpu", dtype=dtype)
+            with torch.no_grad():
+                fc = vgg(torch.from_numpy(content).to(dtype))
+                fs = vgg(torch.from_numpy(style).to(dtype))
+            cot = torch.from_numpy(cot).to(dtype)
+            if (activation, dtype) not in unsharded:
+                unsharded[activation, dtype] = _stylizer_grads(
+                    net, fc, fs, activation, cot, None, False)
+            out.append((_stylizer_grads(net, fc, fs, activation, cot, mesh,
+                                        remat),
+                        unsharded[activation, dtype]))
+    return out
+
+
 def video_stylizer(rank, world, frames, style, batch_size, activation):
     """``AdaAttNVideoStylizer`` with a mesh: rank 0's styled frames (the
     others get none), and rank 0's run without a mesh before it."""

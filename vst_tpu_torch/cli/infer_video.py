@@ -123,9 +123,9 @@ def _adaattn_frames(args, device, mesh=None):
     vst_tpu.cli.infer_video); with a ``mesh`` only rank 0 decodes."""
     if not args.style:
         raise SystemExit("error: --style is required for adaattn")
-    if args.weights2:
-        raise SystemExit("error: --weights2 compares ReCoNet-family and "
-                         "RTNSTV models")
+    if args.weights2:   # JAX's AdaAttN branch never reads it either
+        print("warning: --weights2 is ignored for --model adaattn",
+              file=sys.stderr)
     state = load_weights(args.weights)
     check_weights_match(state, "adaattn", args.weights)
     dtype = next(iter(state.values())).dtype

@@ -28,7 +28,16 @@ sequence-parallel over ``mesh_axis`` (``parallel/attention.py``): cosine
 as one all-reduce of the key moments, softmax as ring attention through
 K3.  Every rank passes the full q, k and v and gets the full M1 and M2
 back (its token shard computed, the others all-gathered), as JAX's
-global arrays; the token counts must divide by the axis size.
+global arrays; the token counts must divide by the axis size.  It
+differentiates as ``jax.grad`` of JAX's does: the scatter of q, k, v into
+token shards and the gather of M1, M2 are an adjoint pair of autograd
+Functions (``parallel/attention.py::scatter_tokens``, ``gather_tokens``),
+and the sharded functions carry their own backward (the cosine
+all-reduce's, the ring's through K4 and K5 at every hop), so every rank,
+computing the same loss from the gathered moments, gets the
+single-device gradients of q, k, v and of every parameter upstream.
+Under ``remat=True`` the ring's forward and its collectives run again
+inside the backward.
 
 With ``spatial`` (``parallel/spatial.py``) the content taps are this
 rank's row blocks of an H-sharded frame and the style taps whole (every
@@ -44,7 +53,6 @@ H must divide by 16 times the axis size.
 """
 
 import torch
-import torch.distributed as dist
 import torch.nn as nn
 
 from vst_tpu_torch.compat import params_from_jax
@@ -144,6 +152,12 @@ def _attention_moments_softmax_exact(q, k, v):
     return torch.matmul(a, v.float()), torch.matmul(a, (v * v).float())
 
 
+def wide_dtype(dtype):
+    """Where the attention accumulates: float32, float64 for float64
+    input (the exact evaluation the tests compare with)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def _unit_rows(x):
     return x * torch.rsqrt(x.square().sum(dim=-1, keepdim=True))
 
@@ -152,23 +166,33 @@ def _attention_moments_cosine_linear(q, k, v):
     """Closed-form cos+1 row-normalized attention moments (no n×m map):
     a_ij = (q̂_i·k̂_j + 1) / (q̂_i·Σk̂ + m) (AdaAttN/network.py:111-125, the
     sums re-associated)."""
-    m = k.shape[1]
+    return _cosine_moments(q, *_cosine_key_moments(k, v), k.shape[1])
+
+
+def _cosine_key_moments(k, v):
+    """The key half of the linear form in float32 (float64 for float64
+    input): (Σk̂, K̂ᵀV, K̂ᵀV², ΣV, ΣV²), (b, ·) and (b, d, c); the
+    sequence-parallel form sums them over the ranks
+    (``parallel/attention.py``)."""
+    acc = wide_dtype(k.dtype)
     kn = _unit_rows(k)
     vv = v * v
-    kv = torch.einsum("bmd,bmc->bdc", kn.float(), v.float())
-    kv2 = torch.einsum("bmd,bmc->bdc", kn.float(), vv.float())
-    return _cosine_moments(q, kn.sum(dim=1), kv, kv2, v.sum(dim=1),
-                           vv.sum(dim=1), m)
+    kv = torch.einsum("bmd,bmc->bdc", kn.to(acc), v.to(acc))
+    kv2 = torch.einsum("bmd,bmc->bdc", kn.to(acc), vv.to(acc))
+    return (kn.sum(dim=1).to(acc), kv, kv2, v.sum(dim=1).to(acc),
+            vv.sum(dim=1).to(acc))
 
 
 def _cosine_moments(q, ksum, kv, kv2, vsum, v2sum, m):
-    """The per-query half of the linear form (q is normalized here):
-    ksum/vsum/v2sum (b, ·) or unbatched, kv/kv2 (b, d, c) or (d, c)."""
-    qf = _unit_rows(q).float()
-    row = torch.matmul(qf, ksum.float().unsqueeze(-1)).squeeze(-1) + m
+    """The per-query half of the linear form (q is normalized here), in
+    float32 (float64 for float64 q): ksum/vsum/v2sum (b, ·) or unbatched,
+    kv/kv2 (b, d, c) or (d, c)."""
+    acc = wide_dtype(q.dtype)
+    qf = _unit_rows(q).to(acc)
+    row = torch.matmul(qf, ksum.to(acc).unsqueeze(-1)).squeeze(-1) + m
     inv = (1.0 / row)[..., None]
-    m1 = (torch.matmul(qf, kv) + vsum.float().unsqueeze(-2)) * inv
-    m2 = (torch.matmul(qf, kv2) + v2sum.float().unsqueeze(-2)) * inv
+    m1 = (torch.matmul(qf, kv.to(acc)) + vsum.to(acc).unsqueeze(-2)) * inv
+    m2 = (torch.matmul(qf, kv2.to(acc)) + v2sum.to(acc).unsqueeze(-2)) * inv
     return m1, m2
 
 
@@ -185,11 +209,13 @@ def _attention_moments_cosine_exact(q, k, v):
 
 def _sharded_moments(q, k, v, activation, mesh, axis):
     """The sequence-parallel moments on full q, k, v: this rank's token
-    shard of each through ``parallel/attention.py``, then M1 and M2
-    all-gathered along ``axis`` into the full (b, n, c)."""
+    shard of each (``scatter_tokens``) through ``parallel/attention.py``,
+    then M1 and M2 all-gathered along ``axis`` into the full (b, n, c)
+    (``gather_tokens``).  The pair is adjoint, so every rank gets the
+    single-device gradients of q, k and v."""
     from vst_tpu_torch.parallel import attention as sp
 
-    n_dev, i = mesh.shape[axis], mesh.index[axis]
+    n_dev = mesh.shape[axis]
     n, m = q.shape[1], k.shape[1]
     if n % n_dev or m % n_dev:
         raise ValueError(f"sequence-parallel attention: {n} query and {m} "
@@ -197,16 +223,9 @@ def _sharded_moments(q, k, v, activation, mesh, axis):
                          f"'{axis}' axis")
     fn = {"cosine": sp.sharded_cosine_attention_moments,
           "softmax": sp.sharded_softmax_attention_moments}[activation]
-    qs, ks = n // n_dev, m // n_dev
-    m1, m2 = fn(mesh, q[:, i * qs:(i + 1) * qs].contiguous(),
-                k[:, i * ks:(i + 1) * ks].contiguous(),
-                v[:, i * ks:(i + 1) * ks].contiguous(), axis)
-    out = []
-    for part in (m1, m2):
-        parts = [torch.empty_like(part) for _ in range(n_dev)]
-        dist.all_gather(parts, part.contiguous(), group=mesh.groups[axis])
-        out.append(torch.cat(parts, dim=1))
-    return tuple(out)
+    m1, m2 = fn(mesh, *(sp.scatter_tokens(mesh, axis, t) for t in (q, k, v)),
+                axis)
+    return sp.gather_tokens(mesh, axis, m1), sp.gather_tokens(mesh, axis, m2)
 
 
 def attention_moments(q, k, v, activation: str, mode: str = "auto",

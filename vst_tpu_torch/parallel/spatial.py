@@ -41,7 +41,8 @@ into their sources (reflected and clamped ones added, zero ones dropped);
 ``sharded_in_stats`` and the two-pass norms differentiate through it);
 ``gather_rows``'s backward reduce-scatters it; ``relayout_rows``'s moves
 the rows back.  The sequence-parallel attention
-(``parallel/attention.py``) still serves only.
+(``parallel/attention.py``) carries its own backward (the cosine
+all-reduce's and the ring's).
 
 ``exchange_rows`` runs inside the profiler range "vst::exchange_rows", and
 its backward inside "vst::exchange_rows_bwd", as ``ops/pad.py``'s
