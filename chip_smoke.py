@@ -25,7 +25,10 @@ result line):
    float64 evaluation),
    K2 at the ReCoNet, SD1 and SD2 packed stems and heads and the stream's
    packed (8,92,162,·), in bf16 and f32, in f32 also at C = 6, Co = 10,
-   and two launches of each giving the same bits; K3 in bf16 at the
+   K1 also at the narrow body's edges, (1,2,37,64) (the least height, a
+   ragged width) and (2,90,37,48) (a last tile row of 10, a last tile
+   column of 5), in both modes, and two launches of each giving the same
+   bits; K3 in bf16 at the
    three AdaAttN 512² batch-2 level shapes (and at relu3_1's with sharp
    scores of std 10 and with a stride-0 K/V) and at the edge of its value
    slices (c = 264), and in f32 (3xTF32) against the float64 evaluation
@@ -233,12 +236,16 @@ result line):
    TF32 off, in benchmark mode and the faster of NCHW and channels_last);
    K3's (bf16 and
    f32) and K4/K5's executed-work factor per level is logged, from the
-   slice widths the built library reports; K1 also at RTNSTV's
-   (8,90,160,48) in bf16 and f32 beside cuDNN (benchmark mode);
+   slice widths the built library reports; K1 also at its narrow
+   widths, RTNSTV's (8,90,160,48) and SD1/SD2's (8,128,128,64), in bf16
+   and f32 beside cuDNN (benchmark mode), with each call's device time
+   (torch.profiler, every kernel the call launches), its launches and its
+   host time (200 calls, no synchronization between them);
 7. profile: device time by kernel over two forwards (train steps) of each
-   main path, ReCoNet in bf16 and f32, the f32 ReCoNet flow step and the
-   f32 RTNSTV step (torch.profiler), and the device's busy share of that
-   window.
+   main path, ReCoNet in bf16 and f32, the f32 ReCoNet flow step, the
+   RTNSTV 640×360 b8 bf16 forward (with K1's share of its device time)
+   and the f32 RTNSTV step (torch.profiler), and the device's busy share
+   of that window.
 
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card and
 the CUDA toolkit (nvcc); no network, no cv2, no PIL.
@@ -269,9 +276,10 @@ builds the kernels and runs [5c] alone, then profiles the f32 flow step.
 
     python3 chip_smoke.py --rtnstv
 
-builds the kernels and runs RTNSTV's part alone: K1 at (8,90,160,48),
-the RTNSTV forward and golden, serving, training ([5d]), K1's times at
-that shape and the f32 step's profile.
+builds the kernels and runs RTNSTV's part alone: K1 at (8,90,160,48)
+and the narrow shapes of [3], the RTNSTV forward and golden, serving,
+training ([5d]), K1's times at its two narrow widths, and the profiles of
+the bf16 forward and the f32 step.
 
     python3 chip_smoke.py --eval
 
@@ -559,6 +567,8 @@ K2_BF16 = {"ReCoNet stem": (8, 130, 130, 48, 768),
 # f32 only: channel counts that are not multiples of 4 (the bf16 body
 # takes multiples of 8); K1's shape is (N, H, W, C, Co).
 K1_F32_ODD = {"C6 Co10": (2, 11, 19, 6, 10)}
+# The narrow body's edges (C = Co <= 64, 16 × 16-pixel tiles), both modes
+K1_NARROW_EDGES = {"ragged": (1, 2, 37, 64), "RTNSTV ragged": (2, 90, 37, 48)}
 K2_F32_ODD = {"C6 Co10": (2, 12, 21, 6, 10)}
 # [5e]'s temporal MSE: ReCoNet f32 one 640×360 frame at a time
 K1_EVAL_F32 = {"temporal MSE": (1, 90, 160, 192)}
@@ -687,7 +697,7 @@ def phase_kernels(g):
     apply_precision(torch.float32)
     errs = {"K1 f32": max(_k1_check(g, torch.float32, f"f32 {label}", shape,
                                     1e-4) for label, shape in
-                          {**K1_BF16, **K1_F32_ODD,
+                          {**K1_BF16, **K1_F32_ODD, **K1_NARROW_EDGES,
                            **K1_EVAL_F32}.items()),
             "K2 f32": max(_k2_check(g, torch.float32, f"f32 {label}", shape,
                                     1e-4) for label, shape in
@@ -696,7 +706,7 @@ def phase_kernels(g):
     apply_precision(torch.bfloat16)
     errs.update(
         K1=max(_k1_check(g, torch.bfloat16, f"bf16 {label}", shape, BF16_ULP)
-               for label, shape in K1_BF16.items()),
+               for label, shape in {**K1_BF16, **K1_NARROW_EDGES}.items()),
         K2=max(_k2_check(g, torch.bfloat16, f"bf16 {label}", shape, BF16_ULP)
                for label, shape in K2_BF16.items()))
     log("  f32 and bf16 K1 and K2: a second launch gives the same bits at "
@@ -2191,17 +2201,35 @@ def _k1_f64_check(g, shape):
 
 
 def phase_kernels_rtnstv(g):
-    """``--rtnstv``: [3] at RTNSTV's shape alone: K1 (8, 90, 160, 48) → 48
-    in f32 and bf16 against the plain version (and f32 against float64),
-    two launches the same bits."""
-    log("[3] K1 at RTNSTV's residual width")
+    """``--rtnstv``: [3] at the narrow widths alone: K1 (8, 90, 160, 48) →
+    48 in f32 and bf16 against the plain version (and f32 against
+    float64); in bf16 also SD1/SD2's (8, 128, 128, 64) and
+    K1_NARROW_EDGES in the reflect mode, and in the halo-rows mode
+    K1_NARROW_EDGES and RTNSTV's step at the uneven blocks (24, 22, 22,
+    22), stitched y one reflect launch's bits; two launches the same
+    bits."""
+    log("[3] K1 at the narrow residual widths")
     apply_precision(torch.float32)
     errs = {"K1 f32": _k1_check(g, torch.float32, "f32 RTNSTV", K1_RTNSTV,
                                 1e-4)}
     errs["K1 f32 vs f64"] = _k1_f64_check(g, K1_RTNSTV)
     apply_precision(torch.bfloat16)
-    errs["K1"] = _k1_check(g, torch.bfloat16, "bf16 RTNSTV", K1_RTNSTV,
-                           BF16_ULP)
+    errs["K1"] = max(
+        _k1_check(g, torch.bfloat16, f"bf16 {label}", shape, BF16_ULP)
+        for label, shape in {"RTNSTV": K1_RTNSTV,
+                             "SD1/SD2": K1_BF16["SD1/SD2"],
+                             **K1_NARROW_EDGES}.items())
+    errs["K1 halo"], same = 0.0, {}
+    _k1_narrow_halo_edges(g, torch.bfloat16, "K1 halo", BF16_ULP, errs, same)
+    shape, splits = K1_UNEVEN["RTNSTV step"]
+    e, same["RTNSTV step uneven"] = _k1_halo_check(
+        g, torch.bfloat16, "RTNSTV step", shape, BF16_ULP, splits)
+    if not same["RTNSTV step uneven"]:
+        raise AssertionError("K1 halo RTNSTV step: the stitched blocks "
+                             "differ from one reflect launch")
+    errs["K1 halo"] = max(errs["K1 halo"], e)
+    log(f"  K1 halo mode: y equals one reflect-mode launch bit for bit: "
+        f"{json.dumps(same)}")
     torch.cuda.synchronize()
     return errs
 
@@ -2414,6 +2442,19 @@ def phase_main_rtnstv_train():
     return out
 
 
+def _profile_rtnstv_forward(rng):
+    """Device time by kernel of the RTNSTV 640×360 b8 bf16 forward
+    (``stylize_rtnstv``, uint8 wire) and K1's share of it."""
+    apply_precision(torch.bfloat16)
+    model = rtnstv_m.init_stylizing_network(0, device="cuda",
+                                            dtype=torch.bfloat16)
+    h, w = RTNSTV_SIZE
+    x = rng.integers(0, 256, (8, h, w, 3)).astype(np.uint8)
+    _profile("RTNSTV 640×360 b8 bf16", lambda: _rtnstv_batch(model, x),
+             top=16, share=("K1", ("conv3x3_wgmma", "finalize_stats",
+                                   "prologue_params")))
+
+
 def _profile_rtnstv_step(rng):
     """Device time by kernel of the f32 RTNSTV step (``RTNSTVConfig()``)."""
     apply_precision(torch.float32)
@@ -2426,26 +2467,82 @@ def _profile_rtnstv_step(rng):
              top=24)
 
 
-def timing_k1_rtnstv(g):
-    """K1 at RTNSTV's serving shape (8, 90, 160, 48) → 48, per launch
-    without and with its prologue, in bf16 and f32 (3xTF32), beside its
+def device_ms_per_call(fn, reps=20):
+    """(device ms a call: CUDA events around ``reps`` calls queued behind a
+    sleep kernel of about 10 ms, so that the card runs them back to back
+    whatever the host's pace; {kernel: [launches a call, ms a launch]}
+    from torch.profiler over ``reps`` more calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and e.count:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            kernels[e.key[:60]] = [e.count / reps, us / e.count / 1e3]
+    return a.elapsed_time(b) / reps, kernels
+
+
+def host_ms_per_call(fn, reps=200):
+    """Host ms a call: ``reps`` calls with no synchronization between them
+    (what the host needs to keep the card fed)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
+# K1's narrow widths timed in [6]: RTNSTV's 640×360 b8 serving and the
+# SD1/SD2 students' 512² b8 residual stacks
+K1_NARROW_TIMED = {"rtnstv": (K1_RTNSTV, "RTNSTV 640x360 b8 serving"),
+                   "sd": ((8, 128, 128, 64), "SD1/SD2 512x512 b8 serving")}
+
+
+def timing_k1_narrow(g, shape, what):
+    """K1 at a narrow width, (N, H, W, C) → C, per call without and with
+    its prologue, in bf16 and f32 (3xTF32): the call's time (CUDA events
+    around back-to-back calls), its device time and launches
+    (torch.profiler) and its host time (``host_ms_per_call``), beside its
     plain version and cuDNN's ``F.conv2d`` of the same conv in benchmark
     mode (f32 with TF32 off), the faster of NCHW and channels_last; bound
-    in the convention of the other K1 rows.  Per forward: 5 launches
-    without and 5 with the prologue."""
-    n, h, w, c = K1_RTNSTV
+    in the convention of the other K1 rows.  Per forward: 5 calls without
+    and 5 with the prologue.  The device time a call is the calls' time
+    queued behind a sleep kernel (``device_ms_per_call``), with each
+    kernel's launches and ms from torch.profiler beside it."""
+    n, h, w, c = shape
     flops = 2 * 9 * c * c * n * h * w
-    row = {"shape": "(8,90,160,48)->48, RTNSTV 640x360 b8 serving",
-           "per": "one 640x360 batch-8 forward: 5 launches without and 5 "
-                  "with the prologue"}
+    row = {"shape": f"({n},{h},{w},{c})->{c}, {what}",
+           "per": f"one {what.split(' ', 1)[1]} forward: 5 calls without "
+                  f"and 5 with the prologue"}
     for dt, tag, peak, nb in ((torch.bfloat16, "", torch.bfloat16, 2),
                               (torch.float32, "_f32", "tf32x3", 4)):
         apply_precision(dt)
-        x, wt, b, gamma, beta = k1_inputs(g, dt, K1_RTNSTV)
+        x, wt, b, gamma, beta = k1_inputs(g, dt, shape)
         y, s = res_block.conv3x3_in_stats(x, wt, b)
-        t = [event_ms(lambda: res_block.conv3x3_in_stats(x, wt, b), 20, 3),
-             event_ms(lambda: res_block.conv3x3_in_stats(
-                 y, wt, b, s, gamma, beta), 20, 3)]
+        calls = [lambda: res_block.conv3x3_in_stats(x, wt, b),
+                 lambda: res_block.conv3x3_in_stats(y, wt, b, s, gamma, beta)]
+        t = [event_ms(f, 20, 3) for f in calls]
+        dev = [device_ms_per_call(f) for f in calls]
+        host = [host_ms_per_call(f) for f in calls]
         tp = [event_ms(lambda: res_block.conv3x3_in_stats_plain(x, wt, b),
                        5, 1),
               event_ms(lambda: res_block.conv3x3_in_stats_plain(
@@ -2457,8 +2554,12 @@ def timing_k1_rtnstv(g):
         b1_pro, _ = bound(flops, nbytes + (n * 2 * c + 2 * c) * 4, peak)
         row.update({f"ms{tag}": 5 * (t[0] + t[1]),
                     f"ms{tag}_per_launch": t,
+                    f"device_ms{tag}_per_call": [d[0] for d in dev],
+                    f"device_kernels{tag}_per_call": [d[1] for d in dev],
+                    f"host_ms{tag}_per_call": host,
                     f"plain_ms{tag}": 5 * (tp[0] + tp[1]),
                     f"bound_ms{tag}": 5 * (b1 + b1_pro),
+                    f"bound_ms{tag}_per_launch": [b1, b1_pro],
                     f"bound_by{tag}": by,
                     f"library_ms{tag}": 10 * tl,
                     f"library_ms{tag}_per_launch": tl,
@@ -2466,13 +2567,16 @@ def timing_k1_rtnstv(g):
                                      f"{layout}; NCHW {both['NCHW']:.4f}, "
                                      f"channels_last "
                                      f"{both['channels_last']:.4f} ms)"})
-        log(f"  K1{tag or ' bf16'} RTNSTV {K1_RTNSTV}->48 ms per launch: "
-            f"kernel {t[0]:.4f}, with prologue {t[1]:.4f} "
-            f"({flops / t[0] / 1e9:.1f} / {flops / t[1] / 1e9:.1f} TFLOP/s; "
-            f"bound {b1:.4f} / {b1_pro:.4f} ({by}), share "
-            f"{b1 / t[0]:.3f} / {b1_pro / t[1]:.3f}); plain {tp[0]:.4f} / "
-            f"{tp[1]:.4f}; cuDNN {tl:.4f} ({layout}; NCHW {both['NCHW']:.4f}"
-            f", channels_last {both['channels_last']:.4f})")
+        log(f"  K1{tag or ' bf16'} {shape}->{c} ms a call: {t[0]:.4f}, with "
+            f"prologue {t[1]:.4f} ({flops / t[0] / 1e9:.1f} / "
+            f"{flops / t[1] / 1e9:.1f} TFLOP/s); device {dev[0][0]:.4f} / "
+            f"{dev[1][0]:.4f} (launches a call, ms a launch: "
+            f"{json.dumps(dev[0][1])} / {json.dumps(dev[1][1])}); "
+            f"host {host[0]:.4f} / {host[1]:.4f}; bound {b1:.4f} / "
+            f"{b1_pro:.4f} ({by}), share of the device time "
+            f"{b1 / dev[0][0]:.3f} / {b1_pro / dev[1][0]:.3f}; plain "
+            f"{tp[0]:.4f} / {tp[1]:.4f}; cuDNN {tl:.4f} ({layout}; NCHW "
+            f"{both['NCHW']:.4f}, channels_last {both['channels_last']:.4f})")
         del x, y, xp
     apply_precision(torch.bfloat16)
     return row
@@ -2801,11 +2905,13 @@ def phase_rtnstv_alone():
         phase_model_rtnstv({k: z[k] for k in z.files})
     serving = phase_main_rtnstv()
     train = phase_main_rtnstv_train()
-    log("[6] timing: K1 at RTNSTV's shape")
-    row = timing_k1_rtnstv(g)
-    row.update(errs=errs, serving=serving, train=train)
-    log(json.dumps({"K1 RTNSTV": row}))
+    log("[6] timing: K1 at its narrow widths")
+    rows = {key: timing_k1_narrow(g, *K1_NARROW_TIMED[key])
+            for key in K1_NARROW_TIMED}
+    rows["rtnstv"].update(errs=errs, serving=serving, train=train)
+    log(json.dumps({"K1 narrow": rows}))
     log("[7] profile")
+    _profile_rtnstv_forward(np.random.default_rng(4))
     _profile_rtnstv_step(np.random.default_rng(4))
 
 
@@ -3419,6 +3525,19 @@ def _k1_halo_check(g, dtype, label, shape, tol,
     return worst, same
 
 
+def _k1_narrow_halo_edges(g, dtype, key, tol, errs, same):
+    """K1's halo-rows mode at K1_NARROW_EDGES (whole, and the 90-row case
+    also in 2 shards): the stitched y must be one reflect launch's bits."""
+    for label, shape in K1_NARROW_EDGES.items():
+        splits = (2, 1) if shape[1] >= 4 else (1,)
+        e, exact = _k1_halo_check(g, dtype, label, shape, tol, splits)
+        same[f"{key} {label}"] = exact
+        errs[key] = max(errs[key], e)
+        if not exact:
+            raise AssertionError(f"K1 halo {label} {splits}: the stitched "
+                                 f"shards differ from one reflect launch")
+
+
 def phase_kernels_spatial(g):
     """[3]'s cases of the spatial and data × space parts of [8]: K1's
     halo-rows mode at K1_SPATIAL, K1_FLOW and the uneven blocks of
@@ -3458,6 +3577,7 @@ def phase_kernels_spatial(g):
                 raise AssertionError(f"K1 halo {label} {splits}: the "
                                      f"stitched blocks differ from one "
                                      f"reflect launch")
+        _k1_narrow_halo_edges(g, dtype, key, tol, errs, same)
         errs[f"K2 uneven {tag}"] = max(
             _k2_check(g, dtype, label, shape, tol)
             for label, shape in K2_UNEVEN.items())
@@ -4802,9 +4922,11 @@ def timing_k45(launches, errs, slices):
     return [k4, k5], k3_f32
 
 
-def _profile(label, forward, top=14):
+def _profile(label, forward, top=14, share=None):
     """Device time by operator over two forwards (torch.profiler), and the
-    device's busy share of the window's wall time; the ``top`` rows."""
+    device's busy share of the window's wall time; the ``top`` rows.
+    ``share`` = (label, substrings): also the share of the device time in
+    the rows whose name holds one of the substrings."""
     from torch.profiler import ProfilerActivity, profile
 
     forward()
@@ -4838,6 +4960,12 @@ def _profile(label, forward, top=14):
             break
         log(f"  {dev_us(e) / 2e3:9.3f} ms/forward  x{e.count // 2:<4d} "
             f"{e.key[:90]}")
+    if share is not None:
+        part = [e for e in rows if any(k in e.key for k in share[1])]
+        ms = sum(dev_us(e) for e in part) / 2e3
+        log(f"  {share[0]}: {ms:.4f} ms/forward in "
+            f"{sum(e.count for e in part) // 2} launches, "
+            f"{100 * ms / (busy_ms / 2):.1f}% of the device time")
 
 
 def phase_profile():
@@ -4867,6 +4995,7 @@ def phase_profile():
              lambda: step(state, batch))
     del state, step, batch
     _profile_flow_step(rng)
+    _profile_rtnstv_forward(rng)
     _profile_rtnstv_step(rng)
 
 
@@ -5087,7 +5216,7 @@ def main(argv):
         "sintel_ada_ms_per_pair": {
             a: v["ms_per_pair"] for a, v in ev_res["sintel_ada"].items()},
         "raft_ms_per_pair": ev_res["raft"]["ms_per_pair"]}
-    log("[6] timing: K1 at RTNSTV's shape (bf16, f32)")
+    log("[6] timing: K1 at its narrow widths (bf16, f32)")
     kernels[0]["spatial"] = {
         "per": "[8] spatial: one 2160x3840 frame at world 1 through "
                "stylize_spatial_sharded / stylize_adaattn_sharded against "
@@ -5121,8 +5250,9 @@ def main(argv):
         row["space_train"] = {
             "per": per + "; the block's queries against the whole style",
             **{t: v for t, v in steps.items() if v["launches_per_step"][k]}}
-    kernels[0]["rtnstv"] = timing_k1_rtnstv(
-        torch.Generator(device="cuda").manual_seed(15))
+    g15 = torch.Generator(device="cuda").manual_seed(15)
+    for key, (shape, what) in K1_NARROW_TIMED.items():
+        kernels[0][key] = timing_k1_narrow(g15, shape, what)
     kernels[0]["rtnstv"].update(
         max_abs_err_f32_vs_f64=errs["K1 f32 RTNSTV vs f64"],
         serving_ms={k: v["ms"] for k, v in rt_serving.items()},

@@ -146,7 +146,7 @@ def loaded(libs):
     """The package's K1/K2 wrappers calling the given libraries."""
     saved = {lib: _build._loaded.get(lib) for lib in LIBS}
     caches = (res_block._kernel, res_block.partial_blocks,
-              res_block.weight_floats, head_conv._kernel,
+              res_block.work_floats, head_conv._kernel,
               head_conv.weight_floats)
     for c in caches:
         c.cache_clear()

@@ -83,6 +83,7 @@ def _k1_inputs(cuda, n, h, wd, c, co, dtype=torch.bfloat16, seed=0):
     (1, 90, 160, 192, 192),    # the 640x360 stream
     (1, 2, 37, 64, 64),        # the least height, a ragged width
     (2, 9, 5, 192, 192),       # a width below one tile
+    (2, 20, 27, 128, 48),      # C past one chunk into a narrow Co
 ])
 @pytest.mark.parametrize("prologue", [False, True])
 def test_k1_bf16_shapes(cuda, n, h, wd, c, co, prologue):
@@ -135,10 +136,17 @@ def test_k1_k2_bf16_deterministic(cuda):
 
 def test_k1_partial_blocks_follow_the_library(cuda):
     """The scratch for K1's partial sums is sized by the library's own
-    count, one per 8 x 16 tile in both dtypes: 4 blocks at 9 x 17, 128 at
-    128 x 128."""
-    assert res_block.partial_blocks(9, 17) == 4
-    assert res_block.partial_blocks(128, 128) == 128
+    count: one per 8 x 16 tile in float32 and in the wide bf16 body (4
+    blocks at 9 x 17, 128 at 128 x 128; C > 64 into Co <= 64 takes the
+    wide body), one per 16 x 16 tile in the narrow bf16 body (C and Co
+    <= 64: 2 and 64)."""
+    for c, co, dtype, blocks in ((64, 64, torch.float32, (4, 128)),
+                                 (192, 192, torch.bfloat16, (4, 128)),
+                                 (128, 64, torch.bfloat16, (4, 128)),
+                                 (64, 64, torch.bfloat16, (2, 64)),
+                                 (48, 48, torch.bfloat16, (2, 64))):
+        assert (res_block.partial_blocks(9, 17, c, co, dtype),
+                res_block.partial_blocks(128, 128, c, co, dtype)) == blocks
     for dtype, tol in ((torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-4)):
         x, w, b, _ = _k1_inputs(cuda, 3, 9, 17, 64, 64, dtype)
         y, s = res_block.conv3x3_in_stats(x, w, b)
@@ -257,6 +265,64 @@ def test_k1_rtnstv_width(cuda, dtype, tol, prologue):
     _close(s, sp, 1e-4)
     y2, s2 = res_block.conv3x3_in_stats(x, w, b, **kw)
     assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.parametrize("n,h,wd", [
+    (8, 90, 160),    # RTNSTV's 640x360 batch 8: 6 tile rows, the last of 10
+    (1, 17, 37),     # one row past a 16-row tile, a ragged width
+    (1, 2, 160),     # the least height
+    (8, 2, 37),
+])
+@pytest.mark.parametrize("c", [48, 64])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("halo", [False, True])
+def test_k1_narrow_bf16(cuda, n, h, wd, c, prologue, halo):
+    """The narrow bf16 K1 (C = Co = 48, RTNSTV's, and 64, SD1/SD2's; one
+    launch of 16 x 16-pixel tiles that finishes the statistics itself) in
+    the reflect mode and the halo-rows mode (on the whole reflect-padded
+    tensor): y within one bf16 ulp of its scale and the statistics (the
+    sums in halo mode) within 1e-4 of theirs against the plain version,
+    and a second launch gives the same bits."""
+    x, w, b, pro = _k1_inputs(cuda, n, h, wd, c, c)
+    kw = dict(zip(("stats_in", "gamma", "beta"), pro)) if prologue else {}
+    if halo:
+        x = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1),
+                                    mode="reflect").permute(0, 2, 3, 1)
+        x = x.contiguous()
+        fn, plain = (res_block.conv3x3_in_stats_halo,
+                     res_block.conv3x3_in_stats_halo_plain)
+    else:
+        fn, plain = (res_block.conv3x3_in_stats,
+                     res_block.conv3x3_in_stats_plain)
+    y, s = fn(x, w, b, **kw)
+    yp, sp = plain(x, w, b, **kw)
+    _close(y, yp, 2.0 ** -7)
+    _close(s, sp, 1e-4)
+    y2, s2 = fn(x, w, b, **kw)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+def test_k1_narrow_halo_stitch_equals_reflect(cuda, prologue):
+    """RTNSTV's (4, 90, 160, 48) cut into the flow step's uneven row blocks
+    (24, 22, 22, 22) that carry their neighbours' rows: the stitched y of
+    the halo-rows mode is one reflect-mode launch's bit for bit, and the
+    summed statistics give its (mean, var) within 1e-4."""
+    x, w, b, pro = _k1_inputs(cuda, 4, 90, 160, 48, 48)
+    kw = dict(zip(("stats_in", "gamma", "beta"), pro)) if prologue else {}
+    xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1),
+                                 mode="reflect").permute(0, 2, 3, 1)
+    ys, sums, start = [], 0, 0
+    for r in (24, 22, 22, 22):
+        y, sm = res_block.conv3x3_in_stats_halo(
+            xp[:, start:start + r + 2].contiguous(), w, b, **kw)
+        ys.append(y)
+        sums, start = sums + sm, start + r
+    yr, sr = res_block.conv3x3_in_stats(x, w, b, **kw)
+    assert torch.equal(torch.cat(ys, 1), yr)
+    mean = sums[:, 0] / (90 * 160)
+    _close(torch.stack([mean, sums[:, 1] / (90 * 160) - mean * mean], 1), sr,
+           1e-4)
 
 
 def _halo_shards(x, parts):

@@ -67,6 +67,7 @@
 // together), and the drain of each stage's fresh partial.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -463,20 +464,16 @@ cudaError_t launch(const ConvArgs& a, float* wsplit, int n, cudaStream_t s) {
   return with_tile(a.co, [&](auto tile) {
     constexpr int N = decltype(tile)::value;
     auto kernel = conv3x3_tf32<REFLECT, PROLOGUE, STATS, N>;
+    static std::atomic<const void*> cache[wg::kMaxDevices];
+    int sms = 0;
+    cudaError_t e = wg::ready(kernel, cache, &sms);
+    if (e != cudaSuccess) return e;
     CUtensorMap map;
-    cudaError_t e = weight_map(&map, wsplit, a.c, a.co, N);
-    if (e != cudaSuccess) return e;
-    const int bytes = smem_bytes(N, STATS);
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    int dev = 0, sms = 0;
-    e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    e = weight_map(&map, wsplit, a.c, a.co, N);
     if (e != cudaSuccess) return e;
     const int total = n * wg::tiles(a.h_out, a.w_out) * ((a.co + N - 1) / N);
-    kernel<<<total < sms ? total : sms, NTH, bytes, s>>>(a, map, n);
+    kernel<<<total < sms ? total : sms, NTH, smem_bytes(N, STATS), s>>>(a, map,
+                                                                        n);
     return cudaGetLastError();
   });
 }
@@ -488,14 +485,14 @@ cudaError_t config(int co, int* out) {
   return with_tile(co, [&](auto tile) {
     constexpr int N = decltype(tile)::value;
     auto kernel = conv3x3_tf32<REFLECT, PROLOGUE, STATS, N>;
-    const int bytes = smem_bytes(N, STATS);
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    static std::atomic<const void*> cache[wg::kMaxDevices];
+    int sms = 0;
+    cudaError_t err = wg::ready(kernel, cache, &sms);
     if (err != cudaSuccess) return err;
     out[0] = N;
-    out[1] = bytes;
+    out[1] = smem_bytes(N, STATS);
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, NTH,
-                                                         bytes);
+                                                         out[1]);
   });
 }
 

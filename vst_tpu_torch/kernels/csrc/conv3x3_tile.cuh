@@ -36,6 +36,13 @@ struct ConvArgs {
   void* y;                  // (N, h_out, w_out, Co), same type
   float* partial;           // (N, tiles, 2, Co), STATS only
   int h_in, w_in, h_out, w_out, c, co;
+  // The narrow bf16 K1 (conv3x3_wgmma with STATS and a tile of <= 64
+  // channels) derives the prologue's parameters from these itself
+  // (pro_* unused).
+  const float* stats_in;    // (N, 2, C) the previous conv's (mean, var)
+  const void* gamma;        // (C,) float32, or bf16 with gb_bf16
+  const void* beta;
+  int gb_bf16;
 };
 
 __device__ __forceinline__ int reflect1(int i, int n) {

@@ -9,8 +9,8 @@
 // epilogue.  A tile is 8*MT rows x 16 columns of one image by N output
 // channels, N one of 32, 48, 64, 128, 192, 256 and Co split into as few
 // N-wide tiles as fit (192 -> one, 768 -> three of 256, 48 -> one of 48;
-// at most 192 with STATS).  MT = 2 for tiles of N <= 64 without STATS
-// (K2's heads), else 1.  The output-channel tile varies fastest, so the
+// at most 192 with STATS).  MT = 2 for tiles of N <= 64 (K2's heads, the
+// narrow K1), else 1.  The output-channel tile varies fastest, so the
 // blocks that read one input tile run together.
 //
 // Block: three warpgroups, warp-specialized, synchronized by mbarriers
@@ -22,8 +22,9 @@
 //   and block, commit; the stage before stays in flight (wait_group 1)
 //   and is released once done.
 // - Producer, warpgroup 2 (setmaxnreg 56): one thread keeps the weight
-//   ring full through TMA; three warps stage the input halos, NA - 1
-//   chunks ahead, through cp.async.
+//   ring full through TMA (the narrow K1: loads its nine taps once); three
+//   warps (the narrow K1: all four) stage the input halos, NA - 1 chunks
+//   ahead, through cp.async.
 //
 // K loop: C in chunks of up to 64 channels (48 -> one chunk of three k16
 // steps), and in each chunk the nine taps.
@@ -51,9 +52,28 @@
 // shared memory and written out as 16-byte vectors, one pixel's channels
 // contiguous.
 //
+// The narrow K1 (STATS, C <= 64 and N <= 64: RTNSTV's 48 channels,
+// SD1/SD2's 64) differs in three ways, because at these widths a tile's
+// products are short and the fixed costs of stages, tiles and launches
+// held the launch (experiments/k1_narrow_variants.py, PERF.md):
+// - 16 x 16-pixel tiles (MT = 2), half as many tiles as 8 x 16;
+// - the nine (tap) weight stages, (9C, N) bf16 (41.5 KB at 48 -> 48, 73.7
+//   KB at 64 -> 64), are loaded once per block by TMA and stay in shared
+//   memory, so each tile waits once for its halo and issues its 9 taps x
+//   k16 steps x MT products as one commit group (the other bodies wait
+//   for and release every stage), with two halo buffers, which all four
+//   producer warps stage (and normalize, the prologue's longest part);
+// - the halo threads derive the prologue's per-(image, channel) mean and
+//   scale from the previous conv's statistics themselves, so a call is
+//   two launches (the conv, finalize_stats) where the wider K1 takes three
+//   (res_block_common.cuh::k1_run).  Finishing the statistics inside the
+//   launch as well, with atomic counts of each image's tiles, cost more
+//   than the launch it saved.
+//
 // Needs C % 8 == 0 and Co % 8 == 0 (the wrappers check it).
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <initializer_list>
 #include <type_traits>
@@ -70,11 +90,18 @@ constexpr int KC = 64;                          // channels per chunk
 constexpr int NCONS = 256;                      // two consumer warpgroups
 constexpr int NTH = NCONS + 128;                // and one producer warpgroup
 
-// 64-row GEMM blocks per consumer warpgroup: 2 for narrow tiles without
-// statistics (K2's heads), so each stage does twice the work; else 1.
-// The output tile is 8 * mt rows x 16 columns.
-__host__ __device__ constexpr int m_blocks(int n, bool stats) {
-  return !stats && n <= 64 ? 2 : 1;
+// 64-row GEMM blocks per consumer warpgroup: 2 for narrow tiles (K2's
+// heads, the narrow K1), so each stage does twice the work and the tile's
+// fixed costs are paid half as often; else 1.  The output tile is 8 * mt
+// rows x 16 columns.
+__host__ __device__ constexpr int m_blocks(int n) { return n <= 64 ? 2 : 1; }
+
+// The narrow K1: STATS with a tile of <= 64 channels (and C <= 64, one
+// chunk: tile_n sends wider inputs to a 128 tile).  Its nine (tap) weight
+// stages stay in shared memory for all of a block's tiles, and each tile's
+// 9 x k16 x MT products go out as one commit group.
+__host__ __device__ constexpr bool narrow(int n, bool stats) {
+  return stats && n <= 64;
 }
 
 // Halo pixels and bytes of one staged 64-channel chunk.
@@ -83,8 +110,7 @@ __host__ __device__ constexpr int halo_bytes(int mt) {
   return (KC / 8) * halo_pixels(mt) * 16;
 }
 
-// Output tiles of one image (K1, with statistics, always has mt = 1: the
-// number of partial sums it writes per image).
+// Output tiles of one image (mt = 1: the float32 body's).
 __host__ __device__ inline int tiles(int h, int w, int mt = 1) {
   return ((h + 8 * mt - 1) / (8 * mt)) * ((w + TW - 1) / TW);
 }
@@ -99,22 +125,24 @@ __host__ __device__ constexpr int box_cols(int n) {
   return n % 64 == 0 ? 64 : (n % 32 == 0 ? 32 : 16);
 }
 
-// Ring depths: weight slots, and halo buffers (narrow tiles finish a
-// chunk fast, so they stage more halos ahead); shared memory stays under
-// 227 KB.
-__host__ __device__ constexpr int ring_b(int n) { return n == 256 ? 3 : 4; }
-__host__ __device__ constexpr int ring_a(int n, int mt) {
-  return mt == 2 ? 3 : (n <= 64 ? 4 : 2);
+// Ring depths: weight slots (the narrow K1's nine are its resident taps),
+// and halo buffers (narrow tiles finish a chunk fast, so they stage more
+// halos ahead); shared memory stays under 227 KB.
+__host__ __device__ constexpr int ring_b(int n, bool stats) {
+  return narrow(n, stats) ? 9 : (n == 256 ? 3 : 4);
+}
+__host__ __device__ constexpr int ring_a(int n, int mt, bool stats) {
+  return narrow(n, stats) ? 2 : (mt == 2 ? 3 : (n <= 64 ? 4 : 2));
 }
 
 // Shared memory: the weight ring, the halos, the epilogue's staging tile,
 // with STATS the per-warp sums and the bias, the mbarriers; plus 1 KB to
 // align the ring for the 128-byte swizzle.
 inline int smem_bytes(int n, int co, bool stats) {
-  const int mt = m_blocks(n, stats);
-  return 1024 + ring_b(n) * KC * n * 2 + ring_a(n, mt) * halo_bytes(mt) +
+  const int mt = m_blocks(n), nb = ring_b(n, stats), na = ring_a(n, mt, stats);
+  return 1024 + nb * KC * n * 2 + na * halo_bytes(mt) +
          mt * 128 * (n + 8) * 2 + (stats ? 16 * n * 4 + co * 4 : 0) +
-         2 * (ring_b(n) + ring_a(n, mt)) * 8;
+         2 * (nb + na) * 8;
 }
 
 // The output-channel tile for Co: as few tiles of <= max_n as cover it,
@@ -127,18 +155,33 @@ inline int pick_n(int co, int max_n) {
   return max_n;
 }
 
+// The output-channel tile of a launch for (C, Co): pick_n, but 128 where
+// a narrow K1's C would need more than one chunk.
+inline int tile_n(int c, int co, bool stats) {
+  const int n = pick_n(co, stats ? 192 : 256);
+  return narrow(n, stats) && c > KC ? 128 : n;
+}
+
+// The bf16 K1 (STATS) for (C, Co): whether it is the narrow kernel, and
+// the partial sums it writes per (h, w) image.
+inline bool k1_narrow(int c, int co) { return narrow(tile_n(c, co, true), true); }
+inline int k1_tiles(int h, int w, int c, int co) {
+  return tiles(h, w, m_blocks(tile_n(c, co, true)));
+}
+
 template <bool REFLECT, bool PROLOGUE, bool STATS, int N>
 __global__ void __launch_bounds__(NTH, 1)
     conv3x3_wgmma(ConvArgs a, const __grid_constant__ CUtensorMap wmap,
                   int images) {
   extern __shared__ unsigned char smem_raw[];
   using bf16 = __nv_bfloat16;
-  constexpr int MT = m_blocks(N, STATS);
+  constexpr int MT = m_blocks(N);
+  constexpr bool NARROW = narrow(N, STATS);
   constexpr int TH = 8 * MT, HP = halo_pixels(MT), A_BYTES = halo_bytes(MT);
   constexpr int NG = N / 8;                 // 8-channel groups of a row
   constexpr int BOX = box_cols(N);          // output channels per TMA box
   constexpr unsigned LAYOUT = BOX == 64 ? 1 : (BOX == 32 ? 2 : 3);
-  constexpr int NB = ring_b(N), NA = ring_a(N, MT);
+  constexpr int NB = ring_b(N, STATS), NA = ring_a(N, MT, STATS);
   constexpr int B_BYTES = KC * N * 2;       // one weight slot
   // [NB] weight slots | [NA] halos | staging [MT * 128][N + 8] bf16 |
   // STATS: red [8][2][N], bias [Co] | mbarriers
@@ -190,7 +233,7 @@ __global__ void __launch_bounds__(NTH, 1)
       mbar_init(b_empty + 8 * i, NCONS / 32);  // lane 0 of each consumer warp
     }
     for (int i = 0; i < NA; ++i) {
-      mbar_init(a_full + 8 * i, 3);            // lane 0 of each halo warp
+      mbar_init(a_full + 8 * i, NARROW ? 4 : 3);   // lane 0 of each halo warp
       mbar_init(a_empty + 8 * i, NCONS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -200,8 +243,17 @@ __global__ void __launch_bounds__(NTH, 1)
   if (warp >= NCONS / 32) {
     // ---------------------------------------------------------- producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
-    if (warp == NCONS / 32) {
-      if (lane == 0) {   // the weight ring
+    if (warp == NCONS / 32 && lane == 0) {
+      if (NARROW) {   // every tap, once
+        for (int tap = 0; tap < 9 && my_tiles > 0; ++tap) {
+          mbar_expect_tx(b_full + 8 * tap, rows * N * 2);
+          const unsigned dst = smem_u32(Bs + tap * B_BYTES);
+#pragma unroll
+          for (int j = 0; j < N / BOX; ++j)
+            tma_load_2d(dst + j * rows * BOX * 2, &wmap, j * BOX, tap * a.c,
+                        b_full + 8 * tap);
+        }
+      } else {   // the weight ring
         int gs = 0;
         for (int i = 0; i < my_tiles; ++i) {
           const Tile tl = tile_at(i);
@@ -217,12 +269,27 @@ __global__ void __launch_bounds__(NTH, 1)
           }
         }
       }
-    } else {
-      // The halos, NA - 1 chunks ahead.  Thread t keeps one 8-channel group
-      // g and walks every 12th halo pixel; neighbouring threads take the
-      // two halves of one pixel's 32 bytes.
-      const int t = tid - NCONS - 32;         // 0..95
-      const int g = 2 * (t / 24) + (t & 1), p0 = (t % 24) >> 1;
+    }
+    if (NARROW || warp > NCONS / 32) {
+      // The halos, NA - 1 chunks ahead, by warps 1-3 of the producer (and
+      // warp 0 too in the narrow K1, whose weights need one thread once).
+      // Thread t keeps one 8-channel group g and walks every pstep-th halo
+      // pixel: of 8 groups, every 12th, neighbouring threads taking the two
+      // halves of one pixel's 32 bytes; in the narrow K1, of the tile's G,
+      // every (128 / G)-th, neighbouring threads taking a pixel's
+      // neighbouring 16 bytes.
+      const int t = tid - NCONS - (NARROW ? 0 : 32);   // 0..127 or 0..95
+      int g, p0, pstep;
+      if (NARROW) {
+        const int ng = groups(0);
+        pstep = 128 / ng;
+        g = t < pstep * ng ? t % ng : KC / 8;   // KC / 8: idle
+        p0 = t / ng;
+      } else {
+        g = 2 * (t / 24) + (t & 1);
+        p0 = (t % 24) >> 1;
+        pstep = 12;
+      }
       const int chunks = my_tiles * nch;
       auto stage_halo = [&](int gc) {
         const Tile tl = tile_at(gc / nch);
@@ -231,7 +298,7 @@ __global__ void __launch_bounds__(NTH, 1)
         const bf16* xn = static_cast<const bf16*>(a.x) +
                          (size_t)tl.n * a.h_in * a.w_in * a.c;
         const unsigned dst = smem_u32(As + (gc % NA) * A_BYTES + g * HP * 16);
-        for (int p = p0; p < HP; p += 12) {
+        for (int p = p0; p < HP; p += pstep) {
           const int hr = p / HW, hc = p - (p / HW) * HW;
           int iy, ix;
           bool ok;
@@ -258,17 +325,33 @@ __global__ void __launch_bounds__(NTH, 1)
         const int cc = (gc % nch) * KC + 8 * g;
         if (g >= groups(gc % nch) || cc >= a.c) return;
         float mean[8], scale[8], beta[8];
+        if (NARROW && a.stats_in != nullptr) {
+          // prologue_params' arithmetic, here: scale = gamma * rsqrt(var +
+          // eps) from the previous conv's (mean, var) of this image
+          const float* st = a.stats_in + (size_t)n * 2 * a.c + cc;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          *reinterpret_cast<float4*>(&mean[4 * h]) = __ldg(
-              reinterpret_cast<const float4*>(a.pro_mean + n * a.c + cc) + h);
-          *reinterpret_cast<float4*>(&scale[4 * h]) = __ldg(
-              reinterpret_cast<const float4*>(a.pro_scale + n * a.c + cc) + h);
-          *reinterpret_cast<float4*>(&beta[4 * h]) = __ldg(
-              reinterpret_cast<const float4*>(a.pro_beta + cc) + h);
+          for (int i = 0; i < 8; ++i) {
+            const float gm =
+                a.gb_bf16 ? __bfloat162float(static_cast<const bf16*>(a.gamma)[cc + i])
+                          : static_cast<const float*>(a.gamma)[cc + i];
+            beta[i] = a.gb_bf16 ? __bfloat162float(static_cast<const bf16*>(a.beta)[cc + i])
+                                : static_cast<const float*>(a.beta)[cc + i];
+            mean[i] = __ldg(st + i);
+            scale[i] = __fmul_rn(gm, rsqrtf(__fadd_rn(__ldg(st + a.c + i), 1e-5f)));
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            *reinterpret_cast<float4*>(&mean[4 * h]) = __ldg(
+                reinterpret_cast<const float4*>(a.pro_mean + n * a.c + cc) + h);
+            *reinterpret_cast<float4*>(&scale[4 * h]) = __ldg(
+                reinterpret_cast<const float4*>(a.pro_scale + n * a.c + cc) + h);
+            *reinterpret_cast<float4*>(&beta[4 * h]) = __ldg(
+                reinterpret_cast<const float4*>(a.pro_beta + cc) + h);
+          }
         }
         uint4* q = reinterpret_cast<uint4*>(As + (gc % NA) * A_BYTES + g * HP * 16);
-        for (int p = p0; p < HP; p += 12) {
+        for (int p = p0; p < HP; p += pstep) {
           uint4 v = q[p];
           unsigned* u = reinterpret_cast<unsigned*>(&v);
 #pragma unroll
@@ -320,45 +403,79 @@ __global__ void __launch_bounds__(NTH, 1)
       for (int mb = 0; mb < MT; ++mb)
 #pragma unroll
         for (int k = 0; k < N / 2; ++k) acc[mb][k] = 0.f;
-      for (int s = 0; s < stages; ++s, ++gs) {
-        const int ch = s / 9, tap = s - 9 * (s / 9), slot = gs % NB;
-        const int buf = (gc + ch) % NA;
-        if (tap == 0) mbar_wait(a_full + 8 * buf, ((gc + ch) / NA) & 1);
-        mbar_wait(b_full + 8 * slot, (gs / NB) & 1);
-        const int dy = tap / 3, dx = tap - 3 * (tap / 3);
-        const unsigned a0 = smem_u32(As + buf * A_BYTES) +
-                            (dy * HW + wgi * 8 + dx) * 16;
-        const unsigned b0 = smem_u32(Bs + slot * B_BYTES);
-        const int nks = groups(ch) / 2;
+      if constexpr (NARROW) {
+        // One chunk, the taps resident: the tile's products in one group.
+        const int buf = gc % NA;
+        mbar_wait(a_full + 8 * buf, (gc / NA) & 1);
+        if (i == 0)
+          for (int tap = 0; tap < 9; ++tap) mbar_wait(b_full + 8 * tap, 0);
+        const int nks = groups(0) / 2;
 #pragma unroll
         for (int mb = 0; mb < MT; ++mb) fence_acc(acc[mb]);
         wgmma_fence();
-        for (int ks = 0; ks < nks; ++ks) {
-          const uint64_t db = desc(b0 + ks * 16 * BOX * 2, rows * BOX * 2,
-                                   8 * BOX * 2, LAYOUT);
 #pragma unroll
-          for (int mb = 0; mb < MT; ++mb)
-            wgmma_bf16<N, B_NMAJOR>(acc[mb],
-                          desc(a0 + (mb * 8 * HW + ks * 2 * HP) * 16,
-                               HP * 16, HW * 16, 0), db);
+        for (int tap = 0; tap < 9; ++tap) {
+          const int dy = tap / 3, dx = tap - 3 * (tap / 3);
+          const unsigned a0 = smem_u32(As + buf * A_BYTES) +
+                              (dy * HW + wgi * 8 + dx) * 16;
+          const unsigned b0 = smem_u32(Bs + tap * B_BYTES);
+          for (int ks = 0; ks < nks; ++ks) {
+            const uint64_t db = desc(b0 + ks * 16 * BOX * 2, rows * BOX * 2,
+                                     8 * BOX * 2, LAYOUT);
+#pragma unroll
+            for (int mb = 0; mb < MT; ++mb)
+              wgmma_bf16<N, B_NMAJOR>(acc[mb],
+                            desc(a0 + (mb * 8 * HW + ks * 2 * HP) * 16,
+                                 HP * 16, HW * 16, 0), db);
+          }
         }
         wgmma_commit();
-        wgmma_wait<1>();              // stage s-1's multiply is done
+        wgmma_wait<0>();
 #pragma unroll
         for (int mb = 0; mb < MT; ++mb) fence_acc(acc[mb]);
-        if (s > 0 && lane == 0) {     // release stage s-1's buffers
-          mbar_arrive(b_empty + 8 * ((gs - 1) % NB));
-          if (tap == 0) mbar_arrive(a_empty + 8 * ((gc + ch - 1) % NA));
-        }
-      }
-      wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(a_empty + 8 * buf);
+        gc += 1;
+      } else {
+        for (int s = 0; s < stages; ++s, ++gs) {
+          const int ch = s / 9, tap = s - 9 * (s / 9), slot = gs % NB;
+          const int buf = (gc + ch) % NA;
+          if (tap == 0) mbar_wait(a_full + 8 * buf, ((gc + ch) / NA) & 1);
+          mbar_wait(b_full + 8 * slot, (gs / NB) & 1);
+          const int dy = tap / 3, dx = tap - 3 * (tap / 3);
+          const unsigned a0 = smem_u32(As + buf * A_BYTES) +
+                              (dy * HW + wgi * 8 + dx) * 16;
+          const unsigned b0 = smem_u32(Bs + slot * B_BYTES);
+          const int nks = groups(ch) / 2;
 #pragma unroll
-      for (int mb = 0; mb < MT; ++mb) fence_acc(acc[mb]);
-      if (lane == 0) {
-        mbar_arrive(b_empty + 8 * ((gs - 1) % NB));
-        mbar_arrive(a_empty + 8 * ((gc + nch - 1) % NA));
+          for (int mb = 0; mb < MT; ++mb) fence_acc(acc[mb]);
+          wgmma_fence();
+          for (int ks = 0; ks < nks; ++ks) {
+            const uint64_t db = desc(b0 + ks * 16 * BOX * 2, rows * BOX * 2,
+                                     8 * BOX * 2, LAYOUT);
+#pragma unroll
+            for (int mb = 0; mb < MT; ++mb)
+              wgmma_bf16<N, B_NMAJOR>(acc[mb],
+                            desc(a0 + (mb * 8 * HW + ks * 2 * HP) * 16,
+                                 HP * 16, HW * 16, 0), db);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();              // stage s-1's multiply is done
+#pragma unroll
+          for (int mb = 0; mb < MT; ++mb) fence_acc(acc[mb]);
+          if (s > 0 && lane == 0) {     // release stage s-1's buffers
+            mbar_arrive(b_empty + 8 * ((gs - 1) % NB));
+            if (tap == 0) mbar_arrive(a_empty + 8 * ((gc + ch - 1) % NA));
+          }
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int mb = 0; mb < MT; ++mb) fence_acc(acc[mb]);
+        if (lane == 0) {
+          mbar_arrive(b_empty + 8 * ((gs - 1) % NB));
+          mbar_arrive(a_empty + 8 * ((gc + nch - 1) % NA));
+        }
+        gc += nch;
       }
-      gc += nch;
 
       // Epilogue.  acc[mb][4j + 2h + t]: GEMM row 16*(warp%4) + lane/4 +
       // 8h of block mb of this warpgroup = tile row 8mb + 2*(warp%4) + h,
@@ -456,12 +573,12 @@ inline cudaError_t weight_map(CUtensorMap* map, const ConvArgs& a, int n_tile) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Calls f(std::integral_constant<int, N>) with N = pick_n(co, max_n):
+// Calls f(std::integral_constant<int, N>) with N = tile_n(c, co, STATS):
 // tiles of up to 192 channels with STATS (the per-warp sums and the bias
 // must fit beside the rings), of up to 256 without.
 template <bool STATS, class F>
-cudaError_t with_tile(int co, F&& f) {
-  switch (pick_n(co, STATS ? 192 : 256)) {
+cudaError_t with_tile(int c, int co, F&& f) {
+  switch (tile_n(c, co, STATS)) {
     case 32: return f(std::integral_constant<int, 32>{});
     case 48: return f(std::integral_constant<int, 48>{});
     case 64: return f(std::integral_constant<int, 64>{});
@@ -471,29 +588,58 @@ cudaError_t with_tile(int co, F&& f) {
   }
 }
 
+// The kernel allowed the device's whole opt-in shared memory (so any Co's
+// launch fits) and the device's SM count, asked of the runtime once per
+// (device, kernel) through the caller's static cache, as they cost host
+// time on every call otherwise.  The cache holds the kernel's address, not
+// a flag: a template's static is one object across the libraries of a
+// process (GNU unique symbols), and a variant library's copy of a kernel
+// (experiments/) needs its own allowance.
+constexpr int kMaxDevices = 64;
+template <class Kernel>
+cudaError_t ready(Kernel kernel,
+                  std::atomic<const void*> (&cache)[kMaxDevices], int* sms) {
+  static std::atomic<int> sm_count[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  if (dev < kMaxDevices && cache[dev].load() == key &&
+      (*sms = sm_count[dev].load()) > 0)
+    return cudaSuccess;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kMaxDevices) {
+    sm_count[dev].store(*sms);
+    cache[dev].store(key);
+  }
+  return err;
+}
+
 // Launches conv3x3_wgmma: one block per SM (at most one per tile), each
 // walking its tiles.
 template <bool REFLECT, bool PROLOGUE, bool STATS>
 cudaError_t launch(const ConvArgs& a, int n, cudaStream_t s) {
-  return with_tile<STATS>(a.co, [&](auto tile) {
+  return with_tile<STATS>(a.c, a.co, [&](auto tile) {
     constexpr int N = decltype(tile)::value;
     auto kernel = conv3x3_wgmma<REFLECT, PROLOGUE, STATS, N>;
+    static std::atomic<const void*> cache[kMaxDevices];
+    int sms = 0;
+    cudaError_t err = ready(kernel, cache, &sms);
+    if (err != cudaSuccess) return err;
     CUtensorMap map;
-    cudaError_t err = weight_map(&map, a, N);
+    err = weight_map(&map, a, N);
     if (err != cudaSuccess) return err;
-    const int bytes = smem_bytes(N, a.co, STATS);
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
-    if (err != cudaSuccess) return err;
-    int dev = 0, sms = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    const int total = n * tiles(a.h_out, a.w_out, m_blocks(N, STATS)) *
+    const int total = n * tiles(a.h_out, a.w_out, m_blocks(N)) *
                       ((a.co + N - 1) / N);
-    kernel<<<total < sms ? total : sms, NTH, bytes, s>>>(a, map, n);
+    kernel<<<total < sms ? total : sms, NTH, smem_bytes(N, a.co, STATS), s>>>(
+        a, map, n);
     return cudaGetLastError();
   });
 }
@@ -502,17 +648,17 @@ cudaError_t launch(const ConvArgs& a, int n, cudaStream_t s) {
 // memory bytes, resident blocks per SM}.
 template <bool REFLECT, bool PROLOGUE, bool STATS>
 cudaError_t config(int c, int co, int* out) {
-  return with_tile<STATS>(co, [&](auto tile) {
+  return with_tile<STATS>(c, co, [&](auto tile) {
     constexpr int N = decltype(tile)::value;
     auto kernel = conv3x3_wgmma<REFLECT, PROLOGUE, STATS, N>;
-    const int bytes = smem_bytes(N, co, STATS);
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    static std::atomic<const void*> cache[kMaxDevices];
+    int sms = 0;
+    cudaError_t err = ready(kernel, cache, &sms);
     if (err != cudaSuccess) return err;
     out[0] = N;
-    out[1] = bytes;
+    out[1] = smem_bytes(N, co, STATS);
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, NTH,
-                                                         bytes);
+                                                         out[1]);
   });
 }
 

@@ -7,7 +7,9 @@
 // STATS, then one reduction of the per-tile partial sums in a fixed order:
 // the (mean, biased var) over h_out * w_out in reflect mode, the raw sums
 // Σy and Σy² in halo mode (a row shard's statistics are only part of the
-// frame's: the caller all-reduces the sums and divides once).
+// frame's: the caller all-reduces the sums and divides once).  The narrow
+// bf16 K1 (Co <= 64) derives the prologue's parameters inside the conv
+// (conv3x3_wgmma.cuh): two launches.
 //
 // Include conv3x3_tf32.cuh (the bodies) before this header: the sources
 // include it themselves, so that a variant's copy of the body beside a copy
@@ -67,37 +69,90 @@ cudaError_t launch(const ConvArgs& a, float* wsplit, int n, bool bf16,
               : tf::launch<REFLECT, PRO, true>(a, wsplit, n, s);
 }
 
-// One K1 launch: x is (n, h_in, w_in, c), y (n, h, wd, co); h_in = h and
-// w_in = wd in reflect mode, h + 2 and wd + 2 in halo mode.  stats gets the
-// (mean, var) in reflect mode and the sums in halo mode, (n, 2, co).
+// Partial-sum blocks per image that K1 writes for an (h, wd) image: one per
+// 8 x 16 tile, or per 16 x 16 tile in the narrow bf16 K1.
+inline int k1_blocks(int h, int wd, int c, int co, bool bf16) {
+  return bf16 ? wg::k1_tiles(h, wd, c, co) : wg::tiles(h, wd);
+}
+
+// K1's float32 workspace, which the wrapper keeps per device and stream and
+// reuses call after call (one stream's launches run in order), in parts
+// that start on 16 floats: the partial sums (n, k1_blocks, 2, co), the
+// prologue's mean and scale (n, c) and beta (c) for prologue_params, and
+// the float32 body's split weights (tf::weight_floats).
+struct K1Work {
+  long long pro, wsplit, total;
+};
+inline K1Work k1_work(int n, int h, int wd, int c, int co, bool bf16,
+                      bool prologue) {
+  auto part = [](long long floats) { return (floats + 15) / 16 * 16; };
+  K1Work p;
+  p.pro = part(2LL * n * k1_blocks(h, wd, c, co, bf16) * co);
+  p.wsplit = p.pro + (prologue ? part(2LL * n * c + c) : 0);
+  p.total = p.wsplit + (bf16 ? 0 : part(tf::weight_floats(c, co)));
+  return p;
+}
+
+// One K1 call: x is (n, h_in, w_in, c), y (n, h, wd, co); h_in = h and
+// w_in = wd in reflect mode, h + 2 and wd + 2 in halo mode.  stats gets
+// the (mean, var) in reflect mode and the sums in halo mode, (n, 2, co).
+// work: k1_work(...).total floats.  On the current device.
 template <bool REFLECT>
-int k1_run(const void* x, const void* w, const void* b, const void* stats_in,
-           const void* gamma, const void* beta, int gb_bf16, void* pro,
-           void* wsplit, void* y, void* partial, void* stats, int n, int h,
-           int wd, int c, int co, int bf16, void* stream) {
-  float* mean = stats_in != nullptr ? static_cast<float*>(pro) : nullptr;
-  float* scale = mean != nullptr ? mean + (size_t)n * c : nullptr;
-  float* beta_f = mean != nullptr ? scale + (size_t)n * c : nullptr;
+int k1_launches(const void* x, const void* w, const void* b,
+                const void* stats_in, const void* gamma, const void* beta,
+                int gb_bf16, void* y, void* stats, void* work, int n, int h,
+                int wd, int c, int co, int bf16, cudaStream_t s) {
+  const K1Work parts =
+      k1_work(n, h, wd, c, co, bf16 != 0, stats_in != nullptr);
+  float* partial = static_cast<float*>(work);
   const int halo = REFLECT ? 0 : 2;
-  ConvArgs a{x, w, b, mean, scale, beta_f,
-             y, static_cast<float*>(partial), h + halo, wd + halo, h, wd, c, co};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stats_in != nullptr) {
+  ConvArgs a{x, w, b, nullptr, nullptr, nullptr,
+             y, partial, h + halo, wd + halo, h, wd, c, co};
+  if (stats_in != nullptr && bf16 && wg::k1_narrow(c, co)) {
+    a.stats_in = static_cast<const float*>(stats_in);
+    a.gamma = gamma;
+    a.beta = beta;
+    a.gb_bf16 = gb_bf16;
+  } else if (stats_in != nullptr) {
+    float* mean = partial + parts.pro;
+    a.pro_mean = mean;
+    a.pro_scale = mean + (size_t)n * c;
+    a.pro_beta = mean + 2 * (size_t)n * c;
     prologue_params<<<(n * c + 255) / 256, 256, 0, s>>>(
         static_cast<const float*>(stats_in), gamma, beta, gb_bf16, mean,
-        scale, beta_f, n, c);
+        mean + (size_t)n * c, mean + 2 * (size_t)n * c, n, c);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  float* ws = static_cast<float*>(wsplit);
+  float* ws = partial + parts.wsplit;
   const cudaError_t err = stats_in != nullptr
                               ? launch<REFLECT, true>(a, ws, n, bf16 != 0, s)
                               : launch<REFLECT, false>(a, ws, n, bf16 != 0, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   finalize_stats<!REFLECT><<<dim3((co + 127) / 128, n), 128, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(stats),
-      wg::tiles(h, wd), co, static_cast<float>(h * wd));
+      partial, static_cast<float*>(stats),
+      k1_blocks(h, wd, c, co, bf16 != 0),
+      co, static_cast<float>(h * wd));
   return static_cast<int>(cudaGetLastError());
+}
+
+// k1_launches on ``device`` (the tensors' card), whose current stream is
+// ``stream``: the wrapper passes the device instead of making it current
+// itself, which costs more host time a call.
+template <bool REFLECT>
+int k1_run(const void* x, const void* w, const void* b, const void* stats_in,
+           const void* gamma, const void* beta, int gb_bf16, void* y,
+           void* stats, void* work, int n, int h, int wd, int c, int co,
+           int bf16, int device, void* stream) {
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rc = k1_launches<REFLECT>(x, w, b, stats_in, gamma, beta, gb_bf16,
+                                      y, stats, work, n, h, wd, c, co, bf16,
+                                      static_cast<cudaStream_t>(stream));
+  if (current != device) cudaSetDevice(current);
+  return rc;
 }
 
 }  // namespace vst

@@ -29,15 +29,13 @@
 
 // Returns cudaGetLastError() after the launches (0 on success).  The
 // arguments are vst_k1_conv3x3_in_stats's, with h and wd the OUTPUT's rows
-// and columns (x has h + 2 and wd + 2), partial (n,
-// vst_k1_partial_blocks(h, wd), 2, co) float32 and sums (n, 2, co) float32,
-// which receives Σy and Σy² of this launch's output.
+// and columns (x has h + 2 and wd + 2) and stats receiving Σy and Σy² of
+// this launch's output.
 extern "C" int vst_k1_conv3x3_in_stats_halo(
     const void* x, const void* w, const void* b, const void* stats_in,
-    const void* gamma, const void* beta, int gb_bf16, void* pro, void* wsplit,
-    void* y, void* partial, void* sums, int n, int h, int wd, int c, int co,
-    int bf16, void* stream) {
-  return vst::k1_run<false>(x, w, b, stats_in, gamma, beta, gb_bf16, pro,
-                            wsplit, y, partial, sums, n, h, wd, c, co, bf16,
-                            stream);
+    const void* gamma, const void* beta, int gb_bf16, void* y, void* sums,
+    void* work, int n, int h, int wd, int c, int co, int bf16, int device,
+    void* stream) {
+  return vst::k1_run<false>(x, w, b, stats_in, gamma, beta, gb_bf16, y, sums,
+                            work, n, h, wd, c, co, bf16, device, stream);
 }

@@ -25,7 +25,18 @@ plain version only for CPU tensors; its backward is one explicit VJP on
 both devices (``conv3x3_in_stats_vjp``), whose convolutions are library
 calls (``torch.nn.grad.conv2d_input`` / ``conv2d_weight``), as the JAX
 package's backward of this conv is XLA's conv transpose: the TPU has no
-backward kernel here to port.
+backward kernel here to port.  Where no gradient can flow (serving), the
+wrappers call the forward without the Function.
+
+A call costs the host about as much as the narrow kernels cost the card
+(RTNSTV's 48 channels, SD1/SD2's 64: a few hundredths of a ms), so the
+launch path is kept short: one check of plain comparisons, two
+allocations (y and the statistics; the partial sums and the other
+scratch live in a workspace kept per device and stream), one ctypes call
+that makes two launches (the conv, whose prologue derives its own
+parameters, and the statistics' reduction; three in the other bodies),
+and the kernel's attributes asked of the runtime once
+(``experiments/k1_narrow_variants.py`` times each part).
 """
 
 import ctypes
@@ -42,48 +53,73 @@ from vst_tpu_torch.ops.pad import reflection_pad2d
 EPS = 1e-5   # torch InstanceNorm2d default
 
 
-@functools.cache
-def _kernel():
-    fn = _build.load("res_block").vst_k1_conv3x3_in_stats
+def _bind(lib, entry):
+    fn = getattr(_build.load(lib), entry)
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _kernel():
+    return _bind("res_block", "vst_k1_conv3x3_in_stats")
 
 
 @functools.cache
 def _kernel_halo():
-    fn = _build.load("res_block_halo").vst_k1_conv3x3_in_stats_halo
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return _bind("res_block_halo", "vst_k1_conv3x3_in_stats_halo")
 
 
 @functools.cache
-def partial_blocks(h: int, wd: int) -> int:
+def partial_blocks(h: int, wd: int, c: int, co: int,
+                   dtype: torch.dtype) -> int:
     """Blocks per image whose partial statistics K1 writes for an (h, wd)
-    image, from the kernel library itself (the tile lives in csrc/)."""
+    image from C to Co channels in ``dtype``, from the kernel library
+    itself (the tile lives in csrc/: 16 x 16 pixels in the narrow bf16
+    body, C and Co <= 64; else 8 x 16)."""
     fn = _build.load("res_block").vst_k1_partial_blocks
-    fn.argtypes = [ctypes.c_int] * 2
+    fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
-    return fn(h, wd)
+    return fn(h, wd, c, co, int(dtype == torch.bfloat16))
 
 
 @functools.cache
-def weight_floats(c: int, co: int) -> int:
-    """Floats of the scratch that the float32 launch splits the weights
-    into (their tf32 parts, transposed), from the kernel library."""
-    fn = _build.load("res_block").vst_k1_weight_floats
-    fn.argtypes = [ctypes.c_int] * 2
+def work_floats(n: int, h: int, wd: int, c: int, co: int, bf16: bool,
+                prologue: bool) -> int:
+    """Floats of the workspace one call needs, from the kernel library:
+    the partial sums, with a prologue room for its parameters (which only
+    the wider bodies' prologue_params writes), the float32 body's split
+    weights."""
+    fn = _build.load("res_block").vst_k1_work_floats
+    fn.argtypes = [ctypes.c_int] * 7
     fn.restype = ctypes.c_longlong
-    return fn(c, co)
+    return fn(n, h, wd, c, co, int(bf16), int(prologue))
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+# (device, stream) -> the float32 workspace of the calls on that stream:
+# one stream's launches run in order, so each call reuses it (grown as
+# needed) where it would allocate; a launch on another stream never
+# shares it.
+_workspaces: dict = {}
+
+
+def _workspace(x, dev, stream, floats):
+    work = _workspaces.get((dev, stream))
+    if work is None or work.numel() < floats:
+        work = _workspaces[(dev, stream)] = x.new_empty(floats,
+                                                        dtype=torch.float32)
+    return work
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(dev):
+    """The raw handle of the device's current stream."""
+    return (_RAW_STREAM(dev) if _RAW_STREAM is not None
+            else torch.cuda.current_stream(dev).cuda_stream)
 
 
 def _prologue(stats_in, gamma, beta, dtype=torch.float32):
@@ -138,64 +174,77 @@ def conv3x3_in_stats_halo_plain(xh, w, b, stats_in=None, gamma=None,
 
 
 def _check(x, w, b, stats_in, gamma, beta):
-    n, h, wd, c = x.shape
-    if x.device.type != "cuda" or any(
-            t is not None and t.device != x.device
-            for t in (w, b, stats_in, gamma, beta)):
+    """Raises on what the kernel does not take; returns (N, H, W, C, Co)
+    of x and w.  Kept to plain comparisons: it runs on every call."""
+    dev = x.get_device()
+    pro = stats_in is not None
+    if dev < 0 or w.get_device() != dev or b.get_device() != dev or pro and (
+            gamma is None or beta is None or stats_in.get_device() != dev
+            or gamma.get_device() != dev or beta.get_device() != dev):
         raise ValueError("conv3x3_in_stats: every tensor must be on one "
                          f"CUDA device (x on {x.device})")
-    if x.dtype not in (torch.float32, torch.bfloat16) or (
-            w.dtype, b.dtype) != (x.dtype, x.dtype):
+    dt = x.dtype
+    if (dt is not torch.float32 and dt is not torch.bfloat16
+            or w.dtype is not dt or b.dtype is not dt):
         raise TypeError(f"conv3x3_in_stats: dtypes x {x.dtype}, w {w.dtype}, "
                         f"b {b.dtype}")
-    co = w.shape[3] if w.dim() == 4 else -1
-    if (tuple(w.shape[:3]) != (3, 3, c) or tuple(b.shape) != (co,)
-            or h < 2 or wd < 2):
+    shape, ws = x.shape, w.shape
+    if (len(shape) != 4 or len(ws) != 4 or ws[0] != 3 or ws[1] != 3
+            or ws[2] != shape[3] or b.shape != ws[3:] or shape[1] < 2
+            or shape[2] < 2):
         raise ValueError(f"conv3x3_in_stats: shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, b {tuple(b.shape)}")
-    if stats_in is not None and (
-            tuple(stats_in.shape) != (n, 2, c)
-            or tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,)):
+    n, _, _, c = shape
+    co = ws[3]
+    if pro and (stats_in.shape != (n, 2, c) or gamma.shape != (c,)
+                or beta.shape != (c,)):
         raise ValueError("conv3x3_in_stats: stats_in must be (N, 2, C) and "
                          "gamma, beta (C,)")
-    if stats_in is not None and (
-            gamma.dtype not in (torch.float32, torch.bfloat16)
-            or beta.dtype != gamma.dtype):
+    if pro and (gamma.dtype is not torch.float32
+                and gamma.dtype is not torch.bfloat16
+                or beta.dtype is not gamma.dtype):
         raise TypeError(f"conv3x3_in_stats: gamma {gamma.dtype} and beta "
                         f"{beta.dtype} must both be float32 or bfloat16")
     if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
         raise ValueError("conv3x3_in_stats: x, w and b must be contiguous")
-    if x.dtype == torch.bfloat16 and (c % 8 or co % 8):
+    if dt is torch.bfloat16 and (c % 8 or co % 8):
         raise ValueError(f"conv3x3_in_stats: bf16 needs C and Co multiples "
                          f"of 8, got {c}, {co}")
-    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or w.data_ptr() % 16):
+    if dt is torch.bfloat16 and (x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("conv3x3_in_stats: bf16 x and w must start on 16 "
                          "bytes (the kernel reads them as 16-byte vectors)")
+    return n, shape[1], shape[2], c, co
+
+
+def _run(entry, x, w, b, stats_in, gamma, beta, halo):
+    """One call of the library's entry ``entry()`` on CUDA tensors: y, the
+    statistics (mean, var) or, with ``halo`` 2, the sums, and the CUDA
+    error code."""
+    n, h, wd, c, co = _check(x, w, b, stats_in, gamma, beta)
+    dev = x.get_device()
+    h, wd = h - halo, wd - halo
+    bf16 = x.dtype is torch.bfloat16
+    pro = stats_in is not None
+    y = x.new_empty((n, h, wd, co))
+    stats = x.new_empty((n, 2, co), dtype=torch.float32)
+    ptrs, gb_bf16 = (None, None, None), 0
+    if pro:
+        if stats_in.dtype is not torch.float32 or not stats_in.is_contiguous():
+            stats_in = stats_in.float().contiguous()
+        gamma, beta = gamma.contiguous(), beta.contiguous()
+        ptrs = (stats_in.data_ptr(), gamma.data_ptr(), beta.data_ptr())
+        gb_bf16 = int(gamma.dtype is torch.bfloat16)
+    stream = _stream(dev)
+    work = _workspace(x, dev, stream, work_floats(n, h, wd, c, co, bf16, pro))
+    rc = entry()(x.data_ptr(), w.data_ptr(), b.data_ptr(), *ptrs, gb_bf16,
+                 y.data_ptr(), stats.data_ptr(), work.data_ptr(), n, h, wd,
+                 c, co, int(bf16), dev, stream)
+    return y, stats, rc
 
 
 def _launch(x, w, b, stats_in=None, gamma=None, beta=None):
     """The kernel on CUDA tensors (the forward of ``Conv3x3InStats``)."""
-    _check(x, w, b, stats_in, gamma, beta)
-    n, h, wd, c = x.shape
-    co = w.shape[3]
-    bf16 = x.dtype == torch.bfloat16
-    f32 = dict(dtype=torch.float32, device=x.device)
-    y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
-    partial = torch.empty((n, partial_blocks(h, wd), 2, co), **f32)
-    wsplit = None if bf16 else torch.empty(weight_floats(c, co), **f32)
-    stats = torch.empty((n, 2, co), **f32)
-    pro = [None] * 4   # stats_in, gamma, beta and the prologue's scratch
-    if stats_in is not None:
-        pro = [stats_in.float().contiguous(), gamma.contiguous(),
-               beta.contiguous(), torch.empty(2 * n * c + c, **f32)]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel()(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            *(_ptr(t) for t in pro[:3]),
-            int(stats_in is not None and gamma.dtype == torch.bfloat16),
-            _ptr(pro[3]), _ptr(wsplit), y.data_ptr(), partial.data_ptr(),
-            stats.data_ptr(), n, h, wd, c, co, int(bf16), stream)
+    y, stats, rc = _run(_kernel, x, w, b, stats_in, gamma, beta, 0)
     if rc != 0:
         raise RuntimeError(f"K1 conv3x3_in_stats launch failed: CUDA error {rc}")
     conv3x3_in_stats.launches += 1
@@ -205,32 +254,25 @@ def _launch(x, w, b, stats_in=None, gamma=None, beta=None):
 def _launch_halo(xh, w, b, stats_in=None, gamma=None, beta=None):
     """The halo-rows kernel on CUDA tensors: xh (N, R+2, W+2, C) →
     (y (N, R, W, Co), sums (N, 2, Co) float32)."""
-    _check(xh, w, b, stats_in, gamma, beta)
-    n, hp, wp, c = xh.shape
-    h, wd, co = hp - 2, wp - 2, w.shape[3]
-    bf16 = xh.dtype == torch.bfloat16
-    f32 = dict(dtype=torch.float32, device=xh.device)
-    y = torch.empty((n, h, wd, co), dtype=xh.dtype, device=xh.device)
-    partial = torch.empty((n, partial_blocks(h, wd), 2, co), **f32)
-    wsplit = None if bf16 else torch.empty(weight_floats(c, co), **f32)
-    sums = torch.empty((n, 2, co), **f32)
-    pro = [None] * 4
-    if stats_in is not None:
-        pro = [stats_in.float().contiguous(), gamma.contiguous(),
-               beta.contiguous(), torch.empty(2 * n * c + c, **f32)]
-    with torch.cuda.device(xh.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel_halo()(
-            xh.data_ptr(), w.data_ptr(), b.data_ptr(),
-            *(_ptr(t) for t in pro[:3]),
-            int(stats_in is not None and gamma.dtype == torch.bfloat16),
-            _ptr(pro[3]), _ptr(wsplit), y.data_ptr(), partial.data_ptr(),
-            sums.data_ptr(), n, h, wd, c, co, int(bf16), stream)
+    y, sums, rc = _run(_kernel_halo, xh, w, b, stats_in, gamma, beta, 2)
     if rc != 0:
         raise RuntimeError(f"K1 conv3x3_in_stats_halo launch failed: CUDA "
                            f"error {rc}")
     conv3x3_in_stats_halo.launches += 1
     return y, sums
+
+
+def _apply(function, fwd, x, w, b, stats_in, gamma, beta):
+    """``function.apply`` where a gradient can flow; else ``fwd`` alone,
+    which gives the same outputs without the autograd Function's host
+    cost (serving calls K1 ten times a forward)."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad or w.requires_grad or b.requires_grad
+            or stats_in is not None and (stats_in.requires_grad
+                                         or gamma.requires_grad
+                                         or beta.requires_grad)):
+        return function.apply(x, w, b, stats_in, gamma, beta, fwd)
+    return fwd(x, w, b, stats_in, gamma, beta)
 
 
 def conv3x3_in_stats_halo(xh, w, b, stats_in=None, gamma=None, beta=None):
@@ -241,9 +283,8 @@ def conv3x3_in_stats_halo(xh, w, b, stats_in=None, gamma=None, beta=None):
     normalize+relu prologue of ``conv3x3_in_stats``, differentiable in
     every tensor argument (``Conv3x3InStatsHalo``).  CUDA tensors launch
     the kernel (or raise), CPU tensors take the plain version."""
-    fwd = (conv3x3_in_stats_halo_plain if xh.device.type == "cpu"
-           else _launch_halo)
-    return Conv3x3InStatsHalo.apply(xh, w, b, stats_in, gamma, beta, fwd)
+    fwd = conv3x3_in_stats_halo_plain if xh.is_cpu else _launch_halo
+    return _apply(Conv3x3InStatsHalo, fwd, xh, w, b, stats_in, gamma, beta)
 
 
 conv3x3_in_stats_halo.launches = 0
@@ -393,10 +434,10 @@ def conv3x3_in_stats(x, w, b, stats_in=None, gamma=None, beta=None):
     2, C) and ``gamma``, ``beta`` (C,) (float32 or bfloat16) the input is
     first normalized with those per-image statistics and relu'd (the res
     block's middle normalize+relu, fused into the second conv); the
-    library derives the scale = γ·rsqrt(var + eps) itself, in one
-    launch.  CPU tensors (float64 too) take the plain version."""
-    fwd = conv3x3_in_stats_plain if x.device.type == "cpu" else _launch
-    return Conv3x3InStats.apply(x, w, b, stats_in, gamma, beta, fwd)
+    library derives the scale = γ·rsqrt(var + eps) itself.  CPU tensors
+    (float64 too) take the plain version."""
+    fwd = conv3x3_in_stats_plain if x.is_cpu else _launch
+    return _apply(Conv3x3InStats, fwd, x, w, b, stats_in, gamma, beta)
 
 
 conv3x3_in_stats.launches = 0
