@@ -21,8 +21,9 @@ result line):
    and the f32 (3xTF32) K3, K4 and K5;
 3. kernels: K1 (without and with its prologue) at (8,128,128,192), the
    SD1/SD2 width (8,128,128,64), the 640×360 stream's (8,90,160,192) and
-   RTNSTV's 640×360 residual stack (8,90,160,48) (in f32 also against the
-   float64 evaluation),
+   RTNSTV's 640×360 residual stack (8,90,160,48), in f32 the narrow body
+   (C, Co <= 64) also against the float64 evaluation at (8,90,160,48),
+   (8,128,128,64), the edges below and C = 6, Co = 10,
    K2 at the ReCoNet, SD1 and SD2 packed stems and heads and the stream's
    packed (8,92,162,·), in bf16 and f32, in f32 also at C = 6, Co = 10,
    K1 also at the narrow body's edges, (1,2,37,64) (the least height, a
@@ -240,7 +241,9 @@ result line):
    widths, RTNSTV's (8,90,160,48) and SD1/SD2's (8,128,128,64), in bf16
    and f32 beside cuDNN (benchmark mode), with each call's device time
    (torch.profiler, every kernel the call launches), its launches and its
-   host time (200 calls, no synchronization between them);
+   host time (200 calls, no synchronization between them), and in f32 the
+   device time a call of the wide body (the "wide" variant of
+   ``experiments/k1_f32_narrow_variants.py``, built beside the kernels);
 7. profile: device time by kernel over two forwards (train steps) of each
    main path, ReCoNet in bf16 and f32, the f32 ReCoNet flow step, the
    RTNSTV 640×360 b8 bf16 forward (with K1's share of its device time)
@@ -277,7 +280,9 @@ builds the kernels and runs [5c] alone, then profiles the f32 flow step.
     python3 chip_smoke.py --rtnstv
 
 builds the kernels and runs RTNSTV's part alone: K1 at (8,90,160,48)
-and the narrow shapes of [3], the RTNSTV forward and golden, serving,
+and the narrow shapes of [3] in both dtypes and modes (f32 also against
+float64; the halo mode at the RTNSTV and SD steps' uneven blocks, bit for
+bit one reflect launch), the RTNSTV forward and golden, serving,
 training ([5d]), K1's times at its two narrow widths, and the profiles of
 the bf16 forward and the f32 step.
 
@@ -300,6 +305,7 @@ import copy
 import ctypes
 import dataclasses
 import functools
+import importlib.util
 import json
 import math
 import os
@@ -514,9 +520,11 @@ def phase_build():
         shapes = K1_BF16 if bf16 else {**K1_BF16, **K1_F32_ODD}
         for c, co in sorted({(s[3], s[4] if len(s) > 4 else s[3])
                              for s in shapes.values()}):
+            narrow = not bf16 and c <= 64 and co <= 64
             for pro in (0, 1):
                 n, smem, occ = _wgmma_config(k1, c, co, pro, bf16)
-                log(f"  K1 {body} {c}->{co}{' prologue' if pro else ''}: "
+                log(f"  K1 {body}{'_narrow' if narrow else ''} {c}->{co}"
+                    f"{' prologue' if pro else ''}: "
                     f"tile N={n}, dynamic smem {smem} B, {occ} block(s)/SM")
         shapes = K2_BF16 if bf16 else {**K2_BF16, **K2_F32_ODD}
         for c, co in sorted({s[3:] for s in shapes.values()}):
@@ -570,6 +578,10 @@ K1_F32_ODD = {"C6 Co10": (2, 11, 19, 6, 10)}
 # The narrow body's edges (C = Co <= 64, 16 × 16-pixel tiles), both modes
 K1_NARROW_EDGES = {"ragged": (1, 2, 37, 64), "RTNSTV ragged": (2, 90, 37, 48)}
 K2_F32_ODD = {"C6 Co10": (2, 12, 21, 6, 10)}
+# The narrow f32 body (C, Co <= 64) against float64: both widths, the
+# edges and channel counts that are not multiples of 4
+K1_NARROW_F32 = {"RTNSTV": K1_RTNSTV, "SD1/SD2": (8, 128, 128, 64),
+                 **K1_NARROW_EDGES, **K1_F32_ODD}
 # [5e]'s temporal MSE: ReCoNet f32 one 640×360 frame at a time
 K1_EVAL_F32 = {"temporal MSE": (1, 90, 160, 192)}
 K2_EVAL_F32 = {"temporal MSE stem": (1, 92, 162, 48, 768),
@@ -711,8 +723,8 @@ def phase_kernels(g):
                for label, shape in K2_BF16.items()))
     log("  f32 and bf16 K1 and K2: a second launch gives the same bits at "
         "every shape")
-    errs["K1 f32 RTNSTV vs f64"] = _k1_f64_check(
-        torch.Generator(device="cuda").manual_seed(14), K1_RTNSTV)
+    errs["K1 f32 narrow vs f64"] = _k1_f64_checks(
+        torch.Generator(device="cuda").manual_seed(14))
     torch.cuda.synchronize()
     return errs
 
@@ -2179,57 +2191,74 @@ def _rtnstv_before_norm(key):
     return key.endswith("conv.bias")
 
 
-def _k1_f64_check(g, shape):
-    """The f32 (3xTF32) K1 without and with its prologue against the
-    float64 evaluation of the same inputs (``conv3x3_in_stats_plain`` on
-    float64), the card reference of the f32 kernels: y and the stats
-    within 1e-4 of their scale (3xTF32 products and float32 sums over 432
-    terms sit near 1e-6).  Returns the worst y error."""
+def _k1_f64_check(g, label, shape):
+    """The f32 (3xTF32) K1 without and with its prologue (on the first
+    launch's output) against the float64 evaluation of the same inputs
+    (``conv3x3_in_stats_plain`` on float64), the card reference of the f32
+    kernels: y and the stats within 1e-4 of their scale (3xTF32 products
+    and float32 sums over 576 terms sit near 1e-6).  Returns the worst y
+    error."""
     apply_precision(torch.float32)
     x, wt, b, gamma, beta = k1_inputs(g, torch.float32, shape)
+    c, co = wt.shape[2:]
+    w2 = wt if c == co else rnd(g, (3, 3, co, co), 0.02)
     errs = []
+    y, s = res_block.conv3x3_in_stats(x, wt, b)
     for pro in (False, True):
-        y, s = res_block.conv3x3_in_stats(x, wt, b)
-        args = (x, wt, b) if not pro else (y, wt, b, s, gamma, beta)
+        args = (x, wt, b) if not pro else (y, w2, b, s, gamma, beta)
         yk, sk = res_block.conv3x3_in_stats(*args)
         y64, s64 = res_block.conv3x3_in_stats_plain(
             *(a.double() for a in args))
-        tag = f"K1 f32 RTNSTV {shape}{' prologue' if pro else ''} "
+        tag = f"K1 f32 {label} {shape}{' prologue' if pro else ''} "
         errs.append(check(tag + "y against float64", yk, y64, 1e-4))
         check(tag + "stats against float64", sk, s64, 1e-4)
     return max(errs)
 
 
+def _k1_f64_checks(g):
+    """``_k1_f64_check`` at every shape of K1_NARROW_F32 (the narrow f32
+    body's): the worst y error."""
+    return max(_k1_f64_check(g, label, shape)
+               for label, shape in K1_NARROW_F32.items())
+
+
 def phase_kernels_rtnstv(g):
-    """``--rtnstv``: [3] at the narrow widths alone: K1 (8, 90, 160, 48) →
-    48 in f32 and bf16 against the plain version (and f32 against
-    float64); in bf16 also SD1/SD2's (8, 128, 128, 64) and
-    K1_NARROW_EDGES in the reflect mode, and in the halo-rows mode
-    K1_NARROW_EDGES and RTNSTV's step at the uneven blocks (24, 22, 22,
-    22), stitched y one reflect launch's bits; two launches the same
-    bits."""
+    """``--rtnstv``: [3] at the narrow widths alone: K1 at RTNSTV's (8, 90,
+    160, 48) → 48, SD1/SD2's (8, 128, 128, 64) and K1_NARROW_EDGES in bf16
+    and f32 against the plain version, in f32 also at K1_F32_ODD and at
+    every shape of K1_NARROW_F32 against float64; in the halo-rows mode,
+    both dtypes, K1_NARROW_EDGES and the RTNSTV and SD steps at the uneven
+    blocks (24, 22, 22, 22), stitched y one reflect launch's bits; two
+    launches the same bits."""
     log("[3] K1 at the narrow residual widths")
+    narrow = {"RTNSTV": K1_RTNSTV, "SD1/SD2": K1_BF16["SD1/SD2"],
+              **K1_NARROW_EDGES}
     apply_precision(torch.float32)
-    errs = {"K1 f32": _k1_check(g, torch.float32, "f32 RTNSTV", K1_RTNSTV,
-                                1e-4)}
-    errs["K1 f32 vs f64"] = _k1_f64_check(g, K1_RTNSTV)
+    errs = {"K1 f32": max(
+        _k1_check(g, torch.float32, f"f32 {label}", shape, 1e-4)
+        for label, shape in {**narrow, **K1_F32_ODD}.items())}
+    errs["K1 f32 vs f64"] = _k1_f64_checks(g)
     apply_precision(torch.bfloat16)
     errs["K1"] = max(
         _k1_check(g, torch.bfloat16, f"bf16 {label}", shape, BF16_ULP)
-        for label, shape in {"RTNSTV": K1_RTNSTV,
-                             "SD1/SD2": K1_BF16["SD1/SD2"],
-                             **K1_NARROW_EDGES}.items())
-    errs["K1 halo"], same = 0.0, {}
-    _k1_narrow_halo_edges(g, torch.bfloat16, "K1 halo", BF16_ULP, errs, same)
-    shape, splits = K1_UNEVEN["RTNSTV step"]
-    e, same["RTNSTV step uneven"] = _k1_halo_check(
-        g, torch.bfloat16, "RTNSTV step", shape, BF16_ULP, splits)
-    if not same["RTNSTV step uneven"]:
-        raise AssertionError("K1 halo RTNSTV step: the stitched blocks "
-                             "differ from one reflect launch")
-    errs["K1 halo"] = max(errs["K1 halo"], e)
+        for label, shape in narrow.items())
+    same = {}
+    for dtype, key, tol in ((torch.float32, "K1 halo f32", 1e-4),
+                            (torch.bfloat16, "K1 halo", BF16_ULP)):
+        apply_precision(dtype)
+        errs[key] = 0.0
+        _k1_narrow_halo_edges(g, dtype, key, tol, errs, same)
+        for step in ("RTNSTV step", "SD step"):
+            shape, splits = K1_UNEVEN[step]
+            e, same[f"{key} {step} uneven"] = _k1_halo_check(
+                g, dtype, step, shape, tol, splits)
+            if not same[f"{key} {step} uneven"]:
+                raise AssertionError(f"K1 halo {step}: the stitched blocks "
+                                     f"differ from one reflect launch")
+            errs[key] = max(errs[key], e)
     log(f"  K1 halo mode: y equals one reflect-mode launch bit for bit: "
         f"{json.dumps(same)}")
+    apply_precision(torch.bfloat16)
     torch.cuda.synchronize()
     return errs
 
@@ -2517,7 +2546,28 @@ K1_NARROW_TIMED = {"rtnstv": (K1_RTNSTV, "RTNSTV 640x360 b8 serving"),
                    "sd": ((8, 128, 128, 64), "SD1/SD2 512x512 b8 serving")}
 
 
-def timing_k1_narrow(g, shape, what):
+def start_wide_k1():
+    """Starts nvcc on the "wide" variant of
+    ``experiments/k1_f32_narrow_variants.py`` (K1 at C, Co <= 64 on the
+    wide f32 body, the body before the narrow one), to time beside the
+    shipped one in [6]; returns (the variants module, started build)."""
+    spec = importlib.util.spec_from_file_location(
+        "k1_f32_narrow_variants",
+        os.path.join(ROOT, "experiments", "k1_f32_narrow_variants.py"))
+    kv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kv)
+    src = kv.sources()
+    return kv, kv.start_build("wide", kv.variants(src)["wide"][0], src)
+
+
+def wide_k1(started):
+    """(the variants module, the wide variant's library) once the build
+    from ``start_wide_k1`` is done."""
+    kv, build = started
+    return kv, kv.finish_build("wide", build)[0]
+
+
+def timing_k1_narrow(g, shape, what, wide=None):
     """K1 at a narrow width, (N, H, W, C) → C, per call without and with
     its prologue, in bf16 and f32 (3xTF32): the call's time (CUDA events
     around back-to-back calls), its device time and launches
@@ -2527,7 +2577,9 @@ def timing_k1_narrow(g, shape, what):
     in the convention of the other K1 rows.  Per forward: 5 calls without
     and 5 with the prologue.  The device time a call is the calls' time
     queued behind a sleep kernel (``device_ms_per_call``), with each
-    kernel's launches and ms from torch.profiler beside it."""
+    kernel's launches and ms from torch.profiler beside it.  With ``wide``
+    (``wide_k1``'s), the f32 device time a call of the wide body too, in
+    the same way on the same inputs."""
     n, h, w, c = shape
     flops = 2 * 9 * c * c * n * h * w
     row = {"shape": f"({n},{h},{w},{c})->{c}, {what}",
@@ -2552,6 +2604,19 @@ def timing_k1_narrow(g, shape, what):
         nbytes = (2 * n * h * w * c + 9 * c * c + c) * nb + n * 2 * c * 4
         b1, by = bound(flops, nbytes, peak)
         b1_pro, _ = bound(flops, nbytes + (n * 2 * c + 2 * c) * 4, peak)
+        if wide is not None and dt == torch.float32:
+            kv, lib = wide
+            with kv.kn.loaded(lib):
+                old = [device_ms_per_call(f) for f in calls]
+            row.update(device_ms_f32_wide_per_call=[d[0] for d in old],
+                       device_kernels_f32_wide_per_call=[d[1] for d in old])
+            log(f"  K1_f32 {shape}->{c} on the wide body (the parent's, "
+                f"experiments/k1_f32_narrow_variants.py \"wide\"): device "
+                f"{old[0][0]:.4f} / {old[1][0]:.4f} ms a call without / with "
+                f"the prologue ({json.dumps(old[0][1])} / "
+                f"{json.dumps(old[1][1])}); this body "
+                f"{dev[0][0] / old[0][0]:.3f} / {dev[1][0] / old[1][0]:.3f} "
+                f"of it")
         row.update({f"ms{tag}": 5 * (t[0] + t[1]),
                     f"ms{tag}_per_launch": t,
                     f"device_ms{tag}_per_call": [d[0] for d in dev],
@@ -2896,6 +2961,7 @@ def phase_rtnstv_alone():
     """``--rtnstv``: the kernels' build ([2]), K1 at RTNSTV's shape ([3]),
     the RTNSTV forward and golden ([4]), serving ([5]), training ([5d]),
     K1's times at its serving shape ([6]) and the f32 step's profile."""
+    started = start_wide_k1()
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernels_rtnstv(g)
@@ -2906,7 +2972,8 @@ def phase_rtnstv_alone():
     serving = phase_main_rtnstv()
     train = phase_main_rtnstv_train()
     log("[6] timing: K1 at its narrow widths")
-    rows = {key: timing_k1_narrow(g, *K1_NARROW_TIMED[key])
+    wide = wide_k1(started)
+    rows = {key: timing_k1_narrow(g, *K1_NARROW_TIMED[key], wide=wide)
             for key in K1_NARROW_TIMED}
     rows["rtnstv"].update(errs=errs, serving=serving, train=train)
     log(json.dumps({"K1 narrow": rows}))
@@ -3453,6 +3520,7 @@ FLOW_UNEVEN = (24, 22, 22, 22)
 K1_UNEVEN = {"ReCoNet 1080p": ((1, 270, 480, 192), (RECONET_1080, (270,))),
              "flow step": ((4, 90, 160, 192), (FLOW_UNEVEN,)),
              "RTNSTV step": ((4, 90, 160, 48), (FLOW_UNEVEN,)),
+             "SD step": ((4, 90, 160, 64), (FLOW_UNEVEN,)),
              "flow step 356": ((4, 89, 160, 192), ((89,),))}
 K2_UNEVEN = {f"{what} {rows} rows {kind}": (n, -(-rows // 4) + 2, wp, *ch)
              for what, n, wp, all_rows in (
@@ -5111,6 +5179,7 @@ def main(argv):
         log(smi)
         return 0
     started = start_parent_build(parent) if parent else None
+    wide_started = start_wide_k1()
     slices = phase_build()
     g = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernels(g)
@@ -5251,10 +5320,11 @@ def main(argv):
             "per": per + "; the block's queries against the whole style",
             **{t: v for t, v in steps.items() if v["launches_per_step"][k]}}
     g15 = torch.Generator(device="cuda").manual_seed(15)
+    wide = wide_k1(wide_started)
     for key, (shape, what) in K1_NARROW_TIMED.items():
-        kernels[0][key] = timing_k1_narrow(g15, shape, what)
+        kernels[0][key] = timing_k1_narrow(g15, shape, what, wide=wide)
     kernels[0]["rtnstv"].update(
-        max_abs_err_f32_vs_f64=errs["K1 f32 RTNSTV vs f64"],
+        max_abs_err_f32_vs_f64=errs["K1 f32 narrow vs f64"],
         serving_ms={k: v["ms"] for k, v in rt_serving.items()},
         train_step_ms=rt_train["ms"], train_remat_ms=rt_train["remat_ms"])
     phase_profile()

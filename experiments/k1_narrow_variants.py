@@ -89,10 +89,9 @@ def variants():
         "mt1": ([(BODY, "constexpr int m_blocks(int n) { return n <= 64 ? 2 "
                         ": 1; }", "constexpr int m_blocks(int n) { return "
                                   "n < 0 ? 2 : 1; }")], True),
-        "prologue_launch": ([(COMMON, "  if (stats_in != nullptr && bf16 && "
-                                      "wg::k1_narrow(c, co)) {",
-                              "  if (stats_in != nullptr && bf16 && "
-                              "wg::k1_narrow(c, co) && n < 0) {")], True),
+        "prologue_launch": ([(COMMON, "(bf16 ? wg::k1_narrow(c, co) :",
+                              "(bf16 ? wg::k1_narrow(c, co) && n < 0 :")],
+                            True),
         "staged": ([(BODY, "  return stats && n <= 64;\n",
                      "  return stats && n < 0;\n")], True),
         "no_mma": ([(BODY, "        const int nks = groups(0) / 2;\n",

@@ -136,11 +136,16 @@ def test_k1_k2_bf16_deterministic(cuda):
 
 def test_k1_partial_blocks_follow_the_library(cuda):
     """The scratch for K1's partial sums is sized by the library's own
-    count: one per 8 x 16 tile in float32 and in the wide bf16 body (4
-    blocks at 9 x 17, 128 at 128 x 128; C > 64 into Co <= 64 takes the
-    wide body), one per 16 x 16 tile in the narrow bf16 body (C and Co
-    <= 64: 2 and 64)."""
-    for c, co, dtype, blocks in ((64, 64, torch.float32, (4, 128)),
+    count: one per 8 x 16 tile in the wide bodies (4 blocks at 9 x 17, 128
+    at 128 x 128; C > 64 into Co <= 64 takes the wide body, and so does
+    Co > 64 in float32), one per 16 x 16 tile in the narrow bf16 and
+    float32 bodies (C and Co <= 64: 2 and 64)."""
+    for c, co, dtype, blocks in ((64, 64, torch.float32, (2, 64)),
+                                 (48, 48, torch.float32, (2, 64)),
+                                 (6, 10, torch.float32, (2, 64)),
+                                 (192, 192, torch.float32, (4, 128)),
+                                 (128, 64, torch.float32, (4, 128)),
+                                 (64, 72, torch.float32, (4, 128)),
                                  (192, 192, torch.bfloat16, (4, 128)),
                                  (128, 64, torch.bfloat16, (4, 128)),
                                  (64, 64, torch.bfloat16, (2, 64)),
@@ -302,6 +307,41 @@ def test_k1_narrow_bf16(cuda, n, h, wd, c, prologue, halo):
     assert torch.equal(y, y2) and torch.equal(s, s2)
 
 
+@pytest.mark.parametrize("n,h,wd", [
+    (8, 90, 160),    # RTNSTV's 640x360 batch 8: 6 tile rows, the last of 10
+    (1, 17, 37),     # one row past a 16-row tile, a ragged width
+    (1, 2, 160),     # the least height
+    (8, 2, 37),
+])
+@pytest.mark.parametrize("c", [48, 64])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("halo", [False, True])
+def test_k1_narrow_f32(cuda, n, h, wd, c, prologue, halo):
+    """The narrow float32 K1 (C = Co = 48, RTNSTV's, and 64, SD1/SD2's;
+    3xTF32 on 16 x 16-pixel tiles that derive the prologue's parameters
+    themselves) in the reflect mode and the halo-rows mode (on the whole
+    reflect-padded tensor): y and the statistics (the sums in halo mode)
+    within 1e-4 of their scale against the plain version, and a second
+    launch gives the same bits."""
+    x, w, b, pro = _k1_inputs(cuda, n, h, wd, c, c, torch.float32)
+    kw = dict(zip(("stats_in", "gamma", "beta"), pro)) if prologue else {}
+    if halo:
+        x = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1),
+                                    mode="reflect").permute(0, 2, 3, 1)
+        x = x.contiguous()
+        fn, plain = (res_block.conv3x3_in_stats_halo,
+                     res_block.conv3x3_in_stats_halo_plain)
+    else:
+        fn, plain = (res_block.conv3x3_in_stats,
+                     res_block.conv3x3_in_stats_plain)
+    y, s = fn(x, w, b, **kw)
+    yp, sp = plain(x, w, b, **kw)
+    _close(y, yp, 1e-4)
+    _close(s, sp, 1e-4)
+    y2, s2 = fn(x, w, b, **kw)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
 @pytest.mark.parametrize("prologue", [False, True])
 def test_k1_narrow_halo_stitch_equals_reflect(cuda, prologue):
     """RTNSTV's (4, 90, 160, 48) cut into the flow step's uneven row blocks
@@ -309,6 +349,30 @@ def test_k1_narrow_halo_stitch_equals_reflect(cuda, prologue):
     the halo-rows mode is one reflect-mode launch's bit for bit, and the
     summed statistics give its (mean, var) within 1e-4."""
     x, w, b, pro = _k1_inputs(cuda, 4, 90, 160, 48, 48)
+    kw = dict(zip(("stats_in", "gamma", "beta"), pro)) if prologue else {}
+    xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1),
+                                 mode="reflect").permute(0, 2, 3, 1)
+    ys, sums, start = [], 0, 0
+    for r in (24, 22, 22, 22):
+        y, sm = res_block.conv3x3_in_stats_halo(
+            xp[:, start:start + r + 2].contiguous(), w, b, **kw)
+        ys.append(y)
+        sums, start = sums + sm, start + r
+    yr, sr = res_block.conv3x3_in_stats(x, w, b, **kw)
+    assert torch.equal(torch.cat(ys, 1), yr)
+    mean = sums[:, 0] / (90 * 160)
+    _close(torch.stack([mean, sums[:, 1] / (90 * 160) - mean * mean], 1), sr,
+           1e-4)
+
+
+@pytest.mark.parametrize("c", [48, 64])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_k1_narrow_f32_halo_stitch_equals_reflect(cuda, c, prologue):
+    """The narrow float32 K1 over (2, 90, 160, C) cut into uneven row
+    blocks (24, 22, 22, 22) that carry their neighbours' rows: the
+    stitched y of the halo-rows mode is one reflect-mode launch's bit for
+    bit, and the summed statistics give its (mean, var) within 1e-4."""
+    x, w, b, pro = _k1_inputs(cuda, 2, 90, 160, c, c, torch.float32)
     kw = dict(zip(("stats_in", "gamma", "beta"), pro)) if prologue else {}
     xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1),
                                  mode="reflect").permute(0, 2, 3, 1)

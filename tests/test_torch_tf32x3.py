@@ -1,7 +1,8 @@
 """The 3xTF32 split of the port's float32 K3, K4 and K5
 (``csrc/adaattn_fwd.cu`` ``attn_fwd_tf32``, ``csrc/adaattn_bwd.cu``
 ``attn_dq_tf32`` and ``attn_dkv_tf32``) and of the float32 K1 and K2
-(``csrc/conv3x3_tf32.cuh``), emulated in torch on the CPU: the
+(``csrc/conv3x3_tf32.cuh``; K1 at C, Co <= 64 in
+``csrc/conv3x3_tf32_narrow.cuh``), emulated in torch on the CPU: the
 kernels' arithmetic without the card.  Each operand
 x of a product is split as the kernels split it, big = tf32(x) and small
 = tf32(x − big), both rounded to nearest with ties away from zero
@@ -302,9 +303,18 @@ def test_k2_split_meets_the_card_tolerance(rng, n, hp, wp, c, co):
 
 
 @pytest.mark.parametrize("n,h,wd,c,co", [(2, 10, 18, 40, 24),
-                                         (1, 9, 17, 6, 10)])
+                                         (1, 9, 17, 6, 10),
+                                         # the narrow body's widths
+                                         (1, 18, 17, 48, 48),
+                                         (1, 17, 18, 64, 64)])
 @pytest.mark.parametrize("prologue", [False, True])
 def test_k1_split_meets_the_card_tolerance(rng, n, h, wd, c, co, prologue):
+    """The f32 K1's arithmetic: both bodies (conv3x3_tf32.cuh, and
+    conv3x3_tf32_narrow.cuh at C, Co <= 64, whose 16 x 16 tiles change no
+    pixel's order of stages) sum each (32-channel chunk, tap) stage of a
+    pixel in a fresh partial in the same order, so one emulation holds
+    both; at 48 and 64 channels it is the narrow body's: a full and a
+    ragged chunk, and two full ones."""
     x, w, b, stats, gamma, beta = _conv_inputs(rng, n, h, wd, c, co, 3.0)
     kw = dict(stats_in=stats, gamma=gamma, beta=beta) if prologue else {}
     y, s = conv3x3_tf32x3(x, w, b, **kw)

@@ -32,10 +32,14 @@
 //   per launch into a (part, tap, Co, C) part of the workspace, and
 //   every (32-channel chunk, tap) stage is a fresh partial added in
 //   float32.
+//   At C, Co <= 64 (RTNSTV's and SD1/SD2's residual stacks) it runs on
+//   conv3x3_tf32_narrow (conv3x3_tf32_narrow.cuh): 16 x 16-pixel tiles,
+//   so each (chunk, tap) stage, its waits and handshakes, and each
+//   epilogue, what held the wide tiling there, serve twice the pixels.
 // - The prologue's mean, scale = gamma * rsqrt(var + eps) and beta come
 //   from one small launch (prologue_params) on the previous conv's stats,
-//   or, in the narrow bf16 K1 (Co <= 64), from the threads that stage the
-//   halo.
+//   or, in the narrow bodies (C, Co <= 64), from the threads that stage
+//   the halo.
 //
 // Bound on the H100 at the main path's shape ((8,128,128,192) -> 192):
 // 87.0 GFLOP against about 101 MB in bf16 (0.088 ms at 989 TFLOP/s) and
@@ -47,13 +51,16 @@
 // GFLOP; at SD1/SD2's (8,128,128,64) -> 64, 33.6 MB (0.0100 ms).  There a
 // launch's fixed costs and the host's call weigh as much as the conv, so
 // the narrow body takes 16 x 16-pixel tiles and derives the prologue's
-// parameters itself: two launches a call (conv3x3_wgmma.cuh).
+// parameters itself: two launches a call (conv3x3_wgmma.cuh).  In float32
+// both narrow shapes are bound by operations, 0.029 and 0.059 ms at
+// 3xTF32's rate.
 #include "conv3x3_tf32.cuh"      // and conv3x3_wgmma.cuh
+#include "conv3x3_tf32_narrow.cuh"   // the f32 body at C, Co <= 64
 #include "res_block_common.cuh"   // finalize_stats, prologue_params, k1_run
 
 // The number of partial-sum blocks per image that vst_k1_conv3x3_in_stats
 // writes for an (h, wd) image from C to Co channels: one per 8 x 16 tile,
-// or per 16 x 16 tile in the narrow bf16 K1.
+// or per 16 x 16 tile in the narrow bodies (C, Co <= 64).
 extern "C" int vst_k1_partial_blocks(int h, int wd, int c, int co, int bf16) {
   return vst::k1_blocks(h, wd, c, co, bf16 != 0);
 }
@@ -74,6 +81,9 @@ extern "C" int vst_k1_launch_config(int c, int co, int prologue, int bf16,
   if (bf16)
     return static_cast<int>(prologue ? wg::config<true, true, true>(c, co, out)
                                      : wg::config<true, false, true>(c, co, out));
+  if (tn::k1_narrow(c, co))
+    return static_cast<int>(prologue ? tn::config<true, true>(co, out)
+                                     : tn::config<true, false>(co, out));
   return static_cast<int>(prologue ? tf::config<true, true, true>(co, out)
                                    : tf::config<true, false, true>(co, out));
 }

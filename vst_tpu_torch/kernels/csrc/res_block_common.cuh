@@ -8,12 +8,14 @@
 // the (mean, biased var) over h_out * w_out in reflect mode, the raw sums
 // Σy and Σy² in halo mode (a row shard's statistics are only part of the
 // frame's: the caller all-reduces the sums and divides once).  The narrow
-// bf16 K1 (Co <= 64) derives the prologue's parameters inside the conv
-// (conv3x3_wgmma.cuh): two launches.
+// bodies (C, Co <= 64) derive the prologue's parameters inside the conv:
+// bf16 (conv3x3_wgmma.cuh) in two launches, float32
+// (conv3x3_tf32_narrow.cuh) in three with its weights' pre-pass.
 //
-// Include conv3x3_tf32.cuh (the bodies) before this header: the sources
-// include it themselves, so that a variant's copy of the body beside a copy
-// of a source (experiments/conv_f32_variants.py) is the one they build.
+// Include conv3x3_tf32.cuh and conv3x3_tf32_narrow.cuh (the bodies) before
+// this header: the sources include them themselves, so that a variant's
+// copy of a body beside a copy of a source (experiments/conv_f32_variants.py,
+// k1_f32_narrow_variants.py) is the one they build.
 #pragma once
 
 namespace vst {
@@ -65,14 +67,16 @@ __global__ void prologue_params(const float* __restrict__ stats_in,
 template <bool REFLECT, bool PRO>
 cudaError_t launch(const ConvArgs& a, float* wsplit, int n, bool bf16,
                    cudaStream_t s) {
-  return bf16 ? wg::launch<REFLECT, PRO, true>(a, n, s)
-              : tf::launch<REFLECT, PRO, true>(a, wsplit, n, s);
+  if (bf16) return wg::launch<REFLECT, PRO, true>(a, n, s);
+  return tn::k1_narrow(a.c, a.co) ? tn::launch<REFLECT, PRO>(a, wsplit, n, s)
+                                  : tf::launch<REFLECT, PRO, true>(a, wsplit, n, s);
 }
 
 // Partial-sum blocks per image that K1 writes for an (h, wd) image: one per
-// 8 x 16 tile, or per 16 x 16 tile in the narrow bf16 K1.
+// 8 x 16 tile, or per 16 x 16 tile in the narrow bodies (C, Co <= 64).
 inline int k1_blocks(int h, int wd, int c, int co, bool bf16) {
-  return bf16 ? wg::k1_tiles(h, wd, c, co) : wg::tiles(h, wd);
+  if (bf16) return wg::k1_tiles(h, wd, c, co);
+  return tn::k1_narrow(c, co) ? tn::k1_blocks(h, wd) : wg::tiles(h, wd);
 }
 
 // K1's float32 workspace, which the wrapper keeps per device and stream and
@@ -108,7 +112,8 @@ int k1_launches(const void* x, const void* w, const void* b,
   const int halo = REFLECT ? 0 : 2;
   ConvArgs a{x, w, b, nullptr, nullptr, nullptr,
              y, partial, h + halo, wd + halo, h, wd, c, co};
-  if (stats_in != nullptr && bf16 && wg::k1_narrow(c, co)) {
+  if (stats_in != nullptr &&
+      (bf16 ? wg::k1_narrow(c, co) : tn::k1_narrow(c, co))) {
     a.stats_in = static_cast<const float*>(stats_in);
     a.gamma = gamma;
     a.beta = beta;

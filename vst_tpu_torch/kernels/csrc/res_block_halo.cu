@@ -25,6 +25,7 @@
 // one read and one write of the activation per launch (a later version may
 // take the halo rows by pointer instead).
 #include "conv3x3_tf32.cuh"      // and conv3x3_wgmma.cuh
+#include "conv3x3_tf32_narrow.cuh"   // the f32 body at C, Co <= 64
 #include "res_block_common.cuh"   // finalize_stats, prologue_params, k1_run
 
 // Returns cudaGetLastError() after the launches (0 on success).  The

@@ -33,9 +33,10 @@ A call costs the host about as much as the narrow kernels cost the card
 launch path is kept short: one check of plain comparisons, two
 allocations (y and the statistics; the partial sums and the other
 scratch live in a workspace kept per device and stream), one ctypes call
-that makes two launches (the conv, whose prologue derives its own
-parameters, and the statistics' reduction; three in the other bodies),
-and the kernel's attributes asked of the runtime once
+that makes two launches in bf16 (the conv, whose prologue derives its own
+parameters, and the statistics' reduction; three in the wider body), three
+in the narrow float32 body (with its weights' split) and four in the wider
+one, and the kernel's attributes asked of the runtime once
 (``experiments/k1_narrow_variants.py`` times each part).
 """
 
@@ -77,8 +78,8 @@ def partial_blocks(h: int, wd: int, c: int, co: int,
                    dtype: torch.dtype) -> int:
     """Blocks per image whose partial statistics K1 writes for an (h, wd)
     image from C to Co channels in ``dtype``, from the kernel library
-    itself (the tile lives in csrc/: 16 x 16 pixels in the narrow bf16
-    body, C and Co <= 64; else 8 x 16)."""
+    itself (the tile lives in csrc/: 16 x 16 pixels in the narrow bf16 and
+    float32 bodies, C and Co <= 64; else 8 x 16)."""
     fn = _build.load("res_block").vst_k1_partial_blocks
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
