@@ -7,6 +7,11 @@ the card on a side stream.  Counterpart of ``vst_tpu/data/pipeline.py``.
 - ``device_prefetch`` — keeps ``size`` batches in flight: pinned host
   copies sent to the card on a CUDA side stream, so the step never waits
   on a host-to-device copy.
+
+A batch's loading (the pool's samples and their stack) runs in the span
+"vst::data.load", its pinning and copies in "vst::data.upload"
+(``utils/profiling.py::span``), both on the consumer's thread and closed
+before the batch is yielded.
 """
 
 import collections
@@ -14,6 +19,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from vst_tpu_torch.utils.profiling import span
 
 
 class BatchLoader:
@@ -80,14 +87,18 @@ class BatchLoader:
                     lb = self.batch_size // self.num_processes
                     idxs = idxs[self.process_id * lb:
                                 (self.process_id + 1) * lb]
-                if pool is not None:
-                    samples = list(pool.map(self.dataset.__getitem__, idxs))
-                else:
-                    samples = [self.dataset[i] for i in idxs]
-                if isinstance(samples[0], tuple):
-                    yield tuple(np.stack(parts) for parts in zip(*samples))
-                else:
-                    yield np.stack(samples)
+                with span("vst::data.load"):
+                    if pool is not None:
+                        samples = list(pool.map(self.dataset.__getitem__,
+                                                idxs))
+                    else:
+                        samples = [self.dataset[i] for i in idxs]
+                    if isinstance(samples[0], tuple):
+                        batch = tuple(np.stack(parts)
+                                      for parts in zip(*samples))
+                    else:
+                        batch = np.stack(samples)
+                yield batch
         finally:
             if pool is not None:
                 pool.shutdown(wait=False)
@@ -115,7 +126,9 @@ def device_prefetch(iterator, size: int = 2, device="cuda"):
     dev = torch.device(device)
     if dev.type != "cuda":
         for batch in iterator:
-            yield _map(torch.from_numpy, batch)
+            with span("vst::data.upload"):
+                batch = _map(torch.from_numpy, batch)
+            yield batch
         return
 
     stream = torch.cuda.Stream(device=dev)
@@ -123,13 +136,14 @@ def device_prefetch(iterator, size: int = 2, device="cuda"):
     retired = collections.deque()     # pinned sources whose copy may run
 
     def put(batch):
-        host = _map(lambda x: torch.from_numpy(np.ascontiguousarray(x))
-                    .pin_memory(), batch)
-        with torch.cuda.stream(stream):
-            out = _map(lambda h: h.to(dev, non_blocking=True), host)
-            done = torch.cuda.Event()
-            done.record(stream)
-        return out, host, done
+        with span("vst::data.upload"):
+            host = _map(lambda x: torch.from_numpy(np.ascontiguousarray(x))
+                        .pin_memory(), batch)
+            with torch.cuda.stream(stream):
+                out = _map(lambda h: h.to(dev, non_blocking=True), host)
+                done = torch.cuda.Event()
+                done.record(stream)
+            return out, host, done
 
     it = iter(iterator)
     try:

@@ -8,7 +8,8 @@ ReCoNet/inference/infer.py, RTNSTV/infer.py, AdaAttN/infer_image.py,
 AdaAttN/infer_image_all.py).  Inputs may be
 numpy arrays or tensors, uint8 or float 0–255; they are copied to the
 model's device (without blocking from pinned host memory) and cast there
-to the parameters' dtype.
+to the parameters' dtype (the span "vst::serve.to_model"); the clamp and
+the output's packing run in "vst::serve.finish".
 """
 
 import numpy as np
@@ -16,16 +17,18 @@ import torch
 
 from vst_tpu_torch.models import adaattn as adaattn_m
 from vst_tpu_torch.ops.yuv import rgb_to_i420
+from vst_tpu_torch.utils.profiling import span
 
 
 def _finish(styled, uint8_out, wire="rgb"):
     """Clamp to 0–255, then optionally the truncating uint8 cast (the
     reference's numpy conversion, ReCoNet/utilities.py:217-219) or, with
     ``wire="i420"``, YUV 4:2:0 packing on the device (1.5 B/px)."""
-    styled = torch.clamp(styled, 0, 255)
-    if wire == "i420":
-        return rgb_to_i420(styled)
-    return styled.to(torch.uint8) if uint8_out else styled
+    with span("vst::serve.finish"):
+        styled = torch.clamp(styled, 0, 255)
+        if wire == "i420":
+            return rgb_to_i420(styled)
+        return styled.to(torch.uint8) if uint8_out else styled
 
 
 @torch.inference_mode()
@@ -57,10 +60,11 @@ def _check_wire(wire):
 
 def _on_model(model, x):
     """``x`` on the model's device in the parameters' dtype."""
-    p = next(model.parameters())
-    if isinstance(x, np.ndarray):
-        x = torch.from_numpy(x)
-    return x.to(p.device, non_blocking=True).to(p.dtype)
+    with span("vst::serve.to_model"):
+        p = next(model.parameters())
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        return x.to(p.device, non_blocking=True).to(p.dtype)
 
 
 @torch.inference_mode()
@@ -70,8 +74,8 @@ def stylize_adaattn(vgg, model, content, style, activation: str = "softmax"):
     parameters' dtype on the model's device."""
     fc = vgg(_on_model(vgg, content))
     fs = vgg(_on_model(vgg, style))
-    return torch.clamp(adaattn_m.stylizing_network(model, fc, fs, activation),
-                       0, 255)
+    return _finish(adaattn_m.stylizing_network(model, fc, fs, activation),
+                   False)
 
 
 @torch.inference_mode()
@@ -88,8 +92,9 @@ def stylize_adaattn_cached(vgg, model, content, state,
     """``stylize_adaattn`` against a precomputed ``adaattn_style_state``:
     the same output without the per-call style-side work."""
     fc = vgg(_on_model(vgg, content))
-    return torch.clamp(
-        adaattn_m.stylizing_network_cached(model, fc, state, activation), 0, 255)
+    return _finish(
+        adaattn_m.stylizing_network_cached(model, fc, state, activation),
+        False)
 
 
 # ------------------------------------------------ H-sharded (spatial) serving
@@ -174,5 +179,5 @@ def stylize_adaattn_sharded(vgg, model, content, style, mesh,
     fs = vgg(_on_model(vgg, style))
     n = content.shape[0]
     fs = {k: v.expand(n, *v.shape[1:]) for k, v in fs.items()}
-    return torch.clamp(adaattn_m.stylizing_network(
-        model, fc, fs, activation, spatial=ctx), 0, 255)
+    return _finish(adaattn_m.stylizing_network(model, fc, fs, activation,
+                                               spatial=ctx), False)

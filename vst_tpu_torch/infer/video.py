@@ -24,6 +24,7 @@ import torch
 import torch.distributed as dist
 
 from vst_tpu_torch.device import resolve_device
+from vst_tpu_torch.utils.profiling import span
 
 
 def frames_from_video(path, resize_wh=None, interpolation="linear",
@@ -65,6 +66,13 @@ def _reader(frames, queue):
     queue.put(None)
 
 
+def _read(queue):
+    """The reader's next frame (None at the end), waited for in the span
+    "vst::stream.read_wait"."""
+    with span("vst::stream.read_wait"):
+        return queue.get()
+
+
 class StreamingStylizer:
     """Batched sliding-window streaming stylizer.
 
@@ -78,6 +86,13 @@ class StreamingStylizer:
     (ReCoNet/utilities.py:193-201).  ``pipeline_depth``: batches in
     flight before the oldest result is read back.  The tail batch is
     padded to ``batch_size`` so every call sees one shape.
+
+    Spans (``utils/profiling.py::span``), on the consuming thread, none
+    open across a ``yield``: "vst::stream.read_wait" (each wait on the
+    reader), ".assemble" (windows, tail padding, stack), ".upload" (the
+    pinned copy), ".call" (``model_fn``), ".download" (the copy back
+    enqueued and its event), ".result_wait" (the event) and ".hand_out"
+    (the host copies and each frame's conversion).
     """
 
     def __init__(self, model_fn, frames, input_frame_num: int = 1,
@@ -101,12 +116,12 @@ class StreamingStylizer:
         Thread(target=_reader, args=(self.frames, queue), daemon=True).start()
 
         for _ in range(self.skip):
-            if queue.get() is None:
+            if _read(queue) is None:
                 return
 
         window = collections.deque(maxlen=self.input_frame_num)
         for _ in range(self.input_frame_num):
-            frame = queue.get()
+            frame = _read(queue)
             if frame is None:
                 return
             window.append(frame)
@@ -118,25 +133,31 @@ class StreamingStylizer:
         done = False
         k = 0
         while not done:
-            batch = [np.concatenate(list(window), axis=-1)]
-            while len(batch) < self.batch_size:
-                frame = queue.get()
+            windows = [tuple(window)]
+            while len(windows) < self.batch_size:
+                frame = _read(queue)
                 if frame is None:
                     done = True
                     break
                 window.append(frame)
-                batch.append(np.concatenate(list(window), axis=-1))
-            n_real = len(batch)
-            if n_real < self.batch_size:
-                batch = batch + [batch[-1]] * (self.batch_size - n_real)
+                windows.append(tuple(window))
+            n_real = len(windows)
+            with span("vst::stream.assemble"):
+                windows += [windows[-1]] * (self.batch_size - n_real)
+                batch = np.stack([np.concatenate(w, axis=-1)
+                                  for w in windows])
             slot = slots[k % self.pipeline_depth]
             k += 1
-            inp = self._host_tensor(slot, "in", np.stack(batch))
-            inflight.append(self._dispatch(slot, self.model_fn(inp), n_real))
+            with span("vst::stream.upload"):
+                inp = self._host_tensor(slot, "in", batch)
+            with span("vst::stream.call"):
+                result = self.model_fn(inp)
+            with span("vst::stream.download"):
+                inflight.append(self._dispatch(slot, result, n_real))
             while len(inflight) >= self.pipeline_depth:
                 yield from self._materialize(inflight.popleft())
             if not done:
-                frame = queue.get()
+                frame = _read(queue)
                 if frame is None:
                     done = True
                 else:
@@ -167,17 +188,24 @@ class StreamingStylizer:
         return buf, event, n_real
 
     def _materialize(self, entry):
+        """The frames of one batch on the host, each converted in the span
+        "vst::stream.hand_out", which is closed while the frame is out."""
         result, event, n_real = entry
-        if event is not None:
-            event.synchronize()
-            # the pinned buffer is reused: hand out copies
-            frames = result[:n_real].numpy().copy()
-        elif isinstance(result, torch.Tensor):
-            frames = result[:n_real].cpu().numpy()
-        else:
-            frames = np.asarray(result)[:n_real]
+        with span("vst::stream.result_wait"):
+            if event is not None:
+                event.synchronize()
+        with span("vst::stream.hand_out"):
+            if event is not None:
+                # the pinned buffer is reused: hand out copies
+                frames = result[:n_real].numpy().copy()
+            elif isinstance(result, torch.Tensor):
+                frames = result[:n_real].cpu().numpy()
+            else:
+                frames = np.asarray(result)[:n_real]
         for out in frames:
-            yield self._convert(out)
+            with span("vst::stream.hand_out"):
+                out = self._convert(out)
+            yield out
 
     def _convert(self, frame):
         if self.wire == "i420":

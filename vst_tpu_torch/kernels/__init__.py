@@ -15,7 +15,10 @@
   ``adaattn_attention.softmax_attention_dkv``: that Function's backward
   (replace ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` there).
 
-Each wrapper counts its launches in ``<wrapper>.launches``.  K1 and K2
+Each wrapper counts its launches in ``<wrapper>.launches`` and runs each
+launch's host path (checks, allocations, the ctypes call) in a span
+(``utils/profiling.py::span``): "vst::k1", "vst::k1.halo", "vst::k2",
+"vst::k3", "vst::k4", "vst::k5".  K1 and K2
 are autograd Functions too (``res_block.Conv3x3InStats``,
 ``head_conv.Conv3x3Valid``): the kernel forward on the card, and a
 backward of library conv-gradient calls on both devices, as the JAX

@@ -33,6 +33,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from vst_tpu_torch.kernels import _build
+from vst_tpu_torch.utils.profiling import span
 
 
 @functools.cache
@@ -213,24 +214,25 @@ def _moments_fwd(q, k, v):
     (about 0.37 GB at b 2, n = m = 16384, d 448, c 256), for any shape."""
     if q.device.type == "cpu":
         return softmax_attention_moments_plain(q, k, v)
-    _check(q, k, v)
-    b, n, d = q.shape
-    m, c = k.shape[1], v.shape[2]
-    m1 = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
-    m2 = torch.empty_like(m1)
-    lse = torch.empty((b, n, 1), dtype=torch.float32, device=q.device)
-    scratch = _f32_scratch(q, k, v, "adaattn_fwd", "vst_k3_scratch_floats")
-    with torch.cuda.device(q.device):
-        rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       m1.data_ptr(), m2.data_ptr(), lse.data_ptr(),
-                       _ptr(scratch), b, n, m, d, c, q.stride(0),
-                       k.stride(0), v.stride(0),
-                       int(q.dtype == torch.bfloat16), _stream(q.device))
-    if rc != 0:
-        raise RuntimeError(f"K3 softmax_attention_moments launch failed: "
-                           f"CUDA error {rc}")
-    softmax_attention_moments.launches += 1
-    return m1, m2, lse
+    with span("vst::k3"):
+        _check(q, k, v)
+        b, n, d = q.shape
+        m, c = k.shape[1], v.shape[2]
+        m1 = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
+        m2 = torch.empty_like(m1)
+        lse = torch.empty((b, n, 1), dtype=torch.float32, device=q.device)
+        scratch = _f32_scratch(q, k, v, "adaattn_fwd", "vst_k3_scratch_floats")
+        with torch.cuda.device(q.device):
+            rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           m1.data_ptr(), m2.data_ptr(), lse.data_ptr(),
+                           _ptr(scratch), b, n, m, d, c, q.stride(0),
+                           k.stride(0), v.stride(0),
+                           int(q.dtype == torch.bfloat16), _stream(q.device))
+        if rc != 0:
+            raise RuntimeError(f"K3 softmax_attention_moments launch failed: "
+                               f"CUDA error {rc}")
+        softmax_attention_moments.launches += 1
+        return m1, m2, lse
 
 
 def _check_bwd(q, k, v, lse, dd, dm1, dm2, what):
@@ -261,22 +263,23 @@ def softmax_attention_dq(q, k, v, lse, dd, dm1, dm2):
     4096, d 448, c 256), for any shape."""
     if q.device.type == "cpu":
         return softmax_attention_dq_plain(q, k, v, lse, dd, dm1, dm2)
-    _check_bwd(q, k, v, lse, dd, dm1, dm2, "softmax_attention_dq")
-    b, n, d = q.shape
-    m, c = k.shape[1], v.shape[2]
-    dq = torch.empty((b, n, d), dtype=q.dtype, device=q.device)
-    scratch = _f32_scratch(q, k, v, "adaattn_bwd", "vst_k4_scratch_floats")
-    with torch.cuda.device(q.device):
-        rc = _bwd_kernel("vst_k4_attention_dq")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dm1.data_ptr(),
-            dm2.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
-            _ptr(scratch), b, n, m, d, c, q.stride(0), k.stride(0),
-            v.stride(0), int(q.dtype == torch.bfloat16), _stream(q.device))
-    if rc != 0:
-        raise RuntimeError(f"K4 softmax_attention_dq launch failed: CUDA "
-                           f"error {rc}")
-    softmax_attention_dq.launches += 1
-    return dq
+    with span("vst::k4"):
+        _check_bwd(q, k, v, lse, dd, dm1, dm2, "softmax_attention_dq")
+        b, n, d = q.shape
+        m, c = k.shape[1], v.shape[2]
+        dq = torch.empty((b, n, d), dtype=q.dtype, device=q.device)
+        scratch = _f32_scratch(q, k, v, "adaattn_bwd", "vst_k4_scratch_floats")
+        with torch.cuda.device(q.device):
+            rc = _bwd_kernel("vst_k4_attention_dq")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dm1.data_ptr(),
+                dm2.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
+                _ptr(scratch), b, n, m, d, c, q.stride(0), k.stride(0),
+                v.stride(0), int(q.dtype == torch.bfloat16), _stream(q.device))
+        if rc != 0:
+            raise RuntimeError(f"K4 softmax_attention_dq launch failed: CUDA "
+                               f"error {rc}")
+        softmax_attention_dq.launches += 1
+        return dq
 
 
 def softmax_attention_dkv(q, k, v, lse, dd, dm1, dm2):
@@ -288,24 +291,25 @@ def softmax_attention_dkv(q, k, v, lse, dd, dm1, dm2):
     (about twice the inputs' bytes, Q and dM twice over), for any shape."""
     if q.device.type == "cpu":
         return softmax_attention_dkv_plain(q, k, v, lse, dd, dm1, dm2)
-    _check_bwd(q, k, v, lse, dd, dm1, dm2, "softmax_attention_dkv")
-    b, n, d = q.shape
-    m, c = k.shape[1], v.shape[2]
-    dk = torch.empty((b, m, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty((b, m, c), dtype=v.dtype, device=q.device)
-    scratch = _f32_scratch(q, k, v, "adaattn_bwd", "vst_k5_scratch_floats")
-    with torch.cuda.device(q.device):
-        rc = _bwd_kernel("vst_k5_attention_dkv")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dm1.data_ptr(),
-            dm2.data_ptr(), lse.data_ptr(), dd.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _ptr(scratch), b, n, m, d, c, q.stride(0),
-            k.stride(0), v.stride(0), int(q.dtype == torch.bfloat16),
-            _stream(q.device))
-    if rc != 0:
-        raise RuntimeError(f"K5 softmax_attention_dkv launch failed: CUDA "
-                           f"error {rc}")
-    softmax_attention_dkv.launches += 1
-    return dk, dv
+    with span("vst::k5"):
+        _check_bwd(q, k, v, lse, dd, dm1, dm2, "softmax_attention_dkv")
+        b, n, d = q.shape
+        m, c = k.shape[1], v.shape[2]
+        dk = torch.empty((b, m, d), dtype=q.dtype, device=q.device)
+        dv = torch.empty((b, m, c), dtype=v.dtype, device=q.device)
+        scratch = _f32_scratch(q, k, v, "adaattn_bwd", "vst_k5_scratch_floats")
+        with torch.cuda.device(q.device):
+            rc = _bwd_kernel("vst_k5_attention_dkv")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dm1.data_ptr(),
+                dm2.data_ptr(), lse.data_ptr(), dd.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), _ptr(scratch), b, n, m, d, c, q.stride(0),
+                k.stride(0), v.stride(0), int(q.dtype == torch.bfloat16),
+                _stream(q.device))
+        if rc != 0:
+            raise RuntimeError(f"K5 softmax_attention_dkv launch failed: CUDA "
+                               f"error {rc}")
+        softmax_attention_dkv.launches += 1
+        return dk, dv
 
 
 class SoftmaxAttentionMoments(torch.autograd.Function):

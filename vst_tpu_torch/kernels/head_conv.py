@@ -24,6 +24,7 @@ from torch.autograd.function import once_differentiable
 
 from vst_tpu_torch.device import apply_precision
 from vst_tpu_torch.kernels import _build
+from vst_tpu_torch.utils.profiling import span
 
 
 @functools.cache
@@ -55,38 +56,46 @@ def conv3x3_valid_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The kernel on CUDA tensors (the forward of ``Conv3x3Valid``)."""
-    n, hp, wp, c = x.shape
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError(f"conv3x3_valid: x on {x.device}, w on {w.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
-        raise TypeError(f"conv3x3_valid: dtypes {x.dtype}, {w.dtype}")
-    if w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, c) or hp < 3 or wp < 3:
-        raise ValueError(f"conv3x3_valid: shapes {tuple(x.shape)}, "
-                         f"{tuple(w.shape)}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("conv3x3_valid: x and w must be contiguous")
-    co = w.shape[3]
-    if x.dtype == torch.bfloat16 and (c % 8 or co % 8):
-        raise ValueError(f"conv3x3_valid: bf16 needs C and Co multiples of "
-                         f"8, got {c}, {co}")
-    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or w.data_ptr() % 16):
-        raise ValueError("conv3x3_valid: bf16 x and w must start on 16 bytes "
-                         "(the kernel reads them as 16-byte vectors)")
-    bf16 = x.dtype == torch.bfloat16
-    y = torch.empty((n, hp - 2, wp - 2, co), dtype=x.dtype, device=x.device)
-    wsplit = None if bf16 else torch.empty(
-        weight_floats(c, co), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel()(
-            x.data_ptr(), w.data_ptr(),
-            None if wsplit is None else wsplit.data_ptr(), y.data_ptr(), n,
-            hp, wp, c, co, int(bf16), stream)
-    if rc != 0:
-        raise RuntimeError(f"K2 conv3x3_valid launch failed: CUDA error {rc}")
-    conv3x3_valid.launches += 1
-    return y
+    """The kernel on CUDA tensors (the forward of ``Conv3x3Valid``), in
+    the span "vst::k2"."""
+    with span("vst::k2"):
+        n, hp, wp, c = x.shape
+        if x.device.type != "cuda" or w.device != x.device:
+            raise ValueError(f"conv3x3_valid: x on {x.device}, w on "
+                             f"{w.device}")
+        if (x.dtype not in (torch.float32, torch.bfloat16)
+                or w.dtype != x.dtype):
+            raise TypeError(f"conv3x3_valid: dtypes {x.dtype}, {w.dtype}")
+        if (w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, c) or hp < 3
+                or wp < 3):
+            raise ValueError(f"conv3x3_valid: shapes {tuple(x.shape)}, "
+                             f"{tuple(w.shape)}")
+        if not (x.is_contiguous() and w.is_contiguous()):
+            raise ValueError("conv3x3_valid: x and w must be contiguous")
+        co = w.shape[3]
+        bf16 = x.dtype == torch.bfloat16
+        if bf16 and (c % 8 or co % 8):
+            raise ValueError(f"conv3x3_valid: bf16 needs C and Co multiples "
+                             f"of 8, got {c}, {co}")
+        if bf16 and (x.data_ptr() % 16 or w.data_ptr() % 16):
+            raise ValueError("conv3x3_valid: bf16 x and w must start on 16 "
+                             "bytes (the kernel reads them as 16-byte "
+                             "vectors)")
+        y = torch.empty((n, hp - 2, wp - 2, co), dtype=x.dtype,
+                        device=x.device)
+        wsplit = None if bf16 else torch.empty(
+            weight_floats(c, co), dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = _kernel()(
+                x.data_ptr(), w.data_ptr(),
+                None if wsplit is None else wsplit.data_ptr(), y.data_ptr(),
+                n, hp, wp, c, co, int(bf16), stream)
+        if rc != 0:
+            raise RuntimeError(f"K2 conv3x3_valid launch failed: CUDA error "
+                               f"{rc}")
+        conv3x3_valid.launches += 1
+        return y
 
 
 def conv3x3_valid_vjp(x, w, gy, need=(True, True)):

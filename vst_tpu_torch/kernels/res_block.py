@@ -50,6 +50,7 @@ from torch.autograd.function import once_differentiable
 from vst_tpu_torch.device import apply_precision
 from vst_tpu_torch.kernels import _build
 from vst_tpu_torch.ops.pad import reflection_pad2d
+from vst_tpu_torch.utils.profiling import span
 
 EPS = 1e-5   # torch InstanceNorm2d default
 
@@ -244,23 +245,28 @@ def _run(entry, x, w, b, stats_in, gamma, beta, halo):
 
 
 def _launch(x, w, b, stats_in=None, gamma=None, beta=None):
-    """The kernel on CUDA tensors (the forward of ``Conv3x3InStats``)."""
-    y, stats, rc = _run(_kernel, x, w, b, stats_in, gamma, beta, 0)
-    if rc != 0:
-        raise RuntimeError(f"K1 conv3x3_in_stats launch failed: CUDA error {rc}")
-    conv3x3_in_stats.launches += 1
-    return y, stats
+    """The kernel on CUDA tensors (the forward of ``Conv3x3InStats``), in
+    the span "vst::k1"."""
+    with span("vst::k1"):
+        y, stats, rc = _run(_kernel, x, w, b, stats_in, gamma, beta, 0)
+        if rc != 0:
+            raise RuntimeError(f"K1 conv3x3_in_stats launch failed: CUDA "
+                               f"error {rc}")
+        conv3x3_in_stats.launches += 1
+        return y, stats
 
 
 def _launch_halo(xh, w, b, stats_in=None, gamma=None, beta=None):
     """The halo-rows kernel on CUDA tensors: xh (N, R+2, W+2, C) →
-    (y (N, R, W, Co), sums (N, 2, Co) float32)."""
-    y, sums, rc = _run(_kernel_halo, xh, w, b, stats_in, gamma, beta, 2)
-    if rc != 0:
-        raise RuntimeError(f"K1 conv3x3_in_stats_halo launch failed: CUDA "
-                           f"error {rc}")
-    conv3x3_in_stats_halo.launches += 1
-    return y, sums
+    (y (N, R, W, Co), sums (N, 2, Co) float32), in the span
+    "vst::k1.halo"."""
+    with span("vst::k1.halo"):
+        y, sums, rc = _run(_kernel_halo, xh, w, b, stats_in, gamma, beta, 2)
+        if rc != 0:
+            raise RuntimeError(f"K1 conv3x3_in_stats_halo launch failed: "
+                               f"CUDA error {rc}")
+        conv3x3_in_stats_halo.launches += 1
+        return y, sums
 
 
 def _apply(function, fwd, x, w, b, stats_in, gamma, beta):

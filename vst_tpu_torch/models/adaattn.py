@@ -50,6 +50,9 @@ side (repeated at the frame's edges) and the decoder's reflect convs
 theirs.  It serves and trains (``train/steps.py``'s AdaAttN steps over a
 data × space mesh: K3 forward, K4/K5 backward on the block's queries);
 H must divide by 16 times the axis size.
+
+Each level's attention module runs in the span "vst::adaattn.attention"
+and the decoder in "vst::adaattn.decoder" (``utils/profiling.py::span``).
 """
 
 import torch
@@ -64,6 +67,7 @@ from vst_tpu_torch.ops.conv import conv2d, conv2d_reflect
 from vst_tpu_torch.ops.features import feature_down_sample, pyramid_rows
 from vst_tpu_torch.ops.norm import instance_norm
 from vst_tpu_torch.ops.resize import upsample_bilinear2
+from vst_tpu_torch.utils.profiling import span
 
 V_DIMS = (256, 512, 512)
 QK_DIMS = (64 + 128 + 256, 64 + 128 + 256 + 512, 64 + 128 + 256 + 512 + 512)
@@ -342,18 +346,19 @@ def stylizing_network_cached(params, fc, states, activation="cosine",
     for i in range(3):
         idx = i + 2
         st = states[i]
-        q = _qkv_conv(params.adaattn[i].f,
-                      instance_norm(feature_down_sample(fcl, idx)))
-        q2 = _flatten_hw(q)
-        if "ksum" in st:
-            m1, m2 = _cosine_moments(q2, st["ksum"], st["kv"], st["kv2"],
-                                     st["vsum"], st["v2sum"], st["m"])
-        else:
-            b = q2.shape[0]
-            k = st["k"].expand(b, *st["k"].shape)
-            v = st["v"].expand(b, *st["v"].shape)
-            m1, m2 = attention_moments(q2, k, v, activation, mode)
-        outs.append(_apply_moments(fcl[idx], m1, m2))
+        with span("vst::adaattn.attention"):
+            q = _qkv_conv(params.adaattn[i].f,
+                          instance_norm(feature_down_sample(fcl, idx)))
+            q2 = _flatten_hw(q)
+            if "ksum" in st:
+                m1, m2 = _cosine_moments(q2, st["ksum"], st["kv"], st["kv2"],
+                                         st["vsum"], st["v2sum"], st["m"])
+            else:
+                b = q2.shape[0]
+                k = st["k"].expand(b, *st["k"].shape)
+                v = st["v"].expand(b, *st["v"].shape)
+                m1, m2 = attention_moments(q2, k, v, activation, mode)
+            outs.append(_apply_moments(fcl[idx], m1, m2))
     return decoder(params, outs[2], outs[1], outs[0])
 
 
@@ -365,15 +370,17 @@ def _up2(x, spatial=None):
 
 def decoder(params, x5, x4, x3, spatial=None):
     """AdaAttN Decoder (network.py:63-99) on the three attention outputs
-    at the relu5_1/4_1/3_1 scales (NHWC; row blocks with ``spatial``)."""
+    at the relu5_1/4_1/3_1 scales (NHWC; row blocks with ``spatial``), in
+    the span "vst::adaattn.decoder"."""
     d = params.decoder
-    x = d.conv2(d.conv1(_up2(x5, spatial) + x4, spatial), spatial)
-    x = torch.cat([_up2(x, spatial), x3], dim=-1)
-    for layer in d.conv3:
-        x = layer(x, spatial)
-    x = d.conv6(d.conv5(_up2(d.conv4(x, spatial), spatial), spatial),
-                spatial)
-    return d.conv8(d.conv7(_up2(x, spatial), spatial), spatial)
+    with span("vst::adaattn.decoder"):
+        x = d.conv2(d.conv1(_up2(x5, spatial) + x4, spatial), spatial)
+        x = torch.cat([_up2(x, spatial), x3], dim=-1)
+        for layer in d.conv3:
+            x = layer(x, spatial)
+        x = d.conv6(d.conv5(_up2(d.conv4(x, spatial), spatial), spatial),
+                    spatial)
+        return d.conv8(d.conv7(_up2(x, spatial), spatial), spatial)
 
 
 # ------------------------------------------------------------- full model
@@ -408,9 +415,11 @@ def stylizing_network(params, fc: dict, fs: dict, activation="softmax",
     outs = []
     for i in range(3):
         idx = i + 2
-        outs.append(run_module(i, fcl[idx], fsl[idx],
-                               feature_down_sample(fcl, idx, spatial, rows),
-                               feature_down_sample(fsl, idx)))
+        with span("vst::adaattn.attention"):
+            outs.append(run_module(
+                i, fcl[idx], fsl[idx],
+                feature_down_sample(fcl, idx, spatial, rows),
+                feature_down_sample(fsl, idx)))
     return run_decoder(outs[2], outs[1], outs[0])
 
 

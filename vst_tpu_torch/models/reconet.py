@@ -41,6 +41,7 @@ from vst_tpu_torch.ops.conv import (conv2d_nearest_up2,
                                     conv2d_polyphase_reflect, conv2d_reflect)
 from vst_tpu_torch.ops.norm import instance_norm
 from vst_tpu_torch.parallel.spatial import check_rows
+from vst_tpu_torch.utils.profiling import span
 
 
 def _hwio(w):
@@ -139,13 +140,16 @@ class _ReCoNetFamily(nn.Module):
 
     def forward(self, x, spatial=None):
         """x: (N, H, W, 3·input_frame_num) 0–255 in the parameters' dtype;
-        with ``spatial``, this rank's rows of it (module docstring)."""
+        with ``spatial``, this rank's rows of it (module docstring).  Each
+        layer runs in the span "vst::<class>.<layer>"."""
         apply_precision(x.dtype)
+        cls = type(self).__name__
         if spatial is not None:
-            check_rows(spatial, x.shape[1], 4, type(self).__name__)
+            check_rows(spatial, x.shape[1], 4, cls)
         taps = {}
         for name, layer in self.named_children():
-            x = layer(x, spatial)
+            with span(f"vst::{cls}.{name}"):
+                x = layer(x, spatial)
             if name in self.TAPS:
                 taps[name] = x
         return tuple(taps[t] for t in self.TAPS) + (x,)

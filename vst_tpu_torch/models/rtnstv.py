@@ -39,6 +39,7 @@ from vst_tpu_torch.models.reconet import _hwio
 from vst_tpu_torch.ops.conv import conv2d_reflect, conv_transpose2d
 from vst_tpu_torch.ops.norm import instance_norm
 from vst_tpu_torch.parallel.spatial import check_rows
+from vst_tpu_torch.utils.profiling import span
 
 # (name, in, out, stride, activation) of the encoder, the head last
 ENCODER = [("conv1", 3, 16, 1, "relu"), ("conv2", 16, 32, 2, "relu"),
@@ -120,12 +121,14 @@ class StylizingNetwork(nn.Module):
 
     def forward(self, x, spatial=None):
         """x: (N, H, W, 3) 0–255 in the parameters' dtype → the styled
-        frames, 0–255; with ``spatial``, this rank's rows of both."""
+        frames, 0–255; with ``spatial``, this rank's rows of both.  Each
+        layer runs in the span "vst::RTNSTV.<layer>"."""
         apply_precision(x.dtype)
         if spatial is not None:
             check_rows(spatial, x.shape[1], 4, "RTNSTV")
-        for layer in self.children():
-            x = layer(x, spatial)
+        for name, layer in self.named_children():
+            with span(f"vst::RTNSTV.{name}"):
+                x = layer(x, spatial)
         return (x + 1.0) / 2.0 * 255.0
 
 

@@ -36,6 +36,7 @@ from vst_tpu_torch.models.remat import segment
 from vst_tpu_torch.ops.conv import conv2d, max_pool2d
 from vst_tpu_torch.ops.image import vgg_normalize
 from vst_tpu_torch.parallel.spatial import check_rows
+from vst_tpu_torch.utils.profiling import span
 
 # torchvision VGG "features" layouts: channel counts, "M" = MaxPool2d(2, 2).
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
@@ -108,20 +109,22 @@ class _VGGTaps(nn.Module):
         """``remat=True`` checkpoints each inter-tap segment, as the JAX
         package's ``_run`` does: only the taps survive the forward, and
         backward recomputes one segment's internals at a time.
-        ``spatial``: x is this rank's row block (module docstring)."""
+        ``spatial``: x is this rank's row block (module docstring).  Runs
+        in the span "vst::vgg.encode"."""
         apply_precision(x.dtype)
         if spatial is not None:
             check_rows(spatial, x.shape[1], self.row_multiple(),
                        type(self).__name__)
-        if self.NORMALIZE:
-            x = vgg_normalize(x)
-        out = {}
-        start = 0
-        for name, idx in self.TAPS.items():
-            x = segment(self._layers, remat)(x, start, idx + 1, spatial)
-            out[name] = x
-            start = idx + 1
-        return out
+        with span("vst::vgg.encode"):
+            if self.NORMALIZE:
+                x = vgg_normalize(x)
+            out = {}
+            start = 0
+            for name, idx in self.TAPS.items():
+                x = segment(self._layers, remat)(x, start, idx + 1, spatial)
+                out[name] = x
+                start = idx + 1
+            return out
 
     @classmethod
     def row_multiple(cls) -> int:

@@ -2,15 +2,17 @@
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
+
+from vst_tpu_torch.utils.profiling import span
 
 
 def reflection_pad2d(x: torch.Tensor, pad: int) -> torch.Tensor:
     """Reflect-pad H and W of an NHWC tensor by ``pad`` pixels (edge pixel
     not repeated, as torch's ReflectionPad2d).  Returns a channels-last
-    NHWC tensor.  Runs in the profiler range "vst::reflection_pad2d"."""
+    NHWC tensor.  Runs in the span "vst::reflection_pad2d"
+    (``utils/profiling.py::span``)."""
     if pad == 0:
         return x
-    with record_function("vst::reflection_pad2d"):
+    with span("vst::reflection_pad2d"):
         y = F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="reflect")
         return y.permute(0, 2, 3, 1).contiguous()

@@ -44,17 +44,19 @@ the rows back.  The sequence-parallel attention
 (``parallel/attention.py``) carries its own backward (the cosine
 all-reduce's and the ring's).
 
-``exchange_rows`` runs inside the profiler range "vst::exchange_rows", and
-its backward inside "vst::exchange_rows_bwd", as ``ops/pad.py``'s
-reflection pad does in "vst::reflection_pad2d", and ``relayout_rows``
-inside "vst::relayout_rows" ("vst::relayout_rows_bwd"), so a trace gives
+``exchange_rows`` runs inside the span "vst::exchange_rows", and its
+backward inside "vst::exchange_rows_bwd", as ``ops/pad.py``'s reflection
+pad does in "vst::reflection_pad2d", and ``relayout_rows`` inside
+"vst::relayout_rows" ("vst::relayout_rows_bwd"), each a profiler range
+while a profiler records (``utils/profiling.py::span``), so a trace gives
 their device time (``chip_smoke.py``'s spatial part reads it).
 """
 
 import torch
 import torch.distributed as dist
 from torch.autograd.function import once_differentiable
-from torch.profiler import record_function
+
+from vst_tpu_torch.utils.profiling import span
 
 EDGES = ("reflect", "zero", "clamp")
 # the fewest rows a block may hold at level 0: the 9×9 stem's reflect
@@ -360,13 +362,13 @@ class _ExchangeRows(torch.autograd.Function):
     @staticmethod
     def forward(fn_ctx, ctx, x, above, below, edge, wpad, wedge):
         fn_ctx.args = (ctx, above, below, edge, wpad, wedge)
-        with record_function("vst::exchange_rows"):
+        with span("vst::exchange_rows"):
             return _exchange(ctx, x, above, below, edge, wpad, wedge)
 
     @staticmethod
     @once_differentiable
     def backward(fn_ctx, g):
-        with record_function("vst::exchange_rows_bwd"):
+        with span("vst::exchange_rows_bwd"):
             gx = _exchange_adjoint(fn_ctx.args[0], g, *fn_ctx.args[1:])
         return None, gx, None, None, None, None, None
 
@@ -386,7 +388,7 @@ def exchange_rows(ctx: SpatialContext, x: torch.Tensor, above, below,
     different rows; a rank reads its own and its neighbours' only, so the
     last rank's rows below and the first's above, made at the edge, need
     be right only there).  Differentiable: the backward is the exchange's
-    adjoint (``_exchange_adjoint``), in the profiler range
+    adjoint (``_exchange_adjoint``), in the span
     "vst::exchange_rows_bwd"."""
     above, below = _per_rank(ctx, above), _per_rank(ctx, below)
     _check_exchange(ctx, x, above, below, edge, wpad, wedge)
@@ -429,14 +431,14 @@ class _RelayoutRows(torch.autograd.Function):
     @staticmethod
     def forward(fn_ctx, ctx, src, dst, *xs):
         fn_ctx.args = (ctx, src, dst)
-        with record_function("vst::relayout_rows"):
+        with span("vst::relayout_rows"):
             return _relayout(ctx, xs, src, dst)
 
     @staticmethod
     @once_differentiable
     def backward(fn_ctx, *gs):
         ctx, src, dst = fn_ctx.args
-        with record_function("vst::relayout_rows_bwd"):
+        with span("vst::relayout_rows_bwd"):
             gx = _relayout(ctx, [g.contiguous() for g in gs], dst, src)
         return (None, None, None, *gx)
 
@@ -450,7 +452,7 @@ def relayout_rows(ctx: SpatialContext, x, src, dst):
     (a step's frames, flow and mask), every one of them moved in the same
     ``batch_isend_irecv``; a list comes back.  Where the layouts are equal
     it is x itself and issues no collective.  Its backward is the same
-    move reversed, in the profiler range "vst::relayout_rows_bwd"."""
+    move reversed, in the span "vst::relayout_rows_bwd"."""
     src, dst = tuple(map(tuple, src)), tuple(map(tuple, dst))
     if src == dst:
         return x

@@ -12,6 +12,8 @@ import dataclasses
 
 import torch
 
+from vst_tpu_torch.utils.profiling import span
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -34,7 +36,9 @@ def create(model: torch.nn.Module, lr: float) -> TrainState:
 
 
 def apply_gradients(state: TrainState) -> TrainState:
-    """One optimizer update from the gradients accumulated in ``.grad``."""
-    state.optimizer.step()
-    state.step += 1
-    return state
+    """One optimizer update from the gradients accumulated in ``.grad``,
+    in the span "vst::step.optimizer"."""
+    with span("vst::step.optimizer"):
+        state.optimizer.step()
+        state.step += 1
+        return state

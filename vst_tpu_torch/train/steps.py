@@ -69,6 +69,7 @@ from vst_tpu_torch.parallel.spatial import (SpatialContext, gather_rows,
                                             layout_for, placement,
                                             relayout_rows)
 from vst_tpu_torch.train.state import TrainState, apply_gradients
+from vst_tpu_torch.utils.profiling import span
 
 # family name → model class (in JAX: → forward function)
 RECONET_FORWARD = reconet_m.FAMILIES
@@ -457,7 +458,12 @@ def _make_step(cfg, vgg, loss_fn, n_images=None, mesh=None, spatial=None,
     losses that are not batch means are rescaled on each rank for this
     (``batch_shards``, ``batch_total``).  Over a "space" axis each rank's
     loss is a share of its data shard's: the gradients and metrics are
-    first summed over "space" (one flattened all-reduce each)."""
+    first summed over "space" (one flattened all-reduce each).
+
+    Spans (``utils/profiling.py::span``): "vst::step.inputs" (the batch
+    cast and moved, ``_place``, the gradients reset), ".forward" (the
+    loss), ".backward", ".reduce" (with a mesh) and, in
+    ``apply_gradients``, ".optimizer"."""
     dtype = DTYPES[cfg.dtype]
     frozen = _frozen(vgg, dtype)
     cast = None
@@ -466,26 +472,30 @@ def _make_step(cfg, vgg, loss_fn, n_images=None, mesh=None, spatial=None,
         nonlocal cast
         if cast is None:
             cast = _CastModel(state.model, dtype)
-        dev = next(state.model.parameters()).device
-        if not isinstance(batch, (tuple, list)):
-            batch = (batch,)
-        k = len(batch) if n_images is None else n_images
-        batch = ([_cast_tree(x, dtype).to(dev) for x in batch[:k]]
-                 + [torch.as_tensor(x).to(dev) for x in batch[k:]])
-        if spatial is not None:
-            batch = _place(spatial, batch, *place)
-        state.optimizer.zero_grad(set_to_none=True)
-        total, metrics = loss_fn(cast(state.model), frozen, *batch)
-        total.backward()
+        with span("vst::step.inputs"):
+            dev = next(state.model.parameters()).device
+            if not isinstance(batch, (tuple, list)):
+                batch = (batch,)
+            k = len(batch) if n_images is None else n_images
+            batch = ([_cast_tree(x, dtype).to(dev) for x in batch[:k]]
+                     + [torch.as_tensor(x).to(dev) for x in batch[k:]])
+            if spatial is not None:
+                batch = _place(spatial, batch, *place)
+            state.optimizer.zero_grad(set_to_none=True)
+        with span("vst::step.forward"):
+            total, metrics = loss_fn(cast(state.model), frozen, *batch)
+        with span("vst::step.backward"):
+            total.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if mesh is not None:
-            _reduce(mesh, [p.grad for p in state.model.parameters()
-                           if p.grad is not None])
-            keys = list(metrics)
-            flat = _reduce(mesh, [torch.stack(
-                [metrics[k].double().reshape(()) for k in keys])])[0]
-            metrics = {k: flat[j].to(metrics[k].dtype)
-                       for j, k in enumerate(keys)}
+            with span("vst::step.reduce"):
+                _reduce(mesh, [p.grad for p in state.model.parameters()
+                               if p.grad is not None])
+                keys = list(metrics)
+                flat = _reduce(mesh, [torch.stack(
+                    [metrics[k].double().reshape(()) for k in keys])])[0]
+                metrics = {k: flat[j].to(metrics[k].dtype)
+                           for j, k in enumerate(keys)}
         return apply_gradients(state), metrics
 
     return step

@@ -1,6 +1,8 @@
 """Host-side utilities.  Counterpart of ``vst_tpu/utils``: profiling and
-tracing hooks (``profiling.py``) and flow visualization."""
+tracing hooks (``profiling.py``: the gated ``span`` every range of the
+package goes through, ``trace_context``, ``StepTimer``) and flow
+visualization."""
 
-from vst_tpu_torch.utils.profiling import StepTimer, trace_context
+from vst_tpu_torch.utils.profiling import StepTimer, span, trace_context
 
-__all__ = ["StepTimer", "trace_context"]
+__all__ = ["StepTimer", "span", "trace_context"]

@@ -1,6 +1,14 @@
 """Profiling and tracing hooks.  Counterpart of
 ``vst_tpu/utils/profiling.py``.
 
+- ``span(name)`` names a region of the host's work in the profiler's
+  trace: ``torch.profiler.record_function(name)`` while a profiler is
+  recording, one shared no-op context manager otherwise (under a
+  microsecond, where an idle ``record_function`` costs ten or more).
+  Every range the package opens goes through it.  Names are
+  ``vst::<layer>.<what>``; a span is entered and left on the thread that
+  does or waits for the work (the profiler records no ranges opened in
+  other threads) and stays open across no ``yield``.
 - ``trace_context`` wraps a code region in a ``torch.profiler`` trace of
   the host and, where there is a card, its kernels, written into
   ``log_dir`` as a Chrome trace (``chrome://tracing``, Perfetto).
@@ -16,6 +24,19 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
+from torch.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that records ``name`` as a range of the host's
+    timeline while a profiler (``trace_context``, ``torch.profiler``) is
+    recording, and does nothing otherwise."""
+    if _profiler._is_profiler_enabled:
+        return record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
