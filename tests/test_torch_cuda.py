@@ -1126,3 +1126,98 @@ def test_eval_on_the_card_against_the_cpu(cuda, metric):
         ours = lpips_vgg({k: v.to(cuda) for k, v in params.items()}, x, y)
         ref = lpips_vgg(params, x, y)
     _close(ours.cpu(), ref, 1e-4)
+
+
+def _sync_sites(fn):
+    """The (file, line) of every call inside ``fn`` that synchronizes the
+    stream, paths relative to the repository, from
+    ``torch.cuda.set_sync_debug_mode("warn")``: a sync warns from the
+    Python line that called the op (one in a backward from the line that
+    called ``backward``).  Warn, not error, so that one sync does not hide
+    the ones after it.  (The mode's own warning that it is a prototype is
+    not a sync.)"""
+    import os
+    import warnings
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sorted({(os.path.relpath(w.filename, root), w.lineno)
+                   for w in seen
+                   if "called a synchronizing CUDA operation" in str(w.message)})
+
+
+def _reconet_serve(cuda):
+    """The stream's batch call: bf16 ReCoNet on 8 uint8 640×360 frames
+    already on the card, styled to uint8."""
+    from vst_tpu_torch.infer.image import stylize_reconet
+    from vst_tpu_torch.models.reconet import init_reconet
+
+    model = init_reconet(0, device=cuda, dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randint(0, 256, (8, 360, 640, 3), generator=g, device=cuda,
+                      dtype=torch.uint8)
+    return lambda: stylize_reconet(model, x, uint8_out=True)
+
+
+def _reconet_flow_step(cuda):
+    """One f32 ReCoNet flow step (forward, backward, Adam) on a batch of
+    2 frame pairs already on the card."""
+    from vst_tpu_torch.models.reconet import init_reconet
+    from vst_tpu_torch.models.vgg import init_vgg16_reconet
+    from vst_tpu_torch.train import config, state, steps
+
+    cfg = config.ReCoNetFlowConfig(img_size=(96, 160))
+    vgg = init_vgg16_reconet(0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    style = torch.rand(1, 96, 160, 3, generator=g, device=cuda) * 255
+    step = steps.make_reconet_flow_step(
+        cfg, vgg, steps.reconet_style_grams(vgg, style))
+    held = [state.create(init_reconet(1, device=cuda), cfg.lr)]
+    batch = (torch.rand(2, 96, 160, 3, generator=g, device=cuda) * 255,
+             torch.rand(2, 96, 160, 3, generator=g, device=cuda) * 255,
+             torch.randn(2, 96, 160, 2, generator=g, device=cuda) * 2,
+             (torch.rand(2, 96, 160, generator=g, device=cuda) > 0.2).float())
+
+    def run():
+        held[0], _ = step(held[0], batch)
+    return run
+
+
+def _adaattn_serve(cuda):
+    """bf16 AdaAttN on 8 content/style pairs of 512² on the card."""
+    from vst_tpu_torch.infer.image import stylize_adaattn
+    from vst_tpu_torch.models.adaattn import init_stylizing_network
+    from vst_tpu_torch.models.vgg import init_vgg19_adaattn
+
+    vgg = init_vgg19_adaattn(0, device=cuda, dtype=torch.bfloat16)
+    net = init_stylizing_network(1, device=cuda, dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    c, s = (torch.rand(8, 512, 512, 3, generator=g, device=cuda) * 255
+            for _ in range(2))
+    return lambda: stylize_adaattn(vgg, net, c, s)
+
+
+@pytest.mark.parametrize("make,where", [
+    (_reconet_serve, ""), (_reconet_flow_step, "vst_tpu_torch/ops/"),
+    (_adaattn_serve, "")],
+    ids=["reconet_serve_bf16", "reconet_flow_step_f32", "adaattn_serve_bf16"])
+def test_ops_do_not_synchronize_the_stream(cuda, make, where):
+    """Warmed, the served ReCoNet and AdaAttN forwards wait for the card
+    nowhere, and a ReCoNet flow step nowhere in ``vst_tpu_torch/ops/``:
+    the ops' constants stay on the device (``ops/constants.py``).  The
+    step's syncs outside the ops (the train step layer's) are printed,
+    not failed."""
+    fn = make(cuda)
+    fn()
+    fn()
+    sites = _sync_sites(fn)
+    print(f"{make.__name__}: synchronizing calls {sites}")
+    assert not [s for s in sites if s[0].startswith(where)]

@@ -5,6 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as F
 
 from vst_tpu.ops import conv as jconv
 from vst_tpu.ops import instance_norm as j_instance_norm
@@ -13,7 +14,11 @@ from vst_tpu.ops import upsample_nearest as j_upsample_nearest
 from vst_tpu.ops.yuv import rgb_to_i420 as j_rgb_to_i420
 from vst_tpu_torch.ops import (conv2d_nearest_up2, conv2d_polyphase_reflect,
                                conv2d_reflect, instance_norm, polyphase_weights,
-                               reflection_pad2d, rgb_to_i420, upsample_nearest)
+                               reflection_pad2d, rgb_to_i420, upsample_nearest,
+                               vgg_normalize)
+from vst_tpu_torch.ops.constants import device_constant
+from vst_tpu_torch.ops.image import (IMAGENET_MEAN, IMAGENET_STD,
+                                     rgb_to_luma709)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 SIZES = [(8, 12), (9, 7)]   # even and odd H, W
@@ -106,6 +111,110 @@ def test_polyphase_weights_match_jax(rng):
     np.testing.assert_array_equal(
         polyphase_weights(oihw(wt), 4).numpy(),
         np.asarray(jconv._polyphase_weights(jnp.asarray(wt), 4)))
+
+
+def _indexed_polyphase(w, f):
+    """``polyphase_weights`` as it was with its gather index made on the
+    host for every call: the form the kept index must reproduce."""
+    cout, cin, k, _ = w.shape
+    t = (k + f - 2) // f + 1
+    pad = f - 1
+    w_pad = F.pad(w.permute(2, 3, 1, 0), (0, 0, 0, 0, pad, pad, pad, pad))
+    di = torch.arange(t)[:, None, None]
+    p = torch.arange(f)[None, :, None]
+    a = torch.arange(f)[None, None, :]
+    idx = (f * di + p - a + pad).reshape(-1).to(w.device)
+    g = w_pad[idx].reshape(t, f, f, k + 2 * pad, cin, cout)
+    g = g[:, :, :, idx].reshape(t, f, f, t, f, f, cin, cout)
+    return g.permute(0, 3, 1, 4, 6, 2, 5, 7).reshape(
+        t, t, f * f * cin, f * f * cout).contiguous()
+
+
+# the 9×9 stems and heads (cin, cout): ReCoNet, SD1, SD2
+K9_WIDTHS = [(3, 48), (48, 3), (3, 32), (32, 3), (3, 16), (16, 3)]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cin,cout", K9_WIDTHS)
+class TestPolyphaseKeptIndex:
+    def test_equals_the_index_form(self, rng, cin, cout, dtype):
+        w = oihw(_w(rng, 9, cin, cout)).to(dtype)
+        assert torch.equal(polyphase_weights(w, 4), _indexed_polyphase(w, 4))
+
+    def test_gradient_equals_the_index_form(self, rng, cin, cout, dtype):
+        """The gather's backward still reaches w, bit for bit the old
+        form's.  On one thread: the CPU's index backward sums the gathered
+        rows' gradients in a thread-dependent order, so the old form on
+        several threads differs from itself in the last bit."""
+        w = oihw(_w(rng, 9, cin, cout)).to(dtype)
+        cot = t(rng.standard_normal((3, 3, 16 * cin, 16 * cout))
+                .astype(np.float32)).to(dtype)
+        grads = []
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            for fn in (polyphase_weights, _indexed_polyphase):
+                leaf = w.clone().requires_grad_()
+                fn(leaf, 4).backward(cot)
+                grads.append(leaf.grad)
+        finally:
+            torch.set_num_threads(threads)
+        assert torch.equal(*grads)
+
+
+def _old_normalize(x):
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    mean = torch.tensor(IMAGENET_MEAN, dtype=acc, device=x.device)
+    std = torch.tensor(IMAGENET_STD, dtype=acc, device=x.device)
+    return ((x.to(acc) / 255.0 - mean) / std).to(x.dtype)
+
+
+def _old_luma(x):
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    wts = torch.tensor([0.2126, 0.7152, 0.0722], dtype=acc, device=x.device)
+    return (x.to(acc) * wts).sum(dim=-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("fn,old", [(vgg_normalize, _old_normalize),
+                                    (rgb_to_luma709, _old_luma)],
+                         ids=["vgg_normalize", "rgb_to_luma709"])
+def test_kept_constants_give_the_same_bits(rng, fn, old, dtype):
+    x = t(rng.random((2, 5, 7, 3)) * 255).to(dtype)
+    assert torch.equal(fn(x), old(x))
+
+
+@pytest.mark.parametrize("call", [
+    lambda: polyphase_weights(torch.ones(48, 3, 9, 9), 4),
+    lambda: vgg_normalize(torch.ones(1, 2, 2, 3, dtype=torch.bfloat16)),
+    lambda: rgb_to_luma709(torch.ones(1, 2, 2, 3, dtype=torch.float64)),
+], ids=["polyphase_weights", "vgg_normalize", "rgb_to_luma709"])
+def test_constants_are_built_once(call):
+    """After a first call has made its constants, a second and a third
+    build nothing."""
+    call()
+    before = device_constant.builds
+    call()
+    call()
+    assert device_constant.builds == before
+
+
+def test_constant_made_in_inference_mode_serves_a_backward():
+    """A constant first asked for under ``torch.inference_mode`` (a served
+    forward) is a normal tensor, which a later training step's autograd
+    may save."""
+    values = (0.125, 0.375, 0.625)
+    before = device_constant.builds
+    with torch.inference_mode():
+        made = device_constant(values, torch.float32, "cpu")
+    assert device_constant.builds == before + 1
+    assert not made.is_inference()
+    x = torch.ones(3, requires_grad=True)
+    (x / device_constant(values, torch.float32, "cpu")).sum().backward()
+    assert device_constant.builds == before + 1
+    torch.testing.assert_close(x.grad, 1 / made)
 
 
 class TestI420:

@@ -125,6 +125,20 @@ def test_loader_and_prefetch_spans_once_a_batch():
     _assert_none_across_yield(spans)
 
 
+def test_const_build_span_once_per_constant():
+    """A device constant's first use opens "vst::ops.const_build" and
+    counts one build; its later uses open nothing."""
+    from vst_tpu_torch.ops.constants import device_constant
+
+    values = (0.5, 1.5, 2.5, 3.5)
+    before = device_constant.builds
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            device_constant(values, torch.float64, "cpu")
+    assert len(_spans(prof)["vst::ops.const_build"]) == 1
+    assert device_constant.builds == before + 1
+
+
 @pytest.fixture(scope="module")
 def coco_step_spans():
     threads = torch.get_num_threads()

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from vst_tpu_torch.kernels.head_conv import conv3x3_valid
+from vst_tpu_torch.ops.constants import device_constant
 from vst_tpu_torch.ops.pad import reflection_pad2d
 from vst_tpu_torch.ops.resize import upsample_nearest
 
@@ -180,10 +181,11 @@ def polyphase_weights(w: torch.Tensor, f: int) -> torch.Tensor:
     pad = f - 1
     hwio = w.permute(2, 3, 1, 0)
     w_pad = F.pad(hwio, (0, 0, 0, 0, pad, pad, pad, pad))
-    di = torch.arange(t)[:, None, None]
-    p = torch.arange(f)[None, :, None]
-    a = torch.arange(f)[None, None, :]
-    idx = (f * di + p - a + pad).reshape(-1).to(w.device)
+    # the (di, p, a) rows f·di + p − a + pad, kept on w's device: a copy
+    # from the host every call would wait for the stream
+    idx = device_constant(tuple(f * di + p - a + pad for di in range(t)
+                                for p in range(f) for a in range(f)),
+                          torch.long, w.device)
     g = w_pad[idx].reshape(t, f, f, k + 2 * pad, cin, cout)
     g = g[:, :, :, idx].reshape(t, f, f, t, f, f, cin, cout)
     # [di, p, a, dj, q, b, c, o] → [di, dj, (p, q, c), (a, b, o)]

@@ -7,12 +7,17 @@
 
 Grams and luma accumulate in float32 (float64 for float64 inputs).  The
 Gram's float32 product is exact float32: cuBLAS's TF32 is off, torch's
-default, and ``device.apply_precision`` keeps it off for float32 work."""
+default, and ``device.apply_precision`` keeps it off for float32 work.
+The mean, std and luma weights are made once for each (dtype, device)
+(``ops/constants.py``), not copied from the host on every call."""
 
 import torch
 
+from vst_tpu_torch.ops.constants import device_constant
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+REC709_LUMA = (0.2126, 0.7152, 0.0722)
 
 
 def vgg_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -20,8 +25,8 @@ def vgg_normalize(x: torch.Tensor) -> torch.Tensor:
     tensor: computed in float32 (float64 for float64 input), returned in
     x's dtype."""
     acc = _acc_dtype(x)
-    mean = torch.tensor(IMAGENET_MEAN, dtype=acc, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=acc, device=x.device)
+    mean = device_constant(IMAGENET_MEAN, acc, x.device)
+    std = device_constant(IMAGENET_STD, acc, x.device)
     return ((x.to(acc) / 255.0 - mean) / std).to(x.dtype)
 
 
@@ -66,5 +71,5 @@ def gram_matrix_hw(y: torch.Tensor, spatial=None) -> torch.Tensor:
 def rgb_to_luma709(x: torch.Tensor) -> torch.Tensor:
     """Rec.709 luminance of an NHWC RGB tensor → (N, H, W)."""
     acc = _acc_dtype(x)
-    wts = torch.tensor([0.2126, 0.7152, 0.0722], dtype=acc, device=x.device)
+    wts = device_constant(REC709_LUMA, acc, x.device)
     return (x.to(acc) * wts).sum(dim=-1)
