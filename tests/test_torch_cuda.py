@@ -1167,6 +1167,20 @@ def _reconet_serve(cuda):
     return lambda: stylize_reconet(model, x, uint8_out=True)
 
 
+def _rtnstv_serve(cuda):
+    """The stream's batch call for RTNSTV: bf16, 8 uint8 640×360 frames
+    already on the card, styled to uint8 (the narrow K1, the transposed
+    convs)."""
+    from vst_tpu_torch.infer.image import stylize_rtnstv
+    from vst_tpu_torch.models.rtnstv import init_stylizing_network
+
+    model = init_stylizing_network(0, device=cuda, dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randint(0, 256, (8, 360, 640, 3), generator=g, device=cuda,
+                      dtype=torch.uint8)
+    return lambda: stylize_rtnstv(model, x, uint8_out=True)
+
+
 def _reconet_flow_step(cuda):
     """One f32 ReCoNet flow step (forward, backward, Adam) on a batch of
     2 frame pairs already on the card."""
@@ -1207,12 +1221,14 @@ def _adaattn_serve(cuda):
 
 @pytest.mark.parametrize("make,where", [
     (_reconet_serve, ""), (_reconet_flow_step, "vst_tpu_torch/ops/"),
-    (_adaattn_serve, "")],
-    ids=["reconet_serve_bf16", "reconet_flow_step_f32", "adaattn_serve_bf16"])
+    (_adaattn_serve, ""), (_rtnstv_serve, "")],
+    ids=["reconet_serve_bf16", "reconet_flow_step_f32", "adaattn_serve_bf16",
+         "rtnstv_serve_bf16"])
 def test_ops_do_not_synchronize_the_stream(cuda, make, where):
-    """Warmed, the served ReCoNet and AdaAttN forwards wait for the card
-    nowhere, and a ReCoNet flow step nowhere in ``vst_tpu_torch/ops/``:
-    the ops' constants stay on the device (``ops/constants.py``).  The
+    """Warmed, the served ReCoNet, AdaAttN and RTNSTV forwards wait for
+    the card nowhere, and a ReCoNet flow step nowhere in
+    ``vst_tpu_torch/ops/``: the ops' constants stay on the device
+    (``ops/constants.py``).  The
     step's syncs outside the ops (the train step layer's) are printed,
     not failed."""
     fn = make(cuda)
@@ -1221,3 +1237,31 @@ def test_ops_do_not_synchronize_the_stream(cuda, make, where):
     sites = _sync_sites(fn)
     print(f"{make.__name__}: synchronizing calls {sites}")
     assert not [s for s in sites if s[0].startswith(where)]
+
+
+@pytest.mark.parametrize("input_frame_num", [1, 2])
+def test_stream_hands_out_whole_frames_through_reused_pinned_buffers(
+        cuda, input_frame_num):
+    """``StreamingStylizer`` on the card: each batch's windows stacked into
+    a pinned buffer that a later batch reuses, results copied back into
+    another; every frame handed out stays its own after the stream has
+    reused both (10 frames, batch 4, depth 2, the tail padded)."""
+    import numpy as np
+
+    from vst_tpu_torch.infer.video import StreamingStylizer
+
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, (6, 8, 3), dtype=np.uint8)
+              for _ in range(10)]
+
+    def model_fn(batch):
+        assert batch.is_pinned() and batch.shape[-1] == 3 * input_frame_num
+        return batch.to(cuda, non_blocking=True)[..., -3:] ^ 255
+
+    out = list(StreamingStylizer(model_fn, frames,
+                                 input_frame_num=input_frame_num,
+                                 batch_size=4, pipeline_depth=2,
+                                 device=cuda))
+    assert len(out) == 10 - (input_frame_num - 1)
+    for got, want in zip(out, frames[input_frame_num - 1:]):
+        assert got.dtype == np.uint8 and np.array_equal(got, want ^ 255)

@@ -89,10 +89,11 @@ class StreamingStylizer:
 
     Spans (``utils/profiling.py::span``), on the consuming thread, none
     open across a ``yield``: "vst::stream.read_wait" (each wait on the
-    reader), ".assemble" (windows, tail padding, stack), ".upload" (the
-    pinned copy), ".call" (``model_fn``), ".download" (the copy back
-    enqueued and its event), ".result_wait" (the event) and ".hand_out"
-    (the host copies and each frame's conversion).
+    reader), ".assemble" (windows, tail padding), ".upload" (the windows
+    stacked into the pinned buffer, the one host copy in), ".call"
+    (``model_fn``), ".download" (the copy back enqueued and its event),
+    ".result_wait" (the event) and ".hand_out" (the one host copy out and
+    each frame's conversion).
     """
 
     def __init__(self, model_fn, frames, input_frame_num: int = 1,
@@ -144,12 +145,10 @@ class StreamingStylizer:
             n_real = len(windows)
             with span("vst::stream.assemble"):
                 windows += [windows[-1]] * (self.batch_size - n_real)
-                batch = np.stack([np.concatenate(w, axis=-1)
-                                  for w in windows])
             slot = slots[k % self.pipeline_depth]
             k += 1
             with span("vst::stream.upload"):
-                inp = self._host_tensor(slot, "in", batch)
+                inp = self._host_batch(slot, windows)
             with span("vst::stream.call"):
                 result = self.model_fn(inp)
             with span("vst::stream.download"):
@@ -165,15 +164,25 @@ class StreamingStylizer:
         while inflight:
             yield from self._materialize(inflight.popleft())
 
-    def _host_tensor(self, slot, key, arr):
-        t = torch.from_numpy(arr)
+    def _host_batch(self, slot, windows):
+        """The windows, each one's frames concatenated on the last axis, as
+        one (B, H, W, C·frames) tensor: for the card written straight into
+        the slot's pinned buffer by numpy on this thread (one host copy, no
+        intra-op threads), else into a new array."""
+        first = np.asarray(windows[0][0])
+        shape = (len(windows), *first.shape[:-1],
+                 first.shape[-1] * len(windows[0]))
         if self.device.type != "cuda":
-            return t
-        buf = slot.get(key)
-        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
-            buf = slot[key] = torch.empty(t.shape, dtype=t.dtype,
-                                          pin_memory=True)
-        return buf.copy_(t)
+            buf = torch.from_numpy(np.empty(shape, first.dtype))
+        else:
+            buf = slot.get("in")
+            if (buf is None or tuple(buf.shape) != shape
+                    or buf.numpy().dtype != first.dtype):
+                buf = slot["in"] = torch.from_numpy(
+                    np.empty(shape, first.dtype)).pin_memory()
+        for row, window in zip(buf.numpy(), windows):
+            np.concatenate(window, axis=-1, out=row)
+        return buf
 
     def _dispatch(self, slot, result, n_real):
         if not (isinstance(result, torch.Tensor) and result.is_cuda):
@@ -196,7 +205,8 @@ class StreamingStylizer:
                 event.synchronize()
         with span("vst::stream.hand_out"):
             if event is not None:
-                # the pinned buffer is reused: hand out copies
+                # the pinned buffer is reused: hand out copies, made here
+                # once, so that the conversion below need not copy again
                 frames = result[:n_real].numpy().copy()
             elif isinstance(result, torch.Tensor):
                 frames = result[:n_real].cpu().numpy()
@@ -204,19 +214,22 @@ class StreamingStylizer:
                 frames = np.asarray(result)[:n_real]
         for out in frames:
             with span("vst::stream.hand_out"):
-                out = self._convert(out)
+                out = self._convert(out, copied=event is not None)
             yield out
 
-    def _convert(self, frame):
+    def _convert(self, frame, copied=False):
+        """``frame`` in the output's form; ``copied``: it is the stylizer's
+        own copy already, so one of the output's type is handed out as it
+        is."""
         if self.wire == "i420":
             from vst_tpu_torch.ops.yuv import i420_to_rgb
 
             order = "bgr" if self.output == "bgr_uint8" else "rgb"
             return i420_to_rgb(frame, order)
         if self.output == "rgb_uint8":
-            return frame.astype(np.uint8)
+            return frame.astype(np.uint8, copy=not copied)
         if self.output == "bgr_uint8":
-            return frame.astype(np.uint8)[..., ::-1]
+            return frame.astype(np.uint8, copy=not copied)[..., ::-1]
         return frame
 
 
